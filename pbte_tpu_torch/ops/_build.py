@@ -1,0 +1,91 @@
+"""Build the package's CUDA sources with nvcc and load them with ctypes.
+
+Each ``csrc/<name>.cu`` exposes a plain C interface. It is compiled at first
+use into a shared library under ``build/pbte_tpu_torch/`` at the root of the
+checkout, keyed by a hash of the source and the flags, and loaded with
+``ctypes``. Nothing is built when a module is imported.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC_DIR = _PKG / "csrc"
+BUILD_DIR = _PKG.parent / "build" / "pbte_tpu_torch"
+
+# -Xptxas -v prints each kernel's registers, shared memory and spills into
+# the build log
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class Built:
+    lib: ctypes.CDLL
+    path: Path
+    seconds: float  # time spent in nvcc by this process (0 if cached)
+    log: str  # nvcc's output, including the ptxas resource report
+
+
+_lock = threading.Lock()
+_loaded: dict[str, Built] = {}
+
+
+def nvcc_path() -> str:
+    cuda_home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    cand = Path(cuda_home) / "bin" / "nvcc"
+    if cand.is_file():
+        return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError(
+            f"nvcc not found (looked in {cand} and on PATH); the CUDA "
+            "kernels of pbte_tpu_torch need the CUDA toolkit"
+        )
+    return found
+
+
+def load(name: str) -> Built:
+    """Compile ``csrc/<name>.cu`` if no build for its hash exists, then load
+    it. Raises RuntimeError with nvcc's stderr when the build fails."""
+    with _lock:
+        if name in _loaded:
+            return _loaded[name]
+        src = CSRC_DIR / f"{name}.cu"
+        key = hashlib.sha256(
+            src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+        ).hexdigest()[:16]
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        so = BUILD_DIR / f"{name}_{key}.so"
+        log_path = BUILD_DIR / f"{name}_{key}.log"
+        seconds = 0.0
+        if not so.is_file():
+            tmp = BUILD_DIR / f"{so.name}.{os.getpid()}.tmp"
+            cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+            t0 = time.perf_counter()
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            seconds = time.perf_counter() - t0
+            if proc.returncode != 0:
+                tmp.unlink(missing_ok=True)
+                raise RuntimeError(
+                    f"nvcc failed (exit {proc.returncode}) building {src}:\n"
+                    f"{' '.join(cmd)}\n{proc.stderr}"
+                )
+            log_path.write_text(proc.stdout + proc.stderr)
+            os.replace(tmp, so)
+        log = log_path.read_text() if log_path.is_file() else ""
+        built = Built(ctypes.CDLL(str(so)), so, seconds, log)
+        _loaded[name] = built
+        return built

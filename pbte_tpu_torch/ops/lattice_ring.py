@@ -1,0 +1,207 @@
+"""Lattice ring sweep: plain PyTorch version and the CUDA kernel's wrapper.
+
+Port of ``pbte_tpu/ops/lattice_ring.py::lattice_ring_sweep`` (a Pallas TPU
+kernel). One call runs one outer-iteration sweep of one Km bucket of the
+single-class Cartesian-lattice source iteration: for every (group, slot)
+the L wavefront levels run in order, each level solving all bands against
+the previous level's solution slab (the "ring") shifted by the static
+lattice offsets. Arguments and results keep the JAX wrapper's layouts.
+
+``lattice_ring_sweep`` takes the plain version for CPU tensors and launches
+the hand-written kernel (``csrc/lattice_ring.cu``) for CUDA tensors; it
+never falls back from one to the other.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from pbte_tpu_torch.ops import _build
+
+# element DOF counts the CUDA kernel is instantiated for (hex p = 1, 2)
+KERNEL_D = (8, 27)
+# blockDim = W: one thread per slab column
+KERNEL_MAX_W = 256
+KERNEL_MAX_FACES = 3
+_SMEM_LIMIT = 232448  # bytes of shared memory one CTA may use on Hopper
+
+
+def _check_shapes(v, ttc, bsrc, cin, bcat, macro_w, wvec, shifts, dsrc):
+    if v.dim() != 6:
+        raise ValueError(f"v must be (L, Gb, Km, BS, D, W), got {tuple(v.shape)}")
+    L, Gb, Km, BS, D, W = v.shape
+    nf = len(shifts)
+    J = (1 + nf) * D
+    want = {
+        "ttc": (ttc, (L, Gb, D, W)),
+        "bsrc": (bsrc, (L, Gb, Km, D, W)),
+        "cin": (cin, (L, Gb, Km, nf, W)),
+        "bcat": (bcat, (Gb, Km, BS, D, J)),
+        "macro_w": (macro_w, (Gb, Km, BS)),
+        "wvec": (wvec, (4, BS)),
+    }
+    if dsrc is not None:
+        want["dsrc"] = (dsrc, (L, Gb, Km, D, W))
+    for name, (t, shape) in want.items():
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, want {shape}")
+    for s in shifts:
+        if not 0 <= int(s) < W:
+            raise ValueError(f"lattice shift {s} outside [0, W={W})")
+
+
+def lattice_ring_sweep_ref(v, ttc, bsrc, cin, bcat, macro_w, wvec, *,
+                           shifts, dsrc=None, cast_bf16=True):
+    """Plain PyTorch lattice ring sweep (a loop over levels).
+
+    Args:
+      v: previous state, ``(L, Gb, Km, BS, D, W)`` (mass-transformed).
+      ttc: lagged-temperature slab after M^T, ``(L, Gb, D, W)``.
+      bsrc: boundary-source slab, ``(L, Gb, Km, D, W)``.
+      cin: inflow coefficients, ``(L, Gb, Km, nf, W)``.
+      bcat: folded transport factors ``[B | -vg B C_f]``,
+        ``(Gb, Km, BS, D, J)`` with ``J = (1 + nf) * D``.
+      macro_w: macroscopic reduction weights, ``(Gb, Km, BS)``.
+      wvec: ``(4, BS)`` rows ``[src_w, relax_w, vg*bc_w, vg]``.
+      shifts: per-face lane shifts of the lattice (sequence of int).
+      dsrc: optional Dirichlet source slab, ``(L, Gb, Km, D, W)``.
+      cast_bf16: round the product operands (rhs, neighbour terms, bcat)
+        and the ring to bfloat16 and accumulate in float32, as the TPU
+        kernel does; False keeps every operand in the state dtype.
+
+    Returns:
+      ``(ys, ms)``: the new state, shaped and typed like ``v``, and the
+      per-slot macroscopic partials ``(Gb, Km, L, D, W)``, float32 for
+      float32 or bfloat16 state (float64 for float64 state).
+    """
+    _check_shapes(v, ttc, bsrc, cin, bcat, macro_w, wvec, shifts, dsrc)
+    L, Gb, Km, BS, D, W = v.shape
+    dtype = v.dtype
+    acc = torch.float64 if dtype == torch.float64 else torch.float32
+    op = torch.bfloat16 if cast_bf16 else dtype
+    w_src, w_rel, w_bcv, w_dir = (wvec[i][:, None, None] for i in range(4))
+    # rounded operands in the accumulation type: a product of two bf16
+    # values is exact in f32, so this is a bf16 x bf16 -> f32 product
+    bmat = bcat.to(op).to(acc)
+    mw = macro_w.to(acc)[..., None, None]  # (Gb, Km, BS, 1, 1)
+    ring = torch.zeros((Gb, Km, BS, D, W), dtype=op, device=v.device)
+    ys = torch.empty_like(v)
+    ms = torch.empty((Gb, Km, L, D, W), dtype=acc, device=v.device)
+    for l in range(L):
+        rhs = (
+            w_src * ttc[l][:, None, None]
+            + w_rel * v[l]
+            - w_bcv * bsrc[l][:, :, None]
+        )  # (Gb, Km, BS, D, W)
+        if dsrc is not None:
+            rhs = rhs - w_dir * dsrc[l][:, :, None]
+        parts = [rhs.to(op)]
+        for fi, s in enumerate(shifts):
+            s = int(s)
+            # out[..., w] = ring[..., w - s], zero where w < s
+            yf = torch.zeros_like(ring)
+            yf[..., s:] = ring[..., : W - s]
+            cf = cin[l][:, :, fi].to(op)  # (Gb, Km, W)
+            parts.append(yf * cf[:, :, None, None, :])
+        xcat = torch.cat(parts, dim=3).to(acc)  # (Gb, Km, BS, J, W)
+        sol = torch.matmul(bmat, xcat)  # (Gb, Km, BS, D, W)
+        ys[l] = sol.to(dtype)
+        ring = sol.to(op)
+        ms[:, :, l] = (sol * mw).sum(dim=2)
+    return ys, ms
+
+
+def _kernel_args_ok(v, tensors, cast_bf16, shifts):
+    """Raise on anything the CUDA kernel does not take."""
+    L, Gb, Km, BS, D, W = v.shape
+    want_state = torch.bfloat16 if cast_bf16 else torch.float32
+    if v.dtype != want_state:
+        raise ValueError(
+            f"the CUDA kernel takes float32 state with cast_bf16=False or "
+            f"bfloat16 state with cast_bf16=True, got {v.dtype} with "
+            f"cast_bf16={cast_bf16}"
+        )
+    for name, t in tensors.items():
+        if t.device != v.device:
+            raise ValueError(f"{name} is on {t.device}, v on {v.device}")
+        if name != "v" and t.dtype != torch.float32:
+            raise ValueError(f"{name} must be float32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if D not in KERNEL_D:
+        raise ValueError(f"the CUDA kernel is built for D in {KERNEL_D}, got {D}")
+    if not 1 <= len(shifts) <= KERNEL_MAX_FACES:
+        raise ValueError(f"the CUDA kernel takes 1-3 faces, got {len(shifts)}")
+    if W > KERNEL_MAX_W:
+        raise ValueError(
+            f"the CUDA kernel runs one thread per slab column, W <= "
+            f"{KERNEL_MAX_W}; got W={W}"
+        )
+    dp = -(-D // 4) * 4
+    ring_item = 2 if cast_bf16 else 4
+    smem = (1 + len(shifts)) * D * dp * 4 + 2 * D * W * ring_item
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"the kernel would need {smem} B of shared memory")
+
+
+def _launch(v, ttc, bsrc, cin, bcat, macro_w, wvec, shifts, dsrc, cast_bf16):
+    tensors = dict(v=v, ttc=ttc, bsrc=bsrc, cin=cin, bcat=bcat,
+                   macro_w=macro_w, wvec=wvec)
+    if dsrc is not None:
+        tensors["dsrc"] = dsrc
+    _kernel_args_ok(v, tensors, cast_bf16, shifts)
+    L, Gb, Km, BS, D, W = v.shape
+    ys = torch.empty_like(v)
+    ms = torch.zeros((Gb, Km, L, D, W), dtype=torch.float32, device=v.device)
+    lib = _lib()
+    s = [int(x) for x in shifts] + [0] * (KERNEL_MAX_FACES - len(shifts))
+    with torch.cuda.device(v.device):
+        stream = torch.cuda.current_stream(v.device).cuda_stream
+        err = lib.pbte_lattice_ring_sweep(
+            int(cast_bf16), D, v.data_ptr(), ttc.data_ptr(), bsrc.data_ptr(),
+            cin.data_ptr(), bcat.data_ptr(), macro_w.data_ptr(),
+            wvec.data_ptr(), dsrc.data_ptr() if dsrc is not None else None,
+            ys.data_ptr(), ms.data_ptr(), L, Gb, Km, BS, W, len(shifts),
+            *s, stream,
+        )
+    if err != 0:
+        msg = lib.pbte_cuda_error_string(err).decode()
+        raise RuntimeError(f"lattice_ring kernel launch failed: {msg} ({err})")
+    lattice_ring_sweep.launches += 1
+    return ys, ms
+
+
+def _lib():
+    lib = _build.load("lattice_ring").lib
+    p, i = ctypes.c_void_p, ctypes.c_int
+    # 10 pointers, then L, Gb, Km, BS, W, nf and three shifts, then the stream
+    lib.pbte_lattice_ring_sweep.argtypes = [i, i] + [p] * 10 + [i] * 9 + [p]
+    lib.pbte_lattice_ring_sweep.restype = i
+    lib.pbte_cuda_error_string.argtypes = [i]
+    lib.pbte_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def lattice_ring_sweep(v, ttc, bsrc, cin, bcat, macro_w, wvec, *, shifts,
+                       dsrc=None, cast_bf16=True):
+    """One lattice ring sweep of one Km bucket (see lattice_ring_sweep_ref
+    for arguments and results).
+
+    CPU tensors run the plain PyTorch version. CUDA tensors launch the CUDA
+    kernel on the current stream, or raise if it cannot take them; each
+    launch adds one to ``lattice_ring_sweep.launches``."""
+    _check_shapes(v, ttc, bsrc, cin, bcat, macro_w, wvec, shifts, dsrc)
+    if v.device.type == "cpu":
+        return lattice_ring_sweep_ref(
+            v, ttc, bsrc, cin, bcat, macro_w, wvec, shifts=shifts, dsrc=dsrc,
+            cast_bf16=cast_bf16,
+        )
+    if v.device.type != "cuda":
+        raise ValueError(f"no lattice ring sweep for device {v.device}")
+    return _launch(v, ttc, bsrc, cin, bcat, macro_w, wvec, shifts, dsrc,
+                   cast_bf16)
+
+
+lattice_ring_sweep.launches = 0

@@ -1,0 +1,331 @@
+"""pbte_tpu_torch's SourceIterationSolver against pbte_tpu's, on the
+lattice-ring path: constructor, one step through the consts bridge, the
+whole slice, the committed golden, the gate, and the no-JAX import."""
+
+import os
+import pathlib
+import subprocess
+import sys
+import textwrap
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+import torch_golden
+from pbte_tpu import mesh as pmesh
+from pbte_tpu.fem import assembly
+from pbte_tpu.solver.source_iteration import SourceIterationSolver as JaxSolver
+from pbte_tpu_torch.convert import consts_from_numpy, state_from_numpy
+from pbte_tpu_torch.ops import lattice_ring as tlr
+from pbte_tpu_torch.problem import WALL_BCS, unit_cube
+from pbte_tpu_torch.solver.source_iteration import SourceIterationSolver
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+DIRICHLET = dict(dirichlet_bcs={6: 0.25})
+DIRICHLET_WALLS = {a: -0.5 for a in range(1, 6)}
+# (nx, ny, nz, order, azimuth): the 9x8x8 lattice makes x the major axis
+# (a shift-axis mix-up shows there); azimuth 8 splits the octants into two
+# Km buckets (3 and 1 slots)
+CASES = {
+    "9x8x8_p1": (9, 8, 8, 1, 4),
+    "8x8x8_p2": (8, 8, 8, 2, 4),
+    "8x8x8_p1_two_buckets": (8, 8, 8, 1, 8),
+    "8x8x8_p1": (8, 8, 8, 1, 4),
+}
+
+
+@pytest.fixture(autouse=True)
+def _cpu_float_env():
+    """One thread, and f32 subnormals flushed to zero as XLA's CPU backend
+    flushes them. The mass-transformed state v = M^T u of a micron-scale
+    mesh sits near the f32 subnormal range (~1e-32 at p=2), so with
+    gradual underflow the port lands closer to the float64 answer than
+    pbte_tpu does (measured at 8^3 p=2: 1.2e-7 vs 1.6e-6 in Tc of scale
+    0.42) and the two f32 results differ by more than rounding order;
+    with the same float environment they agree to 2e-7."""
+    torch.set_num_threads(1)
+    torch.set_flush_denormal(True)
+    yield
+    torch.set_flush_denormal(False)
+
+
+def _problem(case):
+    nx, ny, nz, order, az = CASES[case]
+    return unit_cube(nx, ny, nz, order=order, polar=2, azimuth=az, nspec=2)
+
+
+def _pair(case, dirichlet=False, dtype=np.float32, pallas="on"):
+    prob = _problem(case)
+    bcs, kw = (DIRICHLET_WALLS, DIRICHLET) if dirichlet else (WALL_BCS, {})
+    f32 = dtype == np.float32
+    js = JaxSolver(*prob, bcs, dtype=jnp.float32 if f32 else jnp.float64,
+                   use_pallas=pallas, **kw)
+    ts = SourceIterationSolver(
+        *prob, bcs, dtype=torch.float32 if f32 else torch.float64, **kw)
+    if pallas == "on":
+        assert js._use_pallas_ring and js._pallas_interpret
+    return js, ts
+
+
+def _np(t):
+    return t.detach().double().numpy()
+
+
+def _assert_tc(got, want, dirichlet):
+    """Tc tolerances of tests/test_pallas_ring.py: elementwise for the
+    isothermal walls (:57-58), norm-wise for the Dirichlet wall (:86-88),
+    whose Tc spans two decades more."""
+    want = np.asarray(want, dtype=np.float64)
+    if dirichlet:
+        got = np.asarray(got, dtype=np.float64)
+        assert np.linalg.norm(got - want) / np.linalg.norm(want) < 1e-5
+    else:
+        np.testing.assert_allclose(got, want, rtol=2e-5, atol=5e-7)
+
+
+@pytest.mark.parametrize("case,dirichlet", [
+    ("9x8x8_p1", False), ("8x8x8_p2", False),
+    ("8x8x8_p1_two_buckets", False), ("9x8x8_p1", True),
+])
+def test_constructor_parity(case, dirichlet):
+    """Every const of the kernel path, built without JAX, matches the JAX
+    solver's (both are float64 host math cast to float32)."""
+    js, ts = _pair(case, dirichlet)
+    assert (ts.G, ts.L, ts.W, ts.Km, ts.shifts) == (
+        js.G, js.L, js.W, js.Km, js._ring_shift_vals)
+    assert [(list(g), k) for g, k in ts._ring_buckets] == [
+        (list(g), k) for g, k in js._ring_buckets]
+    want = consts_from_numpy(jax.tree.map(np.asarray, js.consts))
+    got = ts.consts
+    assert got.keys() == want.keys()
+    for key in got:
+        if key == "buckets":
+            continue
+        assert got[key].dtype == want[key].dtype, key
+        np.testing.assert_allclose(_np(got[key]), _np(want[key]), rtol=1e-6,
+                                   atol=1e-6 * float(want[key].abs().max()),
+                                   err_msg=key)
+    assert len(got["buckets"]) == len(want["buckets"])
+    for gb, wb in zip(got["buckets"], want["buckets"]):
+        assert gb.keys() == wb.keys()
+        assert ("dsrc0" in gb) == dirichlet
+        for key in gb:
+            np.testing.assert_allclose(_np(gb[key]), _np(wb[key]), rtol=1e-6,
+                                       atol=1e-6 * float(wb[key].abs().max()),
+                                       err_msg=key)
+
+
+@pytest.mark.parametrize("case,dirichlet", [
+    ("9x8x8_p1", False), ("8x8x8_p2", False),
+    ("8x8x8_p1_two_buckets", False), ("8x8x8_p1", True),
+])
+def test_step_parity_through_bridge(case, dirichlet):
+    """The JAX Pallas-interpret step and the port's step, fed the same
+    operators (consts_from_numpy) and the same state each step, over 4
+    steps; tolerances as tests/test_pallas_ring.py."""
+    js, ts = _pair(case, dirichlet)
+    ts.consts = consts_from_numpy(jax.tree.map(np.asarray, js.consts))
+    u, Tc, Tv = js.initial_state()
+    for _ in range(4):
+        ut, Tct, Tvt = state_from_numpy(u, Tc, Tv)
+        u, Tc, Tv, r = js.step(u, Tc, Tv)
+        ut, Tct, Tvt, rt = ts.step(ut, Tct, Tvt)
+        _assert_tc(Tct.numpy(), Tc, dirichlet)
+        np.testing.assert_allclose(float(rt), float(r), rtol=1e-3)
+    if not dirichlet:
+        np.testing.assert_allclose(ts.u_by_direction(ut),
+                                   js.u_by_direction(u), rtol=2e-5, atol=5e-7)
+
+
+def test_bf16_state_step_through_bridge(monkeypatch):
+    """bf16 state: pbte_tpu's kernel path (bf16 state forced on the
+    interpreter, as tests/test_pallas_ring.py does) and the port with
+    PBTE_RING_STATE_BF16=1 round the same f32 sums to bf16; Tc agrees to
+    1e-5 of its scale over 4 steps from the same state (measured 6.2e-7:
+    a sum that lands next to a bf16 rounding boundary can round the other
+    way on one side, one bf16 ulp of one state entry)."""
+    monkeypatch.setenv("PBTE_RING_STATE_BF16", "1")
+    js, ts = _pair("9x8x8_p1")
+    js._pallas_state_bf16 = True
+    assert ts.state_bf16 and ts.state_dtype == torch.bfloat16
+    ts.consts = consts_from_numpy(jax.tree.map(np.asarray, js.consts))
+    u, Tc, Tv = js.initial_state()
+    assert u[0].dtype == jnp.bfloat16
+    for _ in range(4):
+        ut, Tct, Tvt = state_from_numpy(u, Tc, Tv)
+        assert ut[0].dtype == torch.bfloat16
+        u, Tc, Tv, r = js.step(u, Tc, Tv)
+        ut, Tct, Tvt, rt = ts.step(ut, Tct, Tvt)
+        assert ut[0].dtype == torch.bfloat16 and Tct.dtype == torch.float32
+        scale = float(np.abs(np.asarray(Tc)).max())
+        np.testing.assert_allclose(Tct.numpy(), np.asarray(Tc), rtol=0,
+                                   atol=1e-5 * scale)
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_step_hands_the_kernel_what_it_takes(monkeypatch, bf16):
+    """Every sweep call of the step passes the CUDA kernel's argument checks
+    (dtypes, contiguity, D, W, faces) at both state dtypes, with the
+    Dirichlet source on."""
+    if bf16:
+        monkeypatch.setenv("PBTE_RING_STATE_BF16", "1")
+    ts = SourceIterationSolver(*_problem("8x8x8_p2"), DIRICHLET_WALLS,
+                               **DIRICHLET)
+    calls = []
+
+    def checked(v, ttc, bsrc, cin, bcat, macro_w, wvec, *, shifts, dsrc,
+                cast_bf16):
+        tensors = dict(v=v, ttc=ttc, bsrc=bsrc, cin=cin, bcat=bcat,
+                       macro_w=macro_w, wvec=wvec, dsrc=dsrc)
+        tlr._kernel_args_ok(v, tensors, cast_bf16, shifts)
+        calls.append(cast_bf16)
+        return tlr.lattice_ring_sweep_ref(
+            v, ttc, bsrc, cin, bcat, macro_w, wvec, shifts=shifts, dsrc=dsrc,
+            cast_bf16=cast_bf16)
+
+    ts.ring_sweep = checked
+    ts.solve(tol=0, max_iter=2, verbose=False)
+    assert calls == [bf16] * (2 * len(ts.consts["buckets"]))
+
+
+@pytest.mark.parametrize("case", ["9x8x8_p1", "8x8x8_p2"])
+def test_whole_slice_f32(case):
+    """The port's own solver (its own constructor, its own state) against
+    the JAX Pallas-interpret solver, 4 steps of solve()."""
+    js, ts = _pair(case)
+    rj = js.solve(tol=0, max_iter=4, verbose=False)
+    rt = ts.solve(tol=0, max_iter=4, verbose=False)
+    assert rt.iterations == 4
+    np.testing.assert_allclose(rt.Tc.numpy(), np.asarray(rj.Tc), rtol=2e-5,
+                               atol=5e-7)
+    np.testing.assert_allclose(rt.residual, rj.residual, rtol=1e-3)
+
+
+@pytest.mark.parametrize("case,dirichlet", [
+    ("9x8x8_p1", False), ("8x8x8_p1_two_buckets", True),
+])
+def test_whole_slice_f64_vs_xla_ring(case, dirichlet):
+    """The algorithm in float64: the port's plain version against the JAX
+    XLA ring (use_pallas='off'), 4 steps, through Tc and u_by_direction."""
+    js, ts = _pair(case, dirichlet, dtype=np.float64, pallas="off")
+    assert js.sweep_mode == "ring" and js._ring_lattice
+    rj = js.solve(tol=0, max_iter=4, verbose=False)
+    rt = ts.solve(tol=0, max_iter=4, verbose=False)
+    assert rt.Tc.dtype == torch.float64
+    np.testing.assert_allclose(rt.Tc.numpy(), np.asarray(rj.Tc), rtol=1e-10,
+                               atol=1e-10 * np.abs(np.asarray(rj.Tc)).max())
+    uj = js.u_by_direction(rj.u)
+    np.testing.assert_allclose(ts.u_by_direction(rt.u), uj, rtol=1e-10,
+                               atol=1e-10 * np.abs(uj).max())
+
+
+def test_golden_file_is_current():
+    """Regenerating the committed golden from pbte_tpu reproduces it."""
+    fresh = torch_golden.build()
+    with np.load(torch_golden.PATH) as d:
+        assert sorted(d.files) == sorted(fresh)
+        for key in d.files:
+            np.testing.assert_allclose(fresh[key], d[key], rtol=1e-6,
+                                       err_msg=key)
+
+
+def test_port_matches_golden_on_cpu():
+    """The port's own solver on the CPU against the committed golden, the
+    check chip_smoke.py repeats on a GPU through the CUDA kernel."""
+    with np.load(torch_golden.PATH) as d:
+        params = {k: int(d[k]) for k in torch_golden.PARAMS}
+        bcs = dict(zip(d["bc_attrs"].tolist(), d["bc_temps"].tolist()))
+        Tc_ref = d["Tc"][-1]
+        steps = int(d["steps"])
+    ts = SourceIterationSolver(*unit_cube(**params), bcs)
+    r = ts.solve(tol=0, max_iter=steps, verbose=False)
+    np.testing.assert_allclose(r.Tc.numpy(), Tc_ref, rtol=2e-5, atol=5e-7)
+
+
+def _gate_raises(prob, bcs, **kw):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        SourceIterationSolver(*prob, bcs, **kw)
+
+
+def test_gate_periodic():
+    m = pmesh.make_periodic(
+        pmesh.make_cartesian_3d(8, 8, 8, "hex").scaled(1e-6), [0])
+    ops = assembly.assemble(pmesh.connect(m), order=1, face_mode="consistent")
+    _, quad, tables = _problem("9x8x8_p1")
+    _gate_raises((ops, quad, tables), {3: -0.5, 4: 0.5, 5: -0.5, 6: 0.5})
+
+
+@pytest.mark.parametrize("kind", ["diffuse_bcs", "specular_bcs"])
+def test_gate_reflective(kind):
+    _gate_raises(_problem("9x8x8_p1"), {5: -0.5, 3: 0.5}, **{kind: [1, 2]})
+
+
+def test_gate_tet_mesh():
+    m = pmesh.make_cartesian_3d(4, 4, 4, "tet").scaled(1e-6)
+    ops = assembly.assemble(pmesh.connect(m), order=1, face_mode="consistent")
+    _, quad, tables = _problem("9x8x8_p1")
+    _gate_raises((ops, quad, tables), WALL_BCS)
+
+
+def test_gate_axis_grazing_directions():
+    """A one-polar-point 3D rule lies in the xy plane: no octant leveling."""
+    with pytest.raises(NotImplementedError, match="box lattice"):
+        SourceIterationSolver(
+            *unit_cube(8, 8, 8, order=1, polar=1, azimuth=4, nspec=2),
+            WALL_BCS)
+
+
+def test_gate_small_mesh_keeps_face_order():
+    """Below 512 elements faces are not canonicalised (as in pbte_tpu), so
+    a hex mesh has several classes and is not on the kernel path."""
+    _gate_raises(unit_cube(7, 7, 7, order=1, polar=2, azimuth=4, nspec=2),
+                 WALL_BCS)
+
+
+def test_gate_f64_on_gpu_device():
+    """float64 is taken on the CPU only (checked before any allocation)."""
+    with pytest.raises(NotImplementedError, match="CPU only"):
+        SourceIterationSolver(*_problem("9x8x8_p1"), WALL_BCS,
+                              dtype=torch.float64, device="cuda")
+
+
+def test_no_jax_import():
+    """The port builds and steps a hex 8^3 problem in a process where
+    importing JAX fails."""
+    code = textwrap.dedent("""
+        import sys
+
+        class _RefuseJax:
+            def find_spec(self, name, path=None, target=None):
+                if name.split(".")[0] in ("jax", "jaxlib"):
+                    raise ImportError(f"{name} refused")
+                return None
+
+        sys.meta_path.insert(0, _RefuseJax())
+        import torch
+        torch.set_num_threads(1)
+        import pbte_tpu_torch
+        from pbte_tpu_torch.problem import WALL_BCS, unit_cube
+        from pbte_tpu_torch.solver.source_iteration import (
+            SourceIterationSolver,
+        )
+        s = SourceIterationSolver(
+            *unit_cube(8, 8, 8, order=1, polar=2, azimuth=4, nspec=2),
+            WALL_BCS, device="cpu")
+        u, Tc, Tv = s.initial_state()
+        for _ in range(2):
+            u, Tc, Tv, r = s.step(u, Tc, Tv)
+        assert torch.isfinite(Tc).all() and bool(torch.isfinite(r))
+        assert not any(m.split(".")[0] in ("jax", "jaxlib")
+                       for m in sys.modules)
+        print("no-jax ok")
+    """)
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "no-jax ok" in proc.stdout
