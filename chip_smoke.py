@@ -1,6 +1,7 @@
-"""GPU smoke run of pbte_tpu_torch: build the CUDA kernel, hold it to its
-plain PyTorch version at the flagship's shapes, run the flagship source
-iteration through it, and check the result against the pbte_tpu golden.
+"""GPU smoke run of pbte_tpu_torch: build the CUDA kernels, hold each to its
+plain PyTorch version at the shapes its path gives it, run the flagship
+source iteration (isothermal walls, then diffuse walls) and the copy probe
+through them, and check the results against the pbte_tpu goldens.
 
 Usage (from the root of a checkout, on a machine with one CUDA GPU):
 
@@ -9,27 +10,35 @@ Usage (from the root of a checkout, on a machine with one CUDA GPU):
 Phases (a failing phase raises and the script exits non-zero):
 
 1. versions, the device and its power limit (no GPU: exit 1);
-2. nvcc build of pbte_tpu_torch/csrc/lattice_ring.cu, with the ptxas
-   register / shared-memory report;
-3. kernel vs plain version at the flagship's two Km-bucket shapes, with the
+2. nvcc builds of pbte_tpu_torch/csrc/lattice_ring.cu (K1) and
+   csrc/dma_copy.cu (K2, K3), concurrently, with the ptxas register /
+   shared-memory reports;
+3. K1 vs plain version at the flagship's two Km-bucket shapes, with the
    solver's real operators and seeded random state, for f32 state, bf16
-   state and a Dirichlet source: errors and CUDA-event times;
-4. the flagship (hex 16^3, p=2, 64 directions x 40 bands, f32): setup, 2
+   state, a Dirichlet source and a random sparse lagged closure source:
+   errors and CUDA-event times;
+4. the copy probe (python -m pbte_tpu_torch.bench_dma) at 512 MB f32: every
+   K2 and K3 configuration held bit-exact (torch.equal) to its input and to
+   the plain copy, then the probe's sweep with the launch counts read around
+   it; GB/s, and K1's bucket-0 bytes/s as a share of the best copy rate;
+5. the flagship (hex 16^3, p=2, 64 directions x 40 bands, f32): setup, 2
    warm-up + 30 timed steps, ms/step, element-ordinate DOF/s, peak memory,
    residuals, kernel launches; then 3 steps through the kernel and through
    the plain version from one state;
-5. the golden Tc of pbte_tpu's Pallas path (tests/data/torch_port_golden.npz)
-   against the port on the GPU.
+6. the same flagship as a film: x faces isothermal, the other four diffuse
+   (the lagged closure through K1's xsrc), measured as phase 5;
+7. the golden Tc of pbte_tpu's Pallas path (tests/data/torch_port_golden.npz)
+   and of its XLA ring with periodic, diffuse and specular walls
+   (tests/data/torch_port_golden_closures.npz) against the port on the GPU.
 
-The line before the last is {"kernels": [...]}, the last line
-{"ok": true, "device": {...}}.
+The line before the last is the card's name and power limit, the one before
+it {"kernels": [...]}, the last line {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
 import json
 import pathlib
-import subprocess
 import sys
 import time
 
@@ -39,6 +48,9 @@ import torch
 WARMUP_STEPS = 2
 TIMED_STEPS = 30
 TIMED_LAUNCHES = 10
+DMA_TOTAL_MB = 512
+DMA_REPS = 20
+XSRC_ROWS = 1024  # closure rows of the random K1 closure source
 # kernel vs plain on the same card: f32 sums in another order (FMA chains
 # in the kernel, cuBLAS in the plain version; ms also by atomics in run-to-
 # run order), so errors are stated relative to the largest value
@@ -53,15 +65,6 @@ GOLDEN_RTOL = 2e-5
 
 def log(*a):
     print(*a, flush=True)
-
-
-def nvidia_smi_name_power():
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    )
-    return out.stdout.strip().splitlines()[0]
 
 
 def rel_err(got, ref):
@@ -101,9 +104,10 @@ def phase_kernel_vs_plain(solver, lr):
     c = solver.consts
     L, D, W, BS = solver.L, solver.D, solver.W, solver.BS
     rows = []
-    cases = [(0, "f32", False), (0, "bf16", False), (1, "f32", True),
-             (1, "bf16", False)]
-    for bi, state, dirichlet in cases:
+    cases = [(0, "f32", False, False), (0, "bf16", False, False),
+             (1, "f32", True, False), (1, "bf16", False, False),
+             (0, "f32", False, True), (1, "f32", False, True)]
+    for bi, state, dirichlet, closure in cases:
         cb = c["buckets"][bi]
         Gb, Km = cb["macro_w"].shape[:2]
 
@@ -114,12 +118,19 @@ def phase_kernel_vs_plain(solver, lr):
         v = rnd(L, Gb, Km, BS, D, W)
         ttc = rnd(L, Gb, D, W)
         dsrc = rnd(L, Gb, Km, D, W) if dirichlet else None
+        xsrc = None
+        if closure:  # 40% of the slots read one of XSRC_ROWS random rows
+            xmap = np.where(rng.random((L, Gb, W)) < 0.4,
+                            rng.integers(0, XSRC_ROWS, (L, Gb, W)), -1)
+            xsrc = lr.ClosureSource(
+                torch.from_numpy(xmap.astype(np.int32)).cuda(),
+                rnd(Gb, XSRC_ROWS, Km, BS, D))
         cast = state == "bf16"
         if cast:
             v = v.to(torch.bfloat16)
         args = (v, ttc, cb["bsrc0"], cb["cin"], cb["bcat"], cb["macro_w"],
                 c["wvec"])
-        kw = dict(shifts=solver.shifts, dsrc=dsrc, cast_bf16=cast)
+        kw = dict(shifts=solver.shifts, dsrc=dsrc, xsrc=xsrc, cast_bf16=cast)
         ys, ms = lr.lattice_ring_sweep(*args, **kw)
         torch.cuda.synchronize()
         ys_r, ms_r = lr.lattice_ring_sweep_ref(*args, **kw)
@@ -143,20 +154,68 @@ def phase_kernel_vs_plain(solver, lr):
             TIMED_LAUNCHES,
         )
         row = dict(bucket=bi, shape=list(v.shape), state=state,
-                   dirichlet=dirichlet, ys_rel=ys_rel, ys_abs=ys_abs,
+                   dirichlet=dirichlet, xsrc=closure, ys_rel=ys_rel,
+                   ys_abs=ys_abs,
                    ys_ulps_of_max=ys_ulps, ms_rel=ms_rel, ms_abs=ms_abs,
                    tolerance=tol, kernel_ms=k_ms, plain_ms=p_ms, ok=ok)
         log("[smoke] kernel vs plain " + json.dumps(row))
         if not ok:
             raise RuntimeError(f"kernel disagrees with the plain version: {row}")
         rows.append(row)
-        del v, ttc, dsrc, args
+        del v, ttc, dsrc, xsrc, args
         torch.cuda.empty_cache()
     return rows
 
 
-def phase_flagship(solver, lr, setup_s):
-    """Time the flagship step through the kernel; returns (launches, row)."""
+def k1_bytes(row):
+    """Bytes one K1 launch must move at a phase-3 shape: the state streams
+    (v in, ys out) and every operand (plus ttc, bsrc, cin, bcat, macro_w,
+    wvec in, the ms partials out), f32."""
+    L, Gb, Km, BS, D, W = row["shape"]
+    state = 2 * L * Gb * Km * BS * D * W * 4
+    side = (L * Gb * D * W + L * Gb * Km * D * W + L * Gb * Km * 3 * W
+            + Gb * Km * BS * D * 4 * D + Gb * Km * BS + 4 * BS
+            + Gb * Km * L * D * W) * 4
+    return state, state + side
+
+
+def phase_dma(dma, bench_dma):
+    """K2 and K3 against the plain copy at 512 MB, then the probe's sweep
+    (its main path) with the launch counts read around it."""
+    rows = bench_dma.total_rows_for(DMA_TOTAL_MB)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    x = torch.randn((rows, dma.LANE), generator=gen, device="cuda")
+    ref = dma.copy_ref(x)
+    errs = {"auto": 0.0, "manual": 0.0}
+    for name, fn, info in bench_dma.configs():
+        y = fn(x)
+        torch.cuda.synchronize()
+        if not (torch.equal(y, x) and torch.equal(y, ref)):
+            raise RuntimeError(f"{name}: the copy differs from its input")
+        key = "auto" if info["kernel"] == "K2" else "manual"
+        errs[key] = max(errs[key], (y - ref).abs().max().item())
+        del y
+    log(f"[smoke] dma {len(bench_dma.configs())} kernel configurations "
+        f"bit-exact at {x.numel() * 4} B: max |y - plain| {errs}")
+    del x, ref
+    torch.cuda.empty_cache()
+
+    dma.auto_copy.launches = dma.manual_copy.launches = 0
+    res = bench_dma.run(DMA_TOTAL_MB, DMA_REPS)
+    launches = {"auto": dma.auto_copy.launches,
+                "manual": dma.manual_copy.launches}
+    log("[smoke] dma probe " + json.dumps(res))
+    for name, gbs in res["gbs"].items():
+        log(f"[smoke] dma {name:18s} {res['ms'][name]:8.4f} ms "
+            f"{gbs:8.1f} GB/s")
+    if min(launches.values()) < 1:
+        raise RuntimeError(f"the probe launched a copy kernel no time: "
+                           f"{launches}")
+    return res, launches, errs
+
+
+def phase_flagship(solver, lr, setup_s, name):
+    """Time a flagship step through the kernel; returns (launches, row)."""
     torch.cuda.reset_peak_memory_stats()
     u, Tc, Tv = solver.initial_state()
     lr.lattice_ring_sweep.launches = 0
@@ -183,13 +242,13 @@ def phase_flagship(solver, lr, setup_s):
         max_memory_allocated=torch.cuda.max_memory_allocated(),
         launches=launches, residuals=res,
     )
-    log("[smoke] flagship " + json.dumps(row))
+    log(f"[smoke] {name} " + json.dumps(row))
     if launches != want:
-        raise RuntimeError(f"{launches} kernel launches, want {want}")
+        raise RuntimeError(f"{name}: {launches} kernel launches, want {want}")
     if Tc.shape != (ne, D) or not torch.isfinite(Tc).all():
-        raise RuntimeError("flagship Tc is not finite of shape (ne, D)")
+        raise RuntimeError(f"{name}: Tc is not finite of shape (ne, D)")
     if not (np.all(np.isfinite(res)) and res[-1] < res[0]):
-        raise RuntimeError(f"residuals not finite and falling: {res}")
+        raise RuntimeError(f"{name}: residuals not finite and falling: {res}")
 
     # 3 steps from one state, through the kernel and through the plain
     # version, on the card
@@ -204,67 +263,106 @@ def phase_flagship(solver, lr, setup_s):
     solver.ring_sweep = lr.lattice_ring_sweep
     torch.cuda.synchronize()
     tc_rel, tc_abs = rel_err(outs[0], outs[1])
-    log(f"[smoke] flagship 3 steps kernel vs plain: Tc rel {tc_rel:.3e} "
+    log(f"[smoke] {name} 3 steps kernel vs plain: Tc rel {tc_rel:.3e} "
         f"(abs {tc_abs:.3e}), tolerance {F32_RTOL}")
     if not tc_rel <= F32_RTOL:
-        raise RuntimeError("flagship Tc: kernel disagrees with plain version")
+        raise RuntimeError(f"{name} Tc: kernel disagrees with plain version")
     row["tc_kernel_vs_plain_rel"] = tc_rel
     return launches, row
 
 
-def phase_golden(SourceIterationSolver, unit_cube):
-    """The port on the GPU against pbte_tpu's Pallas-path golden Tc."""
+PARAM_KEYS = ("nx", "ny", "nz", "order", "polar", "azimuth", "nspec")
+
+
+def phase_golden(SourceIterationSolver, unit_cube, file):
+    """The port on the GPU against a pbte_tpu golden Tc (isothermal walls,
+    or periodic, diffuse and specular closures when the file names them)."""
     golden = pathlib.Path(__file__).resolve().parent / "tests" / "data"
-    with np.load(golden / "torch_port_golden.npz") as d:
-        params = {k: int(d[k]) for k in
-                  ("nx", "ny", "nz", "order", "polar", "azimuth", "nspec")}
+    with np.load(golden / file) as d:
+        params = {k: int(d[k]) for k in PARAM_KEYS}
         bcs = dict(zip(d["bc_attrs"].tolist(), d["bc_temps"].tolist()))
         ref = torch.from_numpy(d["Tc"][-1]).cuda()
         steps = int(d["steps"])
-    s = SourceIterationSolver(*unit_cube(**params), bcs, device="cuda")
+        periodic = tuple(d["periodic"].tolist()) if "periodic" in d else ()
+        kw = {f"{k}_bcs": d[k].tolist() for k in ("diffuse", "specular")
+              if k in d}
+    s = SourceIterationSolver(*unit_cube(**params, periodic=periodic), bcs,
+                              device="cuda", **kw)
     r = s.solve(tol=0, max_iter=steps, verbose=False)
     rel, ab = rel_err(r.Tc, ref)
-    log(f"[smoke] golden {params} {steps} steps: Tc rel {rel:.3e} "
-        f"(abs {ab:.3e}), tolerance {GOLDEN_RTOL}")
+    log(f"[smoke] golden {file} {params} periodic={periodic} {kw} {steps} "
+        f"steps: Tc rel {rel:.3e} (abs {ab:.3e}), tolerance {GOLDEN_RTOL}")
     if not rel <= GOLDEN_RTOL:
-        raise RuntimeError("GPU Tc disagrees with the pbte_tpu golden")
+        raise RuntimeError(f"GPU Tc disagrees with the pbte_tpu golden {file}")
     return rel
+
+
+def build_flagship(SourceIterationSolver, problem, name, **kw):
+    t0 = time.perf_counter()
+    solver = SourceIterationSolver(*problem, device="cuda", **kw)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    log(f"[smoke] {name} setup {setup_s:.1f} s: G={solver.G} L={solver.L} "
+        f"W={solver.W} shifts={solver.shifts} buckets="
+        f"{[(list(map(int, g)), k) for g, k in solver._ring_buckets]}")
+    return solver, setup_s
 
 
 def main() -> int:
     if not torch.cuda.is_available():
         log("[smoke] no CUDA device: this check runs on a GPU only")
         return 1
+    from pbte_tpu_torch import bench_dma
     from pbte_tpu_torch.ops import _build
+    from pbte_tpu_torch.ops import dma_copy as dma
     from pbte_tpu_torch.ops import lattice_ring as lr
-    from pbte_tpu_torch.problem import FLAGSHIP, WALL_BCS, unit_cube
+    from pbte_tpu_torch.problem import (DIFFUSE_WALLS, FLAGSHIP, WALL_BCS,
+                                        unit_cube)
     from pbte_tpu_torch.solver.source_iteration import SourceIterationSolver
 
     kind = torch.cuda.get_device_name(0)
     log(f"[smoke] python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda} device {kind} "
         f"count {torch.cuda.device_count()}")
-    card = nvidia_smi_name_power()
+    card = bench_dma.card_name_power()
     log(f"[smoke] nvidia-smi: {card}")
 
     t0 = time.perf_counter()
-    built = _build.load("lattice_ring")
-    log(f"[smoke] built {built.path.name} in {time.perf_counter() - t0:.1f} s "
-        f"(nvcc {built.seconds:.1f} s)")
-    log(built.log.strip())
+    built = _build.load_all(["lattice_ring", "dma_copy"])
+    log(f"[smoke] built {[b.path.name for b in built.values()]} in "
+        f"{time.perf_counter() - t0:.1f} s (nvcc "
+        f"{ {k: round(b.seconds, 1) for k, b in built.items()} } s)")
+    for b in built.values():
+        log(b.log.strip())
 
-    t0 = time.perf_counter()
-    solver = SourceIterationSolver(*unit_cube(**FLAGSHIP), WALL_BCS,
-                                   device="cuda")
-    torch.cuda.synchronize()
-    setup_s = time.perf_counter() - t0
-    log(f"[smoke] flagship setup {setup_s:.1f} s: G={solver.G} L={solver.L} "
-        f"W={solver.W} shifts={solver.shifts} buckets="
-        f"{[(list(map(int, g)), k) for g, k in solver._ring_buckets]}")
-
+    problem = unit_cube(**FLAGSHIP)
+    solver, setup_s = build_flagship(SourceIterationSolver, problem,
+                                     "flagship", bc_temps=WALL_BCS)
     rows = phase_kernel_vs_plain(solver, lr)
-    launches, flag = phase_flagship(solver, lr, setup_s)
-    golden_rel = phase_golden(SourceIterationSolver, unit_cube)
+    dma_res, dma_launches, dma_errs = phase_dma(dma, bench_dma)
+    best = dma_res["best"]
+    state_b, all_b = k1_bytes(rows[0])
+    k1_gbs = all_b / (rows[0]["kernel_ms"] * 1e-3) / 1e9
+    log(f"[smoke] K1 bucket 0 f32: {state_b} B state streams, {all_b} B in "
+        f"all in {rows[0]['kernel_ms']:.3f} ms = {k1_gbs:.1f} GB/s, "
+        f"{k1_gbs / best['gbs']:.3f} of the best copy rate "
+        f"({best['name']}, {best['gbs']:.1f} GB/s), on {card}")
+
+    launches, flag = phase_flagship(solver, lr, setup_s, "flagship")
+    del solver
+    torch.cuda.empty_cache()
+    film, film_setup_s = build_flagship(
+        SourceIterationSolver, problem, "diffuse-wall flagship",
+        **DIFFUSE_WALLS)
+    film_launches, film_row = phase_flagship(film, lr, film_setup_s,
+                                             "diffuse-wall flagship")
+    del film
+    torch.cuda.empty_cache()
+
+    golden_rel = phase_golden(SourceIterationSolver, unit_cube,
+                              "torch_port_golden.npz")
+    closure_rel = phase_golden(SourceIterationSolver, unit_cube,
+                               "torch_port_golden_closures.npz")
 
     jax_mods = sorted(m for m in sys.modules
                       if m.split(".")[0] in ("jax", "jaxlib"))
@@ -272,19 +370,51 @@ def main() -> int:
         raise RuntimeError(f"the port imported JAX: {jax_mods[:5]}")
 
     main_row = rows[0]
-    log(f"[smoke] summary: {flag['ms_per_step']:.3f} ms/step, "
-        f"{flag['dof_per_s']:.4g} DOF/s, golden rel {golden_rel:.3e}, "
-        f"on {card}")
-    log(json.dumps({"kernels": [{
-        "name": "lattice_ring_sweep",
-        "route": "cuda",
-        "source": "pbte_tpu_torch/csrc/lattice_ring.cu",
-        "replaces": "pbte_tpu/ops/lattice_ring.py:234",
-        "launches": launches,
-        "max_abs_err": max(main_row["ys_abs"], main_row["ms_abs"]),
-        "ms": main_row["kernel_ms"],
-        "plain_ms": main_row["plain_ms"],
-    }]}))
+    log(f"[smoke] summary: flagship {flag['ms_per_step']:.3f} ms/step, "
+        f"{flag['dof_per_s']:.4g} DOF/s; diffuse-wall flagship "
+        f"{film_row['ms_per_step']:.3f} ms/step, "
+        f"{film_row['dof_per_s']:.4g} DOF/s; best copy {best['name']} "
+        f"{best['gbs']:.1f} GB/s; golden rel {golden_rel:.3e}, closure "
+        f"golden rel {closure_rel:.3e}; on {card}")
+
+    def best_row(prefix):
+        name = min((n for n in dma_res["ms"] if n.startswith(prefix)),
+                   key=dma_res["ms"].get)
+        return dma_res["ms"][name]
+
+    log(json.dumps({"kernels": [
+        {
+            "name": "lattice_ring_sweep",
+            "route": "cuda",
+            "source": "pbte_tpu_torch/csrc/lattice_ring.cu",
+            "replaces": "pbte_tpu/ops/lattice_ring.py:234",
+            "launches": launches + film_launches,
+            "max_abs_err": max(max(r["ys_abs"], r["ms_abs"])
+                               for r in rows if r["state"] == "f32"),
+            "ms": main_row["kernel_ms"],
+            "plain_ms": main_row["plain_ms"],
+        },
+        {
+            "name": "dma_auto_copy",
+            "route": "cuda",
+            "source": "pbte_tpu_torch/csrc/dma_copy.cu",
+            "replaces": "scripts/bench_pallas_dma.py:76",
+            "launches": dma_launches["auto"],
+            "max_abs_err": dma_errs["auto"],
+            "ms": best_row("auto/"),
+            "plain_ms": dma_res["ms"]["plain"],
+        },
+        {
+            "name": "dma_manual_copy",
+            "route": "cuda",
+            "source": "pbte_tpu_torch/csrc/dma_copy.cu",
+            "replaces": "scripts/bench_pallas_dma.py:140",
+            "launches": dma_launches["manual"],
+            "max_abs_err": dma_errs["manual"],
+            "ms": best_row("manual/"),
+            "plain_ms": dma_res["ms"]["plain"],
+        },
+    ]}))
     log(card)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1,6 +1,7 @@
 """Carry pbte_tpu's lattice-ring operators and state into this package.
 
-``pbte_tpu``'s ``SourceIterationSolver`` on its Pallas lattice path keeps
+``pbte_tpu``'s ``SourceIterationSolver`` on its lattice ring (the Pallas
+kernel path, or the XLA ring ``_step_ring`` with its lagged closures) keeps
 its operators in a ``consts`` pytree; mapped to numpy (for example with
 ``jax.tree.map(np.asarray, solver.consts)``) they become this package's
 consts dict, so both packages can step from the same operators and the same
@@ -11,6 +12,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from pbte_tpu_torch.solver.source_iteration import REFL_KEYS, closure_scatter
 
 
 def _tensor(a, device):
@@ -31,12 +34,23 @@ def _tensor(a, device):
     return t.to(device).contiguous()
 
 
-def consts_from_numpy(np_consts: dict, device="cpu") -> dict:
-    """pbte_tpu Pallas-path consts (numpy leaves) -> this package's consts.
+# per-bucket periodic tables (the wrap sources; the targets become the
+# port's closure_scatter tables)
+_PER_KEYS = ("per_cpl", "per_cin", "per_sl", "per_sw")
 
-    The inflow coefficients move from pbte_tpu's ``(L, Gb, nf, Km, W)`` to
-    the kernel's ``(L, Gb, Km, nf, W)`` layout."""
+
+def consts_from_numpy(np_consts: dict, device="cpu") -> dict:
+    """pbte_tpu lattice-ring consts (numpy leaves) -> this package's consts.
+
+    Takes the Pallas path's consts and the XLA ring's (``sweep_mode="ring"``
+    with ``use_pallas="off"``; not hull-windowed, which no closure problem
+    is). The folded factor is ``mats[bi][4]`` on both. The inflow
+    coefficients move from pbte_tpu's ``(L, Gb, nf, Km, W)`` to the
+    kernel's ``(L, Gb, Km, nf, W)`` layout. The periodic tables, which
+    pbte_tpu ships as zero-valid dummies on every problem, are taken only
+    when some entry is valid."""
     mats = np_consts["mats"]
+    periodic = bool(np.asarray(np_consts["per_valid"]).any())
     buckets = []
     for bi, cb in enumerate(np_consts["ring_b"]):
         b = dict(
@@ -47,6 +61,21 @@ def consts_from_numpy(np_consts: dict, device="cpu") -> dict:
         )
         if "dsrc0" in cb:
             b["dsrc0"] = _tensor(cb["dsrc0"], device)
+        if periodic:
+            b.update({k: _tensor(cb[k], device) for k in _PER_KEYS})
+        if "refl_pl" in cb:
+            b["refl_pl"] = _tensor(cb["refl_pl"], device)
+            b["refl_pw"] = _tensor(cb["refl_pw"], device)
+        if periodic or "refl_pl" in cb:
+            L, _, W = np.asarray(np_consts["valid_slab"]).shape
+            pairs = [None] * 4
+            if periodic:
+                pairs[:2] = np.asarray(cb["per_pl"]), np.asarray(cb["per_pw"])
+            if "refl_pl" in cb:
+                pairs[2:] = np.asarray(cb["refl_pl"]), np.asarray(cb["refl_pw"])
+            scat = closure_scatter(L, W, *pairs)
+            b["xmap"] = _tensor(scat.pop("xmap"), device).to(torch.int32)
+            b.update({k: _tensor(v, device) for k, v in scat.items()})
         buckets.append(b)
     return dict(
         perm=_tensor(np_consts["perm"], device),
@@ -56,12 +85,24 @@ def consts_from_numpy(np_consts: dict, device="cpu") -> dict:
         pos_of_elem=_tensor(np_consts["pos_of_elem"], device),
         ring_invMT=_tensor(np_consts["ring_invMT"], device),
         basis_int_glob=_tensor(np_consts["basis_int_glob"], device),
+        flux_w=_tensor(np_consts["flux_w"], device),
+        **{k: _tensor(np_consts[k], device) for k in REFL_KEYS
+           if k in np_consts},
         buckets=tuple(buckets),
     )
 
 
-def state_from_numpy(u, Tc, Tv, device="cpu"):
-    """pbte_tpu Pallas-path state (per-bucket slabs, Tc, Tv) -> tensors."""
+def state_from_numpy(u, Tc, Tv, device="cpu", layout="bsd"):
+    """pbte_tpu lattice-ring state (per-bucket slabs, Tc, Tv) -> tensors.
+
+    ``layout`` names the slabs' trailing axes as pbte_tpu's checkpoints
+    tag them: "bsd" for the Pallas path's ``(L, Gb, Km, BS, D, W)`` (this
+    package's layout), "dbs" for the XLA ring's ``(L, Gb, Km, D, BS, W)``,
+    whose BS and D axes are swapped here."""
+    if layout not in ("bsd", "dbs"):
+        raise ValueError(f"layout must be 'bsd' or 'dbs', got {layout!r}")
+    if layout == "dbs":
+        u = [np.swapaxes(np.asarray(ub), 3, 4) for ub in u]
     return (
         tuple(_tensor(ub, device) for ub in u),
         _tensor(Tc, device),

@@ -9,12 +9,22 @@
 // order (the ring starts at zero):
 //   rhs[i, w]   = src_w[b] ttc[l,g,i,w] + relax_w[b] v[l,g,k,b,i,w]
 //                 - (vg bc_w)[b] bsrc[l,g,k,i,w]  (- vg[b] dsrc[l,g,k,i,w])
+//                 (+ xval[g,u,k,b,i] where u = xmap[l,g,w] >= 0)
 //   nb_f[i, w]  = cin[l,g,k,f,w] * ring[i, w - s_f]   (zero where w < s_f)
 //   sol[:, w]   = bcat[g,k,b] (D, J) @ [rhs; nb_0; nb_1; nb_2][:, w]
 //   ys[l,g,k,b] = sol;  ring = sol;  ms[g,k,l] += macro_w[g,k,b] * sol
 // with J = (1 + nf) D and f32 accumulation. In cast mode (bf16 state) the
 // product operands (rhs, nb_f, bcat) and the ring are rounded to bf16 as the
-// TPU kernel does; in exact mode everything stays f32.
+// TPU kernel does; in exact mode everything stays f32. (xmap, xval) is the
+// lagged closure source (periodic wraps, diffuse and specular walls) the
+// solver builds from the previous iterate, kept sparse: xmap (L, Gb, W)
+// int32 names the closure row u of a slab slot (or -1), xval
+// (Gb, U, Km, BS, D) f32 holds each row's rhs addition. It cannot fold into
+// v because relax_w is exactly 0 on the band with the largest inverse
+// Knudsen number. A dense state-sized operand instead cost ~5 ms more per
+// diffuse-wall flagship step (zero fill, strided scatter, its kernel read;
+// measured on an NVIDIA H100 80GB HBM3 at 700 W). A null xmap (or dsrc)
+// skips the loads.
 //
 // Parallel unit. The level axis is a dependence chain, but (g, k, b) are
 // independent except for the band sum in ms. One CTA runs one (g, k, b) over
@@ -116,7 +126,10 @@ lattice_ring_kernel(const State* __restrict__ v, const float* __restrict__ ttc,
                     const float* __restrict__ bcat,
                     const float* __restrict__ macro_w,
                     const float* __restrict__ wvec,
-                    const float* __restrict__ dsrc, State* __restrict__ ys,
+                    const float* __restrict__ dsrc,
+                    const int* __restrict__ xmap,
+                    const float* __restrict__ xval, int n_u,
+                    State* __restrict__ ys,
                     float* __restrict__ ms, int L, int Gb, int Km, int BS,
                     int W, int nf, Shifts sh) {
   using Ring = typename std::conditional<CAST, __nv_bfloat16, State>::type;
@@ -182,6 +195,16 @@ lattice_ring_kernel(const State* __restrict__ v, const float* __restrict__ ttc,
 #pragma unroll
         for (int j = 0; j < D; ++j) x[j] -= w_dir * dsrc_l[j * W];
       }
+      if (xmap != nullptr) {
+        const int u = xmap[lg * W + w];
+        if (u >= 0) {
+          const float* xv =
+              xval + ((static_cast<size_t>(g) * n_u + u) * Km + k) * BS * D +
+              static_cast<size_t>(b) * D;
+#pragma unroll
+          for (int j = 0; j < D; ++j) x[j] += xv[j];
+        }
+      }
 #pragma unroll
       for (int j = 0; j < D; ++j) x[j] = op_round<CAST>(x[j]);
       accumulate<D>(sol, bcT, x);
@@ -224,8 +247,9 @@ lattice_ring_kernel(const State* __restrict__ v, const float* __restrict__ ttc,
 template <int D, typename State, bool CAST>
 cudaError_t launch(const void* v, const float* ttc, const float* bsrc,
                    const float* cin, const float* bcat, const float* macro_w,
-                   const float* wvec, const float* dsrc, void* ys, float* ms,
-                   int L, int Gb, int Km, int BS, int W, int nf, Shifts sh,
+                   const float* wvec, const float* dsrc, const int* xmap,
+                   const float* xval, int n_u, void* ys, float* ms, int L,
+                   int Gb, int Km, int BS, int W, int nf, Shifts sh,
                    cudaStream_t stream) {
   using Ring = typename std::conditional<CAST, __nv_bfloat16, State>::type;
   const size_t smem = static_cast<size_t>((1 + nf) * D) * Tile<D>::DP *
@@ -238,7 +262,7 @@ cudaError_t launch(const void* v, const float* ttc, const float* bsrc,
   if (err != cudaSuccess) return err;
   kernel<<<Gb * Km * BS, W, smem, stream>>>(
       static_cast<const State*>(v), ttc, bsrc, cin, bcat, macro_w, wvec, dsrc,
-      static_cast<State*>(ys), ms, L, Gb, Km, BS, W, nf, sh);
+      xmap, xval, n_u, static_cast<State*>(ys), ms, L, Gb, Km, BS, W, nf, sh);
   return cudaGetLastError();
 }
 
@@ -246,18 +270,18 @@ template <typename State, bool CAST>
 cudaError_t dispatch_d(int D, const void* v, const float* ttc,
                        const float* bsrc, const float* cin, const float* bcat,
                        const float* macro_w, const float* wvec,
-                       const float* dsrc, void* ys, float* ms, int L, int Gb,
-                       int Km, int BS, int W, int nf, Shifts sh,
-                       cudaStream_t stream) {
+                       const float* dsrc, const int* xmap, const float* xval,
+                       int n_u, void* ys, float* ms, int L, int Gb, int Km,
+                       int BS, int W, int nf, Shifts sh, cudaStream_t stream) {
   switch (D) {
     case 8:
       return launch<8, State, CAST>(v, ttc, bsrc, cin, bcat, macro_w, wvec,
-                                    dsrc, ys, ms, L, Gb, Km, BS, W, nf, sh,
-                                    stream);
+                                    dsrc, xmap, xval, n_u, ys, ms, L, Gb, Km,
+                                    BS, W, nf, sh, stream);
     case 27:
       return launch<27, State, CAST>(v, ttc, bsrc, cin, bcat, macro_w, wvec,
-                                     dsrc, ys, ms, L, Gb, Km, BS, W, nf, sh,
-                                     stream);
+                                     dsrc, xmap, xval, n_u, ys, ms, L, Gb,
+                                     Km, BS, W, nf, sh, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -269,14 +293,16 @@ extern "C" {
 
 // cast_bf16 = 0: f32 state, exact f32 operands.
 // cast_bf16 = 1: bf16 state, bf16 operands and ring, f32 accumulation.
-// dsrc may be null (no Dirichlet faces). Returns a cudaError_t.
+// dsrc may be null (no Dirichlet faces), xmap and xval null (no lagged
+// closures; n_u is then ignored). Returns a cudaError_t.
 int pbte_lattice_ring_sweep(int cast_bf16, int D, const void* v,
                             const float* ttc, const float* bsrc,
                             const float* cin, const float* bcat,
                             const float* macro_w, const float* wvec,
-                            const float* dsrc, void* ys, float* ms, int L,
-                            int Gb, int Km, int BS, int W, int nf, int s0,
-                            int s1, int s2, void* stream) {
+                            const float* dsrc, const int* xmap,
+                            const float* xval, int n_u, void* ys, float* ms,
+                            int L, int Gb, int Km, int BS, int W, int nf,
+                            int s0, int s1, int s2, void* stream) {
   if (nf < 1 || nf > kMaxFaces || W < 1 || W > kMaxThreads) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -285,11 +311,12 @@ int pbte_lattice_ring_sweep(int cast_bf16, int D, const void* v,
   cudaError_t err =
       cast_bf16
           ? dispatch_d<__nv_bfloat16, true>(D, v, ttc, bsrc, cin, bcat,
-                                            macro_w, wvec, dsrc, ys, ms, L,
-                                            Gb, Km, BS, W, nf, sh, st)
+                                            macro_w, wvec, dsrc, xmap, xval,
+                                            n_u, ys, ms, L, Gb, Km, BS, W, nf,
+                                            sh, st)
           : dispatch_d<float, false>(D, v, ttc, bsrc, cin, bcat, macro_w,
-                                     wvec, dsrc, ys, ms, L, Gb, Km, BS, W,
-                                     nf, sh, st);
+                                     wvec, dsrc, xmap, xval, n_u, ys, ms, L,
+                                     Gb, Km, BS, W, nf, sh, st);
   return static_cast<int>(err);
 }
 

@@ -3,7 +3,8 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface. It is compiled at first
 use into a shared library under ``build/pbte_tpu_torch/`` at the root of the
 checkout, keyed by a hash of the source and the flags, and loaded with
-``ctypes``. Nothing is built when a module is imported.
+``ctypes``. Nothing is built when a module is imported; ``load_all`` runs
+one nvcc per source, all at once.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import shutil
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -39,7 +41,8 @@ class Built:
     log: str  # nvcc's output, including the ptxas resource report
 
 
-_lock = threading.Lock()
+_locks_lock = threading.Lock()
+_locks: dict[str, threading.Lock] = {}
 _loaded: dict[str, Built] = {}
 
 
@@ -60,7 +63,9 @@ def nvcc_path() -> str:
 def load(name: str) -> Built:
     """Compile ``csrc/<name>.cu`` if no build for its hash exists, then load
     it. Raises RuntimeError with nvcc's stderr when the build fails."""
-    with _lock:
+    with _locks_lock:
+        lock = _locks.setdefault(name, threading.Lock())
+    with lock:
         if name in _loaded:
             return _loaded[name]
         src = CSRC_DIR / f"{name}.cu"
@@ -89,3 +94,10 @@ def load(name: str) -> Built:
         built = Built(ctypes.CDLL(str(so)), so, seconds, log)
         _loaded[name] = built
         return built
+
+
+def load_all(names) -> dict[str, Built]:
+    """``load`` every name, the nvcc builds running concurrently."""
+    names = list(names)
+    with ThreadPoolExecutor(max_workers=max(len(names), 1)) as pool:
+        return dict(zip(names, pool.map(load, names)))

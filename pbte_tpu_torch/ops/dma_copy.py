@@ -1,0 +1,149 @@
+"""Streaming copies y = x: the plain PyTorch version and the CUDA kernels'
+wrappers.
+
+Port of the two Pallas TPU copy probes of ``scripts/bench_pallas_dma.py``:
+``auto_copy`` (K2, the auto-pipelined copy over a grid of row blocks) and
+``manual_copy`` (K3, an ``n_bufs``-deep hand-written async-copy pipeline).
+``copy_ref`` is the counterpart of the script's ``xla_copy`` (``x + 0.0``).
+The CUDA kernels are in ``csrc/dma_copy.cu``.
+
+The TPU blocks are VMEM tiles of 0.5-8 MB; a CTA has at most 227 KB of shared
+memory, so the port's sweep parameters are per-CTA bytes instead: K2's tile
+(``rows_per_block`` rows of 128 float32 per CTA, moved through registers)
+and K3's stage (``rows_per_block`` rows per pipeline stage, ``n_bufs``
+stages in and ``n_bufs`` out per persistent CTA).
+
+``auto_copy`` and ``manual_copy`` take the plain version for CPU tensors
+and launch their kernel for CUDA tensors; they never fall back from one to
+the other. Each launch adds one to the wrapper's ``launches``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from pbte_tpu_torch.ops import _build
+
+LANE = 128  # float32 values per row, the script's lane width
+ROW_BYTES = LANE * 4
+VEC_BYTES = 16  # both kernels move whole 16-byte vectors
+SMEM_LIMIT = 232448  # bytes of shared memory one CTA may use on Hopper
+MANUAL_BARRIER_BYTES = 128  # the mbarriers ahead of K3's stage buffers
+N_BUFS = (2, 3, 4)
+
+
+def copy_ref(x: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch copy, ``x + 0.0`` (the script's ``xla_copy``)."""
+    return x + 0.0
+
+
+def manual_smem_bytes(rows_per_block: int, n_bufs: int) -> int:
+    """Shared memory of one K3 CTA: the mbarriers, then n_bufs input and
+    n_bufs output stages of rows_per_block rows."""
+    return MANUAL_BARRIER_BYTES + 2 * n_bufs * rows_per_block * ROW_BYTES
+
+
+def _check(x, rows_per_block, name):
+    if rows_per_block < 1:
+        raise ValueError(f"{name}: rows_per_block must be >= 1")
+    if not x.is_contiguous():
+        raise ValueError(f"{name}: x must be contiguous")
+    if x.numel() == 0 or (x.numel() * x.element_size()) % VEC_BYTES:
+        raise ValueError(
+            f"{name}: the kernel copies whole {VEC_BYTES}-byte vectors, got "
+            f"{x.numel() * x.element_size()} bytes"
+        )
+
+
+def _check_cuda(x, name):
+    if x.data_ptr() % VEC_BYTES:
+        raise ValueError(f"{name}: x must be {VEC_BYTES}-byte aligned")
+
+
+def _raise_on(lib, err, name):
+    if err != 0:
+        msg = lib.pbte_dma_error_string(err).decode()
+        raise RuntimeError(f"{name} kernel launch failed: {msg} ({err})")
+
+
+def _lib():
+    lib = _build.load("dma_copy").lib
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.pbte_dma_auto_copy.argtypes = [p, p, ll, i, i, p]
+    lib.pbte_dma_auto_copy.restype = i
+    lib.pbte_dma_manual_copy.argtypes = [p, p, ll, i, i,
+                                         ctypes.POINTER(i), p]
+    lib.pbte_dma_manual_copy.restype = i
+    lib.pbte_dma_error_string.argtypes = [i]
+    lib.pbte_dma_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _device(x, name):
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: no copy kernel for device {x.device}")
+    return x.device.type
+
+
+def auto_copy(x: torch.Tensor, rows_per_block: int = 32,
+              threads: int = 256) -> torch.Tensor:
+    """K2: y = x, one CTA of ``threads`` threads per tile of
+    ``rows_per_block`` rows of 128 float32 (``rows_per_block * 512``
+    bytes), through registers."""
+    _check(x, rows_per_block, "auto_copy")
+    if threads < 32 or threads > 1024 or threads % 32:
+        raise ValueError(f"auto_copy: threads must be a multiple of 32 in "
+                         f"[32, 1024], got {threads}")
+    if _device(x, "auto_copy") == "cpu":
+        return copy_ref(x)
+    _check_cuda(x, "auto_copy")
+    y = torch.empty_like(x)
+    lib = _lib()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.pbte_dma_auto_copy(
+            x.data_ptr(), y.data_ptr(), x.numel() * x.element_size(),
+            rows_per_block * ROW_BYTES, threads, stream,
+        )
+    _raise_on(lib, err, "auto_copy")
+    auto_copy.launches += 1
+    return y
+
+
+def manual_copy(x: torch.Tensor, rows_per_block: int = 16,
+                n_bufs: int = 2) -> torch.Tensor:
+    """K3: y = x through ``n_bufs`` pipeline stages of ``rows_per_block``
+    rows (``rows_per_block * 512`` bytes) per persistent CTA."""
+    _check(x, rows_per_block, "manual_copy")
+    if n_bufs not in N_BUFS:
+        raise ValueError(f"manual_copy: n_bufs must be in {N_BUFS}, got "
+                         f"{n_bufs}")
+    smem = manual_smem_bytes(rows_per_block, n_bufs)
+    if smem > SMEM_LIMIT:
+        raise ValueError(
+            f"manual_copy: {n_bufs} x 2 stages of {rows_per_block} rows need "
+            f"{smem} B of shared memory, a CTA has {SMEM_LIMIT}"
+        )
+    if _device(x, "manual_copy") == "cpu":
+        return copy_ref(x)
+    _check_cuda(x, "manual_copy")
+    y = torch.empty_like(x)
+    lib = _lib()
+    grid = ctypes.c_int(0)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.pbte_dma_manual_copy(
+            x.data_ptr(), y.data_ptr(), x.numel() * x.element_size(),
+            rows_per_block * ROW_BYTES, n_bufs, ctypes.byref(grid), stream,
+        )
+    _raise_on(lib, err, "manual_copy")
+    manual_copy.launches += 1
+    manual_copy.last_grid = grid.value
+    return y
+
+
+auto_copy.launches = 0
+manual_copy.launches = 0
+manual_copy.last_grid = 0

@@ -15,6 +15,7 @@ never falls back from one to the other.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -28,7 +29,22 @@ KERNEL_MAX_FACES = 3
 _SMEM_LIMIT = 232448  # bytes of shared memory one CTA may use on Hopper
 
 
-def _check_shapes(v, ttc, bsrc, cin, bcat, macro_w, wvec, shifts, dsrc):
+class ClosureSource(NamedTuple):
+    """A sweep's lagged closure source, sparse over the slab: slot
+    (l, g, w) adds ``xval[g, xmap[l, g, w]]`` to its rhs where
+    ``xmap[l, g, w] >= 0``.
+
+    ``xmap``: ``(L, Gb, W)`` integer (int32 for the CUDA kernel), each
+    entry in [-1, U); the kernel does not bounds-check it.
+    ``xval``: ``(Gb, U, Km, BS, D)``, float32 (float64 with float64 state).
+    """
+
+    xmap: torch.Tensor
+    xval: torch.Tensor
+
+
+def _check_shapes(v, ttc, bsrc, cin, bcat, macro_w, wvec, shifts, dsrc,
+                  xsrc):
     if v.dim() != 6:
         raise ValueError(f"v must be (L, Gb, Km, BS, D, W), got {tuple(v.shape)}")
     L, Gb, Km, BS, D, W = v.shape
@@ -44,6 +60,15 @@ def _check_shapes(v, ttc, bsrc, cin, bcat, macro_w, wvec, shifts, dsrc):
     }
     if dsrc is not None:
         want["dsrc"] = (dsrc, (L, Gb, Km, D, W))
+    if xsrc is not None:
+        if xsrc.xmap.dtype not in (torch.int32, torch.int64):
+            raise ValueError(f"xmap must be an index tensor, got "
+                             f"{xsrc.xmap.dtype}")
+        if xsrc.xval.dim() != 5 or xsrc.xval.shape[1] < 1:
+            raise ValueError(f"xval must be (Gb, U >= 1, Km, BS, D), got "
+                             f"{tuple(xsrc.xval.shape)}")
+        want["xmap"] = (xsrc.xmap, (L, Gb, W))
+        want["xval"] = (xsrc.xval, (Gb, xsrc.xval.shape[1], Km, BS, D))
     for name, (t, shape) in want.items():
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} has shape {tuple(t.shape)}, want {shape}")
@@ -53,7 +78,7 @@ def _check_shapes(v, ttc, bsrc, cin, bcat, macro_w, wvec, shifts, dsrc):
 
 
 def lattice_ring_sweep_ref(v, ttc, bsrc, cin, bcat, macro_w, wvec, *,
-                           shifts, dsrc=None, cast_bf16=True):
+                           shifts, dsrc=None, xsrc=None, cast_bf16=True):
     """Plain PyTorch lattice ring sweep (a loop over levels).
 
     Args:
@@ -67,6 +92,10 @@ def lattice_ring_sweep_ref(v, ttc, bsrc, cin, bcat, macro_w, wvec, *,
       wvec: ``(4, BS)`` rows ``[src_w, relax_w, vg*bc_w, vg]``.
       shifts: per-face lane shifts of the lattice (sequence of int).
       dsrc: optional Dirichlet source slab, ``(L, Gb, Km, D, W)``.
+      xsrc: optional ``ClosureSource``, the lagged closure source (periodic
+        wraps, diffuse and specular walls) added to the rhs of the slots
+        it maps. It cannot fold into ``v``: ``relax_w`` is exactly 0 on the
+        band with the largest inverse Knudsen number.
       cast_bf16: round the product operands (rhs, neighbour terms, bcat)
         and the ring to bfloat16 and accumulate in float32, as the TPU
         kernel does; False keeps every operand in the state dtype.
@@ -76,12 +105,16 @@ def lattice_ring_sweep_ref(v, ttc, bsrc, cin, bcat, macro_w, wvec, *,
       per-slot macroscopic partials ``(Gb, Km, L, D, W)``, float32 for
       float32 or bfloat16 state (float64 for float64 state).
     """
-    _check_shapes(v, ttc, bsrc, cin, bcat, macro_w, wvec, shifts, dsrc)
+    _check_shapes(v, ttc, bsrc, cin, bcat, macro_w, wvec, shifts, dsrc, xsrc)
     L, Gb, Km, BS, D, W = v.shape
     dtype = v.dtype
     acc = torch.float64 if dtype == torch.float64 else torch.float32
     op = torch.bfloat16 if cast_bf16 else dtype
     w_src, w_rel, w_bcv, w_dir = (wvec[i][:, None, None] for i in range(4))
+    if xsrc is not None:
+        gi = torch.arange(Gb, device=v.device)[:, None]
+        xval = xsrc.xval.to(acc)
+        none = torch.zeros((), dtype=acc, device=v.device)
     # rounded operands in the accumulation type: a product of two bf16
     # values is exact in f32, so this is a bf16 x bf16 -> f32 product
     bmat = bcat.to(op).to(acc)
@@ -97,6 +130,11 @@ def lattice_ring_sweep_ref(v, ttc, bsrc, cin, bcat, macro_w, wvec, *,
         )  # (Gb, Km, BS, D, W)
         if dsrc is not None:
             rhs = rhs - w_dir * dsrc[l][:, :, None]
+        if xsrc is not None:
+            m = xsrc.xmap[l].long()  # (Gb, W)
+            add = xval[gi, m.clamp(min=0)]  # (Gb, W, Km, BS, D)
+            add = torch.where((m >= 0)[:, :, None, None, None], add, none)
+            rhs = rhs + add.permute(0, 2, 3, 4, 1)
         parts = [rhs.to(op)]
         for fi, s in enumerate(shifts):
             s = int(s)
@@ -126,7 +164,10 @@ def _kernel_args_ok(v, tensors, cast_bf16, shifts):
     for name, t in tensors.items():
         if t.device != v.device:
             raise ValueError(f"{name} is on {t.device}, v on {v.device}")
-        if name != "v" and t.dtype != torch.float32:
+        if name == "xmap":
+            if t.dtype != torch.int32:
+                raise ValueError(f"xmap must be int32, got {t.dtype}")
+        elif name != "v" and t.dtype != torch.float32:
             raise ValueError(f"{name} must be float32, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
@@ -146,11 +187,14 @@ def _kernel_args_ok(v, tensors, cast_bf16, shifts):
         raise ValueError(f"the kernel would need {smem} B of shared memory")
 
 
-def _launch(v, ttc, bsrc, cin, bcat, macro_w, wvec, shifts, dsrc, cast_bf16):
+def _launch(v, ttc, bsrc, cin, bcat, macro_w, wvec, shifts, dsrc, xsrc,
+            cast_bf16):
     tensors = dict(v=v, ttc=ttc, bsrc=bsrc, cin=cin, bcat=bcat,
                    macro_w=macro_w, wvec=wvec)
     if dsrc is not None:
         tensors["dsrc"] = dsrc
+    if xsrc is not None:
+        tensors.update(xmap=xsrc.xmap, xval=xsrc.xval)
     _kernel_args_ok(v, tensors, cast_bf16, shifts)
     L, Gb, Km, BS, D, W = v.shape
     ys = torch.empty_like(v)
@@ -163,6 +207,9 @@ def _launch(v, ttc, bsrc, cin, bcat, macro_w, wvec, shifts, dsrc, cast_bf16):
             int(cast_bf16), D, v.data_ptr(), ttc.data_ptr(), bsrc.data_ptr(),
             cin.data_ptr(), bcat.data_ptr(), macro_w.data_ptr(),
             wvec.data_ptr(), dsrc.data_ptr() if dsrc is not None else None,
+            xsrc.xmap.data_ptr() if xsrc is not None else None,
+            xsrc.xval.data_ptr() if xsrc is not None else None,
+            xsrc.xval.shape[1] if xsrc is not None else 0,
             ys.data_ptr(), ms.data_ptr(), L, Gb, Km, BS, W, len(shifts),
             *s, stream,
         )
@@ -176,8 +223,10 @@ def _launch(v, ttc, bsrc, cin, bcat, macro_w, wvec, shifts, dsrc, cast_bf16):
 def _lib():
     lib = _build.load("lattice_ring").lib
     p, i = ctypes.c_void_p, ctypes.c_int
-    # 10 pointers, then L, Gb, Km, BS, W, nf and three shifts, then the stream
-    lib.pbte_lattice_ring_sweep.argtypes = [i, i] + [p] * 10 + [i] * 9 + [p]
+    # 10 input pointers (through xmap, xval), U, the ys and ms pointers,
+    # then L, Gb, Km, BS, W, nf and three shifts, then the stream
+    lib.pbte_lattice_ring_sweep.argtypes = (
+        [i, i] + [p] * 10 + [i] + [p] * 2 + [i] * 9 + [p])
     lib.pbte_lattice_ring_sweep.restype = i
     lib.pbte_cuda_error_string.argtypes = [i]
     lib.pbte_cuda_error_string.restype = ctypes.c_char_p
@@ -185,22 +234,22 @@ def _lib():
 
 
 def lattice_ring_sweep(v, ttc, bsrc, cin, bcat, macro_w, wvec, *, shifts,
-                       dsrc=None, cast_bf16=True):
+                       dsrc=None, xsrc=None, cast_bf16=True):
     """One lattice ring sweep of one Km bucket (see lattice_ring_sweep_ref
     for arguments and results).
 
     CPU tensors run the plain PyTorch version. CUDA tensors launch the CUDA
     kernel on the current stream, or raise if it cannot take them; each
     launch adds one to ``lattice_ring_sweep.launches``."""
-    _check_shapes(v, ttc, bsrc, cin, bcat, macro_w, wvec, shifts, dsrc)
+    _check_shapes(v, ttc, bsrc, cin, bcat, macro_w, wvec, shifts, dsrc, xsrc)
     if v.device.type == "cpu":
         return lattice_ring_sweep_ref(
             v, ttc, bsrc, cin, bcat, macro_w, wvec, shifts=shifts, dsrc=dsrc,
-            cast_bf16=cast_bf16,
+            xsrc=xsrc, cast_bf16=cast_bf16,
         )
     if v.device.type != "cuda":
         raise ValueError(f"no lattice ring sweep for device {v.device}")
-    return _launch(v, ttc, bsrc, cin, bcat, macro_w, wvec, shifts, dsrc,
+    return _launch(v, ttc, bsrc, cin, bcat, macro_w, wvec, shifts, dsrc, xsrc,
                    cast_bf16)
 
 

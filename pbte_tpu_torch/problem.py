@@ -3,7 +3,12 @@
 The flagship is ``unit_cube(16, 16, 16, order=2, polar=4, azimuth=16,
 nspec=20)`` with ``WALL_BCS``: the problem ``bench.py`` and
 ``__graft_entry__._build_problem`` build for pbte_tpu (unit cube scaled to
-microns, consistent DG faces, silicon 2 x nspec bands).
+microns, consistent DG faces, silicon 2 x nspec bands). ``DIFFUSE_WALLS``
+turns it into a film between two isothermal x faces whose other four faces
+reflect diffusely.
+
+Boundary attributes of the cube: 1 and 6 are the z faces (bottom, top),
+2 and 4 the y faces, 3 and 5 the x faces.
 """
 
 from __future__ import annotations
@@ -16,11 +21,17 @@ from pbte_tpu.material import nongray_smrt as mat
 # isothermal walls: attr 6 hot, the rest cold
 WALL_BCS = {1: -0.5, 2: -0.5, 3: -0.5, 4: -0.5, 5: -0.5, 6: 0.5}
 FLAGSHIP = dict(nx=16, ny=16, nz=16, order=2, polar=4, azimuth=16, nspec=20)
+# x faces isothermal, the other four diffuse (keyword arguments of the solver
+# after ops, quad, tables)
+DIFFUSE_WALLS = dict(bc_temps={3: 0.5, 5: -0.5}, diffuse_bcs=[1, 2, 4, 6])
 
 
-def unit_cube(nx, ny, nz, order, polar, azimuth, nspec):
-    """(ops, quad, tables) of an nx x ny x nz hex unit-cube lattice."""
+def unit_cube(nx, ny, nz, order, polar, azimuth, nspec, periodic=()):
+    """(ops, quad, tables) of an nx x ny x nz hex unit-cube lattice, its
+    faces normal to the ``periodic`` axes (0 = x, 1 = y, 2 = z) paired."""
     m = pmesh.make_cartesian_3d(nx, ny, nz, "hex").scaled(1.0e-6)
+    if len(periodic):
+        m = pmesh.make_periodic(m, [int(a) for a in periodic])
     ops = assembly.assemble(pmesh.connect(m), order=order,
                             face_mode="consistent")
     quad = ang.build(ang.AngularOptions(

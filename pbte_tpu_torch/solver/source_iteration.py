@@ -1,10 +1,11 @@
 """Source-iteration PBTE solver on the lattice ring sweep (PyTorch + CUDA).
 
 Port of ``pbte_tpu/solver/source_iteration.py::SourceIterationSolver``,
-restricted to the path its Pallas kernel serves: a single-class Cartesian
-box lattice swept by the shift-structured ring (no supercell merge, no
-periodic or reflective closures, one device). The flagship (hex 16^3,
-p=2, 64 directions x 40 bands, f32) takes this path.
+restricted to a single-class Cartesian box lattice swept by the
+shift-structured ring on one device (no supercell merge): the path of its
+Pallas kernel, plus the lagged closures its XLA ring ``_step_ring`` runs on
+the same lattice (periodic wraps, diffuse and specular walls). The flagship
+(hex 16^3, p=2, 64 directions x 40 bands, f32) takes this path.
 
 Construction is numpy host math on the framework-free layers of
 ``pbte_tpu`` (mesh, FEM assembly, quadrature, material tables, sweep plan,
@@ -12,11 +13,15 @@ Construction is numpy host math on the framework-free layers of
 ``consts`` dict. One outer step:
 
 1. builds the lagged-temperature slab ``M^T Tc`` (one einsum);
-2. runs ``ops.lattice_ring.lattice_ring_sweep`` once per Km bucket (the
+2. with periodic or reflective faces, gathers the previous iterate's
+   boundary values across all buckets and sums each bucket's lagged
+   closure contributions per closure element (the sweep's sparse
+   ``ClosureSource``);
+3. runs ``ops.lattice_ring.lattice_ring_sweep`` once per Km bucket (the
    CUDA kernel for CUDA tensors, the plain version for CPU tensors);
-3. regroups the per-level macroscopic partials into Tc through the
+4. regroups the per-level macroscopic partials into Tc through the
    ``pos_of_elem`` gather and ``M^-T``, then Tv;
-4. computes the scale-invariant residual.
+5. computes the scale-invariant residual.
 
 State layout: a tuple of per-bucket ``(L, Gb, Km_b, BS, D, W)`` slabs of
 the mass-transformed state ``v = M^T u`` (band-major, as on the JAX
@@ -34,10 +39,14 @@ import torch
 from pbte_tpu.fem import assembly
 from pbte_tpu.solver.source_iteration import _lattice_ring_tables
 from pbte_tpu.sweep import planner
+from pbte_tpu.validation.oracle import mirror_direction_map
 from pbte_tpu_torch.models import macroscopic
-from pbte_tpu_torch.ops.lattice_ring import lattice_ring_sweep
+from pbte_tpu_torch.ops.lattice_ring import ClosureSource, lattice_ring_sweep
 
 _RING_FAMILY = "ROADMAP.md queue 1, item 6 (the rest of the ring family)"
+# the reflective-wall consts, global (the gather crosses buckets)
+REFL_KEYS = ("dif_fint", "dif_cin", "dif_wplus", "dif_norm", "dif_fvec",
+             "spc_cin", "spc_gk", "spc_fmv")
 _SCAN_PATH = "ROADMAP.md queue 1, item 7 (scan path)"
 
 
@@ -66,12 +75,6 @@ class SourceIterationSolver:
                 "float64 runs on the CPU only, through the plain sweep; the "
                 "CUDA kernel takes float32 or bfloat16 state"
             )
-        if diffuse_bcs or specular_bcs:
-            raise NotImplementedError(
-                f"diffuse/specular reflective BCs: {_RING_FAMILY}"
-            )
-        if ops.periodic.any():
-            raise NotImplementedError(f"periodic wraps: {_RING_FAMILY}")
         # the closure einsums are float32 references for the kernel: keep
         # TF32 (about three decimal digits) out of every product
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -108,7 +111,11 @@ class SourceIterationSolver:
         else:
             cls = assembly.element_classes(ops)
 
+        # boundary check as pbte_tpu's: reflective walls need no
+        # temperature, and periodic faces have a neighbour (no boundary)
         dirichlet_bcs = dirichlet_bcs or {}
+        diffuse_bcs = sorted(int(a) for a in (diffuse_bcs or ()))
+        specular_bcs = sorted(int(a) for a in (specular_bcs or ()))
         bdry_attrs = set(int(a) for a in np.unique(
             ops.face_attr[(ops.neighbor < 0) & ops.face_valid]
         ))
@@ -116,6 +123,8 @@ class SourceIterationSolver:
             bdry_attrs
             - set(int(k) for k in bc_temps)
             - set(int(k) for k in dirichlet_bcs)
+            - set(diffuse_bcs)
+            - set(specular_bcs)
         )
         if missing:
             raise ValueError(
@@ -220,6 +229,8 @@ class SourceIterationSolver:
             return np.moveaxis(t, 1, -1)
 
         # ---- inflow coefficients and boundary sources ----------------------
+        # (periodic faces have no upwind neighbour in the sweep and no
+        # temperature: their inflow arrives lagged through xsrc)
         fdot = np.einsum(
             "gefd,gkd->gkfe", ops.normals[perm_safe], dirs_np[dirs_safe]
         )  # (G, Km, nf, ne_pad)
@@ -272,8 +283,24 @@ class SourceIterationSolver:
         # per-element M^-T for the closure and the u views
         self._ring_invMT = invMT_r[None].repeat(ne, axis=0)  # (ne, D, D) f64
 
+        # ---- lagged closures (periodic wraps, diffuse/specular walls) -----
+        per = _periodic_tables(ops, perm_safe, pos_valid, pos_of_elem, fdot,
+                               self._ring_invMT, W)
+        refl = _reflective_tables(ops, quad, dirs_pad, pos_of_elem,
+                                  self._ring_invMT, W, diffuse_bcs,
+                                  specular_bcs)
+        self.has_periodic = per is not None
+        self._refl_Pd = 0 if refl is None else refl["Pd"]
+        self._dif_on = refl is not None and "dif_fvec" in refl
+        self._spc_on = refl is not None and "spc_fmv" in refl
+
         mw = macroscopic.macro_weights(quad, tables)  # (K, BS)
         mw_slots = np.where(dir_valid[..., None], mw[dirs_safe], 0.0)
+        fw = macroscopic.flux_weights(quad, tables, dim)  # (dim, K, BS)
+        fw_slots = np.where(
+            dir_valid[None, ..., None],
+            fw[:, dirs_safe.reshape(-1)].reshape(dim, G, Km, BS), 0.0,
+        )
         wvec = np.stack([
             inv_kn * heat_cap / (omega * dt_inv),  # src_w
             1.0 - inv_kn / dt_inv,  # relax_w
@@ -289,6 +316,23 @@ class SourceIterationSolver:
         def iput(a):
             return put(a, torch.int64)
 
+        def bucket_scatter(gs):
+            """The closure targets of the groups gs (closure_scatter)."""
+            pairs = [None] * 4
+            if per is not None:
+                pairs[:2] = per["pl"][gs], per["pw"][gs]
+            if refl is not None:
+                pairs[2:] = refl["pl"][gs], refl["pw"][gs]
+            return closure_scatter(L, W, *pairs)
+
+        scat = [
+            bucket_scatter(gs) if per is not None or refl is not None else {}
+            for gs, _ in self._ring_buckets
+        ]
+        # closure elements U of each bucket (the rows of its xval)
+        self._closure_u = tuple(int(sc["xmap"].max()) + 1 for sc in scat
+                                if sc)
+
         self.consts = dict(
             perm=iput(perm_safe),  # (G, ne_pad)
             valid_slab=put(
@@ -299,6 +343,9 @@ class SourceIterationSolver:
             pos_of_elem=iput(pos_of_elem),  # (G, ne)
             ring_invMT=put(self._ring_invMT),  # (ne, D, D)
             basis_int_glob=put(ops.basis_int),  # (ne, D)
+            flux_w=put(np.moveaxis(fw_slots, 0, -1)),  # (G, Km, BS, dim)
+            **{k: (iput(v) if k == "spc_gk" else put(v))
+               for k, v in (refl or {}).items() if k in REFL_KEYS},
             buckets=tuple(
                 dict(
                     bcat=put(bcat[gs][:, :km_b]),
@@ -309,8 +356,26 @@ class SourceIterationSolver:
                         {"dsrc0": put(ring_dsrc0[:, gs, :km_b])}
                         if ring_dsrc0 is not None else {}
                     ),
+                    # periodic wraps stay inside a group: per-bucket tables
+                    **(
+                        dict(
+                            per_cpl=put(per["cpl"][gs]),  # (Gb, P, D, D)
+                            per_cin=put(per["cin"][gs][:, :km_b]),
+                            per_sl=iput(per["sl"][gs]),  # (Gb, P) sources
+                            per_sw=iput(per["sw"][gs]),
+                        )
+                        if per is not None else {}
+                    ),
+                    **(
+                        dict(refl_pl=iput(refl["pl"][gs]),  # (Gb, P)
+                             refl_pw=iput(refl["pw"][gs]))
+                        if refl is not None else {}
+                    ),
+                    # xmap (int32, the kernel's), per_uid, refl_uid
+                    **{k: put(v, torch.int32) if k == "xmap" else iput(v)
+                       for k, v in sc.items()},
                 )
-                for gs, km_b in self._ring_buckets
+                for (gs, km_b), sc in zip(self._ring_buckets, scat)
             ),
         )
         order = np.concatenate([gs for gs, _ in self._ring_buckets])
@@ -319,6 +384,10 @@ class SourceIterationSolver:
         self._inv_order = torch.as_tensor(inv_order, device=device)
         self._bucket_groups = tuple(
             torch.as_tensor(gs, device=device) for gs, _ in self._ring_buckets
+        )
+        self._bucket_gi = tuple(  # (Gb, 1) group index of a bucket
+            torch.arange(len(gs), device=device)[:, None]
+            for gs, _ in self._ring_buckets
         )
         # bf16 state (same opt-in as pbte_tpu): halves the state streams;
         # the product operands and the ring are then bf16 as well, and the
@@ -360,6 +429,7 @@ class SourceIterationSolver:
             * c["valid_slab"][:, :, None, :]
         )  # (L, G, D, W), padded slots zeroed (exact-zero fixed points)
         ttc_all = torch.einsum("ij,lgjw->lgiw", c["massT"], tc_slab)
+        xsrc = self._closure_sources(u)
 
         m_parts = []
         v_new = []
@@ -367,7 +437,7 @@ class SourceIterationSolver:
             ys, ms = self.ring_sweep(
                 u[bi], ttc_all[:, self._bucket_groups[bi]].contiguous(),
                 cb["bsrc0"], cb["cin"], cb["bcat"], cb["macro_w"], c["wvec"],
-                shifts=self.shifts, dsrc=cb.get("dsrc0"),
+                shifts=self.shifts, dsrc=cb.get("dsrc0"), xsrc=xsrc[bi],
                 cast_bf16=self.state_bf16,
             )
             v_new.append(ys)
@@ -382,6 +452,86 @@ class SourceIterationSolver:
         Tv_new = macroscopic.compute_tv(Tc_new, c["basis_int_glob"])
         res = macroscopic.residual(Tv_new, Tv_prev)
         return tuple(v_new), Tc_new, Tv_new, res
+
+    def _closure_sources(self, u):
+        """Per-bucket lagged closure sources from the previous iterate u
+        (the rhs additions of pbte_tpu's ``_step_ring``,
+        ``source_iteration.py:2947-3054``) as the sweep's sparse
+        ``ClosureSource``, in the solver dtype; Nones when the problem has
+        no periodic or reflective faces."""
+        if not (self.has_periodic or self._dif_on or self._spc_on):
+            return (None,) * len(u)
+        c = self.consts
+        acc = self.dtype  # the closure arithmetic (bf16 state upcasts)
+        vg = c["wvec"][3]  # (BS,) non-dimensional group velocity
+        # contributions add up per closure element (corner elements have
+        # several closure faces) in a (Gb, U, Km_b, BS, D) buffer that the
+        # sweep reads through the bucket's slot map xmap
+        sums = [
+            torch.zeros((len(gs), n_u, km_b, self.BS, self.D), dtype=acc,
+                        device=self.device)
+            for (gs, km_b), n_u in zip(self._ring_buckets, self._closure_u)
+        ]
+
+        def add(bi, uid, con):
+            """sums[bi][g, uid[g, p]] += con[g, p]."""
+            n_u = sums[bi].shape[1]
+            rows = (self._bucket_gi[bi] * n_u + uid).reshape(-1)
+            sums[bi].view((-1,) + sums[bi].shape[2:]).index_add_(
+                0, rows, con.reshape((-1,) + con.shape[2:]))
+
+        # periodic: the wrap partner lies in the same group (and bucket)
+        if self.has_periodic:
+            for bi, cb in enumerate(c["buckets"]):
+                gi = self._bucket_gi[bi]
+                v_src = u[bi][cb["per_sl"], gi, :, :, :, cb["per_sw"]].to(acc)
+                con = -torch.einsum(  # (Gb, P, Km_b, BS, D)
+                    "gpij,gkp,b,gpkbj->gpkbi",
+                    cb["per_cpl"], cb["per_cin"], vg, v_src,
+                )
+                add(bi, cb["per_uid"], con)
+
+        # reflective: diffuse sums outgoing flux over every (group, slot) and
+        # the specular mirror slot can lie in any group or bucket, so gather
+        # every bucket's boundary values first, dense over (G, Km)
+        if self._dif_on or self._spc_on:
+            parts = []
+            for bi, (gs, km_b) in enumerate(self._ring_buckets):
+                cb = c["buckets"][bi]
+                vb = u[bi][cb["refl_pl"], self._bucket_gi[bi], :, :, :,
+                           cb["refl_pw"]].to(acc)  # (Gb, P, Km_b, BS, D)
+                if km_b < self.Km:
+                    vb = torch.nn.functional.pad(
+                        vb, (0, 0, 0, 0, 0, self.Km - km_b))
+                parts.append(vb)
+            v_bnd = torch.cat(parts)[self._inv_order]  # (G, P, Km, BS, D)
+            pd = self._refl_Pd
+            cons = []
+            if self._dif_on:
+                out_flux = torch.einsum(
+                    "gkp,pj,gpkbj->bp",
+                    c["dif_wplus"], c["dif_fvec"], v_bnd[:, :pd],
+                )
+                u_in = out_flux * c["dif_norm"]  # (BS, P_d)
+                cons.append(-torch.einsum(
+                    "gkp,b,bp,pi->gpkbi",
+                    c["dif_cin"], vg, u_in, c["dif_fint"],
+                ))
+            if self._spc_on:
+                v_s = v_bnd[:, pd:].transpose(1, 2)  # (G, Km, P_s, BS, D)
+                v_sf = v_s.reshape((-1,) + v_s.shape[2:])  # (G*Km, P_s, ..)
+                p_idx = torch.arange(v_s.shape[2], device=v_s.device)
+                v_m = v_sf[c["spc_gk"], p_idx]  # (G, Km, P_s, BS, D)
+                cons.append(-torch.einsum(
+                    "gkp,b,pij,gkpbj->gpkbi",
+                    c["spc_cin"], vg, c["spc_fmv"], v_m,
+                ))
+            refl_con = torch.cat(cons, dim=1)  # (G, P, Km, BS, D)
+            for bi, (gs, km_b) in enumerate(self._ring_buckets):
+                add(bi, c["buckets"][bi]["refl_uid"],
+                    refl_con[self._bucket_groups[bi], :, :km_b])
+        return tuple(ClosureSource(cb["xmap"], sm)
+                     for cb, sm in zip(c["buckets"], sums))
 
     def solve(self, tol: float = 1e-7, max_iter: int = 101, state=None,
               verbose: bool = True, callback=None, check_every: int = 1):
@@ -440,6 +590,180 @@ class SourceIterationSolver:
         # ring state is v = M^T u: convert to physical coefficients
         return np.einsum("eij,kbej->kbei", self._ring_invMT, out)
 
+    def Tc_fine(self, Tc):
+        """Per-element temperature coefficients (ne, D): the identity here
+        (pbte_tpu de-blocks supercell problems, which this path never
+        builds)."""
+        return Tc
+
+    def heat_flux(self, u):
+        """Heat-flux coefficients Qc (dim, ne, D) and cell integrals Qv
+        (dim, ne) of the bucketed state, on its device."""
+        c = self.consts
+        G, D, ne = self.G, self.D, self.ne
+        parts = []
+        for bi, (gs, km_b) in enumerate(self._ring_buckets):
+            fw = c["flux_w"][self._bucket_groups[bi], :km_b]  # (Gb,Km,BS,dim)
+            p = torch.einsum("gkbd,lgkbiw->gdilw", fw, u[bi].to(self.dtype))
+            parts.append(p.reshape(len(gs), -1, D, self.ne_pad))
+        partial = torch.cat(parts)[self._inv_order]  # (G, dim, D, ne_pad)
+        dim = partial.shape[1]
+        pos = c["pos_of_elem"][:, None, None, :].expand(G, dim, D, ne)
+        Qc = torch.gather(partial, 3, pos).sum(dim=0).transpose(1, 2)
+        # ring state is v = M^T u: convert the flux coefficients
+        Qc = torch.einsum("eij,dej->dei", c["ring_invMT"], Qc)
+        Qv = torch.einsum("dei,ei->de", Qc, c["basis_int_glob"])
+        return Qc, Qv
+
+
+def closure_scatter(L, W, per_pl=None, per_pw=None, refl_pl=None,
+                    refl_pw=None):
+    """Where a bucket's lagged closure contributions land (numpy): per
+    contribution, the row of its target among the distinct (level, slot)
+    targets of its group, ``per_uid`` (Gb, P_per) and ``refl_uid``
+    (Gb, P_refl); and ``xmap`` (L, Gb, W) int32, the row of each slab slot
+    or -1. Inputs are the (Gb, P) (level, slot) pairs of the periodic and
+    the reflective tables (either may be None). Every group of a box lattice
+    holds every element, so each has the same number U of closure
+    elements."""
+    parts = [a * W + b for a, b in ((per_pl, per_pw), (refl_pl, refl_pw))
+             if a is not None]
+    flat = np.concatenate(parts, axis=1)  # (Gb, P_per + P_refl)
+    uniq, uid = zip(*(np.unique(f, return_inverse=True) for f in flat))
+    if len({len(x) for x in uniq}) != 1:
+        raise ValueError("groups have different closure target counts")
+    uniq, uid = np.stack(uniq), np.stack(uid)
+    Gb, U = uniq.shape
+    xmap = np.full((Gb, L * W), -1, dtype=np.int32)
+    xmap[np.arange(Gb)[:, None], uniq] = np.arange(U, dtype=np.int32)
+    out = dict(xmap=np.ascontiguousarray(
+        xmap.reshape(Gb, L, W).transpose(1, 0, 2)))
+    n_per = 0
+    if per_pl is not None:
+        n_per = per_pl.shape[1]
+        out["per_uid"] = uid[:, :n_per]
+    if refl_pl is not None:
+        out["refl_uid"] = uid[:, n_per:]
+    return out
+
+
+def _periodic_tables(ops, perm_safe, pos_valid, pos_of_elem, fdot, invMT, W):
+    """Lagged periodic wraps as per-group slot lists (pbte_tpu's constructor,
+    ``source_iteration.py:1018-1058`` and their ring form at :1346-1361):
+    face f of the element at slab position p wraps to the element at
+    position src of the same group. Returns None without periodic faces,
+    else numpy tables over (G, P), P padded with zero-valid entries:
+    ``cpl`` (G, P, D, D) the coupling folded with the source's M^-T, ``cin``
+    (G, Km, P) the inflow coefficients, and the (level, slot) pairs ``pl``,
+    ``pw`` (destination) and ``sl``, ``sw`` (source)."""
+    if not ops.periodic.any():
+        return None
+    G = perm_safe.shape[0]
+    D = ops.ndof
+    rows = []
+    for g in range(G):
+        e_at = perm_safe[g]
+        # position-major, then face: pbte_tpu's loop order
+        p, f = np.nonzero(pos_valid[g][:, None] & ops.periodic[e_at])
+        e = e_at[p]
+        rows.append((f, p, pos_of_elem[g, ops.neighbor[e, f]],
+                     ops.coupling[e, f]))
+    n_per = max(max(len(r[0]) for r in rows), 1)
+    face = np.zeros((G, n_per), dtype=np.int64)
+    pos = np.zeros((G, n_per), dtype=np.int64)
+    src = np.zeros((G, n_per), dtype=np.int64)
+    cpl = np.zeros((G, n_per, D, D))
+    valid = np.zeros((G, n_per))
+    for g, (f, p, sp, c) in enumerate(rows):
+        n = len(f)
+        face[g, :n], pos[g, :n], src[g, :n], cpl[g, :n] = f, p, sp, c
+        valid[g, :n] = 1.0
+    src_elem = perm_safe[np.arange(G)[:, None], src]
+    cpl = np.einsum("gpij,gpjk->gpik", cpl, invMT[src_elem])
+    gi = np.arange(G)[:, None]
+    cin = (
+        np.minimum(fdot[gi, :, face, pos], 0.0) * valid[:, :, None]
+    ).transpose(0, 2, 1)  # (G, Km, P)
+    return dict(cpl=cpl, cin=cin, pl=pos // W, pw=pos % W, sl=src // W,
+                sw=src % W)
+
+
+def _reflective_tables(ops, quad, dirs_pad, pos_of_elem, invMT, W,
+                       diffuse_bcs, specular_bcs):
+    """Lagged diffuse and specular walls (pbte_tpu's constructor,
+    ``source_iteration.py:1060-1161``). Returns None without reflective
+    faces, else numpy tables: diffuse ``dif_fint`` (P_d, D), ``dif_cin`` and
+    ``dif_wplus`` (G, Km, P_d), ``dif_norm`` (P_d,) and ``dif_fvec``
+    (P_d, D) = fint M^-T; specular ``spc_cin`` (G, Km, P_s), ``spc_gk``
+    (G, Km, P_s) the flat (group, slot) of the mirror direction and
+    ``spc_fmv`` (P_s, D, D) = face mass M^-T; the (level, slot) scatter
+    pairs ``pl``, ``pw`` (G, P_d + P_s), diffuse rows first; and P_d."""
+    dim = ops.dim
+    Km = dirs_pad.shape[1]
+    dir_valid = dirs_pad >= 0
+    dirs_safe = np.where(dir_valid, dirs_pad, 0)
+    dirs_np = quad.directions[:, :dim]
+    w_glob = quad.weights
+    bnd = (ops.neighbor < 0) & ops.face_valid
+    out, pls, pws = {}, [], []
+    rows_d = np.argwhere(np.isin(ops.face_attr, diffuse_bcs) & bnd)
+    if len(rows_d):
+        d_e, d_f = rows_d[:, 0], rows_d[:, 1]
+        n_d = ops.normals[d_e, d_f]  # (P, dim)
+        sdotn_g = np.einsum(
+            "gkd,pd->gkp", dirs_np[dirs_safe], n_d
+        ) * dir_valid[..., None]  # (G, Km, P), padded slots zeroed
+        cn = (
+            w_glob[:, None]
+            * np.maximum(-np.einsum("kd,pd->kp", dirs_np, n_d), 0.0)
+        ).sum(axis=0)  # (P,) incoming-hemisphere weight
+        area = ops.face_int[d_e, d_f].sum(axis=-1)  # |F|
+        fint = ops.face_int[d_e, d_f]
+        pos = pos_of_elem[:, d_e]  # (G, P)
+        out.update(
+            dif_fint=fint,
+            dif_cin=np.minimum(sdotn_g, 0.0),
+            dif_wplus=(w_glob[dirs_safe][..., None] * dir_valid[..., None]
+                       * np.maximum(sdotn_g, 0.0)),
+            dif_norm=1.0 / np.maximum(cn * area, 1e-300),
+            dif_fvec=np.einsum("pi,pij->pj", fint, invMT[d_e]),
+        )
+        pls.append(pos // W)
+        pws.append(pos % W)
+    rows_s = np.argwhere(np.isin(ops.face_attr, specular_bcs) & bnd)
+    if len(rows_s):
+        s_e, s_f = rows_s[:, 0], rows_s[:, 1]
+        n_s = ops.normals[s_e, s_f]  # (P, dim)
+        if np.abs(np.abs(n_s).max(axis=-1) - 1.0).max() > 1e-9:
+            raise ValueError("specular faces must be axis-aligned")
+        ax_p = np.argmax(np.abs(n_s), axis=-1)  # (P,)
+        mirror = mirror_direction_map(
+            quad, dim, axes=set(int(a) for a in ax_p)
+        )  # (dim, K) global-direction map
+        g_of_dir, k_of_dir = planner.dir_slot_maps(dirs_pad)
+        km_glob = np.where(
+            dir_valid[..., None],
+            mirror[ax_p[None, None, :], dirs_safe[..., None]], 0,
+        )  # (G, Km, P)
+        sdotn_g = np.einsum(
+            "gkd,pd->gkp", dirs_np[dirs_safe], n_s
+        ) * dir_valid[..., None]
+        pos = pos_of_elem[:, s_e]
+        out.update(
+            spc_cin=np.minimum(sdotn_g, 0.0),
+            spc_gk=g_of_dir[km_glob] * Km + k_of_dir[km_glob],
+            spc_fmv=np.einsum("pil,plj->pij", ops.face_mass[s_e, s_f],
+                              invMT[s_e]),
+        )
+        pls.append(pos // W)
+        pws.append(pos % W)
+    if not out:
+        return None
+    out["pl"] = np.concatenate(pls, axis=1)
+    out["pw"] = np.concatenate(pws, axis=1)
+    out["Pd"] = len(rows_d)
+    return out
+
 
 @dataclasses.dataclass
 class SolveResult:
@@ -449,3 +773,7 @@ class SolveResult:
     residual: float
     iterations: int
     solver: SourceIterationSolver
+
+    def u_dirs(self):
+        """Direction-major physical coefficients (K, BS, ne, D) (numpy)."""
+        return self.solver.u_by_direction(self.u)

@@ -1,0 +1,150 @@
+"""K2 and K3, the streaming copies: pbte_tpu_torch's plain version and its
+wrappers on CPU tensors against the Pallas copy kernels of
+scripts/bench_pallas_dma.py run by the Pallas interpreter, on the same
+input; and the copy probe's host code. The CUDA kernels run only on a GPU
+and are held bit-exact to their input there by chip_smoke.py."""
+
+import functools
+import importlib.util
+import pathlib
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from pbte_tpu_torch import bench_dma
+from pbte_tpu_torch.ops import dma_copy
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+ROWS = 64  # the (64, 128) f32 input the interpreter copies in well under 1 s
+
+
+@pytest.fixture(scope="module")
+def script():
+    """scripts/bench_pallas_dma.py as a module (nothing in it is edited)."""
+    spec = importlib.util.spec_from_file_location(
+        "bench_pallas_dma", REPO / "scripts" / "bench_pallas_dma.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.fixture
+def interpret(script, monkeypatch):
+    """Run the script's pallas_call under the Pallas interpreter."""
+    monkeypatch.setattr(
+        script.pl, "pallas_call",
+        functools.partial(script.pl.pallas_call, interpret=True))
+    return script
+
+
+def _x(rows=ROWS, seed=0):
+    return np.random.default_rng(seed).standard_normal(
+        (rows, dma_copy.LANE)).astype(np.float32)
+
+
+def _bits(a):
+    return np.asarray(a).view(np.uint32)
+
+
+def test_copy_ref_matches_xla_copy(script):
+    x = _x()
+    want = np.asarray(script.xla_copy()(jnp.asarray(x)))
+    got = dma_copy.copy_ref(torch.from_numpy(x)).numpy()
+    assert np.array_equal(_bits(got), _bits(want))
+    assert np.array_equal(_bits(got), _bits(x))
+
+
+@pytest.mark.parametrize("rows_per_block", [8, 16, 32, 64])
+def test_auto_copy_matches_pallas_interpret(interpret, rows_per_block):
+    x = _x(seed=rows_per_block)
+    want = np.asarray(interpret.auto_copy(rows_per_block, ROWS)(
+        jnp.asarray(x)))
+    got = dma_copy.auto_copy(torch.from_numpy(x), rows_per_block)
+    assert np.array_equal(_bits(got.numpy()), _bits(want))
+    assert torch.equal(got, torch.from_numpy(x))
+
+
+@pytest.mark.parametrize("n_bufs", [2, 3, 4])
+@pytest.mark.parametrize("rows_per_block", [8, 16])
+def test_manual_copy_matches_pallas_interpret(interpret, rows_per_block,
+                                              n_bufs):
+    x = _x(seed=10 * n_bufs + rows_per_block)
+    want = np.asarray(interpret.manual_copy(rows_per_block, ROWS, n_bufs)(
+        jnp.asarray(x)))
+    got = dma_copy.manual_copy(torch.from_numpy(x), rows_per_block, n_bufs)
+    assert np.array_equal(_bits(got.numpy()), _bits(want))
+    assert torch.equal(got, torch.from_numpy(x))
+
+
+@pytest.mark.parametrize("rows", [ROWS + 8, 1000])
+def test_wrappers_copy_ragged_totals_on_cpu(rows):
+    """A total that is not a multiple of the block: exact copies, and CPU
+    tensors never count as kernel launches."""
+    x = torch.from_numpy(_x(rows, seed=rows))
+    before = (dma_copy.auto_copy.launches, dma_copy.manual_copy.launches)
+    assert torch.equal(dma_copy.auto_copy(x, 16), x)
+    assert torch.equal(dma_copy.manual_copy(x, 16, 3), x)
+    assert (dma_copy.auto_copy.launches,
+            dma_copy.manual_copy.launches) == before
+
+
+@pytest.mark.parametrize("case", [
+    "noncontiguous", "not_16_bytes", "empty", "bad_bufs", "too_much_smem",
+    "bad_threads", "zero_rows", "other_device",
+])
+def test_argument_checks(case):
+    """What the kernels do not take raises before any launch (host code,
+    so it runs here)."""
+    x = torch.zeros((32, dma_copy.LANE))
+    call = functools.partial(dma_copy.manual_copy, rows_per_block=8,
+                             n_bufs=2)
+    if case == "noncontiguous":
+        x = x.t()
+    elif case == "not_16_bytes":
+        x = torch.zeros(7)
+    elif case == "empty":
+        x = torch.zeros((0, dma_copy.LANE))
+    elif case == "bad_bufs":
+        call = functools.partial(dma_copy.manual_copy, n_bufs=5)
+    elif case == "too_much_smem":
+        call = functools.partial(dma_copy.manual_copy, rows_per_block=64,
+                                 n_bufs=4)
+    elif case == "bad_threads":
+        call = functools.partial(dma_copy.auto_copy, threads=100)
+    elif case == "zero_rows":
+        call = functools.partial(dma_copy.auto_copy, rows_per_block=0)
+    elif case == "other_device":
+        x = x.to("meta")
+    with pytest.raises(ValueError):
+        call(x)
+
+
+def test_probe_sweep_fits_the_card():
+    """Every row the probe runs fits one CTA's shared memory and covers
+    n_bufs 2, 3, 4; the rows of a total follow the script's rounding."""
+    names = [name for name, _, _ in bench_dma.configs()]
+    assert len(names) == len(set(names))
+    for name, _, info in bench_dma.configs():
+        if info["kernel"] == "K3":
+            assert info["smem_per_cta"] <= dma_copy.SMEM_LIMIT, name
+    bufs = {info["n_bufs"] for _, _, info in bench_dma.configs()
+            if info["kernel"] == "K3"}
+    assert bufs == set(dma_copy.N_BUFS)
+    assert bench_dma.total_rows_for(512) == 1_000_000
+    assert bench_dma.total_rows_for(1) == 1952
+
+
+def test_probe_refuses_tpu_artifacts_and_needs_a_gpu(tmp_path):
+    """The probe never writes bench_artifacts/ (the TPU results) and exits
+    1 without a GPU, writing nothing."""
+    target = REPO / "bench_artifacts" / "pallas_dma_bw.json"
+    before = target.read_bytes()
+    assert bench_dma.main(["--out", str(target)]) == 2
+    assert target.read_bytes() == before
+    out = tmp_path / "dma.json"
+    if not torch.cuda.is_available():
+        assert bench_dma.main(["--out", str(out)]) == 1
+        assert not out.exists()

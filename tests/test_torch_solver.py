@@ -178,7 +178,8 @@ def test_step_hands_the_kernel_what_it_takes(monkeypatch, bf16):
     calls = []
 
     def checked(v, ttc, bsrc, cin, bcat, macro_w, wvec, *, shifts, dsrc,
-                cast_bf16):
+                xsrc, cast_bf16):
+        assert xsrc is None  # no lagged closures on this problem
         tensors = dict(v=v, ttc=ttc, bsrc=bsrc, cin=cin, bcat=bcat,
                        macro_w=macro_w, wvec=wvec, dsrc=dsrc)
         tlr._kernel_args_ok(v, tensors, cast_bf16, shifts)
@@ -223,14 +224,38 @@ def test_whole_slice_f64_vs_xla_ring(case, dirichlet):
                                atol=1e-10 * np.abs(uj).max())
 
 
+@pytest.mark.parametrize("case", ["9x8x8_p1", "8x8x8_p1_two_buckets"])
+def test_views_match_xla_ring(case):
+    """heat_flux (Qc, Qv), SolveResult.u_dirs and Tc_fine against pbte_tpu's
+    in float64, after 3 steps of the XLA ring and of the port."""
+    js, ts = _pair(case, dtype=np.float64, pallas="off")
+    rj = js.solve(tol=0, max_iter=3, verbose=False)
+    rt = ts.solve(tol=0, max_iter=3, verbose=False)
+    Qc_j, Qv_j = (np.asarray(q) for q in js.heat_flux(rj.u))
+    Qc, Qv = ts.heat_flux(rt.u)
+    assert Qc.shape == (3, ts.ne, ts.D) and Qv.shape == (3, ts.ne)
+    for got, want in ((Qc, Qc_j), (Qv, Qv_j)):
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-10,
+                                   atol=1e-10 * np.abs(want).max())
+    uj = rj.u_dirs()
+    np.testing.assert_allclose(rt.u_dirs(), uj, rtol=1e-10,
+                               atol=1e-10 * np.abs(uj).max())
+    assert ts.Tc_fine(rt.Tc) is rt.Tc
+    np.testing.assert_allclose(ts.Tc_fine(rt.Tc).numpy(),
+                               js.Tc_fine(rj.Tc), rtol=1e-10,
+                               atol=1e-10 * np.abs(np.asarray(rj.Tc)).max())
+
+
 def test_golden_file_is_current():
-    """Regenerating the committed golden from pbte_tpu reproduces it."""
-    fresh = torch_golden.build()
-    with np.load(torch_golden.PATH) as d:
-        assert sorted(d.files) == sorted(fresh)
-        for key in d.files:
-            np.testing.assert_allclose(fresh[key], d[key], rtol=1e-6,
-                                       err_msg=key)
+    """Regenerating the committed goldens from pbte_tpu reproduces them:
+    the Pallas-path golden and the XLA-ring closure golden."""
+    for path, build in torch_golden.GOLDENS.items():
+        fresh = build()
+        with np.load(path) as d:
+            assert sorted(d.files) == sorted(fresh), path.name
+            for key in d.files:
+                np.testing.assert_allclose(fresh[key], d[key], rtol=1e-6,
+                                           err_msg=f"{path.name}: {key}")
 
 
 def test_port_matches_golden_on_cpu():
@@ -252,16 +277,35 @@ def _gate_raises(prob, bcs, **kw):
 
 
 def test_gate_periodic():
-    m = pmesh.make_periodic(
-        pmesh.make_cartesian_3d(8, 8, 8, "hex").scaled(1e-6), [0])
-    ops = assembly.assemble(pmesh.connect(m), order=1, face_mode="consistent")
+    """Periodic wraps on the single-class lattice are taken (lagged through
+    the sweep's xsrc); a periodic mesh below 512 elements has several
+    geometry classes and still raises."""
+    def periodic_ops(n):
+        m = pmesh.make_periodic(
+            pmesh.make_cartesian_3d(n, n, n, "hex").scaled(1e-6), [0])
+        return assembly.assemble(pmesh.connect(m), order=1,
+                                 face_mode="consistent")
+
     _, quad, tables = _problem("9x8x8_p1")
-    _gate_raises((ops, quad, tables), {3: -0.5, 4: 0.5, 5: -0.5, 6: 0.5})
+    bcs = {1: -0.5, 2: -0.5, 4: -0.5, 6: 0.5}  # x faces wrap (no attr)
+    ts = SourceIterationSolver(periodic_ops(8), quad, tables, bcs)
+    assert ts.has_periodic and "per_cpl" in ts.consts["buckets"][0]
+    _gate_raises((periodic_ops(7), quad, tables), bcs)
 
 
 @pytest.mark.parametrize("kind", ["diffuse_bcs", "specular_bcs"])
 def test_gate_reflective(kind):
-    _gate_raises(_problem("9x8x8_p1"), {5: -0.5, 3: 0.5}, **{kind: [1, 2]})
+    """Reflective walls on the lattice are taken and need no temperature;
+    below 512 elements (several classes) the gate still raises."""
+    bcs = {5: -0.5, 3: 0.5}
+    ts = SourceIterationSolver(*_problem("9x8x8_p1"), bcs,
+                               **{kind: [1, 2, 4, 6]})
+    on = ts._dif_on if kind == "diffuse_bcs" else ts._spc_on
+    assert on and "refl_pl" in ts.consts["buckets"][0]
+    _gate_raises(unit_cube(7, 7, 7, order=1, polar=2, azimuth=4, nspec=2),
+                 bcs, **{kind: [1, 2, 4, 6]})
+    with pytest.raises(ValueError, match="without isothermal BC"):
+        SourceIterationSolver(*_problem("9x8x8_p1"), bcs, **{kind: [1, 2]})
 
 
 def test_gate_tet_mesh():

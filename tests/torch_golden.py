@@ -1,24 +1,50 @@
-"""Golden Tc of pbte_tpu's Pallas lattice-ring path, for the CUDA port.
+"""Golden Tc of pbte_tpu's lattice-ring paths, for the CUDA port.
 
 ``build()`` runs pbte_tpu's SourceIterationSolver with ``use_pallas="on"``
 (the Pallas kernel under the Pallas interpreter on the CPU, f32, exact
 operands) on a hex 8^3, p=2, 8-direction, nspec=2 problem with the flagship
-walls, 5 outer steps from the zero state. ``python tests/torch_golden.py``
-writes the result to ``tests/data/torch_port_golden.npz``;
-tests/test_torch_solver.py regenerates it and checks it against the
-committed file, and chip_smoke.py holds pbte_tpu_torch's CUDA kernel path
-on a GPU to it.
+walls, 5 outer steps from the zero state.
+
+``build_closures()`` runs its XLA ring (``sweep_mode="ring"``, f32 with the
+bf16 operand staging off, ``PBTE_RING_BF16=0``) on a hex 8^3, p=1,
+8-direction, nspec=2 problem with all three lagged closures: x faces
+periodic, z faces isothermal, one y face diffuse and the other specular;
+5 outer steps from the zero state.
+
+``python tests/torch_golden.py`` writes both to ``tests/data/``;
+tests/test_torch_solver.py regenerates them and checks them against the
+committed files, and chip_smoke.py holds pbte_tpu_torch's CUDA kernel path
+on a GPU to them.
 """
 
 from __future__ import annotations
 
+import os
 import pathlib
 
 import numpy as np
 
-PATH = pathlib.Path(__file__).resolve().parent / "data" / "torch_port_golden.npz"
+DATA = pathlib.Path(__file__).resolve().parent / "data"
+PATH = DATA / "torch_port_golden.npz"
 PARAMS = dict(nx=8, ny=8, nz=8, order=2, polar=2, azimuth=4, nspec=2)
 STEPS = 5
+
+PATH_CLOSURES = DATA / "torch_port_golden_closures.npz"
+CLOSURE_PARAMS = dict(nx=8, ny=8, nz=8, order=1, polar=2, azimuth=4, nspec=2)
+CLOSURE_PERIODIC = (0,)
+CLOSURE_BCS = {1: -0.5, 6: 0.5}
+CLOSURE_DIFFUSE = (2,)
+CLOSURE_SPECULAR = (4,)
+
+
+def _steps(s):
+    u, Tc, Tv = s.initial_state()
+    tcs, res = [], []
+    for _ in range(STEPS):
+        u, Tc, Tv, r = s.step(u, Tc, Tv)
+        tcs.append(np.asarray(Tc))
+        res.append(float(r))
+    return np.stack(tcs), np.array(res)
 
 
 def build() -> dict:
@@ -31,21 +57,66 @@ def build() -> dict:
                               dtype=jnp.float32, use_pallas="on")
     if not (s._use_pallas_ring and s._pallas_interpret):
         raise RuntimeError("the golden must come from the Pallas kernel path")
-    u, Tc, Tv = s.initial_state()
-    tcs, res = [], []
-    for _ in range(STEPS):
-        u, Tc, Tv, r = s.step(u, Tc, Tv)
-        tcs.append(np.asarray(Tc))
-        res.append(float(r))
+    tcs, res = _steps(s)
     attrs = sorted(WALL_BCS)
     return dict(
         **{k: np.int64(v) for k, v in PARAMS.items()},
         steps=np.int64(STEPS),
         bc_attrs=np.array(attrs, dtype=np.int64),
         bc_temps=np.array([WALL_BCS[a] for a in attrs]),
-        Tc=np.stack(tcs),  # (steps, ne, D) f32, Tc after each step
-        residual=np.array(res),
+        Tc=tcs,  # (steps, ne, D) f32, Tc after each step
+        residual=res,
     )
+
+
+def closure_solver_args(d) -> tuple:
+    """(problem, bc_temps, solver keywords) of a closure golden's fields."""
+    from pbte_tpu_torch.problem import unit_cube
+
+    params = {k: int(d[k]) for k in CLOSURE_PARAMS}
+    prob = unit_cube(**params, periodic=tuple(int(a) for a in d["periodic"]))
+    bcs = dict(zip(np.asarray(d["bc_attrs"]).tolist(),
+                   np.asarray(d["bc_temps"]).tolist()))
+    kw = dict(diffuse_bcs=np.asarray(d["diffuse"]).tolist(),
+              specular_bcs=np.asarray(d["specular"]).tolist())
+    return prob, bcs, kw
+
+
+def build_closures() -> dict:
+    import jax.numpy as jnp
+
+    from pbte_tpu.solver.source_iteration import SourceIterationSolver
+
+    attrs = sorted(CLOSURE_BCS)
+    fields = dict(
+        **{k: np.int64(v) for k, v in CLOSURE_PARAMS.items()},
+        steps=np.int64(STEPS),
+        periodic=np.array(CLOSURE_PERIODIC, dtype=np.int64),
+        bc_attrs=np.array(attrs, dtype=np.int64),
+        bc_temps=np.array([CLOSURE_BCS[a] for a in attrs]),
+        diffuse=np.array(CLOSURE_DIFFUSE, dtype=np.int64),
+        specular=np.array(CLOSURE_SPECULAR, dtype=np.int64),
+    )
+    prob, bcs, kw = closure_solver_args(fields)
+    old = os.environ.get("PBTE_RING_BF16")
+    os.environ["PBTE_RING_BF16"] = "0"
+    try:
+        s = SourceIterationSolver(*prob, bcs, dtype=jnp.float32,
+                                  sweep_mode="ring", use_pallas="off", **kw)
+    finally:
+        if old is None:
+            del os.environ["PBTE_RING_BF16"]
+        else:
+            os.environ["PBTE_RING_BF16"] = old
+    if not (s.sweep_mode == "ring" and s._ring_lattice and s.has_periodic
+            and s._dif_on and s._spc_on and not s._ring_stage_bf16):
+        raise RuntimeError("the closure golden must come from the f32 XLA "
+                           "lattice ring with all three closures")
+    tcs, res = _steps(s)
+    return dict(fields, Tc=tcs, residual=res)
+
+
+GOLDENS = {PATH: build, PATH_CLOSURES: build_closures}
 
 
 if __name__ == "__main__":
@@ -57,6 +128,7 @@ if __name__ == "__main__":
     # the test environment's settings (tests/conftest.py)
     jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_enable_x64", True)
-    PATH.parent.mkdir(parents=True, exist_ok=True)
-    np.savez_compressed(PATH, **build())
-    print(f"wrote {PATH}")
+    DATA.mkdir(parents=True, exist_ok=True)
+    for path, fn in GOLDENS.items():
+        np.savez_compressed(path, **fn())
+        print(f"wrote {path}")
