@@ -12,15 +12,19 @@ Phases (a failing phase raises and the script exits non-zero):
 1. versions, the device and its power limit (no GPU: exit 1);
 2. nvcc builds of pbte_tpu_torch/csrc/lattice_ring.cu (K1) and
    csrc/dma_copy.cu (K2, K3), concurrently, with the ptxas register /
-   shared-memory reports;
+   shared-memory reports of every kernel;
 3. K1 vs plain version at the flagship's two Km-bucket shapes, with the
    solver's real operators and seeded random state, for f32 state, bf16
    state, a Dirichlet source and a random sparse lagged closure source:
    errors and CUDA-event times;
-4. the copy probe (python -m pbte_tpu_torch.bench_dma) at 512 MB f32: every
-   K2 and K3 configuration held bit-exact (torch.equal) to its input and to
-   the plain copy, then the probe's sweep with the launch counts read around
-   it; GB/s, and K1's bucket-0 bytes/s as a share of the best copy rate;
+4. the copy probe (python -m pbte_tpu_torch.bench_dma): every K2 and K3
+   configuration held bit-exact (torch.equal) to its input at small and
+   ragged totals (one vector, a block less 16 bytes, a block plus 16 bytes,
+   fewer blocks than CTAs, many blocks and a ragged end), then at 512 MB
+   f32 to its input and to the plain copy, then the probe's sweep (each row
+   timed in turns with the plain copy) with the launch counts read around
+   it; GB/s, the kernel/plain rate ratios, and K1's bucket-0 bytes/s as a
+   share of the best copy rate;
 5. the flagship (hex 16^3, p=2, 64 directions x 40 bands, f32): setup, 2
    warm-up + 30 timed steps, ms/step, element-ordinate DOF/s, peak memory,
    residuals, kernel launches; then 3 steps through the kernel and through
@@ -179,9 +183,41 @@ def k1_bytes(row):
     return state, state + side
 
 
+def edge_totals(block):
+    """Small and ragged totals in bytes for a kernel of `block`-byte tiles or
+    stages: one 16-byte vector, below one block, one block plus 16 bytes,
+    fewer blocks than the card has CTAs, and many blocks with a ragged end."""
+    return (16, block - 16, block + 16, 7 * block + 48,
+            1000 * block + 4096 + 16)
+
+
+def phase_dma_edges(dma, bench_dma):
+    """Every K2 and K3 configuration bit-exact at the edge totals."""
+    cfgs = bench_dma.configs()
+    blocks = [info.get("tile_bytes", info.get("stage_bytes"))
+              for _, _, info in cfgs]
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    big = torch.randn(max(max(edge_totals(b)) for b in blocks) // 4,
+                      generator=gen, device="cuda")
+    n = 0
+    for (name, fn, _), block in zip(cfgs, blocks):
+        for total in edge_totals(block):
+            x = big[:total // 4]
+            y = fn(x)
+            torch.cuda.synchronize()
+            if not torch.equal(y, x):
+                raise RuntimeError(f"{name}: the copy of {total} B differs "
+                                   f"from its input")
+            n += 1
+    log(f"[smoke] dma {len(cfgs)} kernel configurations bit-exact at the "
+        f"small and ragged totals: {n} copies")
+
+
 def phase_dma(dma, bench_dma):
-    """K2 and K3 against the plain copy at 512 MB, then the probe's sweep
-    (its main path) with the launch counts read around it."""
+    """K2 and K3 at the edge totals and against the plain copy at 512 MB,
+    then the probe's sweep (its main path) with the launch counts read
+    around it."""
+    phase_dma_edges(dma, bench_dma)
     rows = bench_dma.total_rows_for(DMA_TOTAL_MB)
     gen = torch.Generator(device="cuda").manual_seed(1)
     x = torch.randn((rows, dma.LANE), generator=gen, device="cuda")
@@ -206,8 +242,14 @@ def phase_dma(dma, bench_dma):
                 "manual": dma.manual_copy.launches}
     log("[smoke] dma probe " + json.dumps(res))
     for name, gbs in res["gbs"].items():
-        log(f"[smoke] dma {name:18s} {res['ms'][name]:8.4f} ms "
-            f"{gbs:8.1f} GB/s")
+        line = (f"[smoke] dma {name:15s} {res['ms'][name]:8.4f} ms "
+                f"{gbs:8.1f} GB/s")
+        if name in res["rate_vs_plain"]:
+            r = res["rate_vs_plain"][name]
+            line += (f"  plain {res['plain_ms'][name]:.4f} ms, rate x"
+                     f"{r['median']:.4f} of plain [{r['min']:.4f}, "
+                     f"{r['max']:.4f}]")
+        log(line)
     if min(launches.values()) < 1:
         raise RuntimeError(f"the probe launched a copy kernel no time: "
                            f"{launches}")
@@ -378,9 +420,14 @@ def main() -> int:
         f"golden rel {closure_rel:.3e}; on {card}")
 
     def best_row(prefix):
+        """The fastest row of a kernel: its paired median ms and the plain
+        copy's median ms of the same rounds."""
         name = min((n for n in dma_res["ms"] if n.startswith(prefix)),
                    key=dma_res["ms"].get)
-        return dma_res["ms"][name]
+        return dma_res["ms"][name], dma_res["plain_ms"][name]
+
+    auto_ms, auto_plain_ms = best_row("auto/")
+    manual_ms, manual_plain_ms = best_row("manual/")
 
     log(json.dumps({"kernels": [
         {
@@ -401,8 +448,8 @@ def main() -> int:
             "replaces": "scripts/bench_pallas_dma.py:76",
             "launches": dma_launches["auto"],
             "max_abs_err": dma_errs["auto"],
-            "ms": best_row("auto/"),
-            "plain_ms": dma_res["ms"]["plain"],
+            "ms": auto_ms,
+            "plain_ms": auto_plain_ms,
         },
         {
             "name": "dma_manual_copy",
@@ -411,8 +458,8 @@ def main() -> int:
             "replaces": "scripts/bench_pallas_dma.py:140",
             "launches": dma_launches["manual"],
             "max_abs_err": dma_errs["manual"],
-            "ms": best_row("manual/"),
-            "plain_ms": dma_res["ms"]["plain"],
+            "ms": manual_ms,
+            "plain_ms": manual_plain_ms,
         },
     ]}))
     log(card)

@@ -14,8 +14,11 @@ write, as the script counts them:
 The script's 0.5-8 MB blocks are TPU VMEM tiles; a CTA has 227 KB of shared
 memory, so the sweep here is in per-CTA tile and stage bytes, and the JSON
 records that mapping. Every output is checked with ``torch.equal`` against
-the input. Times are CUDA-event means over ``--reps`` launches after one
-warm-up.
+the input. Each kernel row is timed in turns with the plain copy: ``ROUNDS``
+rounds, each a CUDA-event window of ``--reps`` launches of the kernel and one
+of the plain copy, in alternating order. A row reports the median of its
+kernel windows, the median of its plain windows, and the kernel's rate over
+the plain rate per round (median, min, max).
 
 Usage (on a machine with a CUDA GPU)::
 
@@ -32,6 +35,7 @@ import argparse
 import json
 import os
 import pathlib
+import statistics
 import subprocess
 import sys
 
@@ -41,8 +45,8 @@ from pbte_tpu_torch.ops import dma_copy
 
 SUB = 8  # the script rounds rows to its sublane count
 AUTO_ROWS = (8, 16, 32, 64, 128)  # K2 tiles of 4-64 KB
-AUTO_THREADS = 256
 MANUAL_ROWS = (16, 32, 48)  # K3 stages of 8, 16 and 24 KB
+ROUNDS = 7
 _TPU_ARTIFACTS = pathlib.Path(__file__).resolve().parent.parent / "bench_artifacts"
 
 
@@ -68,9 +72,10 @@ def configs():
         kb = r * dma_copy.ROW_BYTES // 1024
         rows.append((
             f"auto/{kb}KB",
-            lambda x, r=r: dma_copy.auto_copy(x, r, AUTO_THREADS),
+            lambda x, r=r: dma_copy.auto_copy(x, r),
             dict(kernel="K2", tile_bytes=r * dma_copy.ROW_BYTES,
-                 rows_per_block=r, threads=AUTO_THREADS),
+                 rows_per_block=r, threads=dma_copy.auto_threads(r),
+                 smem_per_cta=dma_copy.auto_smem_bytes(r)),
         ))
     for r in MANUAL_ROWS:
         kb = r * dma_copy.ROW_BYTES // 1024
@@ -85,32 +90,45 @@ def configs():
     return rows
 
 
-def _time_ms(fn, x, reps):
-    """Mean CUDA-event ms of fn(x) over reps launches, after one warm-up."""
+def time_paired(fn, plain, x, reps):
+    """fn(x) and plain(x) in turns after one warm-up each: ``ROUNDS`` rounds
+    of one CUDA-event window of ``reps`` launches of each, the order
+    alternating from round to round. One untimed launch goes ahead of each
+    window, so the window opens with the device busy and the host's launch
+    cost stays out of it. Returns (fn ms, plain ms), one mean per window."""
     fn(x)
+    plain(x)
     torch.cuda.synchronize()
-    e0 = torch.cuda.Event(enable_timing=True)
-    e1 = torch.cuda.Event(enable_timing=True)
-    e0.record()
-    for _ in range(reps):
-        fn(x)
-    e1.record()
-    torch.cuda.synchronize()
-    return e0.elapsed_time(e1) / reps
+    got = {fn: [], plain: []}
+    for r in range(ROUNDS):
+        for f in ((plain, fn) if r % 2 == 0 else (fn, plain)):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            f(x)
+            e0.record()
+            for _ in range(reps):
+                f(x)
+            e1.record()
+            torch.cuda.synchronize()
+            got[f].append(e0.elapsed_time(e1) / reps)
+    return got[fn], got[plain]
 
 
 def run(total_mb: float = 512.0, reps: int = 20, seed: int = 0) -> dict:
-    """Check and time every row on the current CUDA device; returns the
-    result dict. Raises if an output differs from the input."""
+    """Check and time every row on the current CUDA device, each kernel row
+    in turns with the plain copy; returns the result dict. Raises if an
+    output differs from the input."""
     if not torch.cuda.is_available():
         raise RuntimeError("the copy probe runs on a CUDA GPU only")
     rows = total_rows_for(total_mb)
     gen = torch.Generator(device="cuda").manual_seed(seed)
     x = torch.randn((rows, dma_copy.LANE), generator=gen, device="cuda")
     nbytes = 2 * x.numel() * x.element_size()  # read + write
-    table = [("plain", dma_copy.copy_ref, dict(kernel="plain"))] + configs()
-    gbs, ms, mapping = {}, {}, {}
-    for name, fn, info in table:
+    plain = dma_copy.copy_ref
+    gbs, ms, plain_ms, vs_plain = {}, {}, {}, {}
+    mapping = {"plain": dict(kernel="plain")}
+    all_plain = []
+    for name, fn, info in configs():
         y = fn(x)
         torch.cuda.synchronize()
         if not torch.equal(y, x):
@@ -118,13 +136,19 @@ def run(total_mb: float = 512.0, reps: int = 20, seed: int = 0) -> dict:
         del y
         if info["kernel"] == "K3":
             info = dict(info, grid=dma_copy.manual_copy.last_grid)
-        elif info["kernel"] == "K2":
-            tile = info["tile_bytes"]
-            info = dict(info, grid=-(-(nbytes // 2) // tile))
-        t = _time_ms(fn, x, reps)
-        ms[name] = t
-        gbs[name] = nbytes / (t * 1e-3) / 1e9
+        else:
+            info = dict(info, grid=-(-(nbytes // 2) // info["tile_bytes"]))
+        k, p = time_paired(fn, plain, x, reps)
+        all_plain += p
+        ms[name] = statistics.median(k)
+        plain_ms[name] = statistics.median(p)
+        ratio = [b / a for a, b in zip(k, p)]  # kernel rate / plain rate
+        vs_plain[name] = {"median": statistics.median(ratio),
+                          "min": min(ratio), "max": max(ratio)}
+        gbs[name] = nbytes / (ms[name] * 1e-3) / 1e9
         mapping[name] = info
+    ms["plain"] = statistics.median(all_plain)
+    gbs["plain"] = nbytes / (ms["plain"] * 1e-3) / 1e9
     best = max(gbs, key=gbs.get)
     return {
         "metric": "dma_copy_bandwidth",
@@ -135,12 +159,19 @@ def run(total_mb: float = 512.0, reps: int = 20, seed: int = 0) -> dict:
         "bytes_per_call": nbytes,
         "gbs": gbs,
         "ms": ms,
+        "plain_ms": plain_ms,
+        "rate_vs_plain": vs_plain,
         "best": {"name": best, "gbs": gbs[best]},
         "mapping": mapping,
         "tpu_sweep": "scripts/bench_pallas_dma.py swept 0.5-8 MB VMEM "
                      "blocks; here per-CTA tile (K2) and stage (K3) bytes",
-        "protocol": f"CUDA events, mean of {reps} launches after 1 warm-up, "
-                    "bytes = read + write, every output torch.equal to x",
+        "protocol": f"CUDA events; each kernel row in turns with the plain "
+                    f"copy, {ROUNDS} rounds of one {reps}-launch window each "
+                    f"after 1 warm-up, 1 untimed launch ahead of each "
+                    f"window; ms = median window, plain_ms = the plain "
+                    f"median of the same rounds, ms['plain'] = median of "
+                    f"every plain window; bytes = read + write, every output "
+                    f"torch.equal to x",
     }
 
 

@@ -9,9 +9,11 @@ The CUDA kernels are in ``csrc/dma_copy.cu``.
 
 The TPU blocks are VMEM tiles of 0.5-8 MB; a CTA has at most 227 KB of shared
 memory, so the port's sweep parameters are per-CTA bytes instead: K2's tile
-(``rows_per_block`` rows of 128 float32 per CTA, moved through registers)
+(``rows_per_block`` rows of 128 float32 per CTA, moved into shared memory and
+back by two TMA bulk copies, ``threads`` setting how many CTAs share an SM)
 and K3's stage (``rows_per_block`` rows per pipeline stage, ``n_bufs``
-stages in and ``n_bufs`` out per persistent CTA).
+stages in and ``n_bufs`` out per persistent CTA, with warp-specialised
+producer, worker and store roles).
 
 ``auto_copy`` and ``manual_copy`` take the plain version for CPU tensors
 and launch their kernel for CUDA tensors; they never fall back from one to
@@ -21,6 +23,7 @@ the other. Each launch adds one to the wrapper's ``launches``.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -30,8 +33,16 @@ LANE = 128  # float32 values per row, the script's lane width
 ROW_BYTES = LANE * 4
 VEC_BYTES = 16  # both kernels move whole 16-byte vectors
 SMEM_LIMIT = 232448  # bytes of shared memory one CTA may use on Hopper
-MANUAL_BARRIER_BYTES = 128  # the mbarriers ahead of K3's stage buffers
 N_BUFS = (2, 3, 4)
+SM_THREADS = 2048  # threads one Hopper SM holds at once
+# K2's tile bytes in flight per SM: more CTAs per SM than this lowered the
+# copy rate on an H100 (PERF.md, PR 3)
+AUTO_SM_BYTES = 32 * 1024
+# the block ahead of the buffers (csrc/dma_copy.cu kBarrierBytes): K3's four
+# mbarrier sets (full, empty, out_ready, out_free) and its two slot -> chunk
+# tables, max(N_BUFS) 8-byte entries each, padded to 128 bytes; K2 uses one
+# mbarrier of it
+BARRIER_BYTES = -(-(4 + 2) * max(N_BUFS) * 8 // 128) * 128
 
 
 def copy_ref(x: torch.Tensor) -> torch.Tensor:
@@ -39,10 +50,15 @@ def copy_ref(x: torch.Tensor) -> torch.Tensor:
     return x + 0.0
 
 
+def auto_smem_bytes(rows_per_block: int) -> int:
+    """Shared memory of one K2 CTA: the mbarrier block, then the tile."""
+    return BARRIER_BYTES + rows_per_block * ROW_BYTES
+
+
 def manual_smem_bytes(rows_per_block: int, n_bufs: int) -> int:
-    """Shared memory of one K3 CTA: the mbarriers, then n_bufs input and
-    n_bufs output stages of rows_per_block rows."""
-    return MANUAL_BARRIER_BYTES + 2 * n_bufs * rows_per_block * ROW_BYTES
+    """Shared memory of one K3 CTA: the mbarrier block, then n_bufs input
+    and n_bufs output stages of rows_per_block rows."""
+    return BARRIER_BYTES + 2 * n_bufs * rows_per_block * ROW_BYTES
 
 
 def _check(x, rows_per_block, name):
@@ -68,6 +84,7 @@ def _raise_on(lib, err, name):
         raise RuntimeError(f"{name} kernel launch failed: {msg} ({err})")
 
 
+@functools.cache
 def _lib():
     lib = _build.load("dma_copy").lib
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -87,15 +104,33 @@ def _device(x, name):
     return x.device.type
 
 
+def auto_threads(rows_per_block: int) -> int:
+    """K2's CTA size for a tile of rows_per_block rows: enough threads that
+    the CTAs sharing an SM (SM_THREADS / threads of them) hold about
+    AUTO_SM_BYTES of tiles, within [32, 1024]."""
+    tile = rows_per_block * ROW_BYTES
+    return min(1024, max(32, SM_THREADS * tile // AUTO_SM_BYTES))
+
+
 def auto_copy(x: torch.Tensor, rows_per_block: int = 32,
-              threads: int = 256) -> torch.Tensor:
+              threads: int | None = None) -> torch.Tensor:
     """K2: y = x, one CTA of ``threads`` threads per tile of
     ``rows_per_block`` rows of 128 float32 (``rows_per_block * 512``
-    bytes), through registers."""
+    bytes); its thread 0 moves the tile into shared memory and back with
+    two TMA bulk copies. The other threads do nothing: the CTA size only
+    sets how many tiles share an SM (default ``auto_threads``)."""
+    if threads is None:
+        threads = auto_threads(rows_per_block)
     _check(x, rows_per_block, "auto_copy")
     if threads < 32 or threads > 1024 or threads % 32:
         raise ValueError(f"auto_copy: threads must be a multiple of 32 in "
                          f"[32, 1024], got {threads}")
+    smem = auto_smem_bytes(rows_per_block)
+    if smem > SMEM_LIMIT:
+        raise ValueError(
+            f"auto_copy: a tile of {rows_per_block} rows needs {smem} B of "
+            f"shared memory, a CTA has {SMEM_LIMIT}"
+        )
     if _device(x, "auto_copy") == "cpu":
         return copy_ref(x)
     _check_cuda(x, "auto_copy")
