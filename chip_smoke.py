@@ -16,7 +16,9 @@ Phases (a failing phase raises and the script exits non-zero):
 3. K1 vs plain version at the flagship's two Km-bucket shapes, with the
    solver's real operators and seeded random state, for f32 state, bf16
    state, a Dirichlet source and a random sparse lagged closure source:
-   errors and CUDA-event times;
+   errors, CUDA-event times, and each launch's bound (the larger of its
+   bytes over 3.35 TB/s and its flop over the tensor-core peak of its
+   state type) with the share of it the kernel reaches;
 4. the copy probe (python -m pbte_tpu_torch.bench_dma): every K2 and K3
    configuration held bit-exact (torch.equal) to its input at small and
    ragged totals (one vector, a block less 16 bytes, a block plus 16 bytes,
@@ -157,12 +159,23 @@ def phase_kernel_vs_plain(solver, lr):
             lambda: lr.lattice_ring_sweep_ref(*args, **kw),
             TIMED_LAUNCHES,
         )
+        nf = len(solver.shifts)
+        nbytes, flop = lr.sweep_cost(v, nf, dsrc, xsrc)
+        bound_ms, bound_by = lr.sweep_bound_ms(v, nf, dsrc, xsrc)
         row = dict(bucket=bi, shape=list(v.shape), state=state,
                    dirichlet=dirichlet, xsrc=closure, ys_rel=ys_rel,
                    ys_abs=ys_abs,
                    ys_ulps_of_max=ys_ulps, ms_rel=ms_rel, ms_abs=ms_abs,
-                   tolerance=tol, kernel_ms=k_ms, plain_ms=p_ms, ok=ok)
+                   tolerance=tol, kernel_ms=k_ms, plain_ms=p_ms,
+                   bytes=nbytes, flop=flop, bound_ms=bound_ms,
+                   bound_by=bound_by, share_of_bound=bound_ms / k_ms, ok=ok)
         log("[smoke] kernel vs plain " + json.dumps(row))
+        log(f"[smoke] K1 bucket {bi} {state}"
+            f"{' dirichlet' if dirichlet else ''}"
+            f"{' closure' if closure else ''}: kernel {k_ms:.4f} ms, plain "
+            f"{p_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
+            f"{nbytes / 1e9:.3f} GB, {flop / 1e9:.1f} Gflop), "
+            f"{bound_ms / k_ms:.3f} of the bound")
         if not ok:
             raise RuntimeError(f"kernel disagrees with the plain version: {row}")
         rows.append(row)
@@ -171,16 +184,20 @@ def phase_kernel_vs_plain(solver, lr):
     return rows
 
 
-def k1_bytes(row):
-    """Bytes one K1 launch must move at a phase-3 shape: the state streams
-    (v in, ys out) and every operand (plus ttc, bsrc, cin, bcat, macro_w,
-    wvec in, the ms partials out), f32."""
-    L, Gb, Km, BS, D, W = row["shape"]
-    state = 2 * L * Gb * Km * BS * D * W * 4
-    side = (L * Gb * D * W + L * Gb * Km * D * W + L * Gb * Km * 3 * W
-            + Gb * Km * BS * D * 4 * D + Gb * Km * BS + 4 * BS
-            + Gb * Km * L * D * W) * 4
-    return state, state + side
+def check_k1_smem(solver, lr):
+    """The wrapper's shared-memory check (lr.kernel_smem_bytes) against the
+    kernel's own carve-up, at the flagship's shapes in both modes."""
+    lib = lr._lib()
+    W, D, nf = solver.W, solver.D, len(solver.shifts)
+    for cast in (0, 1):
+        got = lib.pbte_lattice_ring_smem_bytes(cast, D, W, nf)
+        want = lr.kernel_smem_bytes(D, W, nf, bool(cast))
+        if got != want:
+            raise RuntimeError(f"K1 shared memory: the kernel takes {got} B, "
+                               f"the wrapper checks {want} B (cast={cast})")
+    log(f"[smoke] K1 shared memory per CTA at D={D} W={W}: f32 "
+        f"{lr.kernel_smem_bytes(D, W, nf, False)} B, bf16 "
+        f"{lr.kernel_smem_bytes(D, W, nf, True)} B")
 
 
 def edge_totals(block):
@@ -380,15 +397,18 @@ def main() -> int:
     problem = unit_cube(**FLAGSHIP)
     solver, setup_s = build_flagship(SourceIterationSolver, problem,
                                      "flagship", bc_temps=WALL_BCS)
+    check_k1_smem(solver, lr)
     rows = phase_kernel_vs_plain(solver, lr)
     dma_res, dma_launches, dma_errs = phase_dma(dma, bench_dma)
     best = dma_res["best"]
-    state_b, all_b = k1_bytes(rows[0])
+    all_b = rows[0]["bytes"]
     k1_gbs = all_b / (rows[0]["kernel_ms"] * 1e-3) / 1e9
-    log(f"[smoke] K1 bucket 0 f32: {state_b} B state streams, {all_b} B in "
-        f"all in {rows[0]['kernel_ms']:.3f} ms = {k1_gbs:.1f} GB/s, "
+    log(f"[smoke] K1 bucket 0 f32: {all_b} B in all in "
+        f"{rows[0]['kernel_ms']:.3f} ms = {k1_gbs:.1f} GB/s, "
         f"{k1_gbs / best['gbs']:.3f} of the best copy rate "
-        f"({best['name']}, {best['gbs']:.1f} GB/s), on {card}")
+        f"({best['name']}, {best['gbs']:.1f} GB/s), "
+        f"{rows[0]['share_of_bound']:.3f} of the {rows[0]['bound_ms']:.3f} ms "
+        f"bound, on {card}")
 
     launches, flag = phase_flagship(solver, lr, setup_s, "flagship")
     del solver
@@ -428,6 +448,8 @@ def main() -> int:
 
     auto_ms, auto_plain_ms = best_row("auto/")
     manual_ms, manual_plain_ms = best_row("manual/")
+    # a copy moves each input byte once in and once out: 2 x the array
+    copy_bound_ms = dma_res["bytes_per_call"] / lr.H100_BYTES_PER_S * 1e3
 
     log(json.dumps({"kernels": [
         {
@@ -440,6 +462,9 @@ def main() -> int:
                                for r in rows if r["state"] == "f32"),
             "ms": main_row["kernel_ms"],
             "plain_ms": main_row["plain_ms"],
+            "bound_ms": main_row["bound_ms"],
+            "bound_by": main_row["bound_by"],
+            "library_ms": None,
         },
         {
             "name": "dma_auto_copy",
@@ -450,6 +475,9 @@ def main() -> int:
             "max_abs_err": dma_errs["auto"],
             "ms": auto_ms,
             "plain_ms": auto_plain_ms,
+            "bound_ms": copy_bound_ms,
+            "bound_by": "bytes",
+            "library_ms": auto_plain_ms,
         },
         {
             "name": "dma_manual_copy",
@@ -460,6 +488,9 @@ def main() -> int:
             "max_abs_err": dma_errs["manual"],
             "ms": manual_ms,
             "plain_ms": manual_plain_ms,
+            "bound_ms": copy_bound_ms,
+            "bound_by": "bytes",
+            "library_ms": manual_plain_ms,
         },
     ]}))
     log(card)

@@ -1,12 +1,20 @@
 """PyTorch + CUDA port of pbte_tpu's lattice-ring solve.
 
-The port imports PyTorch and never JAX. The framework-free host layers
-(mesh, FEM assembly, angular quadrature, material tables, sweep planning,
-the lattice-ring table helpers) are imported from ``pbte_tpu`` as they
-stand; only the modules that imported JAX are ported here:
+The port imports PyTorch and never JAX, and nothing of ``pbte_tpu``. It
+keeps its own copy of the numpy host layers the lattice path needs, trimmed
+to what it calls and held to pbte_tpu's by tests/test_torch_host_layers.py:
 
-- ``models.macroscopic``: Tc / Tv reductions and the scale-invariant
-  residual;
+- ``mesh``: hex box meshes, face tables, periodic pairing;
+- ``fem``: hex quadrature, the L2 nodal basis, consistent DG assembly and
+  the geometry-class helpers;
+- ``angular``: the discrete-ordinates quadrature;
+- ``material``: the non-gray SMRT silicon tables;
+- ``sweep``: upwind levelization, the sweep plan, lattice detection;
+
+and the modules that were JAX in pbte_tpu:
+
+- ``models.macroscopic``: the macroscopic weights, Tc / Tv reductions and
+  the scale-invariant residual;
 - ``ops.lattice_ring``: the lattice ring sweep, a plain PyTorch version and
   the hand-written CUDA kernel (``csrc/lattice_ring.cu``) it dispatches to
   for CUDA tensors;
@@ -15,8 +23,12 @@ stand; only the modules that imported JAX are ported here:
   ``bench_dma`` (``python -m pbte_tpu_torch.bench_dma``);
 - ``solver.source_iteration``: ``SourceIterationSolver`` restricted to the
   single-class Cartesian lattice path, with periodic, diffuse and specular
-  closures;
+  closures (``solver.lattice_tables`` holds its lattice host tables);
 - ``convert``: numpy consts/state from ``pbte_tpu`` into this package's
   layouts (used by the parity tests);
 - ``problem``: the unit-cube lattice problems, the flagship among them.
+
+The entry points (``SourceIterationSolver``, ``consts_from_numpy``,
+``state_from_numpy``) run on the GPU unless the caller passes
+``device="cpu"``; without a GPU the default raises.
 """

@@ -13,7 +13,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from pbte_tpu_torch.solver.source_iteration import REFL_KEYS, closure_scatter
+from pbte_tpu_torch.solver.source_iteration import (
+    REFL_KEYS,
+    checked_device,
+    closure_scatter,
+)
 
 
 def _tensor(a, device):
@@ -39,7 +43,7 @@ def _tensor(a, device):
 _PER_KEYS = ("per_cpl", "per_cin", "per_sl", "per_sw")
 
 
-def consts_from_numpy(np_consts: dict, device="cpu") -> dict:
+def consts_from_numpy(np_consts: dict, device="cuda") -> dict:
     """pbte_tpu lattice-ring consts (numpy leaves) -> this package's consts.
 
     Takes the Pallas path's consts and the XLA ring's (``sweep_mode="ring"``
@@ -48,7 +52,9 @@ def consts_from_numpy(np_consts: dict, device="cpu") -> dict:
     coefficients move from pbte_tpu's ``(L, Gb, nf, Km, W)`` to the
     kernel's ``(L, Gb, Km, nf, W)`` layout. The periodic tables, which
     pbte_tpu ships as zero-valid dummies on every problem, are taken only
-    when some entry is valid."""
+    when some entry is valid. ``device`` defaults to the GPU and raises
+    without one (``device="cpu"`` for the CPU)."""
+    device = checked_device(device)
     mats = np_consts["mats"]
     periodic = bool(np.asarray(np_consts["per_valid"]).any())
     buckets = []
@@ -92,13 +98,15 @@ def consts_from_numpy(np_consts: dict, device="cpu") -> dict:
     )
 
 
-def state_from_numpy(u, Tc, Tv, device="cpu", layout="bsd"):
+def state_from_numpy(u, Tc, Tv, device="cuda", layout="bsd"):
     """pbte_tpu lattice-ring state (per-bucket slabs, Tc, Tv) -> tensors.
 
     ``layout`` names the slabs' trailing axes as pbte_tpu's checkpoints
     tag them: "bsd" for the Pallas path's ``(L, Gb, Km, BS, D, W)`` (this
     package's layout), "dbs" for the XLA ring's ``(L, Gb, Km, D, BS, W)``,
-    whose BS and D axes are swapped here."""
+    whose BS and D axes are swapped here. ``device`` defaults to the GPU
+    and raises without one (``device="cpu"`` for the CPU)."""
+    device = checked_device(device)
     if layout not in ("bsd", "dbs"):
         raise ValueError(f"layout must be 'bsd' or 'dbs', got {layout!r}")
     if layout == "dbs":

@@ -15,48 +15,75 @@
 //   ys[l,g,k,b] = sol;  ring = sol;  ms[g,k,l] += macro_w[g,k,b] * sol
 // with J = (1 + nf) D and f32 accumulation. In cast mode (bf16 state) the
 // product operands (rhs, nb_f, bcat) and the ring are rounded to bf16 as the
-// TPU kernel does; in exact mode everything stays f32. (xmap, xval) is the
-// lagged closure source (periodic wraps, diffuse and specular walls) the
-// solver builds from the previous iterate, kept sparse: xmap (L, Gb, W)
-// int32 names the closure row u of a slab slot (or -1), xval
-// (Gb, U, Km, BS, D) f32 holds each row's rhs addition. It cannot fold into
-// v because relax_w is exactly 0 on the band with the largest inverse
-// Knudsen number. A dense state-sized operand instead cost ~5 ms more per
-// diffuse-wall flagship step (zero fill, strided scatter, its kernel read;
-// measured on an NVIDIA H100 80GB HBM3 at 700 W). A null xmap (or dsrc)
-// skips the loads.
+// TPU kernel does; in exact mode every operand is f32. (xmap, xval) is the
+// lagged closure source (periodic wraps, diffuse and specular walls), kept
+// sparse: xmap (L, Gb, W) int32 names the closure row u of a slab slot (or
+// -1), xval (Gb, U, Km, BS, D) f32 holds each row's rhs addition. It cannot
+// fold into v because relax_w is exactly 0 on the band with the largest
+// inverse Knudsen number. A null xmap (or dsrc) skips the loads.
 //
-// Parallel unit. The level axis is a dependence chain, but (g, k, b) are
-// independent except for the band sum in ms. One CTA runs one (g, k, b) over
-// all L levels; blockDim = W, so thread w owns slab column w. The previous
-// level's slab (the ring) is double-buffered in shared memory and never
-// leaves the SM: like the TPU kernel's VMEM ring, the only device-memory
-// streams are the state in (v) and out (ys), the slot-constant factor block,
-// the small per-level side inputs and the ms partials. The CTA's (D, J)
-// factor block sits transposed in shared memory and every thread reads the
-// same address (a broadcast). Per level a thread loads its 27-value rhs
-// column (W-minor, coalesced across the warp) and accumulates sol += bcat_f
-// x_f face block by face block, so about 2 D values are live in registers.
+// Design. One CTA runs one (g, k, b) over all L levels (the level axis is a
+// dependence chain; the band sum of ms is the only coupling between CTAs,
+// done with f32 atomics). Per level the product is a (W x J) @ (J x D)
+// matrix product on the tensor cores with W as the M dimension: mma.sync
+// m16n8k8 TF32 for f32 state as 3xTF32 (each operand split into TF32 hi and
+// lo parts, hi*hi + hi*lo + lo*hi summed in f32: the f32 answer to ~1e-6,
+// where one TF32 pass keeps ~3 digits), m16n8k16 bf16 with f32 accumulation
+// for bf16 state (the operands are bf16 already, so the products are exact,
+// as in the plain version). D is padded to 8-column n-tiles and each face
+// block to whole k-steps; the padding of the factor is zero, so the A rows
+// it meets only need to be finite. The factor block sits in shared memory in
+// mma fragment order, split (or rounded) once per CTA. A fragments come from
+// shared memory: the rhs tile, and the previous level's solution (the ring)
+// read at row w - s_f and scaled by cin[f, w], zero for w < s_f.
 //
-// What bounds it on an H100 SXM at the flagship (hex 16^3, p=2 D=27,
-// 64 directions x 40 bands, W=256, L=46): one outer step does 8.8e10 FMAs
-// in the transport product and streams ~6.7 GB, so the compute floor is
-// ~2.6 ms at 67 TFLOP/s f32 (CUDA cores; no tensor cores here) and the byte
-// floor ~2.0 ms at 3.35 TB/s. The ms partials cost ~8e8 f32 atomicAdds per
-// step, 40 bands contending for each address; those atomics, the shared-
-// memory broadcast loads (one 16-byte load per 4 FMAs) and the 2.9x slab
-// padding (4096 of 11,776 slots are valid) are the likely first bottlenecks.
+// Warp specialisation, loads in flight: 8 consumer warps own 16-row slices
+// of W and run the product; 8 producer warps build level l+1's rhs tile
+// (reading v, ttc, bsrc, dsrc, cin, xmap and the closure rows from device
+// memory and L2) while the consumers run level l, then stream level l's
+// solution out of shared memory as ys (coalesced along W) and as the ms
+// atomics. The rhs, shifted-cin and solution tiles are double-buffered by
+// level parity; named barriers hand each tile between the roles (full /
+// empty per buffer), and one consumer barrier orders a level's solution
+// writes before its reads as the next ring. One CTA (16 warps) per SM.
+//
+// Shared memory at the flagship (D = 27, W = 256, three faces, padded row
+// stride 264 so fragment reads are free of bank conflicts): the factor
+// 32 KB (f32: hi and lo) or 8 KB (bf16), 2 x 28.5 KB solution tiles,
+// 2 x 28.5 KB rhs tiles, 2 x 3 KB shifted cin: 149 KB f32, 125 KB bf16.
+//
+// What bounds it on an H100 SXM at the flagship bucket 0 (46 levels x 1600
+// CTAs): the state streams (v in, ys out, 4.07 GB; 4.20 GB with every
+// operand) take 1.25 ms at 3.35 TB/s; the product (1.1e11 flop) 0.67 ms as
+// 3xTF32 at the 495 TFLOP/s TF32 peak. By those it is bound by bytes, but
+// the kernel reaches neither (PERF.md, PR 5): in f32 the product alone
+// takes ~3 ms (mma.sync TF32 issues at about A100 rates; wgmma was tried and
+// was no faster, its 3-term chains being latency-bound), the producers'
+// side alone ~3 ms (per-level load latency with one CTA per SM, ttc and
+// bsrc re-read from L2 by every band), and the two overlap only in part.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
-#include <type_traits>
+#include <cstdint>
+
+// Measurement variants (bench_k1.py builds them with -D; the default build
+// defines none; each gives wrong results and only times what is left):
+// PBTE_K1_NO_MS drops the ms atomics, PBTE_K1_NO_YS the ys stores,
+// PBTE_K1_NO_PRODUCT the tensor-core product.
 
 namespace {
 
 constexpr int kMaxFaces = 3;
-constexpr int kMaxThreads = 256;
+constexpr int kMaxW = 256;
+constexpr int kConsumerWarps = 8;
+constexpr int kProducerWarps = 8;
+constexpr int kConsumerThreads = 32 * kConsumerWarps;
+constexpr int kProducerThreads = 32 * kProducerWarps;
+constexpr int kThreads = kConsumerThreads + kProducerThreads;
+// 16-row m-tiles of W per consumer warp
+constexpr int kMTilesPerWarp = kMaxW / 16 / kConsumerWarps;
 
 struct Shifts {
   int s[kMaxFaces];
@@ -90,36 +117,111 @@ __device__ __forceinline__ float op_round(float x) {
   }
 }
 
-template <int D>
-struct Tile {
-  static constexpr int DP = (D + 3) / 4 * 4;  // factor column stride (float4)
-  // CTAs per SM the register budget is sized for (shared memory allows 3
-  // at D = 27 with W = 256 and an f32 ring)
-  static constexpr int kMinBlocks = 3;
-};
-
-// sol[0:D] += col_j[0:D] * x[j] over the D columns of one face block
-template <int D>
-__device__ __forceinline__ void accumulate(float (&sol)[Tile<D>::DP],
-                                           const float* __restrict__ cols,
-                                           const float (&x)[D]) {
-  constexpr int DP = Tile<D>::DP;
-#pragma unroll
-  for (int j = 0; j < D; ++j) {
-    const float4* col = reinterpret_cast<const float4*>(cols + j * DP);
-#pragma unroll
-    for (int q = 0; q < DP / 4; ++q) {
-      const float4 c = col[q];
-      sol[4 * q + 0] = fmaf(c.x, x[j], sol[4 * q + 0]);
-      sol[4 * q + 1] = fmaf(c.y, x[j], sol[4 * q + 1]);
-      sol[4 * q + 2] = fmaf(c.z, x[j], sol[4 * q + 2]);
-      sol[4 * q + 3] = fmaf(c.w, x[j], sol[4 * q + 3]);
-    }
-  }
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
 }
 
+// x = hi + lo with hi, lo TF32, both truncated by masking the low 13 bits:
+// |lo| < 2^-10 |x| and the truncation of lo costs < 2^-20 |x|. (cvt.rna
+// costs ~7 issue cycles on the H100: rounding both parts made the f32
+// kernel 25% slower, measured.) The factor block, split once per CTA,
+// rounds both parts (split_tf32_rna).
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = __float_as_uint(x) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi)) & 0xffffe000u;
+}
+__device__ __forceinline__ void split_tf32_rna(float x, uint32_t& hi,
+                                               uint32_t& lo) {
+  hi = to_tf32(x);
+  lo = to_tf32(x - __uint_as_float(hi));
+}
+
+// two floats -> bf16x2, the first in the low half (the lower k index)
+__device__ __forceinline__ uint32_t pack_bf16(float lo_k, float hi_k) {
+  __nv_bfloat162 p = __floats2bfloat162_rn(lo_k, hi_k);
+  return *reinterpret_cast<uint32_t*>(&p);
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Named barriers between the two warp roles (barrier 0 is __syncthreads).
+// bar.arrive signals without waiting; bar.sync waits for `count` threads.
+__device__ __forceinline__ void bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+__host__ __device__ constexpr size_t align16(size_t n) {
+  return (n + 15) / 16 * 16;
+}
+
+// Tile geometry of one (D, mode)
+template <int D, bool CAST>
+struct Geo {
+  static constexpr int KSTEP = CAST ? 16 : 8;  // mma depth
+  static constexpr int KP = (D + KSTEP - 1) / KSTEP * KSTEP;  // face depth
+  static constexpr int KT_FACE = KP / KSTEP;  // k-steps per face block
+  static constexpr int NT = (D + 7) / 8;      // 8-column n-tiles of D
+  // one lane's B fragment of one (k-step, n-tile): hi and lo of b0, b1
+  // (TF32) or b0, b1 (bf16x2)
+  static constexpr int BFRAG_BYTES = CAST ? 8 : 16;
+};
+
+// row stride of the tiles: a multiple of 32 words plus 8, so the 8 rows x
+// 4 columns of a fragment read fall in 32 distinct banks
+__host__ __device__ constexpr int tile_stride(int W) {
+  return (W + 31) / 32 * 32 + 8;
+}
+// row stride of the shifted inflow coefficients: W rounded to m-tiles
+__host__ __device__ constexpr int cin_stride(int W) {
+  return (W + 15) / 16 * 16;
+}
+
+// Shared-memory carve-up (byte offsets), the same on host and device: the
+// factor block in fragment order, two solution tiles, two rhs tiles and two
+// shifted-cin tiles (level parity selects the tile)
+template <int D, bool CAST>
+struct Smem {
+  size_t bfrag, sol, rhs, cinc, tile, cin_tile, total;
+  __host__ __device__ Smem(int W, int nf) {
+    using G = Geo<D, CAST>;
+    tile = align16(sizeof(float) * D * tile_stride(W));
+    cin_tile = align16(sizeof(float) * nf * cin_stride(W));
+    bfrag = 0;
+    sol = align16(static_cast<size_t>(1 + nf) * G::KT_FACE * G::NT * 32 *
+                  G::BFRAG_BYTES);
+    rhs = sol + 2 * tile;
+    cinc = rhs + 2 * tile;
+    total = cinc + 2 * cin_tile;
+  }
+};
+
+// barrier ids: rhs tile s full / empty, solution tile s full / empty, and
+// the consumers' own level barrier
+constexpr int kRhsFull = 1, kRhsEmpty = 3, kSolFull = 5, kSolEmpty = 7,
+              kConsumers = 9;
+
 template <int D, typename State, bool CAST>
-__global__ void __launch_bounds__(kMaxThreads, Tile<D>::kMinBlocks)
+__global__ void __launch_bounds__(kThreads, 1)
 lattice_ring_kernel(const State* __restrict__ v, const float* __restrict__ ttc,
                     const float* __restrict__ bsrc,
                     const float* __restrict__ cin,
@@ -129,119 +231,364 @@ lattice_ring_kernel(const State* __restrict__ v, const float* __restrict__ ttc,
                     const float* __restrict__ dsrc,
                     const int* __restrict__ xmap,
                     const float* __restrict__ xval, int n_u,
-                    State* __restrict__ ys,
-                    float* __restrict__ ms, int L, int Gb, int Km, int BS,
-                    int W, int nf, Shifts sh) {
-  using Ring = typename std::conditional<CAST, __nv_bfloat16, State>::type;
-  constexpr int DP = Tile<D>::DP;
+                    State* __restrict__ ys, float* __restrict__ ms, int L,
+                    int Gb, int Km, int BS, int W, int nf, Shifts sh) {
+  using G = Geo<D, CAST>;
+  constexpr int NT = G::NT;
+  constexpr int KT_FACE = G::KT_FACE;
+  const int WP = tile_stride(W);
+  const int WC = cin_stride(W);
   const int J = (1 + nf) * D;
+  const Smem<D, CAST> lay(W, nf);
 
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* bcT = reinterpret_cast<float*>(smem_raw);  // (J, DP)
-  Ring* ring_a = reinterpret_cast<Ring*>(bcT + J * DP);  // (D, W)
-  Ring* ring_b = ring_a + D * W;                         // (D, W)
+  extern __shared__ __align__(16) unsigned char smem[];
+  auto sol_t = [&](int s) {  // (D, WP) f32
+    return reinterpret_cast<float*>(smem + lay.sol + s * lay.tile);
+  };
+  auto rhs_t = [&](int s) {  // (D, WP) f32
+    return reinterpret_cast<float*>(smem + lay.rhs + s * lay.tile);
+  };
+  auto cinc_t = [&](int s) {  // (nf, WC) f32
+    return reinterpret_cast<float*>(smem + lay.cinc + s * lay.cin_tile);
+  };
 
-  const int w = threadIdx.x;
+  const int tid = threadIdx.x;
   const int b = blockIdx.x % BS;
   const int gk = blockIdx.x / BS;  // g * Km + k
   const int g = gk / Km;
   const int k = gk % Km;
+  const size_t DW = static_cast<size_t>(D) * W;
 
-  // stage this (g, k, b)'s factor block transposed: bcT[j, i] = bcat[i, j]
-  const float* blk = bcat + (static_cast<size_t>(gk) * BS + b) * D * J;
-  for (int idx = threadIdx.x; idx < J * DP; idx += blockDim.x) {
-    const int j = idx / DP;
-    const int i = idx - j * DP;
-    bcT[idx] = i < D ? op_round<CAST>(blk[static_cast<size_t>(i) * J + j])
-                     : 0.f;
+  // the factor block in mma fragment order: B[kk][n] = bcat[n, f D + jj]
+  // for the k index kk = f KP + jj of face block f (zero where jj >= D or
+  // n >= D); TF32 mode keeps hi and lo parts, bf16 mode the rounded values
+  {
+    const float* blk = bcat + (static_cast<size_t>(gk) * BS + b) * D * J;
+    auto bval = [&](int kk, int n) -> float {
+      const int f = kk / G::KP;
+      const int jj = kk - f * G::KP;
+      return (jj < D && n < D) ? blk[static_cast<size_t>(n) * J + f * D + jj]
+                               : 0.f;
+    };
+    const int n_frag = (1 + nf) * KT_FACE * NT * 32;
+    for (int idx = tid; idx < n_frag; idx += kThreads) {
+      const int ln = idx & 31;
+      const int nt = (idx >> 5) % NT;
+      const int kt = (idx >> 5) / NT;
+      const int n = nt * 8 + (ln >> 2);
+      const int t = ln & 3;
+      if constexpr (CAST) {
+        const int k0 = kt * 16 + 2 * t;
+        uint2 f;
+        f.x = pack_bf16(bval(k0, n), bval(k0 + 1, n));
+        f.y = pack_bf16(bval(k0 + 8, n), bval(k0 + 9, n));
+        reinterpret_cast<uint2*>(smem + lay.bfrag)[idx] = f;
+      } else {
+        const int k0 = kt * 8 + t;
+        uint4 f;
+        split_tf32_rna(bval(k0, n), f.x, f.z);
+        split_tf32_rna(bval(k0 + 4, n), f.y, f.w);
+        reinterpret_cast<uint4*>(smem + lay.bfrag)[idx] = f;
+      }
+    }
   }
-  // level 0 reads ring_b: the ring starts at zero
-  for (int idx = threadIdx.x; idx < D * W; idx += blockDim.x) {
-    ring_b[idx] = from_f32<Ring>(0.f);
+  // both solution tiles zero (tile 1 is level 0's ring); the padding
+  // columns [W, WP) of the rhs tiles and [W, WC) of the cin tiles stay zero
+  // (no pass writes them)
+  for (int i = tid; i < static_cast<int>(2 * lay.tile / 4); i += kThreads) {
+    sol_t(0)[i] = 0.f;
+  }
+  for (int i = tid; i < 2 * D * (WP - W); i += kThreads) {
+    const int r = i / (WP - W);  // (tile, row) pair
+    rhs_t(r / D)[(r % D) * WP + W + (i - r * (WP - W))] = 0.f;
+  }
+  for (int i = tid; i < static_cast<int>(2 * lay.cin_tile / 4);
+       i += kThreads) {
+    cinc_t(0)[i] = 0.f;
   }
   __syncthreads();
 
-  const float w_src = wvec[b];
-  const float w_rel = wvec[BS + b];
-  const float w_bcv = wvec[2 * BS + b];
-  const float w_dir = wvec[3 * BS + b];
-  const float mw = macro_w[static_cast<size_t>(gk) * BS + b];
-  const size_t DW = static_cast<size_t>(D) * W;
+  if (tid >= kConsumerThreads) {
+    // ---- producer warps: level l+1's rhs in, level l's solution out ----
+    const int p = tid - kConsumerThreads;
+    const int R = kProducerThreads / W;  // rows per pass (W <= 256)
+    const int pw = p % W;
+    const int pj = p / W;
+    const bool on = pj < R;
+    const float w_src = wvec[b];
+    const float w_rel = wvec[BS + b];
+    const float w_bcv = wvec[2 * BS + b];
+    const float w_dir = wvec[3 * BS + b];
+    const float mw = macro_w[static_cast<size_t>(gk) * BS + b];
 
-  for (int l = 0; l < L; ++l) {
-    const Ring* prev = (l & 1) ? ring_a : ring_b;
-    Ring* cur = (l & 1) ? ring_b : ring_a;
-    const size_t lg = static_cast<size_t>(l) * Gb + g;
-    const size_t lgk = lg * Km + k;
-    const size_t state_off = (lgk * BS + b) * DW + w;
-
-    float sol[DP];
+    // one column pass over the rows j = pj, pj + R, ... < D (unrolled when
+    // one pass covers every row)
+    auto rows = [&](auto&& body) {
+      if (R == 1) {
 #pragma unroll
-    for (int i = 0; i < DP; ++i) sol[i] = 0.f;
-
-    // rhs block: lagged temperature + relaxation - boundary inflow
-    {
-      const State* v_l = v + state_off;
-      const float* ttc_l = ttc + lg * DW + w;
-      const float* bsrc_l = bsrc + lgk * DW + w;
-      float x[D];
+        for (int j = 0; j < D; ++j) body(j);
+      } else {
+        for (int j = pj; j < D; j += R) body(j);
+      }
+    };
+    // one level's streamed inputs: in cast mode with one row pass (W = 256,
+    // the flagship's), level l+1's v, ttc and bsrc are loaded into
+    // registers while level l is stored, so their latency hides behind the
+    // store and the wait for the consumers (5% faster in bf16; in exact mode
+    // the registers it holds cost the consumers more than it saves, 3%)
+    State f_v[D];
+    float f_ttc[D], f_bsrc[D];
+    auto fetch = [&](int l) {
+      if (R != 1 || !CAST) return;
+      const size_t lg = static_cast<size_t>(l) * Gb + g;
+      const size_t lgk = lg * Km + k;
+      const State* v_l = v + (lgk * BS + b) * DW + pw;
+      const float* ttc_l = ttc + lg * DW + pw;
+      const float* bsrc_l = bsrc + lgk * DW + pw;
 #pragma unroll
       for (int j = 0; j < D; ++j) {
-        x[j] = w_src * ttc_l[j * W] + w_rel * to_f32(v_l[j * W]) -
-               w_bcv * bsrc_l[j * W];
+        const size_t o = static_cast<size_t>(j) * W;
+        f_v[j] = v_l[o];
+        f_ttc[j] = __ldg(ttc_l + o);
+        f_bsrc[j] = __ldg(bsrc_l + o);
       }
-      if (dsrc != nullptr) {
-        const float* dsrc_l = dsrc + lgk * DW + w;
-#pragma unroll
-        for (int j = 0; j < D; ++j) x[j] -= w_dir * dsrc_l[j * W];
+    };
+    // rhs tile and shifted inflow coefficients of level l into tile l & 1
+    auto prep = [&](int l) {
+      if (!on) return;
+      const size_t lg = static_cast<size_t>(l) * Gb + g;
+      const size_t lgk = lg * Km + k;
+      float* rhs = rhs_t(l & 1);
+      float* cinc = cinc_t(l & 1);
+      for (int f = pj; f < nf; f += R) {
+        const float c = __ldg(cin + (lgk * nf + f) * W + pw);
+        cinc[f * WC + pw] = pw >= sh.s[f] ? op_round<CAST>(c) : 0.f;
       }
+      const float* xv = nullptr;
       if (xmap != nullptr) {
-        const int u = xmap[lg * W + w];
+        const int u = __ldg(xmap + lg * W + pw);
         if (u >= 0) {
-          const float* xv =
-              xval + ((static_cast<size_t>(g) * n_u + u) * Km + k) * BS * D +
-              static_cast<size_t>(b) * D;
-#pragma unroll
-          for (int j = 0; j < D; ++j) x[j] += xv[j];
+          xv = xval + ((static_cast<size_t>(g) * n_u + u) * Km + k) * BS * D +
+               static_cast<size_t>(b) * D;
         }
       }
-#pragma unroll
-      for (int j = 0; j < D; ++j) x[j] = op_round<CAST>(x[j]);
-      accumulate<D>(sol, bcT, x);
-    }
-
-    // upwind neighbour blocks: the previous level's slab shifted along W
-    // by the static lattice shift (zero fill), scaled by the inflow
-    // coefficient of this face
-    const float* cin_l = cin + lgk * nf * W + w;
-#pragma unroll
-    for (int f = 0; f < kMaxFaces; ++f) {
-      if (f < nf) {
-        const int s = sh.s[f];
-        const bool inside = w >= s;
-        const Ring* src = prev + (inside ? w - s : 0);
-        const float c = op_round<CAST>(cin_l[f * W]);
-        float x[D];
+      const State* v_l = v + (lgk * BS + b) * DW + pw;
+      const float* ttc_l = ttc + lg * DW + pw;
+      const float* bsrc_l = bsrc + lgk * DW + pw;
+      const float* dsrc_l = dsrc != nullptr ? dsrc + lgk * DW + pw : nullptr;
+      auto put = [&](int j, float x) {
+        if (dsrc_l != nullptr) {
+          x -= w_dir * __ldg(dsrc_l + static_cast<size_t>(j) * W);
+        }
+        if (xv != nullptr) x += xv[j];
+        rhs[j * WP + pw] = op_round<CAST>(x);
+      };
+      if (R == 1 && CAST) {
 #pragma unroll
         for (int j = 0; j < D; ++j) {
-          const float r = to_f32(src[j * W]);
-          x[j] = inside ? op_round<CAST>(r * c) : 0.f;
+          put(j, w_src * f_ttc[j] + w_rel * to_f32(f_v[j]) -
+                     w_bcv * f_bsrc[j]);
         }
-        accumulate<D>(sol, bcT + (f + 1) * D * DP, x);
+      } else {
+        // unrolled when one pass covers every row: the loads of all rows
+        // are in flight at once
+        rows([&](int j) {
+          const size_t o = static_cast<size_t>(j) * W;
+          put(j, w_src * __ldg(ttc_l + o) + w_rel * to_f32(v_l[o]) -
+                     w_bcv * __ldg(bsrc_l + o));
+        });
+      }
+    };
+    // level l's solution out: ys (state dtype) and the ms partial
+    auto store = [&](int l) {
+      if (!on) return;
+      const float* sol = sol_t(l & 1);
+      const size_t lgk = (static_cast<size_t>(l) * Gb + g) * Km + k;
+      State* ys_l = ys + (lgk * BS + b) * DW + pw;
+      float* ms_l = ms + (static_cast<size_t>(gk) * L + l) * DW + pw;
+      rows([&](int j) {
+        const float s = sol[j * WP + pw];
+#ifndef PBTE_K1_NO_YS
+        ys_l[static_cast<size_t>(j) * W] = from_f32<State>(s);
+#endif
+#ifndef PBTE_K1_NO_MS
+        atomicAdd(ms_l + static_cast<size_t>(j) * W, mw * s);
+#endif
+      });
+    };
+
+    fetch(0);
+    prep(0);
+    bar_arrive(kRhsFull + 0, kThreads);
+    if (L > 1) fetch(1);
+    for (int l = 0; l < L; ++l) {
+      if (l + 1 < L) {
+        const int s1 = (l + 1) & 1;
+        if (l + 1 >= 2) bar_sync(kRhsEmpty + s1, kThreads);
+        prep(l + 1);
+        bar_arrive(kRhsFull + s1, kThreads);
+        if (l + 2 < L) fetch(l + 2);
+      }
+      bar_sync(kSolFull + (l & 1), kThreads);
+      store(l);
+      if (l + 2 < L) bar_arrive(kSolEmpty + (l & 1), kThreads);
+    }
+    return;
+  }
+
+  // ---- consumer warps: the product of each level on the tensor cores ----
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int gq = lane >> 2;  // fragment group: rows gq, gq + 8
+  const int tq = lane & 3;   // thread in group: k (and n) columns
+
+  for (int l = 0; l < L; ++l) {
+    const int s = l & 1;
+    const float* rhs = rhs_t(s);
+    const float* cinc = cinc_t(s);
+    const float* ring = sol_t(s ^ 1);  // level l-1 (zero at level 0)
+    bar_sync(kRhsFull + s, kThreads);
+
+    // acc[w, i] = sum_kk A[w, kk] B[kk, i] over the face blocks (face 0:
+    // the rhs tile; face f >= 1: the ring, shifted and scaled)
+    float acc[kMTilesPerWarp][NT][4];
+#pragma unroll
+    for (int m = 0; m < kMTilesPerWarp; ++m)
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[m][n][q] = 0.f;
+
+#ifndef PBTE_K1_NO_PRODUCT
+#pragma unroll
+    for (int f = 0; f <= kMaxFaces; ++f) {
+      if (f > nf) break;
+      // per m-tile: this lane's two A rows, the ring rows they read and
+      // their inflow coefficients
+      int row[kMTilesPerWarp][2];
+      float cf[kMTilesPerWarp][2];
+#pragma unroll
+      for (int m = 0; m < kMTilesPerWarp; ++m) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int w = (warp + m * kConsumerWarps) * 16 + gq + 8 * h;
+          if (f == 0) {
+            row[m][h] = w;
+            cf[m][h] = 1.f;
+          } else {
+            const int wc = w < WC ? w : WC - 1;
+            cf[m][h] = cinc[(f - 1) * WC + wc];
+            row[m][h] = w >= sh.s[f - 1] ? w - sh.s[f - 1] : 0;
+          }
+        }
+      }
+      const float* src = f == 0 ? rhs : ring;
+#pragma unroll
+      for (int kt = 0; kt < KT_FACE; ++kt) {
+        const int kt_all = f * KT_FACE + kt;
+        if constexpr (CAST) {
+          int jr[4];
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const int j = kt * 16 + 2 * tq + (q & 1) + 8 * (q >> 1);
+            jr[q] = (j < D ? j : D - 1) * WP;
+          }
+          uint32_t a[kMTilesPerWarp][4];
+#pragma unroll
+          for (int m = 0; m < kMTilesPerWarp; ++m) {
+            if ((warp + m * kConsumerWarps) * 16 >= W) continue;
+            float x[2][4];  // [row half][k: 2t, 2t+1, 2t+8, 2t+9]
+#pragma unroll
+            for (int h = 0; h < 2; ++h)
+#pragma unroll
+              for (int q = 0; q < 4; ++q) {
+                const float r = src[jr[q] + row[m][h]];
+                x[h][q] = f == 0 ? r : op_round<true>(cf[m][h] *
+                                                      op_round<true>(r));
+              }
+            a[m][0] = pack_bf16(x[0][0], x[0][1]);
+            a[m][1] = pack_bf16(x[1][0], x[1][1]);
+            a[m][2] = pack_bf16(x[0][2], x[0][3]);
+            a[m][3] = pack_bf16(x[1][2], x[1][3]);
+          }
+#pragma unroll
+          for (int n = 0; n < NT; ++n) {
+            const uint2 q = reinterpret_cast<const uint2*>(
+                smem + lay.bfrag)[(kt_all * NT + n) * 32 + lane];
+#pragma unroll
+            for (int m = 0; m < kMTilesPerWarp; ++m) {
+              if ((warp + m * kConsumerWarps) * 16 < W) {
+                mma_bf16(acc[m][n], a[m], q.x, q.y);
+              }
+            }
+          }
+        } else {
+          const int j0 = kt * 8 + tq;
+          const int jr0 = (j0 < D ? j0 : D - 1) * WP;
+          const int jr1 = (j0 + 4 < D ? j0 + 4 : D - 1) * WP;
+          uint32_t hi[kMTilesPerWarp][4], lo[kMTilesPerWarp][4];
+#pragma unroll
+          for (int m = 0; m < kMTilesPerWarp; ++m) {
+            if ((warp + m * kConsumerWarps) * 16 >= W) continue;
+            // a0 (row gq, k t), a1 (gq+8, t), a2 (gq, t+4), a3 (gq+8, t+4)
+            float x[4] = {src[jr0 + row[m][0]], src[jr0 + row[m][1]],
+                          src[jr1 + row[m][0]], src[jr1 + row[m][1]]};
+            if (f > 0) {
+              x[0] *= cf[m][0];
+              x[1] *= cf[m][1];
+              x[2] *= cf[m][0];
+              x[3] *= cf[m][1];
+            }
+#pragma unroll
+            for (int q = 0; q < 4; ++q) split_tf32(x[q], hi[m][q], lo[m][q]);
+          }
+#pragma unroll
+          for (int n = 0; n < NT; ++n) {
+            const uint4 q = reinterpret_cast<const uint4*>(
+                smem + lay.bfrag)[(kt_all * NT + n) * 32 + lane];
+#pragma unroll
+            for (int m = 0; m < kMTilesPerWarp; ++m) {
+              if ((warp + m * kConsumerWarps) * 16 < W) {
+                // small terms first
+                mma_tf32(acc[m][n], lo[m], q.x, q.y);
+                mma_tf32(acc[m][n], hi[m], q.z, q.w);
+                mma_tf32(acc[m][n], hi[m], q.x, q.y);
+              }
+            }
+          }
+        }
       }
     }
-
-    // new state, then the ring, then the f32 macroscopic partial
-    State* ys_l = ys + state_off;
-    float* ms_l = ms + (static_cast<size_t>(gk) * L + l) * DW + w;
+#endif
+    // the rhs and cin tiles of this level are free for level l+2
+    if (l + 2 < L) bar_arrive(kRhsEmpty + s, kThreads);
+    // the producers are done with level l-2's solution in tile s
+    if (l >= 2) bar_sync(kSolEmpty + s, kThreads);
+    float* sol = sol_t(s);
 #pragma unroll
-    for (int i = 0; i < D; ++i) ys_l[i * W] = from_f32<State>(sol[i]);
+    for (int m = 0; m < kMTilesPerWarp; ++m) {
+      const int w0 = (warp + m * kConsumerWarps) * 16 + gq;
 #pragma unroll
-    for (int i = 0; i < D; ++i) cur[i * W + w] = from_f32<Ring>(sol[i]);
+      for (int n = 0; n < NT; ++n) {
+        const int i0 = n * 8 + 2 * tq;
 #pragma unroll
-    for (int i = 0; i < D; ++i) atomicAdd(ms_l + i * W, mw * sol[i]);
-    __syncthreads();
+        for (int q = 0; q < 4; ++q) {
+          const int w = w0 + 8 * (q >> 1);
+          const int i = i0 + (q & 1);
+          if (w < W && i < D) sol[i * WP + w] = acc[m][n][q];
+        }
+      }
+    }
+    bar_arrive(kSolFull + s, kThreads);
+    // every consumer's part of tile s is written before it is read as the
+    // next level's ring (and every read of tile s ^ 1 is done)
+    bar_sync(kConsumers, kConsumerThreads);
   }
+}
+
+template <int D, typename State, bool CAST>
+size_t smem_bytes(int W, int nf) {
+  return Smem<D, CAST>(W, nf).total;
 }
 
 template <int D, typename State, bool CAST>
@@ -251,16 +598,14 @@ cudaError_t launch(const void* v, const float* ttc, const float* bsrc,
                    const float* xval, int n_u, void* ys, float* ms, int L,
                    int Gb, int Km, int BS, int W, int nf, Shifts sh,
                    cudaStream_t stream) {
-  using Ring = typename std::conditional<CAST, __nv_bfloat16, State>::type;
-  const size_t smem = static_cast<size_t>((1 + nf) * D) * Tile<D>::DP *
-                          sizeof(float) +
-                      2 * static_cast<size_t>(D) * W * sizeof(Ring);
+  const size_t smem =
+      smem_bytes<D, State, CAST>(W, nf);
   auto kernel = lattice_ring_kernel<D, State, CAST>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  kernel<<<Gb * Km * BS, W, smem, stream>>>(
+  kernel<<<Gb * Km * BS, kThreads, smem, stream>>>(
       static_cast<const State*>(v), ttc, bsrc, cin, bcat, macro_w, wvec, dsrc,
       xmap, xval, n_u, static_cast<State*>(ys), ms, L, Gb, Km, BS, W, nf, sh);
   return cudaGetLastError();
@@ -291,10 +636,11 @@ cudaError_t dispatch_d(int D, const void* v, const float* ttc,
 
 extern "C" {
 
-// cast_bf16 = 0: f32 state, exact f32 operands.
+// cast_bf16 = 0: f32 state, exact f32 operands (3xTF32 products).
 // cast_bf16 = 1: bf16 state, bf16 operands and ring, f32 accumulation.
 // dsrc may be null (no Dirichlet faces), xmap and xval null (no lagged
-// closures; n_u is then ignored). Returns a cudaError_t.
+// closures; n_u is then ignored). ms must be zeroed by the caller (the band
+// sum is atomic). Returns a cudaError_t.
 int pbte_lattice_ring_sweep(int cast_bf16, int D, const void* v,
                             const float* ttc, const float* bsrc,
                             const float* cin, const float* bcat,
@@ -303,7 +649,7 @@ int pbte_lattice_ring_sweep(int cast_bf16, int D, const void* v,
                             const float* xval, int n_u, void* ys, float* ms,
                             int L, int Gb, int Km, int BS, int W, int nf,
                             int s0, int s1, int s2, void* stream) {
-  if (nf < 1 || nf > kMaxFaces || W < 1 || W > kMaxThreads) {
+  if (nf < 1 || nf > kMaxFaces || W < 1 || W > kMaxW) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Shifts sh{{s0, s1, s2}};
@@ -318,6 +664,21 @@ int pbte_lattice_ring_sweep(int cast_bf16, int D, const void* v,
                                      wvec, dsrc, xmap, xval, n_u, ys, ms, L,
                                      Gb, Km, BS, W, nf, sh, st);
   return static_cast<int>(err);
+}
+
+// Dynamic shared memory one launch takes (the wrapper's check).
+long long pbte_lattice_ring_smem_bytes(int cast_bf16, int D, int W, int nf) {
+  if (D == 8) {
+    return static_cast<long long>(
+        cast_bf16 ? smem_bytes<8, __nv_bfloat16, true>(W, nf)
+                  : smem_bytes<8, float, false>(W, nf));
+  }
+  if (D == 27) {
+    return static_cast<long long>(
+        cast_bf16 ? smem_bytes<27, __nv_bfloat16, true>(W, nf)
+                  : smem_bytes<27, float, false>(W, nf));
+  }
+  return -1;
 }
 
 const char* pbte_cuda_error_string(int err) {

@@ -1,17 +1,34 @@
-"""Macroscopic closure on tensors: Tc / Tv reductions and the residual.
+"""Macroscopic closure: the weights (numpy), Tc / Tv reductions and the
+residual (tensors).
 
-Port of ``pbte_tpu/models/macroscopic.py``. The weight functions are numpy
-host math and are re-exported from there unchanged.
+Port of ``pbte_tpu/models/macroscopic.py``; the weight functions are this
+package's own copies of its numpy host math:
+
+    factor[k, bs] = invKn[bs] * w[k] * dw[bs] / C_V
+    Tc[e, i]      = sum_{k,bs} factor * u[k, bs, e, i]
+    Qc[d, e, i]   = sum_{k,bs} factor * vg[bs] * s[k, d] * u[k, bs, e, i]
+    Tv[e]         = sum_i Tc[e, i] * int_K p_i      (cell integrals)
+    residual      = ||Tv - Tv_prev||_2 / ||Tv||_2
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-from pbte_tpu.models.macroscopic import flux_weights, macro_weights
 
-__all__ = ["compute_tc", "compute_tv", "flux_weights", "macro_weights",
-           "residual"]
+def macro_weights(quad, tables) -> np.ndarray:
+    """(K, BS) temperature accumulation weights."""
+    inv_kn = tables.flat("inv_kn")
+    dw = tables.flat("dw")
+    return np.outer(quad.weights, inv_kn * dw) / tables.heat_cap_v
+
+
+def flux_weights(quad, tables, dim: int) -> np.ndarray:
+    """(dim, K, BS) heat-flux accumulation weights."""
+    base = macro_weights(quad, tables)  # (K, BS)
+    vg = tables.flat("vg")
+    return np.einsum("kd,kb,b->dkb", quad.directions[:, :dim], base, vg)
 
 
 def compute_tc(u: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:

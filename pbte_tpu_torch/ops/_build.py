@@ -60,17 +60,20 @@ def nvcc_path() -> str:
     return found
 
 
-def load(name: str) -> Built:
-    """Compile ``csrc/<name>.cu`` if no build for its hash exists, then load
-    it. Raises RuntimeError with nvcc's stderr when the build fails."""
+def load(name: str, src: Path | None = None, defines=()) -> Built:
+    """Compile ``csrc/<name>.cu`` (or the source ``src``, built and cached
+    under ``name``, with ``-D`` for each of ``defines``) if no build for
+    its hash exists, then load it. Raises RuntimeError with nvcc's stderr
+    when the build fails."""
     with _locks_lock:
         lock = _locks.setdefault(name, threading.Lock())
     with lock:
         if name in _loaded:
             return _loaded[name]
-        src = CSRC_DIR / f"{name}.cu"
+        src = CSRC_DIR / f"{name}.cu" if src is None else Path(src)
+        flags = NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
         key = hashlib.sha256(
-            src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+            src.read_bytes() + " ".join(flags).encode()
         ).hexdigest()[:16]
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         so = BUILD_DIR / f"{name}_{key}.so"
@@ -78,7 +81,7 @@ def load(name: str) -> Built:
         seconds = 0.0
         if not so.is_file():
             tmp = BUILD_DIR / f"{so.name}.{os.getpid()}.tmp"
-            cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+            cmd = [nvcc_path(), *flags, "-o", str(tmp), str(src)]
             t0 = time.perf_counter()
             proc = subprocess.run(cmd, capture_output=True, text=True)
             seconds = time.perf_counter() - t0
@@ -96,8 +99,15 @@ def load(name: str) -> Built:
         return built
 
 
-def load_all(names) -> dict[str, Built]:
-    """``load`` every name, the nvcc builds running concurrently."""
+def load_all(names, sources=None) -> dict[str, Built]:
+    """``load`` every name, the nvcc builds running concurrently;
+    ``sources`` maps a name to its ``(src, defines)`` where it is not
+    ``csrc/<name>.cu`` as it stands."""
     names = list(names)
+    sources = sources or {}
+
+    def one(name):
+        return load(name, *sources.get(name, ()))
+
     with ThreadPoolExecutor(max_workers=max(len(names), 1)) as pool:
-        return dict(zip(names, pool.map(load, names)))
+        return dict(zip(names, pool.map(one, names)))

@@ -23,10 +23,27 @@ from pbte_tpu_torch.ops import _build
 
 # element DOF counts the CUDA kernel is instantiated for (hex p = 1, 2)
 KERNEL_D = (8, 27)
-# blockDim = W: one thread per slab column
+# W is the product's M dimension: 16-row tiles over 8 consumer warps
 KERNEL_MAX_W = 256
 KERNEL_MAX_FACES = 3
 _SMEM_LIMIT = 232448  # bytes of shared memory one CTA may use on Hopper
+
+
+def kernel_smem_bytes(D, W, nf, cast_bf16):
+    """Dynamic shared memory of one kernel launch, as csrc/lattice_ring.cu
+    carves it (``Smem``): the factor block in mma fragment order, two f32
+    solution tiles and two f32 rhs tiles (row stride padded to 32k + 8
+    words) and two tiles of shifted inflow coefficients."""
+    def a16(n):
+        return -(-n // 16) * 16
+
+    kstep = 16 if cast_bf16 else 8
+    kt_face = -(-D // kstep)
+    nt = -(-D // 8)
+    wp = -(-W // 32) * 32 + 8
+    wc = -(-W // 16) * 16
+    return (a16((1 + nf) * kt_face * nt * 32 * (8 if cast_bf16 else 16))
+            + 4 * a16(4 * D * wp) + 2 * a16(4 * nf * wc))
 
 
 class ClosureSource(NamedTuple):
@@ -75,6 +92,42 @@ def _check_shapes(v, ttc, bsrc, cin, bcat, macro_w, wvec, shifts, dsrc,
     for s in shifts:
         if not 0 <= int(s) < W:
             raise ValueError(f"lattice shift {s} outside [0, W={W})")
+
+
+# NVIDIA H100 SXM data-sheet peaks (dense): HBM bytes/s, and the product's
+# flop/s by state type: bf16 on the tensor cores; f32 as 3xTF32, three TF32
+# products per f32 product (faster than the 67 TFLOP/s of exact f32 FMAs)
+H100_BYTES_PER_S = 3.35e12
+H100_FLOPS = {torch.float32: 495e12 / 3, torch.bfloat16: 989e12}
+
+
+def sweep_cost(v, nf, dsrc=None, xsrc=None):
+    """(bytes, flop) one sweep must move and compute: every input read once
+    (v, ttc, bsrc, cin, bcat, macro_w, wvec, and dsrc, xmap, xval where
+    given) and every output written once (ys like v, the f32 ms partials);
+    2 D J W flop per (level, group, slot, band)."""
+    L, Gb, Km, BS, D, W = v.shape
+    J = (1 + nf) * D
+    n_state = L * Gb * Km * BS * D * W
+    f32 = (L * Gb * D * W + L * Gb * Km * D * W + L * Gb * Km * nf * W
+           + Gb * Km * BS * D * J + Gb * Km * BS + 4 * BS
+           + Gb * Km * L * D * W)
+    if dsrc is not None:
+        f32 += L * Gb * Km * D * W
+    nbytes = 2 * n_state * v.element_size() + 4 * f32
+    if xsrc is not None:
+        nbytes += xsrc.xmap.numel() * 4 + xsrc.xval.numel() * 4
+    return nbytes, 2 * L * Gb * Km * BS * D * J * W
+
+
+def sweep_bound_ms(v, nf, dsrc=None, xsrc=None):
+    """The least time an H100 could take for one sweep: the larger of its
+    bytes over the memory rate and its flop over the product's peak for
+    the state type. Returns (ms, "bytes" or "operations")."""
+    nbytes, flop = sweep_cost(v, nf, dsrc, xsrc)
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_ops = flop / H100_FLOPS[v.dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def lattice_ring_sweep_ref(v, ttc, bsrc, cin, bcat, macro_w, wvec, *,
@@ -177,18 +230,16 @@ def _kernel_args_ok(v, tensors, cast_bf16, shifts):
         raise ValueError(f"the CUDA kernel takes 1-3 faces, got {len(shifts)}")
     if W > KERNEL_MAX_W:
         raise ValueError(
-            f"the CUDA kernel runs one thread per slab column, W <= "
+            f"the CUDA kernel tiles W over one CTA's 8 warps, W <= "
             f"{KERNEL_MAX_W}; got W={W}"
         )
-    dp = -(-D // 4) * 4
-    ring_item = 2 if cast_bf16 else 4
-    smem = (1 + len(shifts)) * D * dp * 4 + 2 * D * W * ring_item
+    smem = kernel_smem_bytes(D, W, len(shifts), cast_bf16)
     if smem > _SMEM_LIMIT:
         raise ValueError(f"the kernel would need {smem} B of shared memory")
 
 
 def _launch(v, ttc, bsrc, cin, bcat, macro_w, wvec, shifts, dsrc, xsrc,
-            cast_bf16):
+            cast_bf16, lib=None):
     tensors = dict(v=v, ttc=ttc, bsrc=bsrc, cin=cin, bcat=bcat,
                    macro_w=macro_w, wvec=wvec)
     if dsrc is not None:
@@ -199,7 +250,7 @@ def _launch(v, ttc, bsrc, cin, bcat, macro_w, wvec, shifts, dsrc, xsrc,
     L, Gb, Km, BS, D, W = v.shape
     ys = torch.empty_like(v)
     ms = torch.zeros((Gb, Km, L, D, W), dtype=torch.float32, device=v.device)
-    lib = _lib()
+    lib = lib or _lib()
     s = [int(x) for x in shifts] + [0] * (KERNEL_MAX_FACES - len(shifts))
     with torch.cuda.device(v.device):
         stream = torch.cuda.current_stream(v.device).cuda_stream
@@ -220,14 +271,19 @@ def _launch(v, ttc, bsrc, cin, bcat, macro_w, wvec, shifts, dsrc, xsrc,
     return ys, ms
 
 
-def _lib():
-    lib = _build.load("lattice_ring").lib
+def _lib(name="lattice_ring"):
+    """The kernel library built as ``name`` (see _build.load), its entry
+    points typed."""
+    lib = _build.load(name).lib
     p, i = ctypes.c_void_p, ctypes.c_int
     # 10 input pointers (through xmap, xval), U, the ys and ms pointers,
     # then L, Gb, Km, BS, W, nf and three shifts, then the stream
     lib.pbte_lattice_ring_sweep.argtypes = (
         [i, i] + [p] * 10 + [i] + [p] * 2 + [i] * 9 + [p])
     lib.pbte_lattice_ring_sweep.restype = i
+    if hasattr(lib, "pbte_lattice_ring_smem_bytes"):
+        lib.pbte_lattice_ring_smem_bytes.argtypes = [i] * 4
+        lib.pbte_lattice_ring_smem_bytes.restype = ctypes.c_longlong
     lib.pbte_cuda_error_string.argtypes = [i]
     lib.pbte_cuda_error_string.restype = ctypes.c_char_p
     return lib

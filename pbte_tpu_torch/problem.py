@@ -1,4 +1,4 @@
-"""Unit-cube lattice problems, built from pbte_tpu's numpy host layers.
+"""Unit-cube lattice problems, built from this package's numpy host layers.
 
 The flagship is ``unit_cube(16, 16, 16, order=2, polar=4, azimuth=16,
 nspec=20)`` with ``WALL_BCS``: the problem ``bench.py`` and
@@ -13,10 +13,10 @@ Boundary attributes of the cube: 1 and 6 are the z faces (bottom, top),
 
 from __future__ import annotations
 
-from pbte_tpu import mesh as pmesh
-from pbte_tpu.angular import quadrature as ang
-from pbte_tpu.fem import assembly
-from pbte_tpu.material import nongray_smrt as mat
+from pbte_tpu_torch import mesh as pmesh
+from pbte_tpu_torch.angular import quadrature as ang
+from pbte_tpu_torch.fem import assembly
+from pbte_tpu_torch.material import nongray_smrt as mat
 
 # isothermal walls: attr 6 hot, the rest cold
 WALL_BCS = {1: -0.5, 2: -0.5, 3: -0.5, 4: -0.5, 5: -0.5, 6: 0.5}
@@ -32,8 +32,7 @@ def unit_cube(nx, ny, nz, order, polar, azimuth, nspec, periodic=()):
     m = pmesh.make_cartesian_3d(nx, ny, nz, "hex").scaled(1.0e-6)
     if len(periodic):
         m = pmesh.make_periodic(m, [int(a) for a in periodic])
-    ops = assembly.assemble(pmesh.connect(m), order=order,
-                            face_mode="consistent")
+    ops = assembly.assemble(pmesh.connect(m), order=order)
     quad = ang.build(ang.AngularOptions(
         dimension=3, polar_points=polar, azimuth_points=azimuth))
     tables = mat.build_tables(mat.SILICON, num_spectral=nspec)

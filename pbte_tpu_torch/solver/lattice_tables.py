@@ -1,0 +1,98 @@
+"""Host tables of the shift-structured lattice ring (numpy).
+
+This package's own copies of ``_lattice_ring_tables``
+(``pbte_tpu/solver/source_iteration.py``) and ``mirror_direction_map``
+(``pbte_tpu/validation/oracle.py``).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+
+def lattice_ring_tables(lat, plan, dirs_np):
+    """Per-group lattice slab tables for the shift-structured ring sweep.
+
+    With wavefront level l = sum of sweep-transformed integer coordinates
+    (i'_d = coord_d on positive sweep axes, n_d - 1 - coord_d on negative)
+    and slab slot w = i'_p1 * n_p2 + i'_p2 over the plane axes (all axes but
+    the largest), the upwind neighbor along every axis sits in the previous
+    level's slab at a static offset: 0 for the major axis, n_p2 and 1 for
+    the plane axes.
+
+    Returns (tables (G, L, W), axis_faces (G, dim), shifts (dim,)) or None:
+    tables[g, l, w] = element id (or -1 padding); axis_faces[g, j] = the
+    inflow face slot of axis j for group g; shifts[j] = slab offset of axis
+    j's upwind neighbor within the previous level's slab.
+    """
+    dim = len(lat.dims)
+    dims = np.asarray(lat.dims, dtype=np.int64)
+    G = plan.num_groups
+    ne = lat.coords.shape[0]
+    L = int(dims.sum()) - dim + 1
+    if L != plan.max_levels:
+        return None
+    a0 = int(np.argmax(dims))
+    plane = [d for d in range(dim) if d != a0]
+    shifts = np.zeros(dim, dtype=np.int64)
+    if dim == 3:
+        W = int(dims[plane[0]] * dims[plane[1]])
+        shifts[plane[0]] = int(dims[plane[1]])
+        shifts[plane[1]] = 1
+    elif dim == 2:
+        W = int(dims[plane[0]])
+        shifts[plane[0]] = 1
+    else:
+        return None
+    tables = np.full((G, L, W), -1, dtype=np.int32)
+    axis_faces = np.zeros((G, dim), dtype=np.int64)
+    for g in range(G):
+        rep = dirs_np[plan.dirs_of_group[g][0]]
+        if np.abs(rep[:dim]).min() < 1e-14:
+            return None  # axis-grazing direction: sign pattern ill-defined
+        sgn = np.where(rep[:dim] > 0, 1, -1)
+        ip = np.where(sgn[None, :] > 0, lat.coords,
+                      dims[None, :] - 1 - lat.coords)
+        lev = ip.sum(axis=1)
+        # the lattice leveling must be the canonical longest-path leveling
+        if not np.array_equal(lev, plan.level_of_elem[g]):
+            return None
+        if dim == 3:
+            w = ip[:, plane[0]] * dims[plane[1]] + ip[:, plane[1]]
+        else:
+            w = ip[:, plane[0]]
+        tables[g, lev, w] = np.arange(ne, dtype=np.int32)
+        axis_faces[g] = np.where(sgn > 0, lat.face_minus, lat.face_plus)
+    return tables, axis_faces, shifts
+
+
+def mirror_direction_map(quad, dim: int, axes=None,
+                         tol: float = 1e-9) -> np.ndarray:
+    """mirror_of[axis, k] = index of the quadrature direction equal to
+    direction k with component ``axis`` negated (specular reflection off an
+    axis-aligned face); -1 rows for axes not requested. Raises if the
+    quadrature is not mirror-symmetric about a requested axis, or if a
+    matched direction's weight differs."""
+    dirs = quad.directions[:, :dim]
+    w = quad.weights
+    K = len(dirs)
+    scale = max(float(np.abs(dirs).max()), 1e-300)
+    out = np.full((dim, K), -1, dtype=np.int64)
+    for ax in (range(dim) if axes is None
+               else sorted(set(int(a) for a in axes))):
+        m = dirs.copy()
+        m[:, ax] = -m[:, ax]
+        d2 = np.abs(m[:, None, :] - dirs[None, :, :]).max(axis=-1)
+        j = np.argmin(d2, axis=1)
+        if (d2[np.arange(K), j] > tol * scale).any():
+            raise ValueError(
+                f"angular quadrature is not mirror-symmetric about axis "
+                f"{ax}; specular BCs need a symmetric direction set"
+            )
+        if (np.abs(w[j] - w) > tol * max(float(w.max()), 1e-300)).any():
+            raise ValueError(
+                f"mirrored directions about axis {ax} carry different "
+                "quadrature weights"
+            )
+        out[ax] = j
+    return out

@@ -7,10 +7,12 @@ Pallas kernel, plus the lagged closures its XLA ring ``_step_ring`` runs on
 the same lattice (periodic wraps, diffuse and specular walls). The flagship
 (hex 16^3, p=2, 64 directions x 40 bands, f32) takes this path.
 
-Construction is numpy host math on the framework-free layers of
-``pbte_tpu`` (mesh, FEM assembly, quadrature, material tables, sweep plan,
-``_lattice_ring_tables``); the results become tensors on ``device`` in a
-``consts`` dict. One outer step:
+Construction is numpy host math on this package's own host layers (FEM
+class helpers, sweep plan, lattice tables); the results become tensors on
+``device`` (the GPU unless the caller asks for the CPU) in a ``consts``
+dict. The constructor reads ``ops``, ``quad`` and ``tables`` by their
+fields only, so it takes pbte_tpu's objects as well as this package's. One
+outer step:
 
 1. builds the lagged-temperature slab ``M^T Tc`` (one einsum);
 2. with periodic or reflective faces, gathers the previous iterate's
@@ -36,12 +38,14 @@ import os
 import numpy as np
 import torch
 
-from pbte_tpu.fem import assembly
-from pbte_tpu.solver.source_iteration import _lattice_ring_tables
-from pbte_tpu.sweep import planner
-from pbte_tpu.validation.oracle import mirror_direction_map
+from pbte_tpu_torch.fem import assembly
 from pbte_tpu_torch.models import macroscopic
 from pbte_tpu_torch.ops.lattice_ring import ClosureSource, lattice_ring_sweep
+from pbte_tpu_torch.solver.lattice_tables import (
+    lattice_ring_tables,
+    mirror_direction_map,
+)
+from pbte_tpu_torch.sweep import planner
 
 _RING_FAMILY = "ROADMAP.md queue 1, item 6 (the rest of the ring family)"
 # the reflective-wall consts, global (the gather crosses buckets)
@@ -50,24 +54,37 @@ REFL_KEYS = ("dif_fint", "dif_cin", "dif_wplus", "dif_norm", "dif_fvec",
 _SCAN_PATH = "ROADMAP.md queue 1, item 7 (scan path)"
 
 
+def checked_device(device) -> torch.device:
+    """``device`` as a torch.device; a CUDA device raises when no GPU is
+    visible (the entry points run on the card and never fall back to the
+    CPU: pass ``device="cpu"`` for that)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {device} requested but no CUDA GPU is available; pass "
+            "device='cpu' to run on the CPU"
+        )
+    return device
+
+
 class SourceIterationSolver:
     """Build once per (mesh, angles, material, bcs) problem; step on
     ``device``."""
 
     def __init__(
         self,
-        ops,  # pbte_tpu.fem.assembly.ElementOps
-        quad,  # pbte_tpu.angular.quadrature.AngularQuad
-        tables,  # pbte_tpu.material.nongray_smrt.PhononTables
+        ops,  # fem.assembly.ElementOps (this package's or pbte_tpu's)
+        quad,  # angular.quadrature.AngularQuad
+        tables,  # material.nongray_smrt.PhononTables
         bc_temps: dict,  # boundary attr -> temperature deviation
         dirichlet_bcs: dict | None = None,  # attr -> prescribed incoming
         dtype: torch.dtype = torch.float32,
-        device="cpu",
+        device="cuda",
         *,
         diffuse_bcs=None,
         specular_bcs=None,
     ):
-        self.device = device = torch.device(device)
+        device = torch.device(device)
         if dtype not in (torch.float32, torch.float64):
             raise ValueError(f"dtype must be float32 or float64, got {dtype}")
         if dtype == torch.float64 and device.type != "cpu":
@@ -75,6 +92,7 @@ class SourceIterationSolver:
                 "float64 runs on the CPU only, through the plain sweep; the "
                 "CUDA kernel takes float32 or bfloat16 state"
             )
+        self.device = device = checked_device(device)
         # the closure einsums are float32 references for the kernel: keep
         # TF32 (about three decimal digits) out of every product
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -170,7 +188,7 @@ class SourceIterationSolver:
                 f"not canonicalised): {_RING_FAMILY}"
             )
         lat = planner.detect_lattice(sweep_nbr, ops.normals)
-        lt = None if lat is None else _lattice_ring_tables(lat, plan, dirs_np)
+        lt = None if lat is None else lattice_ring_tables(lat, plan, dirs_np)
         if lt is None:
             raise NotImplementedError(
                 "not a Cartesian box lattice with an octant leveling "

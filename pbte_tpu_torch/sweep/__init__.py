@@ -1,0 +1,1 @@
+"""sweep layer of the lattice path (this package's own copy; see its modules)."""

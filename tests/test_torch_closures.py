@@ -54,15 +54,17 @@ def _cpu_float_env():
 
 
 @functools.lru_cache(maxsize=None)
-def _problem(case):
+def _problem(case, build=unit_cube):
+    """The case's problem from the port's host layers, or from pbte_tpu's
+    with build=torch_golden.jax_unit_cube."""
     az, periodic, bcs, dif, spc = CASES[case]
-    prob = unit_cube(8, 8, 8, order=1, polar=2, azimuth=az, nspec=2,
-                     periodic=periodic)
+    prob = build(8, 8, 8, order=1, polar=2, azimuth=az, nspec=2,
+                 periodic=periodic)
     return prob, bcs, dict(diffuse_bcs=dif, specular_bcs=spc)
 
 
 def _jax_solver(case, dtype):
-    prob, bcs, kw = _problem(case)
+    prob, bcs, kw = _problem(case, torch_golden.jax_unit_cube)
     js = JaxSolver(*prob, bcs, dtype=dtype, sweep_mode="ring",
                    use_pallas="off", **kw)
     assert js.sweep_mode == "ring" and js._ring_lattice and js._ring_ccpl
@@ -72,7 +74,7 @@ def _jax_solver(case, dtype):
 
 def _port_solver(case, dtype):
     prob, bcs, kw = _problem(case)
-    return SourceIterationSolver(*prob, bcs, dtype=dtype, **kw)
+    return SourceIterationSolver(*prob, bcs, dtype=dtype, device="cpu", **kw)
 
 
 @functools.lru_cache(maxsize=None)
@@ -99,7 +101,7 @@ def test_f64_closures_match_xla_ring(case):
 def test_f64_closures_match_oracle(case):
     """Against the sequential numpy oracle at pbte_tpu's own tolerances for
     these closures on the lattice ring (tests/test_reflective_bcs.py:203)."""
-    prob, bcs, kw = _problem(case)
+    prob, bcs, kw = _problem(case, torch_golden.jax_unit_cube)
     okw = dict(diffuse=kw["diffuse_bcs"] or None,
                specular=kw["specular_bcs"] or None)
     _, Tco, *_ = solve_oracle(*prob, bcs, tol=0, max_iter=STEPS, **okw)
@@ -115,7 +117,8 @@ def test_closure_constructor_parity(case, monkeypatch):
     monkeypatch.setenv("PBTE_RING_BF16", "0")
     js = _jax_solver(case, jnp.float32)
     ts = _port_solver(case, torch.float32)
-    want = consts_from_numpy(jax.tree.map(np.asarray, js.consts))
+    want = consts_from_numpy(jax.tree.map(np.asarray, js.consts),
+                             device="cpu")
     got = ts.consts
     assert got.keys() == want.keys()
     for key in got:
@@ -143,10 +146,12 @@ def test_f32_step_through_bridge(case, monkeypatch):
     js = _jax_solver(case, jnp.float32)
     assert not js._ring_stage_bf16
     ts = _port_solver(case, torch.float32)
-    ts.consts = consts_from_numpy(jax.tree.map(np.asarray, js.consts))
+    ts.consts = consts_from_numpy(jax.tree.map(np.asarray, js.consts),
+                                  device="cpu")
     u, Tc, Tv = js.initial_state()
     for _ in range(3):
-        ut, Tct, Tvt = state_from_numpy(u, Tc, Tv, layout="dbs")
+        ut, Tct, Tvt = state_from_numpy(u, Tc, Tv, device="cpu",
+                                         layout="dbs")
         u, Tc, Tv, r = js.step(u, Tc, Tv)
         ut, Tct, Tvt, rt = ts.step(ut, Tct, Tvt)
         np.testing.assert_allclose(Tct.numpy(), np.asarray(Tc), rtol=2e-5,
@@ -159,12 +164,14 @@ def test_state_from_numpy_layouts():
     (.., BS, D, W); "bsd" slabs as they are."""
     rng = np.random.default_rng(0)
     u = rng.standard_normal((3, 2, 4, 5, 6, 7))  # (L, Gb, Km, D, BS, W)
-    ut, _, _ = state_from_numpy([u], np.zeros(1), np.zeros(1), layout="dbs")
+    ut, _, _ = state_from_numpy([u], np.zeros(1), np.zeros(1), device="cpu",
+                               layout="dbs")
     assert torch.equal(ut[0], torch.from_numpy(u.transpose(0, 1, 2, 4, 3, 5)))
-    ut, _, _ = state_from_numpy([u], np.zeros(1), np.zeros(1))
+    ut, _, _ = state_from_numpy([u], np.zeros(1), np.zeros(1), device="cpu")
     assert torch.equal(ut[0], torch.from_numpy(u))
     with pytest.raises(ValueError):
-        state_from_numpy([u], np.zeros(1), np.zeros(1), layout="sbd")
+        state_from_numpy([u], np.zeros(1), np.zeros(1), device="cpu",
+                         layout="sbd")
 
 
 def _sweep_inputs(dt, seed, L=6, Gb=2, Km=3, BS=4, D=8, W=16, U=5):
@@ -319,10 +326,10 @@ def test_port_matches_closure_golden_on_cpu():
     golden, the check chip_smoke.py repeats on a GPU through the CUDA
     kernel."""
     with np.load(torch_golden.PATH_CLOSURES) as d:
-        prob, bcs, kw = torch_golden.closure_solver_args(d)
+        prob, bcs, kw = torch_golden.closure_solver_args(d, unit_cube)
         Tc_ref = d["Tc"][-1]
         steps = int(d["steps"])
-    ts = SourceIterationSolver(*prob, bcs, **kw)
+    ts = SourceIterationSolver(*prob, bcs, device="cpu", **kw)
     assert ts.has_periodic and ts._dif_on and ts._spc_on
     r = ts.solve(tol=0, max_iter=steps, verbose=False)
     np.testing.assert_allclose(r.Tc.numpy(), Tc_ref, rtol=2e-5, atol=5e-7)

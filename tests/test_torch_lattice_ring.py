@@ -211,3 +211,32 @@ def test_wrapper_rejects_other_devices():
             t["v"], t["ttc"], t["bsrc"], t["cin"], t["bcat"], t["macro_w"],
             t["wvec"], shifts=SHIFTS, cast_bf16=False,
         )
+
+
+@pytest.mark.parametrize("dtype,nbytes,bound_ms", [
+    (torch.float32, 4200939392, 1.25401175880597),
+    (torch.bfloat16, 2166046592, 0.646581072238806),
+])
+def test_flagship_bucket_bound(dtype, nbytes, bound_ms):
+    """The bound chip_smoke.py reports for the flagship's bucket 0 (46
+    levels, 4 groups x 10 slots x 40 bands, D=27, W=256, three faces): its
+    bytes (every input read once, every output written once) over
+    3.35 TB/s, above its 1.1e11 flop over the tensor-core peak (3xTF32 at
+    495/3 TFLOP/s for f32 state, bf16 at 989 TFLOP/s)."""
+    v = torch.zeros((46, 4, 10, 40, 27, 256), dtype=dtype, device="meta")
+    got_bytes, flop = tlr.sweep_cost(v, 3)
+    assert got_bytes == nbytes and flop == 2 * 46 * 4 * 10 * 40 * 27 * 108 * 256
+    ms, by = tlr.sweep_bound_ms(v, 3)
+    assert by == "bytes"
+    np.testing.assert_allclose(ms, bound_ms, rtol=1e-12)
+    assert flop / tlr.H100_FLOPS[dtype] * 1e3 < ms
+
+
+@pytest.mark.parametrize("cast", [False, True])
+def test_kernel_shared_memory_fits_one_cta(cast):
+    """The kernel's carve-up at the flagship's widths fits one CTA on
+    Hopper (tiles at a row stride of 264 words), and grows with W."""
+    smem = tlr.kernel_smem_bytes(27, 256, 3, cast)
+    assert smem <= tlr._SMEM_LIMIT
+    assert smem == (8192 if cast else 32768) + 4 * 27 * 264 * 4 + 2 * 3 * 256 * 4
+    assert tlr.kernel_smem_bytes(27, 64, 3, cast) < smem

@@ -72,5 +72,18 @@ def test_residual_zero_tv_is_finite_like_jax():
 
 
 def test_weights_are_pbte_tpu_host_math():
-    assert tmac.macro_weights is jmac.macro_weights
-    assert tmac.flux_weights is jmac.flux_weights
+    """The port's own copies of the weight functions give pbte_tpu's
+    numbers bit for bit on pbte_tpu's quadrature and tables (the port's
+    own quadrature and tables: tests/test_torch_host_layers.py)."""
+    from pbte_tpu.angular import quadrature as ang
+    from pbte_tpu.material import nongray_smrt as mat
+
+    assert tmac.macro_weights is not jmac.macro_weights
+    quad = ang.build(ang.AngularOptions(dimension=3, polar_points=2,
+                                        azimuth_points=8))
+    tables = mat.build_tables(mat.SILICON, num_spectral=3)
+    np.testing.assert_array_equal(tmac.macro_weights(quad, tables),
+                                  jmac.macro_weights(quad, tables))
+    for dim in (2, 3):
+        np.testing.assert_array_equal(tmac.flux_weights(quad, tables, dim),
+                                      jmac.flux_weights(quad, tables, dim))

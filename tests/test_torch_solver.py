@@ -2,6 +2,7 @@
 lattice-ring path: constructor, one step through the consts bridge, the
 whole slice, the committed golden, the gate, and the no-JAX import."""
 
+import inspect
 import os
 import pathlib
 import subprocess
@@ -53,19 +54,23 @@ def _cpu_float_env():
     torch.set_flush_denormal(False)
 
 
-def _problem(case):
+def _problem(case, build=unit_cube):
+    """The case's problem from the port's host layers, or from pbte_tpu's
+    with build=torch_golden.jax_unit_cube."""
     nx, ny, nz, order, az = CASES[case]
-    return unit_cube(nx, ny, nz, order=order, polar=2, azimuth=az, nspec=2)
+    return build(nx, ny, nz, order=order, polar=2, azimuth=az, nspec=2)
 
 
 def _pair(case, dirichlet=False, dtype=np.float32, pallas="on"):
-    prob = _problem(case)
+    """pbte_tpu's solver on pbte_tpu's problem, the port's on its own."""
     bcs, kw = (DIRICHLET_WALLS, DIRICHLET) if dirichlet else (WALL_BCS, {})
     f32 = dtype == np.float32
-    js = JaxSolver(*prob, bcs, dtype=jnp.float32 if f32 else jnp.float64,
+    js = JaxSolver(*_problem(case, torch_golden.jax_unit_cube), bcs,
+                   dtype=jnp.float32 if f32 else jnp.float64,
                    use_pallas=pallas, **kw)
     ts = SourceIterationSolver(
-        *prob, bcs, dtype=torch.float32 if f32 else torch.float64, **kw)
+        *_problem(case), bcs, dtype=torch.float32 if f32 else torch.float64,
+        device="cpu", **kw)
     if pallas == "on":
         assert js._use_pallas_ring and js._pallas_interpret
     return js, ts
@@ -99,7 +104,8 @@ def test_constructor_parity(case, dirichlet):
         js.G, js.L, js.W, js.Km, js._ring_shift_vals)
     assert [(list(g), k) for g, k in ts._ring_buckets] == [
         (list(g), k) for g, k in js._ring_buckets]
-    want = consts_from_numpy(jax.tree.map(np.asarray, js.consts))
+    want = consts_from_numpy(jax.tree.map(np.asarray, js.consts),
+                             device="cpu")
     got = ts.consts
     assert got.keys() == want.keys()
     for key in got:
@@ -128,10 +134,11 @@ def test_step_parity_through_bridge(case, dirichlet):
     operators (consts_from_numpy) and the same state each step, over 4
     steps; tolerances as tests/test_pallas_ring.py."""
     js, ts = _pair(case, dirichlet)
-    ts.consts = consts_from_numpy(jax.tree.map(np.asarray, js.consts))
+    ts.consts = consts_from_numpy(jax.tree.map(np.asarray, js.consts),
+                                  device="cpu")
     u, Tc, Tv = js.initial_state()
     for _ in range(4):
-        ut, Tct, Tvt = state_from_numpy(u, Tc, Tv)
+        ut, Tct, Tvt = state_from_numpy(u, Tc, Tv, device="cpu")
         u, Tc, Tv, r = js.step(u, Tc, Tv)
         ut, Tct, Tvt, rt = ts.step(ut, Tct, Tvt)
         _assert_tc(Tct.numpy(), Tc, dirichlet)
@@ -152,11 +159,12 @@ def test_bf16_state_step_through_bridge(monkeypatch):
     js, ts = _pair("9x8x8_p1")
     js._pallas_state_bf16 = True
     assert ts.state_bf16 and ts.state_dtype == torch.bfloat16
-    ts.consts = consts_from_numpy(jax.tree.map(np.asarray, js.consts))
+    ts.consts = consts_from_numpy(jax.tree.map(np.asarray, js.consts),
+                                  device="cpu")
     u, Tc, Tv = js.initial_state()
     assert u[0].dtype == jnp.bfloat16
     for _ in range(4):
-        ut, Tct, Tvt = state_from_numpy(u, Tc, Tv)
+        ut, Tct, Tvt = state_from_numpy(u, Tc, Tv, device="cpu")
         assert ut[0].dtype == torch.bfloat16
         u, Tc, Tv, r = js.step(u, Tc, Tv)
         ut, Tct, Tvt, rt = ts.step(ut, Tct, Tvt)
@@ -174,7 +182,7 @@ def test_step_hands_the_kernel_what_it_takes(monkeypatch, bf16):
     if bf16:
         monkeypatch.setenv("PBTE_RING_STATE_BF16", "1")
     ts = SourceIterationSolver(*_problem("8x8x8_p2"), DIRICHLET_WALLS,
-                               **DIRICHLET)
+                               device="cpu", **DIRICHLET)
     calls = []
 
     def checked(v, ttc, bsrc, cin, bcat, macro_w, wvec, *, shifts, dsrc,
@@ -266,14 +274,14 @@ def test_port_matches_golden_on_cpu():
         bcs = dict(zip(d["bc_attrs"].tolist(), d["bc_temps"].tolist()))
         Tc_ref = d["Tc"][-1]
         steps = int(d["steps"])
-    ts = SourceIterationSolver(*unit_cube(**params), bcs)
+    ts = SourceIterationSolver(*unit_cube(**params), bcs, device="cpu")
     r = ts.solve(tol=0, max_iter=steps, verbose=False)
     np.testing.assert_allclose(r.Tc.numpy(), Tc_ref, rtol=2e-5, atol=5e-7)
 
 
 def _gate_raises(prob, bcs, **kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SourceIterationSolver(*prob, bcs, **kw)
+        SourceIterationSolver(*prob, bcs, device="cpu", **kw)
 
 
 def test_gate_periodic():
@@ -288,7 +296,8 @@ def test_gate_periodic():
 
     _, quad, tables = _problem("9x8x8_p1")
     bcs = {1: -0.5, 2: -0.5, 4: -0.5, 6: 0.5}  # x faces wrap (no attr)
-    ts = SourceIterationSolver(periodic_ops(8), quad, tables, bcs)
+    ts = SourceIterationSolver(periodic_ops(8), quad, tables, bcs,
+                               device="cpu")
     assert ts.has_periodic and "per_cpl" in ts.consts["buckets"][0]
     _gate_raises((periodic_ops(7), quad, tables), bcs)
 
@@ -298,14 +307,15 @@ def test_gate_reflective(kind):
     """Reflective walls on the lattice are taken and need no temperature;
     below 512 elements (several classes) the gate still raises."""
     bcs = {5: -0.5, 3: 0.5}
-    ts = SourceIterationSolver(*_problem("9x8x8_p1"), bcs,
+    ts = SourceIterationSolver(*_problem("9x8x8_p1"), bcs, device="cpu",
                                **{kind: [1, 2, 4, 6]})
     on = ts._dif_on if kind == "diffuse_bcs" else ts._spc_on
     assert on and "refl_pl" in ts.consts["buckets"][0]
     _gate_raises(unit_cube(7, 7, 7, order=1, polar=2, azimuth=4, nspec=2),
                  bcs, **{kind: [1, 2, 4, 6]})
     with pytest.raises(ValueError, match="without isothermal BC"):
-        SourceIterationSolver(*_problem("9x8x8_p1"), bcs, **{kind: [1, 2]})
+        SourceIterationSolver(*_problem("9x8x8_p1"), bcs, device="cpu",
+                              **{kind: [1, 2]})
 
 
 def test_gate_tet_mesh():
@@ -320,7 +330,7 @@ def test_gate_axis_grazing_directions():
     with pytest.raises(NotImplementedError, match="box lattice"):
         SourceIterationSolver(
             *unit_cube(8, 8, 8, order=1, polar=1, azimuth=4, nspec=2),
-            WALL_BCS)
+            WALL_BCS, device="cpu")
 
 
 def test_gate_small_mesh_keeps_face_order():
@@ -337,15 +347,37 @@ def test_gate_f64_on_gpu_device():
                               dtype=torch.float64, device="cuda")
 
 
+@pytest.mark.parametrize("entry", ["solver", "consts", "state"])
+def test_entry_points_default_to_the_gpu(monkeypatch, entry):
+    """SourceIterationSolver, consts_from_numpy and state_from_numpy run on
+    the GPU unless asked for the CPU: with no GPU visible, the default
+    raises before anything is allocated, and never falls back."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    fn = {"solver": SourceIterationSolver.__init__,
+          "consts": consts_from_numpy, "state": state_from_numpy}[entry]
+    assert inspect.signature(fn).parameters["device"].default == "cuda"
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        if entry == "solver":
+            SourceIterationSolver(*_problem("9x8x8_p1"), WALL_BCS)
+        elif entry == "consts":
+            consts_from_numpy({})
+        else:
+            state_from_numpy([np.zeros((1, 1, 1, 1, 8, 4))], np.zeros(1),
+                             np.zeros(1))
+
+
 def test_no_jax_import():
     """The port builds and steps a hex 8^3 problem in a process where
-    importing JAX fails."""
+    importing JAX, or anything of pbte_tpu, fails; every module of the
+    port and chip_smoke.py import there too."""
     code = textwrap.dedent("""
+        import importlib
+        import pkgutil
         import sys
 
         class _RefuseJax:
             def find_spec(self, name, path=None, target=None):
-                if name.split(".")[0] in ("jax", "jaxlib"):
+                if name.split(".")[0] in ("jax", "jaxlib", "pbte_tpu"):
                     raise ImportError(f"{name} refused")
                 return None
 
@@ -353,6 +385,11 @@ def test_no_jax_import():
         import torch
         torch.set_num_threads(1)
         import pbte_tpu_torch
+        mods = [m.name for m in pkgutil.walk_packages(
+            pbte_tpu_torch.__path__, "pbte_tpu_torch.")]
+        for name in mods + ["chip_smoke"]:
+            importlib.import_module(name)
+        assert len(mods) > 15, mods
         from pbte_tpu_torch.problem import WALL_BCS, unit_cube
         from pbte_tpu_torch.solver.source_iteration import (
             SourceIterationSolver,
@@ -364,7 +401,7 @@ def test_no_jax_import():
         for _ in range(2):
             u, Tc, Tv, r = s.step(u, Tc, Tv)
         assert torch.isfinite(Tc).all() and bool(torch.isfinite(r))
-        assert not any(m.split(".")[0] in ("jax", "jaxlib")
+        assert not any(m.split(".")[0] in ("jax", "jaxlib", "pbte_tpu")
                        for m in sys.modules)
         print("no-jax ok")
     """)

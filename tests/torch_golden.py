@@ -11,6 +11,10 @@ bf16 operand staging off, ``PBTE_RING_BF16=0``) on a hex 8^3, p=1,
 periodic, z faces isothermal, one y face diffuse and the other specular;
 5 outer steps from the zero state.
 
+Both build their problems from pbte_tpu's own host layers
+(``jax_unit_cube``), the same unit cube ``pbte_tpu_torch.problem.unit_cube``
+builds from the port's copy of them.
+
 ``python tests/torch_golden.py`` writes both to ``tests/data/``;
 tests/test_torch_solver.py regenerates them and checks them against the
 committed files, and chip_smoke.py holds pbte_tpu_torch's CUDA kernel path
@@ -28,6 +32,8 @@ DATA = pathlib.Path(__file__).resolve().parent / "data"
 PATH = DATA / "torch_port_golden.npz"
 PARAMS = dict(nx=8, ny=8, nz=8, order=2, polar=2, azimuth=4, nspec=2)
 STEPS = 5
+# the flagship's isothermal walls (pbte_tpu_torch.problem.WALL_BCS)
+WALL_BCS = {1: -0.5, 2: -0.5, 3: -0.5, 4: -0.5, 5: -0.5, 6: 0.5}
 
 PATH_CLOSURES = DATA / "torch_port_golden_closures.npz"
 CLOSURE_PARAMS = dict(nx=8, ny=8, nz=8, order=1, polar=2, azimuth=4, nspec=2)
@@ -35,6 +41,25 @@ CLOSURE_PERIODIC = (0,)
 CLOSURE_BCS = {1: -0.5, 6: 0.5}
 CLOSURE_DIFFUSE = (2,)
 CLOSURE_SPECULAR = (4,)
+
+
+def jax_unit_cube(nx, ny, nz, order, polar, azimuth, nspec, periodic=()):
+    """(ops, quad, tables) of pbte_tpu_torch.problem.unit_cube, built from
+    pbte_tpu's mesh, assembly, quadrature and material modules."""
+    from pbte_tpu import mesh as pmesh
+    from pbte_tpu.angular import quadrature as ang
+    from pbte_tpu.fem import assembly
+    from pbte_tpu.material import nongray_smrt as mat
+
+    m = pmesh.make_cartesian_3d(nx, ny, nz, "hex").scaled(1.0e-6)
+    if len(periodic):
+        m = pmesh.make_periodic(m, [int(a) for a in periodic])
+    ops = assembly.assemble(pmesh.connect(m), order=order,
+                            face_mode="consistent")
+    quad = ang.build(ang.AngularOptions(
+        dimension=3, polar_points=polar, azimuth_points=azimuth))
+    tables = mat.build_tables(mat.SILICON, num_spectral=nspec)
+    return ops, quad, tables
 
 
 def _steps(s):
@@ -51,9 +76,8 @@ def build() -> dict:
     import jax.numpy as jnp
 
     from pbte_tpu.solver.source_iteration import SourceIterationSolver
-    from pbte_tpu_torch.problem import WALL_BCS, unit_cube
 
-    s = SourceIterationSolver(*unit_cube(**PARAMS), WALL_BCS,
+    s = SourceIterationSolver(*jax_unit_cube(**PARAMS), WALL_BCS,
                               dtype=jnp.float32, use_pallas="on")
     if not (s._use_pallas_ring and s._pallas_interpret):
         raise RuntimeError("the golden must come from the Pallas kernel path")
@@ -69,10 +93,10 @@ def build() -> dict:
     )
 
 
-def closure_solver_args(d) -> tuple:
-    """(problem, bc_temps, solver keywords) of a closure golden's fields."""
-    from pbte_tpu_torch.problem import unit_cube
-
+def closure_solver_args(d, unit_cube) -> tuple:
+    """(problem, bc_temps, solver keywords) of a closure golden's fields,
+    the problem built by ``unit_cube`` (jax_unit_cube for pbte_tpu, the
+    port's own for pbte_tpu_torch)."""
     params = {k: int(d[k]) for k in CLOSURE_PARAMS}
     prob = unit_cube(**params, periodic=tuple(int(a) for a in d["periodic"]))
     bcs = dict(zip(np.asarray(d["bc_attrs"]).tolist(),
@@ -97,7 +121,7 @@ def build_closures() -> dict:
         diffuse=np.array(CLOSURE_DIFFUSE, dtype=np.int64),
         specular=np.array(CLOSURE_SPECULAR, dtype=np.int64),
     )
-    prob, bcs, kw = closure_solver_args(fields)
+    prob, bcs, kw = closure_solver_args(fields, jax_unit_cube)
     old = os.environ.get("PBTE_RING_BF16")
     os.environ["PBTE_RING_BF16"] = "0"
     try:
