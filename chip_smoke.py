@@ -18,7 +18,13 @@ Phases (a failing phase raises and the script exits non-zero):
    state, a Dirichlet source and a random sparse lagged closure source:
    errors, CUDA-event times, and each launch's bound (the larger of its
    bytes over 3.35 TB/s and its flop over the tensor-core peak of its
-   state type) with the share of it the kernel reaches;
+   state type) with the share of it the kernel reaches. Then the same with
+   the flagship's hull windows (the solver's default), the random inputs
+   zeroed outside the windows as the windows' contract asks: the windowed
+   kernel is held to the windowed plain version at the same tolerances and
+   to the full-slab kernel on the same inputs (ys bit for bit, ms to 1e-6
+   of max: its atomics add in another order), timed in turns with it, and
+   both bounds are printed (full slab; in-window slots only);
 4. the copy probe (python -m pbte_tpu_torch.bench_dma): every K2 and K3
    configuration held bit-exact (torch.equal) to its input at small and
    ragged totals (one vector, a block less 16 bytes, a block plus 16 bytes,
@@ -27,10 +33,13 @@ Phases (a failing phase raises and the script exits non-zero):
    timed in turns with the plain copy) with the launch counts read around
    it; GB/s, the kernel/plain rate ratios, and K1's bucket-0 bytes/s as a
    share of the best copy rate;
-5. the flagship (hex 16^3, p=2, 64 directions x 40 bands, f32): setup, 2
-   warm-up + 30 timed steps, ms/step, element-ordinate DOF/s, peak memory,
-   residuals, kernel launches; then 3 steps through the kernel and through
-   the plain version from one state;
+5. the flagship (hex 16^3, p=2, 64 directions x 40 bands, f32), with hull
+   windows as the solver takes them by default: setup, 2 warm-up + 30 timed
+   steps, ms/step, element-ordinate DOF/s, peak memory, residuals, kernel
+   launches; then 3 steps through the kernel and through the plain version
+   from one state; then a second solver built with PBTE_RING_WINDOWS=0 and
+   10 timed steps of each in turns (windows, full slab, full slab,
+   windows), the two held bit-equal in Tc after the same steps;
 6. the same flagship as a film: x faces isothermal, the other four diffuse
    (the lagged closure through K1's xsrc), measured as phase 5;
 7. the golden Tc of pbte_tpu's Pallas path (tests/data/torch_port_golden.npz)
@@ -44,6 +53,7 @@ it {"kernels": [...]}, the last line {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import json
+import os
 import pathlib
 import sys
 import time
@@ -54,6 +64,10 @@ import torch
 WARMUP_STEPS = 2
 TIMED_STEPS = 30
 TIMED_LAUNCHES = 10
+AB_STEPS = 10  # timed steps per turn of the windows on/off comparison
+# windowed vs full-slab kernel on the same inputs: ys is bit-equal; ms sums
+# the same band terms by atomics in another order
+WIN_MS_RTOL = 1e-6
 DMA_TOTAL_MB = 512
 DMA_REPS = 20
 XSRC_ROWS = 1024  # closure rows of the random K1 closure source
@@ -84,15 +98,15 @@ def bf16_ulp_of_max(ref):
     return 2.0 ** (np.floor(np.log2(m)) - 7)
 
 
-def time_pair(fn_a, fn_b, n):
-    """Mean CUDA-event ms of fn_a and fn_b, launched in turns after one
+def time_turns(fns, n):
+    """Mean CUDA-event ms of each of fns, launched in turns after one
     warm-up each."""
-    fn_a()
-    fn_b()
+    for fn in fns:
+        fn()
     torch.cuda.synchronize()
-    tot = [0.0, 0.0]
+    tot = [0.0] * len(fns)
     for _ in range(n):
-        for i, fn in enumerate((fn_a, fn_b)):
+        for i, fn in enumerate(fns):
             e0 = torch.cuda.Event(enable_timing=True)
             e1 = torch.cuda.Event(enable_timing=True)
             e0.record()
@@ -100,26 +114,51 @@ def time_pair(fn_a, fn_b, n):
             e1.record()
             torch.cuda.synchronize()
             tot[i] += e0.elapsed_time(e1)
-    return tot[0] / n, tot[1] / n
+    return [t / n for t in tot]
+
+
+# (bucket, state, Dirichlet source, closure source, hull windows); the first
+# windowed case is what the flagship's step launches (bucket 0, f32)
+K1_CASES = (
+    [(0, "f32", False, False, False), (0, "bf16", False, False, False),
+     (1, "f32", True, False, False), (1, "bf16", False, False, False),
+     (0, "f32", False, True, False), (1, "f32", False, True, False),
+     (0, "f32", False, False, True)]
+    + [(bi, state, dirichlet, not dirichlet, True)
+       for bi in (0, 1) for state in ("f32", "bf16")
+       for dirichlet in (True, False)]
+)
 
 
 def phase_kernel_vs_plain(solver, lr):
-    """Kernel vs plain at the flagship bucket shapes; returns the result
-    rows (bucket 0 f32 first)."""
+    """Kernel vs plain at the flagship bucket shapes, full slab and with the
+    solver's hull windows; returns the result rows."""
     rng = np.random.default_rng(0)
     c = solver.consts
     L, D, W, BS = solver.L, solver.D, solver.W, solver.BS
+    nf = len(solver.shifts)
+    if solver.win is None:
+        raise RuntimeError("the flagship solver took no hull windows")
+    inside = np.zeros((L, W), dtype=bool)
+    for l, (lo, hi) in enumerate(solver.win):
+        inside[l, lo:hi] = True
+    inside_t = torch.from_numpy(inside).cuda()
     rows = []
-    cases = [(0, "f32", False, False), (0, "bf16", False, False),
-             (1, "f32", True, False), (1, "bf16", False, False),
-             (0, "f32", False, True), (1, "f32", False, True)]
-    for bi, state, dirichlet, closure in cases:
+    for bi, state, dirichlet, closure, windowed in K1_CASES:
         cb = c["buckets"][bi]
         Gb, Km = cb["macro_w"].shape[:2]
+        # host windows for the plain version and the bounds, the solver's
+        # uploaded tensor for the kernel
+        win, win_k = (solver.win, solver.win_dev) if windowed else (None, None)
 
         def rnd(*shape):
-            return torch.from_numpy(
+            """Seeded normal values of a slab-shaped operand (L first, W
+            last), zero outside the windows in a windowed case."""
+            t = torch.from_numpy(
                 rng.standard_normal(shape, dtype=np.float32)).cuda()
+            if windowed and shape[0] == L:
+                t *= inside_t.view((L,) + (1,) * (len(shape) - 2) + (W,))
+            return t
 
         v = rnd(L, Gb, Km, BS, D, W)
         ttc = rnd(L, Gb, D, W)
@@ -128,6 +167,8 @@ def phase_kernel_vs_plain(solver, lr):
         if closure:  # 40% of the slots read one of XSRC_ROWS random rows
             xmap = np.where(rng.random((L, Gb, W)) < 0.4,
                             rng.integers(0, XSRC_ROWS, (L, Gb, W)), -1)
+            if windowed:  # the contract: no closure row outside a window
+                xmap = np.where(inside[:, None, :], xmap, -1)
             xsrc = lr.ClosureSource(
                 torch.from_numpy(xmap.astype(np.int32)).cuda(),
                 rnd(Gb, XSRC_ROWS, Km, BS, D))
@@ -137,12 +178,15 @@ def phase_kernel_vs_plain(solver, lr):
         args = (v, ttc, cb["bsrc0"], cb["cin"], cb["bcat"], cb["macro_w"],
                 c["wvec"])
         kw = dict(shifts=solver.shifts, dsrc=dsrc, xsrc=xsrc, cast_bf16=cast)
-        ys, ms = lr.lattice_ring_sweep(*args, **kw)
+        tag = (f"bucket {bi} {state}{' dirichlet' if dirichlet else ''}"
+               f"{' closure' if closure else ''}"
+               f"{' windows' if windowed else ''}")
+        ys, ms = lr.lattice_ring_sweep(*args, **kw, win=win_k)
         torch.cuda.synchronize()
-        ys_r, ms_r = lr.lattice_ring_sweep_ref(*args, **kw)
+        ys_r, ms_r = lr.lattice_ring_sweep_ref(*args, **kw, win=win)
         torch.cuda.synchronize()
         if not (torch.isfinite(ys.float()).all() and torch.isfinite(ms).all()):
-            raise RuntimeError(f"bucket {bi} {state}: non-finite kernel output")
+            raise RuntimeError(f"{tag}: non-finite kernel output")
         ys_rel, ys_abs = rel_err(ys, ys_r)
         ms_rel, ms_abs = rel_err(ms, ms_r)
         if cast:
@@ -153,33 +197,65 @@ def phase_kernel_vs_plain(solver, lr):
             ys_ulps = None
             ok = ys_rel <= F32_RTOL and ms_rel <= F32_RTOL
             tol = f"ys, ms rel <= {F32_RTOL}"
-        del ys, ms, ys_r, ms_r
-        k_ms, p_ms = time_pair(
-            lambda: lr.lattice_ring_sweep(*args, **kw),
-            lambda: lr.lattice_ring_sweep_ref(*args, **kw),
-            TIMED_LAUNCHES,
-        )
-        nf = len(solver.shifts)
-        nbytes, flop = lr.sweep_cost(v, nf, dsrc, xsrc)
-        bound_ms, bound_by = lr.sweep_bound_ms(v, nf, dsrc, xsrc)
+        del ys_r, ms_r
         row = dict(bucket=bi, shape=list(v.shape), state=state,
-                   dirichlet=dirichlet, xsrc=closure, ys_rel=ys_rel,
-                   ys_abs=ys_abs,
-                   ys_ulps_of_max=ys_ulps, ms_rel=ms_rel, ms_abs=ms_abs,
-                   tolerance=tol, kernel_ms=k_ms, plain_ms=p_ms,
-                   bytes=nbytes, flop=flop, bound_ms=bound_ms,
-                   bound_by=bound_by, share_of_bound=bound_ms / k_ms, ok=ok)
+                   dirichlet=dirichlet, xsrc=closure, windows=windowed,
+                   ys_rel=ys_rel, ys_abs=ys_abs, ys_ulps_of_max=ys_ulps,
+                   ms_rel=ms_rel, ms_abs=ms_abs, tolerance=tol)
+        if windowed:
+            # the windowed kernel against the full-slab kernel
+            outside = ~inside_t
+            if (ys.abs().amax(dim=(1, 2, 3, 4))[outside].max() != 0
+                    or ms.abs().amax(dim=(0, 1, 3))[outside].max() != 0):
+                raise RuntimeError(f"{tag}: ys or ms is not zero outside "
+                                   f"the windows")
+            ys_f, ms_f = lr.lattice_ring_sweep(*args, **kw)
+            torch.cuda.synchronize()
+            ys_equal = torch.equal(ys, ys_f)
+            ms_full_rel, _ = rel_err(ms, ms_f)
+            del ys_f, ms_f
+            row.update(ys_equals_full_slab=ys_equal,
+                       ms_vs_full_slab_rel=ms_full_rel,
+                       full_slab_tolerance=f"ys bit-equal, ms rel <= "
+                                           f"{WIN_MS_RTOL}")
+            ok = ok and ys_equal and ms_full_rel <= WIN_MS_RTOL
+        del ys, ms
+        fns = [lambda: lr.lattice_ring_sweep(*args, **kw, win=win_k),
+               lambda: lr.lattice_ring_sweep_ref(*args, **kw, win=win)]
+        if windowed:
+            fns.append(lambda: lr.lattice_ring_sweep(*args, **kw))
+        k_ms, p_ms, *full_ms = time_turns(fns, TIMED_LAUNCHES)
+        nbytes, flop = lr.sweep_cost(v, nf, dsrc, xsrc, win)
+        bound_ms, bound_by = lr.sweep_bound_ms(v, nf, dsrc, xsrc, win)
+        full_bound_ms, full_bound_by = lr.sweep_bound_ms(v, nf, dsrc, xsrc)
+        win_bound_ms, _ = lr.sweep_bound_ms(v, nf, dsrc, xsrc, solver.win)
+        row.update(kernel_ms=k_ms, plain_ms=p_ms, bytes=nbytes, flop=flop,
+                   bound_ms=bound_ms, bound_by=bound_by,
+                   share_of_bound=bound_ms / k_ms,
+                   full_slab_bound_ms=full_bound_ms,
+                   full_slab_bound_by=full_bound_by,
+                   windows_bound_ms=win_bound_ms, ok=ok)
+        line = (f"[smoke] K1 {tag}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} "
+                f"ms, bound {bound_ms:.4f} ms ({bound_by}: "
+                f"{nbytes / 1e9:.3f} GB, {flop / 1e9:.1f} Gflop), "
+                f"{bound_ms / k_ms:.3f} of the bound (bounds: full slab "
+                f"{full_bound_ms:.4f} ms, windows {win_bound_ms:.4f} ms)")
+        if windowed:
+            row.update(full_slab_kernel_ms=full_ms[0],
+                       full_slab_share_of_bound=full_bound_ms / full_ms[0])
+            line += (f"; full-slab kernel on the same inputs "
+                     f"{full_ms[0]:.4f} ms (windows / full "
+                     f"{k_ms / full_ms[0]:.3f}), "
+                     f"{full_bound_ms / full_ms[0]:.3f} of its bound")
         log("[smoke] kernel vs plain " + json.dumps(row))
-        log(f"[smoke] K1 bucket {bi} {state}"
-            f"{' dirichlet' if dirichlet else ''}"
-            f"{' closure' if closure else ''}: kernel {k_ms:.4f} ms, plain "
-            f"{p_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
-            f"{nbytes / 1e9:.3f} GB, {flop / 1e9:.1f} Gflop), "
-            f"{bound_ms / k_ms:.3f} of the bound")
+        log(line)
         if not ok:
-            raise RuntimeError(f"kernel disagrees with the plain version: {row}")
+            raise RuntimeError(f"kernel disagrees: {row}")
+        if max(row["share_of_bound"],
+               row.get("full_slab_share_of_bound", 0.0)) > 1.0:
+            raise RuntimeError(f"{tag}: faster than its bound: {row}")
         rows.append(row)
-        del v, ttc, dsrc, xsrc, args
+        del v, ttc, dsrc, xsrc, args, kw, fns
         torch.cuda.empty_cache()
     return rows
 
@@ -190,14 +266,14 @@ def check_k1_smem(solver, lr):
     lib = lr._lib()
     W, D, nf = solver.W, solver.D, len(solver.shifts)
     for cast in (0, 1):
-        got = lib.pbte_lattice_ring_smem_bytes(cast, D, W, nf)
-        want = lr.kernel_smem_bytes(D, W, nf, bool(cast))
+        got = lib.pbte_lattice_ring_smem_bytes(cast, D, W, nf, solver.L)
+        want = lr.kernel_smem_bytes(D, W, nf, bool(cast), solver.L)
         if got != want:
             raise RuntimeError(f"K1 shared memory: the kernel takes {got} B, "
                                f"the wrapper checks {want} B (cast={cast})")
     log(f"[smoke] K1 shared memory per CTA at D={D} W={W}: f32 "
-        f"{lr.kernel_smem_bytes(D, W, nf, False)} B, bf16 "
-        f"{lr.kernel_smem_bytes(D, W, nf, True)} B")
+        f"{lr.kernel_smem_bytes(D, W, nf, False, solver.L)} B, bf16 "
+        f"{lr.kernel_smem_bytes(D, W, nf, True, solver.L)} B")
 
 
 def edge_totals(block):
@@ -330,6 +406,50 @@ def phase_flagship(solver, lr, setup_s, name):
     return launches, row
 
 
+def timed_steps(solver, steps):
+    """(ms per step, Tc) of `steps` steps after the warm-up steps, from the
+    initial state."""
+    u, Tc, Tv = solver.initial_state()
+    for _ in range(WARMUP_STEPS):
+        u, Tc, Tv, _ = solver.step(u, Tc, Tv)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        u, Tc, Tv, _ = solver.step(u, Tc, Tv)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / steps * 1e3, Tc
+
+
+def phase_windows_ab(solver, build_full, name, row):
+    """The step with hull windows (solver) and with PBTE_RING_WINDOWS=0 (a
+    second solver from build_full), AB_STEPS timed steps each in turns:
+    windows, full slab, full slab, windows. The same steps give the same
+    Tc up to the order of the ms atomics, carried through the steps."""
+    os.environ["PBTE_RING_WINDOWS"] = "0"
+    try:
+        full, _ = build_full()
+    finally:
+        del os.environ["PBTE_RING_WINDOWS"]
+    if solver.win is None or full.win is not None:
+        raise RuntimeError(f"{name}: windows on/off not as asked")
+    ms = {"windows": [], "full_slab": []}
+    tcs = {}
+    for key in ("windows", "full_slab", "full_slab", "windows"):
+        t, tcs[key] = timed_steps(solver if key == "windows" else full,
+                                  AB_STEPS)
+        ms[key].append(t)
+    tc_rel, _ = rel_err(tcs["windows"], tcs["full_slab"])
+    row["windows_ab_ms_per_step"] = ms
+    row["windows_vs_full_slab_tc_rel"] = tc_rel
+    log(f"[smoke] {name} windows on/off, {AB_STEPS} steps each in turns: "
+        f"windows {ms['windows'][0]:.3f} / {ms['windows'][1]:.3f} ms/step, "
+        f"full slab (PBTE_RING_WINDOWS=0) {ms['full_slab'][0]:.3f} / "
+        f"{ms['full_slab'][1]:.3f} ms/step; Tc windows vs full slab rel "
+        f"{tc_rel:.3e}, tolerance {F32_RTOL}")
+    if not tc_rel <= F32_RTOL:
+        raise RuntimeError(f"{name}: windows change Tc")
+
+
 PARAM_KEYS = ("nx", "ny", "nz", "order", "polar", "azimuth", "nspec")
 
 
@@ -363,7 +483,8 @@ def build_flagship(SourceIterationSolver, problem, name, **kw):
     setup_s = time.perf_counter() - t0
     log(f"[smoke] {name} setup {setup_s:.1f} s: G={solver.G} L={solver.L} "
         f"W={solver.W} shifts={solver.shifts} buckets="
-        f"{[(list(map(int, g)), k) for g, k in solver._ring_buckets]}")
+        f"{[(list(map(int, g)), k) for g, k in solver._ring_buckets]} "
+        f"windows={'off' if solver.win is None else 'on'}")
     return solver, setup_s
 
 
@@ -411,13 +532,24 @@ def main() -> int:
         f"bound, on {card}")
 
     launches, flag = phase_flagship(solver, lr, setup_s, "flagship")
+    phase_windows_ab(
+        solver, lambda: build_flagship(SourceIterationSolver, problem,
+                                       "flagship, full slab",
+                                       bc_temps=WALL_BCS),
+        "flagship", flag)
     del solver
     torch.cuda.empty_cache()
-    film, film_setup_s = build_flagship(
-        SourceIterationSolver, problem, "diffuse-wall flagship",
-        **DIFFUSE_WALLS)
+
+    def build_film(name="diffuse-wall flagship"):
+        return build_flagship(SourceIterationSolver, problem, name,
+                              **DIFFUSE_WALLS)
+
+    film, film_setup_s = build_film()
     film_launches, film_row = phase_flagship(film, lr, film_setup_s,
                                              "diffuse-wall flagship")
+    phase_windows_ab(
+        film, lambda: build_film("diffuse-wall flagship, full slab"),
+        "diffuse-wall flagship", film_row)
     del film
     torch.cuda.empty_cache()
 
@@ -431,7 +563,10 @@ def main() -> int:
     if jax_mods:
         raise RuntimeError(f"the port imported JAX: {jax_mods[:5]}")
 
-    main_row = rows[0]
+    # the launch the flagship's step makes: bucket 0, f32, hull windows
+    main_row = next(r for r in rows if r["windows"] and r["bucket"] == 0
+                    and r["state"] == "f32" and not r["dirichlet"]
+                    and not r["xsrc"])
     log(f"[smoke] summary: flagship {flag['ms_per_step']:.3f} ms/step, "
         f"{flag['dof_per_s']:.4g} DOF/s; diffuse-wall flagship "
         f"{film_row['ms_per_step']:.3f} ms/step, "

@@ -1,25 +1,36 @@
 """Paired timing of lattice-ring kernel (K1) designs on the GPU.
 
-Every design is a build of a K1 source with the C entry point of
-``csrc/lattice_ring.cu``: the committed source as it stands (``current``,
-always first), and each ``--design NAME=[PATH][:DEFINE,...]``, a source
-file (default: the committed one) built with ``-D`` defines, for example
-an earlier design taken from git, or a measurement variant of the
-committed source (``PBTE_K1_NO_MS``, ``PBTE_K1_NO_YS``,
-``PBTE_K1_NO_PRODUCT``: see the source). All are built at once.
+Every design is a build of a K1 source: the committed source as it stands
+(``current``, always first), and each ``--design NAME=[PATH][:DEFINE,...]``,
+a source file (default: the committed one) built with ``-D`` defines, for
+example a scratch design, or a measurement variant of the committed source
+(``PBTE_K1_NO_MS``, ``PBTE_K1_NO_YS``, ``PBTE_K1_NO_PRODUCT``: see the
+source). All are built at once. Two flags go among the defines: ``@full``
+launches the design without windows and holds and compares it to
+``full_slab`` (a variant that is right on the full slab only), and
+``@nowin`` (which implies ``@full``) says that the source has the C entry
+point from before the window argument, so an earlier commit's kernel is
+timed in turns with today's full slab::
+
+    git show <commit>:pbte_tpu_torch/csrc/lattice_ring.cu > build/k1_old.cu
+    python -m pbte_tpu_torch.bench_k1 --design old=build/k1_old.cu:@nowin
 
 At the flagship's two Km-bucket shapes, with the solver's operators and
-seeded random state (f32 state; bf16 state; bucket 1 with a Dirichlet
-source), every design is held to the current one (max |diff| over max) and
-timed in turns: ``--rounds`` rounds, each a CUDA-event window of
-``--reps`` launches per design, one untimed launch ahead of each window,
-the order reversed every other round. A row reports each design's median
-ms, its ratio to the current design per round (median, min, max), the
-bound (``ops.lattice_ring.sweep_bound_ms``) and the share of the bound.
+seeded random state zeroed outside the solver's hull windows (f32 state;
+bf16 state; bucket 1 with a Dirichlet source), every design is launched
+with the windows, held to the current one (max |diff| over max) and timed
+in turns with it and with ``full_slab``, the current build launched
+without windows on the same inputs: ``--rounds`` rounds, each a CUDA-event
+window of ``--reps`` launches per design, one untimed launch ahead of each
+window, the order reversed every other round. A row reports each design's
+median ms, its ratio to the current design per round (median, min, max),
+its ratio to ``full_slab`` the same way, its bound
+(``ops.lattice_ring.sweep_bound_ms``: in-window slots for the windowed
+launches, every slot for a full-slab launch) and the share of it.
 
 Usage (on a machine with a CUDA GPU, from the root of a checkout)::
 
-    python -m pbte_tpu_torch.bench_k1 [--design pr1=build/pr1.cu] \\
+    python -m pbte_tpu_torch.bench_k1 [--design no_ms=:PBTE_K1_NO_MS] \\
         [--reps 5] [--rounds 5] [--out F]
 
 It prints the JSON to stdout (or writes ``--out``); it exits 1 without a
@@ -47,23 +58,38 @@ CASES = ((0, "f32", False), (0, "bf16", False), (1, "f32", True),
 
 
 def parse_design(arg):
-    """NAME=[PATH][:DEF,...] -> (name, path or None, defines)."""
+    """NAME=[PATH][:DEF,...] -> (name, path or None, defines, flags): the
+    entries that start with ``@`` are flags, without the ``@``."""
     name, _, spec = arg.partition("=")
     path, _, defs = spec.partition(":")
-    return name, (path or None), tuple(d for d in defs.split(",") if d)
+    defs = [d for d in defs.split(",") if d]
+    flags = {d[1:] for d in defs if d.startswith("@")}
+    unknown = flags - {"full", "nowin"}
+    if unknown:
+        raise ValueError(f"design {name}: unknown flags {sorted(unknown)}")
+    if "nowin" in flags:
+        flags.add("full")
+    return (name, (path or None),
+            tuple(d for d in defs if not d.startswith("@")),
+            frozenset(flags))
 
 
 def case_inputs(solver, bi, state, dirichlet, rng):
     """The sweep's arguments at one bucket shape: the solver's operators,
-    seeded random v, ttc (and dsrc)."""
+    seeded random v, ttc (and dsrc), zero outside the solver's windows."""
     c = solver.consts
     cb = c["buckets"][bi]
     L, D, W, BS = solver.L, solver.D, solver.W, solver.BS
     Gb, Km = cb["macro_w"].shape[:2]
+    inside = np.zeros((L, W), dtype=np.float32)
+    for l, (lo, hi) in enumerate(solver.win):
+        inside[l, lo:hi] = 1.0
+    inside = torch.from_numpy(inside).cuda()
 
     def rnd(*shape):
-        return torch.from_numpy(
+        t = torch.from_numpy(
             rng.standard_normal(shape, dtype=np.float32)).cuda()
+        return t * inside.view((L,) + (1,) * (len(shape) - 2) + (W,))
 
     v = rnd(L, Gb, Km, BS, D, W)
     cast = state == "bf16"
@@ -76,10 +102,10 @@ def case_inputs(solver, bi, state, dirichlet, rng):
     return args, kw
 
 
-def launcher(lib, args, kw):
+def launcher(lib, args, kw, win):
     def run():
         return lr._launch(*args, kw["shifts"], kw["dsrc"], kw["xsrc"],
-                          kw["cast_bf16"], lib=lib)
+                          kw["cast_bf16"], lib=lib, win=win)
     return run
 
 
@@ -106,46 +132,70 @@ def run(designs, reps, rounds):
     from pbte_tpu_torch.problem import FLAGSHIP, WALL_BCS, unit_cube
     from pbte_tpu_torch.solver.source_iteration import SourceIterationSolver
 
-    names = ["current"] + [d[0] for d in designs]
+    builds = ["current"] + [d[0] for d in designs]
+    names = builds + ["full_slab"]
+    flags = {"current": frozenset()} | {d[0]: d[3] for d in designs}
     committed = _build.CSRC_DIR / "lattice_ring.cu"
     sources = {"current": (committed, ())} | {
-        name: (path or committed, defines) for name, path, defines in designs}
+        name: (path or committed, defines)
+        for name, path, defines, _ in designs}
     t0 = time.perf_counter()
-    built = _build.load_all(names, sources)
+    built = _build.load_all(builds, sources)
     build_s = time.perf_counter() - t0
-    libs = {n: lr._lib(n) for n in names}
+    libs = {n: lr._lib(n, takes_win="nowin" not in flags[n]) for n in builds}
+    full = {n for n in builds if "full" in flags[n]} | {"full_slab"}
     solver = SourceIterationSolver(*unit_cube(**FLAGSHIP), WALL_BCS,
                                    device="cuda")
+    if solver.win is None:
+        raise RuntimeError("the flagship solver took no hull windows")
     rng = np.random.default_rng(0)
     rows = []
     for bi, state, dirichlet in CASES:
         args, kw = case_inputs(solver, bi, state, dirichlet, rng)
-        runs = {n: launcher(libs[n], args, kw) for n in names}
-        ref = runs["current"]()
-        torch.cuda.synchronize()
+        runs = {n: launcher(libs[n], args, kw,
+                            None if n in full else solver.win_dev)
+                for n in builds}
+        runs["full_slab"] = launcher(libs["current"], args, kw, None)
+        # every design against the committed build launched the same way
+        # (the inputs respect the windows' contract, so the two references
+        # differ in the order of the ms atomics alone)
         errs = {}
-        for n in names[1:]:
-            got = runs[n]()
+        held_to = {
+            "current": [n for n in builds[1:] if n not in full]
+            + ["full_slab"],
+            "full_slab": [n for n in builds if n in full],
+        }
+        for ref_name, group in held_to.items():
+            ref = runs[ref_name]()
             torch.cuda.synchronize()
-            errs[n] = [((a.float() - b.float()).abs().max()
-                        / b.float().abs().max()).item()
-                       for a, b in zip(got, ref)]
-            del got
-        del ref
+            for n in group:
+                got = runs[n]()
+                torch.cuda.synchronize()
+                errs[n] = [((a.float() - b.float()).abs().max()
+                            / b.float().abs().max()).item()
+                           for a, b in zip(got, ref)]
+                del got
+            del ref
         ms = time_designs(runs, reps, rounds)
-        bound, by = lr.sweep_bound_ms(args[0], len(kw["shifts"]), kw["dsrc"])
-        cur = ms["current"]
+        nf = len(kw["shifts"])
+        bound, by = lr.sweep_bound_ms(args[0], nf, kw["dsrc"],
+                                      win=solver.win)
+        full_bound, _ = lr.sweep_bound_ms(args[0], nf, kw["dsrc"])
+        cur, fs = ms["current"], ms["full_slab"]
         row = dict(bucket=bi, shape=list(args[0].shape), state=state,
                    dirichlet=dirichlet, bound_ms=bound, bound_by=by,
-                   designs={})
+                   full_slab_bound_ms=full_bound, designs={})
         for n in names:
-            ratio = [a / b for a, b in zip(ms[n], cur)]
             med = statistics.median(ms[n])
             row["designs"][n] = dict(
-                ms=med, share_of_bound=bound / med,
-                vs_current=dict(median=statistics.median(ratio),
-                                min=min(ratio), max=max(ratio)),
+                ms=med, windows=n not in full,
+                share_of_bound=(full_bound if n in full else bound) / med,
                 rel_err_ys_ms=errs.get(n))
+            for key, base in (("vs_current", cur), ("vs_full_slab", fs)):
+                ratio = [a / b for a, b in zip(ms[n], base)]
+                row["designs"][n][key] = dict(
+                    median=statistics.median(ratio), min=min(ratio),
+                    max=max(ratio))
         rows.append(row)
         print("[bench_k1] " + json.dumps(row), file=sys.stderr, flush=True)
         del args, kw, runs
@@ -154,7 +204,8 @@ def run(designs, reps, rounds):
         device=torch.cuda.get_device_name(0), card=card_name_power(),
         build_s=build_s, reps=reps, rounds=rounds,
         ptxas={n: b.log for n, b in built.items()},
-        designs={n: dict(source=str(src), defines=list(defs))
+        designs={n: dict(source=str(src), defines=list(defs),
+                         flags=sorted(flags[n]))
                  for n, (src, defs) in sources.items()},
         rows=rows,
     )

@@ -22,6 +22,22 @@
 // fold into v because relax_w is exactly 0 on the band with the largest
 // inverse Knudsen number. A null xmap (or dsrc) skips the loads.
 //
+// Hull windows. win (L, 2) int32 gives each level's window [lo_l, hi_l) of
+// slab columns (null: every level runs the full slab). The caller warrants
+// that every slot outside a window is padding: v, ttc, bsrc, dsrc and cin
+// are zero there and xmap is -1. Level l then runs on its window alone: the
+// producers load, and add ms for, the window's columns only and store zeros
+// as ys for the others; the consumers run the window's 16-row m-tiles only,
+// handed to the warps from the window's first tile on (tile t0 + warp, then
+// t0 + warp + 8), so a window of up to 8 tiles costs each warp one tile.
+// Columns of those tiles outside the window get a zero rhs and zero inflow
+// coefficients, so their solution is an exact zero. Rows of a solution tile
+// that a level does not compute keep the solution of two levels before (the
+// tiles are double-buffered by level parity): the next level reads them as
+// its ring only where its cin is zero, and 0 * x = 0 for the finite x they
+// hold, in the TF32 split as in bf16. So the windowed results equal the
+// full-slab results (ys bit for bit, ms up to the order of its atomics).
+//
 // Design. One CTA runs one (g, k, b) over all L levels (the level axis is a
 // dependence chain; the band sum of ms is the only coupling between CTAs,
 // done with f32 atomics). Per level the product is a (W x J) @ (J x D)
@@ -61,6 +77,20 @@
 // was no faster, its 3-term chains being latency-bound), the producers'
 // side alone ~3 ms (per-level load latency with one CTA per SM, ttc and
 // bsrc re-read from L2 by every band), and the two overlap only in part.
+// With the flagship's hull windows (7,246 of 11,776 slots; 496 of 736
+// m-tiles) the bounds fall to 0.77 ms (bytes) and 0.41 ms (product), and
+// the kernel gains 6-10% (PERF.md). The producers' side alone stays
+// at ~2.9 ms: what it costs per level is the latency of one level's loads
+// and stores on the threads that stay, not its bytes. The product alone
+// stays at ~3.7 ms: with one m-tile a warp keeps 4 accumulator chains of 48
+// dependent mma in flight where two tiles keep 8, so a narrow level is
+// bound by the chains' latency, not by its tile count (and the order of a
+// chain cannot depend on the window, or ys would differ from the full
+// slab's). Spreading the producer threads over a narrow window's columns
+// (row groups of 256, 128 or 64 columns, the row stride a compile-time
+// constant) was measured 10% slower in f32 and 8% faster in bf16 and is not
+// taken; with a run-time condition on each row it was 1.9x slower: loads
+// behind a condition do not stay in flight together.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -71,7 +101,9 @@
 // Measurement variants (bench_k1.py builds them with -D; the default build
 // defines none; each gives wrong results and only times what is left):
 // PBTE_K1_NO_MS drops the ms atomics, PBTE_K1_NO_YS the ys stores,
-// PBTE_K1_NO_PRODUCT the tensor-core product.
+// PBTE_K1_NO_PRODUCT the tensor-core product, PBTE_K1_NO_LOADS the
+// producers' loads from device memory (with NO_YS and NO_MS: the product
+// and the hand-over of the tiles alone).
 
 namespace {
 
@@ -198,11 +230,11 @@ __host__ __device__ constexpr int cin_stride(int W) {
 
 // Shared-memory carve-up (byte offsets), the same on host and device: the
 // factor block in fragment order, two solution tiles, two rhs tiles and two
-// shifted-cin tiles (level parity selects the tile)
+// shifted-cin tiles (level parity selects the tile), and the L windows
 template <int D, bool CAST>
 struct Smem {
-  size_t bfrag, sol, rhs, cinc, tile, cin_tile, total;
-  __host__ __device__ Smem(int W, int nf) {
+  size_t bfrag, sol, rhs, cinc, wins, tile, cin_tile, total;
+  __host__ __device__ Smem(int W, int nf, int L) {
     using G = Geo<D, CAST>;
     tile = align16(sizeof(float) * D * tile_stride(W));
     cin_tile = align16(sizeof(float) * nf * cin_stride(W));
@@ -211,7 +243,8 @@ struct Smem {
                   G::BFRAG_BYTES);
     rhs = sol + 2 * tile;
     cinc = rhs + 2 * tile;
-    total = cinc + 2 * cin_tile;
+    wins = cinc + 2 * cin_tile;
+    total = wins + align16(sizeof(int2) * L);
   }
 };
 
@@ -231,7 +264,8 @@ lattice_ring_kernel(const State* __restrict__ v, const float* __restrict__ ttc,
                     const float* __restrict__ dsrc,
                     const int* __restrict__ xmap,
                     const float* __restrict__ xval, int n_u,
-                    State* __restrict__ ys, float* __restrict__ ms, int L,
+                    const int* __restrict__ win, State* __restrict__ ys,
+                    float* __restrict__ ms, int L,
                     int Gb, int Km, int BS, int W, int nf, Shifts sh) {
   using G = Geo<D, CAST>;
   constexpr int NT = G::NT;
@@ -239,7 +273,7 @@ lattice_ring_kernel(const State* __restrict__ v, const float* __restrict__ ttc,
   const int WP = tile_stride(W);
   const int WC = cin_stride(W);
   const int J = (1 + nf) * D;
-  const Smem<D, CAST> lay(W, nf);
+  const Smem<D, CAST> lay(W, nf, L);
 
   extern __shared__ __align__(16) unsigned char smem[];
   auto sol_t = [&](int s) {  // (D, WP) f32
@@ -251,6 +285,7 @@ lattice_ring_kernel(const State* __restrict__ v, const float* __restrict__ ttc,
   auto cinc_t = [&](int s) {  // (nf, WC) f32
     return reinterpret_cast<float*>(smem + lay.cinc + s * lay.cin_tile);
   };
+  int2* wins = reinterpret_cast<int2*>(smem + lay.wins);  // [lo, hi) per level
 
   const int tid = threadIdx.x;
   const int b = blockIdx.x % BS;
@@ -306,6 +341,11 @@ lattice_ring_kernel(const State* __restrict__ v, const float* __restrict__ ttc,
        i += kThreads) {
     cinc_t(0)[i] = 0.f;
   }
+  for (int l = tid; l < L; l += kThreads) {
+    wins[l] = win != nullptr ? make_int2(__ldg(win + 2 * l),
+                                         __ldg(win + 2 * l + 1))
+                             : make_int2(0, W);
+  }
   __syncthreads();
 
   if (tid >= kConsumerThreads) {
@@ -338,8 +378,23 @@ lattice_ring_kernel(const State* __restrict__ v, const float* __restrict__ ttc,
     // the registers it holds cost the consumers more than it saves, 3%)
     State f_v[D];
     float f_ttc[D], f_bsrc[D];
+    // defined from the start: prep reads them (and discards what it read)
+    // on a column outside the window, which fetch skips
+#pragma unroll
+    for (int j = 0; j < D; ++j) {
+      f_v[j] = from_f32<State>(0.f);
+      f_ttc[j] = 0.f;
+      f_bsrc[j] = 0.f;
+    }
+    auto in_window = [&](int l) {
+      const int2 wl = wins[l];
+      return pw >= wl.x && pw < wl.y;
+    };
     auto fetch = [&](int l) {
-      if (R != 1 || !CAST) return;
+      if (R != 1 || !CAST || !in_window(l)) return;
+#ifdef PBTE_K1_NO_LOADS
+      return;
+#endif
       const size_t lg = static_cast<size_t>(l) * Gb + g;
       const size_t lgk = lg * Km + k;
       const State* v_l = v + (lgk * BS + b) * DW + pw;
@@ -356,16 +411,37 @@ lattice_ring_kernel(const State* __restrict__ v, const float* __restrict__ ttc,
     // rhs tile and shifted inflow coefficients of level l into tile l & 1
     auto prep = [&](int l) {
       if (!on) return;
-      const size_t lg = static_cast<size_t>(l) * Gb + g;
-      const size_t lgk = lg * Km + k;
       float* rhs = rhs_t(l & 1);
       float* cinc = cinc_t(l & 1);
+      const int2 wl = wins[l];
+      const bool inw = pw >= wl.x && pw < wl.y;
+      if (!inw) {
+        // a column of the window's m-tiles that lies outside the window:
+        // zero rhs and inflow coefficients make its solution an exact zero.
+        // The path that holds a level in registers writes these zeros
+        // through the in-window code below, by a select on inw and with no
+        // load: a second body beside the held registers spilled 68 bytes
+        // (bf16, D = 27) and cost 4.5% of the launch on an H100
+        if (pw < (wl.x & ~15) || pw >= ((wl.y + 15) & ~15)) return;
+        if (!(R == 1 && CAST)) {
+          for (int f = pj; f < nf; f += R) cinc[f * WC + pw] = 0.f;
+          rows([&](int j) { rhs[j * WP + pw] = 0.f; });
+          return;
+        }
+      }
+#ifdef PBTE_K1_NO_LOADS
+      for (int f = pj; f < nf; f += R) cinc[f * WC + pw] = 0.f;
+      rows([&](int j) { rhs[j * WP + pw] = 0.f; });
+      return;
+#endif
+      const size_t lg = static_cast<size_t>(l) * Gb + g;
+      const size_t lgk = lg * Km + k;
       for (int f = pj; f < nf; f += R) {
-        const float c = __ldg(cin + (lgk * nf + f) * W + pw);
+        const float c = inw ? __ldg(cin + (lgk * nf + f) * W + pw) : 0.f;
         cinc[f * WC + pw] = pw >= sh.s[f] ? op_round<CAST>(c) : 0.f;
       }
       const float* xv = nullptr;
-      if (xmap != nullptr) {
+      if (xmap != nullptr && inw) {
         const int u = __ldg(xmap + lg * W + pw);
         if (u >= 0) {
           xv = xval + ((static_cast<size_t>(g) * n_u + u) * Km + k) * BS * D +
@@ -375,7 +451,8 @@ lattice_ring_kernel(const State* __restrict__ v, const float* __restrict__ ttc,
       const State* v_l = v + (lgk * BS + b) * DW + pw;
       const float* ttc_l = ttc + lg * DW + pw;
       const float* bsrc_l = bsrc + lgk * DW + pw;
-      const float* dsrc_l = dsrc != nullptr ? dsrc + lgk * DW + pw : nullptr;
+      const float* dsrc_l =
+          dsrc != nullptr && inw ? dsrc + lgk * DW + pw : nullptr;
       auto put = [&](int j, float x) {
         if (dsrc_l != nullptr) {
           x -= w_dir * __ldg(dsrc_l + static_cast<size_t>(j) * W);
@@ -386,8 +463,9 @@ lattice_ring_kernel(const State* __restrict__ v, const float* __restrict__ ttc,
       if (R == 1 && CAST) {
 #pragma unroll
         for (int j = 0; j < D; ++j) {
-          put(j, w_src * f_ttc[j] + w_rel * to_f32(f_v[j]) -
-                     w_bcv * f_bsrc[j]);
+          put(j, inw ? w_src * f_ttc[j] + w_rel * to_f32(f_v[j]) -
+                           w_bcv * f_bsrc[j]
+                     : 0.f);
         }
       } else {
         // unrolled when one pass covers every row: the loads of all rows
@@ -405,6 +483,14 @@ lattice_ring_kernel(const State* __restrict__ v, const float* __restrict__ ttc,
       const float* sol = sol_t(l & 1);
       const size_t lgk = (static_cast<size_t>(l) * Gb + g) * Km + k;
       State* ys_l = ys + (lgk * BS + b) * DW + pw;
+      if (!in_window(l)) {  // ys is zero outside the window, ms untouched
+#ifndef PBTE_K1_NO_YS
+        rows([&](int j) {
+          ys_l[static_cast<size_t>(j) * W] = from_f32<State>(0.f);
+        });
+#endif
+        return;
+      }
       float* ms_l = ms + (static_cast<size_t>(gk) * L + l) * DW + pw;
       rows([&](int j) {
         const float s = sol[j * WP + pw];
@@ -447,6 +533,11 @@ lattice_ring_kernel(const State* __restrict__ v, const float* __restrict__ ttc,
     const float* rhs = rhs_t(s);
     const float* cinc = cinc_t(s);
     const float* ring = sol_t(s ^ 1);  // level l-1 (zero at level 0)
+    // the window's m-tiles [t0, t0 + nt): this warp runs tile t0 + warp
+    // and, in a window of more than 8 tiles, tile t0 + warp + 8
+    const int2 wl = wins[l];
+    const int t0 = wl.x >> 4;
+    const int nt = wl.y > wl.x ? ((wl.y + 15) >> 4) - t0 : 0;
     bar_sync(kRhsFull + s, kThreads);
 
     // acc[w, i] = sum_kk A[w, kk] B[kk, i] over the face blocks (face 0:
@@ -471,7 +562,7 @@ lattice_ring_kernel(const State* __restrict__ v, const float* __restrict__ ttc,
       for (int m = 0; m < kMTilesPerWarp; ++m) {
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
-          const int w = (warp + m * kConsumerWarps) * 16 + gq + 8 * h;
+          const int w = (t0 + warp + m * kConsumerWarps) * 16 + gq + 8 * h;
           if (f == 0) {
             row[m][h] = w;
             cf[m][h] = 1.f;
@@ -496,7 +587,7 @@ lattice_ring_kernel(const State* __restrict__ v, const float* __restrict__ ttc,
           uint32_t a[kMTilesPerWarp][4];
 #pragma unroll
           for (int m = 0; m < kMTilesPerWarp; ++m) {
-            if ((warp + m * kConsumerWarps) * 16 >= W) continue;
+            if (warp + m * kConsumerWarps >= nt) continue;
             float x[2][4];  // [row half][k: 2t, 2t+1, 2t+8, 2t+9]
 #pragma unroll
             for (int h = 0; h < 2; ++h)
@@ -517,7 +608,7 @@ lattice_ring_kernel(const State* __restrict__ v, const float* __restrict__ ttc,
                 smem + lay.bfrag)[(kt_all * NT + n) * 32 + lane];
 #pragma unroll
             for (int m = 0; m < kMTilesPerWarp; ++m) {
-              if ((warp + m * kConsumerWarps) * 16 < W) {
+              if (warp + m * kConsumerWarps < nt) {
                 mma_bf16(acc[m][n], a[m], q.x, q.y);
               }
             }
@@ -529,7 +620,7 @@ lattice_ring_kernel(const State* __restrict__ v, const float* __restrict__ ttc,
           uint32_t hi[kMTilesPerWarp][4], lo[kMTilesPerWarp][4];
 #pragma unroll
           for (int m = 0; m < kMTilesPerWarp; ++m) {
-            if ((warp + m * kConsumerWarps) * 16 >= W) continue;
+            if (warp + m * kConsumerWarps >= nt) continue;
             // a0 (row gq, k t), a1 (gq+8, t), a2 (gq, t+4), a3 (gq+8, t+4)
             float x[4] = {src[jr0 + row[m][0]], src[jr0 + row[m][1]],
                           src[jr1 + row[m][0]], src[jr1 + row[m][1]]};
@@ -548,7 +639,7 @@ lattice_ring_kernel(const State* __restrict__ v, const float* __restrict__ ttc,
                 smem + lay.bfrag)[(kt_all * NT + n) * 32 + lane];
 #pragma unroll
             for (int m = 0; m < kMTilesPerWarp; ++m) {
-              if ((warp + m * kConsumerWarps) * 16 < W) {
+              if (warp + m * kConsumerWarps < nt) {
                 // small terms first
                 mma_tf32(acc[m][n], lo[m], q.x, q.y);
                 mma_tf32(acc[m][n], hi[m], q.z, q.w);
@@ -567,7 +658,8 @@ lattice_ring_kernel(const State* __restrict__ v, const float* __restrict__ ttc,
     float* sol = sol_t(s);
 #pragma unroll
     for (int m = 0; m < kMTilesPerWarp; ++m) {
-      const int w0 = (warp + m * kConsumerWarps) * 16 + gq;
+      if (warp + m * kConsumerWarps >= nt) continue;
+      const int w0 = (t0 + warp + m * kConsumerWarps) * 16 + gq;
 #pragma unroll
       for (int n = 0; n < NT; ++n) {
         const int i0 = n * 8 + 2 * tq;
@@ -587,19 +679,18 @@ lattice_ring_kernel(const State* __restrict__ v, const float* __restrict__ ttc,
 }
 
 template <int D, typename State, bool CAST>
-size_t smem_bytes(int W, int nf) {
-  return Smem<D, CAST>(W, nf).total;
+size_t smem_bytes(int W, int nf, int L) {
+  return Smem<D, CAST>(W, nf, L).total;
 }
 
 template <int D, typename State, bool CAST>
 cudaError_t launch(const void* v, const float* ttc, const float* bsrc,
                    const float* cin, const float* bcat, const float* macro_w,
                    const float* wvec, const float* dsrc, const int* xmap,
-                   const float* xval, int n_u, void* ys, float* ms, int L,
-                   int Gb, int Km, int BS, int W, int nf, Shifts sh,
-                   cudaStream_t stream) {
-  const size_t smem =
-      smem_bytes<D, State, CAST>(W, nf);
+                   const float* xval, int n_u, const int* win, void* ys,
+                   float* ms, int L, int Gb, int Km, int BS, int W, int nf,
+                   Shifts sh, cudaStream_t stream) {
+  const size_t smem = smem_bytes<D, State, CAST>(W, nf, L);
   auto kernel = lattice_ring_kernel<D, State, CAST>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -607,7 +698,8 @@ cudaError_t launch(const void* v, const float* ttc, const float* bsrc,
   if (err != cudaSuccess) return err;
   kernel<<<Gb * Km * BS, kThreads, smem, stream>>>(
       static_cast<const State*>(v), ttc, bsrc, cin, bcat, macro_w, wvec, dsrc,
-      xmap, xval, n_u, static_cast<State*>(ys), ms, L, Gb, Km, BS, W, nf, sh);
+      xmap, xval, n_u, win, static_cast<State*>(ys), ms, L, Gb, Km, BS, W, nf,
+      sh);
   return cudaGetLastError();
 }
 
@@ -616,17 +708,18 @@ cudaError_t dispatch_d(int D, const void* v, const float* ttc,
                        const float* bsrc, const float* cin, const float* bcat,
                        const float* macro_w, const float* wvec,
                        const float* dsrc, const int* xmap, const float* xval,
-                       int n_u, void* ys, float* ms, int L, int Gb, int Km,
-                       int BS, int W, int nf, Shifts sh, cudaStream_t stream) {
+                       int n_u, const int* win, void* ys, float* ms, int L,
+                       int Gb, int Km, int BS, int W, int nf, Shifts sh,
+                       cudaStream_t stream) {
   switch (D) {
     case 8:
       return launch<8, State, CAST>(v, ttc, bsrc, cin, bcat, macro_w, wvec,
-                                    dsrc, xmap, xval, n_u, ys, ms, L, Gb, Km,
-                                    BS, W, nf, sh, stream);
+                                    dsrc, xmap, xval, n_u, win, ys, ms, L, Gb,
+                                    Km, BS, W, nf, sh, stream);
     case 27:
       return launch<27, State, CAST>(v, ttc, bsrc, cin, bcat, macro_w, wvec,
-                                     dsrc, xmap, xval, n_u, ys, ms, L, Gb,
-                                     Km, BS, W, nf, sh, stream);
+                                     dsrc, xmap, xval, n_u, win, ys, ms, L,
+                                     Gb, Km, BS, W, nf, sh, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -639,17 +732,19 @@ extern "C" {
 // cast_bf16 = 0: f32 state, exact f32 operands (3xTF32 products).
 // cast_bf16 = 1: bf16 state, bf16 operands and ring, f32 accumulation.
 // dsrc may be null (no Dirichlet faces), xmap and xval null (no lagged
-// closures; n_u is then ignored). ms must be zeroed by the caller (the band
-// sum is atomic). Returns a cudaError_t.
+// closures; n_u is then ignored), win null (full slab) or (L, 2) int32 on
+// the device. ms must be zeroed by the caller (the band sum is atomic); ys
+// is written in full. Returns a cudaError_t.
 int pbte_lattice_ring_sweep(int cast_bf16, int D, const void* v,
                             const float* ttc, const float* bsrc,
                             const float* cin, const float* bcat,
                             const float* macro_w, const float* wvec,
                             const float* dsrc, const int* xmap,
-                            const float* xval, int n_u, void* ys, float* ms,
-                            int L, int Gb, int Km, int BS, int W, int nf,
-                            int s0, int s1, int s2, void* stream) {
-  if (nf < 1 || nf > kMaxFaces || W < 1 || W > kMaxW) {
+                            const float* xval, int n_u, const int* win,
+                            void* ys, float* ms, int L, int Gb, int Km,
+                            int BS, int W, int nf, int s0, int s1, int s2,
+                            void* stream) {
+  if (nf < 1 || nf > kMaxFaces || W < 1 || W > kMaxW || L < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Shifts sh{{s0, s1, s2}};
@@ -658,25 +753,26 @@ int pbte_lattice_ring_sweep(int cast_bf16, int D, const void* v,
       cast_bf16
           ? dispatch_d<__nv_bfloat16, true>(D, v, ttc, bsrc, cin, bcat,
                                             macro_w, wvec, dsrc, xmap, xval,
-                                            n_u, ys, ms, L, Gb, Km, BS, W, nf,
-                                            sh, st)
+                                            n_u, win, ys, ms, L, Gb, Km, BS,
+                                            W, nf, sh, st)
           : dispatch_d<float, false>(D, v, ttc, bsrc, cin, bcat, macro_w,
-                                     wvec, dsrc, xmap, xval, n_u, ys, ms, L,
-                                     Gb, Km, BS, W, nf, sh, st);
+                                     wvec, dsrc, xmap, xval, n_u, win, ys, ms,
+                                     L, Gb, Km, BS, W, nf, sh, st);
   return static_cast<int>(err);
 }
 
 // Dynamic shared memory one launch takes (the wrapper's check).
-long long pbte_lattice_ring_smem_bytes(int cast_bf16, int D, int W, int nf) {
+long long pbte_lattice_ring_smem_bytes(int cast_bf16, int D, int W, int nf,
+                                       int L) {
   if (D == 8) {
     return static_cast<long long>(
-        cast_bf16 ? smem_bytes<8, __nv_bfloat16, true>(W, nf)
-                  : smem_bytes<8, float, false>(W, nf));
+        cast_bf16 ? smem_bytes<8, __nv_bfloat16, true>(W, nf, L)
+                  : smem_bytes<8, float, false>(W, nf, L));
   }
   if (D == 27) {
     return static_cast<long long>(
-        cast_bf16 ? smem_bytes<27, __nv_bfloat16, true>(W, nf)
-                  : smem_bytes<27, float, false>(W, nf));
+        cast_bf16 ? smem_bytes<27, __nv_bfloat16, true>(W, nf, L)
+                  : smem_bytes<27, float, false>(W, nf, L));
   }
   return -1;
 }

@@ -10,6 +10,19 @@ lattice offsets. Arguments and results keep the JAX wrapper's layouts.
 ``lattice_ring_sweep`` takes the plain version for CPU tensors and launches
 the hand-written kernel (``csrc/lattice_ring.cu``) for CUDA tensors; it
 never falls back from one to the other.
+
+Hull windows. The slab pads every level to the full plane of W slots, but a
+level's elements lie in a narrower hull. With ``win``, an ``(L, 2)`` integer
+array of per-level windows ``[lo_l, hi_l)`` (host data, static per problem
+like ``shifts``; for the kernel, ``windows_on_device`` checks and uploads
+it once and the sweep takes the tensor it returns), a sweep computes level l on the columns of its window
+alone. The contract: ``0 <= lo_l <= hi_l <= W`` (checked, raises); and every
+slot outside a window is padding, that is ``v``, ``ttc``, ``bsrc``,
+``dsrc`` and ``cin`` are zero there and ``xmap`` is -1 there (not checked
+at run time). Padded slots are exact-zero fixed points of the recurrence,
+so under the contract the windowed results equal the full-slab results bit
+for bit: ``ys`` and ``ms`` are exact zeros outside the windows, and a ring
+read that lands outside the previous level's window reads zero.
 """
 
 from __future__ import annotations
@@ -17,6 +30,7 @@ from __future__ import annotations
 import ctypes
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from pbte_tpu_torch.ops import _build
@@ -29,11 +43,12 @@ KERNEL_MAX_FACES = 3
 _SMEM_LIMIT = 232448  # bytes of shared memory one CTA may use on Hopper
 
 
-def kernel_smem_bytes(D, W, nf, cast_bf16):
+def kernel_smem_bytes(D, W, nf, cast_bf16, L):
     """Dynamic shared memory of one kernel launch, as csrc/lattice_ring.cu
     carves it (``Smem``): the factor block in mma fragment order, two f32
     solution tiles and two f32 rhs tiles (row stride padded to 32k + 8
-    words) and two tiles of shifted inflow coefficients."""
+    words), two tiles of shifted inflow coefficients and the L levels'
+    windows."""
     def a16(n):
         return -(-n // 16) * 16
 
@@ -43,7 +58,7 @@ def kernel_smem_bytes(D, W, nf, cast_bf16):
     wp = -(-W // 32) * 32 + 8
     wc = -(-W // 16) * 16
     return (a16((1 + nf) * kt_face * nt * 32 * (8 if cast_bf16 else 16))
-            + 4 * a16(4 * D * wp) + 2 * a16(4 * nf * wc))
+            + 4 * a16(4 * D * wp) + 2 * a16(4 * nf * wc) + a16(8 * L))
 
 
 class ClosureSource(NamedTuple):
@@ -58,6 +73,24 @@ class ClosureSource(NamedTuple):
 
     xmap: torch.Tensor
     xval: torch.Tensor
+
+
+def _check_win(win, L, W):
+    """``win`` as an (L, 2) int32 numpy array, or None; raises on windows
+    outside ``0 <= lo <= hi <= W``. A tensor is read back to the host (the
+    plain version and the bounds take the kernel's uploaded windows too)."""
+    if win is None:
+        return None
+    if isinstance(win, torch.Tensor):
+        win = win.cpu()
+    win = np.ascontiguousarray(win, dtype=np.int32)
+    if win.shape != (L, 2):
+        raise ValueError(f"win has shape {win.shape}, want {(L, 2)}")
+    if not ((0 <= win[:, 0]) & (win[:, 0] <= win[:, 1])
+            & (win[:, 1] <= W)).all():
+        raise ValueError(f"windows must keep 0 <= lo <= hi <= W={W}, got "
+                         f"{win.tolist()}")
+    return win
 
 
 def _check_shapes(v, ttc, bsrc, cin, bcat, macro_w, wvec, shifts, dsrc,
@@ -101,37 +134,43 @@ H100_BYTES_PER_S = 3.35e12
 H100_FLOPS = {torch.float32: 495e12 / 3, torch.bfloat16: 989e12}
 
 
-def sweep_cost(v, nf, dsrc=None, xsrc=None):
+def sweep_cost(v, nf, dsrc=None, xsrc=None, win=None):
     """(bytes, flop) one sweep must move and compute: every input read once
     (v, ttc, bsrc, cin, bcat, macro_w, wvec, and dsrc, xmap, xval where
     given) and every output written once (ys like v, the f32 ms partials);
-    2 D J W flop per (level, group, slot, band)."""
+    2 D J flop per (slot, group, slot k, band). With ``win`` every operand
+    that has a level axis, and the flop, count the slots inside the windows
+    only (the work that is asked for, whatever implements it)."""
     L, Gb, Km, BS, D, W = v.shape
     J = (1 + nf) * D
-    n_state = L * Gb * Km * BS * D * W
-    f32 = (L * Gb * D * W + L * Gb * Km * D * W + L * Gb * Km * nf * W
+    win = _check_win(win, L, W)
+    # (level, slot) pairs of the slab that the sweep computes
+    LW = L * W if win is None else int((win[:, 1] - win[:, 0]).sum())
+    n_state = LW * Gb * Km * BS * D
+    f32 = (LW * Gb * D + LW * Gb * Km * D + LW * Gb * Km * nf
            + Gb * Km * BS * D * J + Gb * Km * BS + 4 * BS
-           + Gb * Km * L * D * W)
+           + Gb * Km * LW * D)
     if dsrc is not None:
-        f32 += L * Gb * Km * D * W
+        f32 += LW * Gb * Km * D
     nbytes = 2 * n_state * v.element_size() + 4 * f32
     if xsrc is not None:
-        nbytes += xsrc.xmap.numel() * 4 + xsrc.xval.numel() * 4
-    return nbytes, 2 * L * Gb * Km * BS * D * J * W
+        nbytes += LW * Gb * 4 + xsrc.xval.numel() * 4
+    return nbytes, 2 * LW * Gb * Km * BS * D * J
 
 
-def sweep_bound_ms(v, nf, dsrc=None, xsrc=None):
+def sweep_bound_ms(v, nf, dsrc=None, xsrc=None, win=None):
     """The least time an H100 could take for one sweep: the larger of its
     bytes over the memory rate and its flop over the product's peak for
     the state type. Returns (ms, "bytes" or "operations")."""
-    nbytes, flop = sweep_cost(v, nf, dsrc, xsrc)
+    nbytes, flop = sweep_cost(v, nf, dsrc, xsrc, win)
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
     t_ops = flop / H100_FLOPS[v.dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def lattice_ring_sweep_ref(v, ttc, bsrc, cin, bcat, macro_w, wvec, *,
-                           shifts, dsrc=None, xsrc=None, cast_bf16=True):
+                           shifts, dsrc=None, xsrc=None, cast_bf16=True,
+                           win=None):
     """Plain PyTorch lattice ring sweep (a loop over levels).
 
     Args:
@@ -152,6 +191,11 @@ def lattice_ring_sweep_ref(v, ttc, bsrc, cin, bcat, macro_w, wvec, *,
       cast_bf16: round the product operands (rhs, neighbour terms, bcat)
         and the ring to bfloat16 and accumulate in float32, as the TPU
         kernel does; False keeps every operand in the state dtype.
+      win: optional ``(L, 2)`` integer host array of per-level hull windows
+        ``[lo_l, hi_l)``: level l is computed on those columns alone, the
+        ring of level l - 1 reads zero outside that level's window, and
+        ``ys`` and ``ms`` are exact zeros outside the windows. See the
+        module docstring for the contract; None runs the full slab.
 
     Returns:
       ``(ys, ms)``: the new state, shaped and typed like ``v``, and the
@@ -160,6 +204,7 @@ def lattice_ring_sweep_ref(v, ttc, bsrc, cin, bcat, macro_w, wvec, *,
     """
     _check_shapes(v, ttc, bsrc, cin, bcat, macro_w, wvec, shifts, dsrc, xsrc)
     L, Gb, Km, BS, D, W = v.shape
+    win = _check_win(win, L, W)
     dtype = v.dtype
     acc = torch.float64 if dtype == torch.float64 else torch.float32
     op = torch.bfloat16 if cast_bf16 else dtype
@@ -172,40 +217,68 @@ def lattice_ring_sweep_ref(v, ttc, bsrc, cin, bcat, macro_w, wvec, *,
     # values is exact in f32, so this is a bf16 x bf16 -> f32 product
     bmat = bcat.to(op).to(acc)
     mw = macro_w.to(acc)[..., None, None]  # (Gb, Km, BS, 1, 1)
+    # the previous level's solution over the full plane, zero outside its
+    # window
     ring = torch.zeros((Gb, Km, BS, D, W), dtype=op, device=v.device)
-    ys = torch.empty_like(v)
-    ms = torch.empty((Gb, Km, L, D, W), dtype=acc, device=v.device)
+    if win is None:
+        ys = torch.empty_like(v)
+        ms = torch.empty((Gb, Km, L, D, W), dtype=acc, device=v.device)
+    else:
+        ys = torch.zeros_like(v)
+        ms = torch.zeros((Gb, Km, L, D, W), dtype=acc, device=v.device)
     for l in range(L):
+        lo, hi = (0, W) if win is None else (int(win[l, 0]), int(win[l, 1]))
+        if lo == hi:
+            ring = torch.zeros_like(ring)
+            continue
         rhs = (
-            w_src * ttc[l][:, None, None]
-            + w_rel * v[l]
-            - w_bcv * bsrc[l][:, :, None]
-        )  # (Gb, Km, BS, D, W)
+            w_src * ttc[l, ..., lo:hi][:, None, None]
+            + w_rel * v[l, ..., lo:hi]
+            - w_bcv * bsrc[l, ..., lo:hi][:, :, None]
+        )  # (Gb, Km, BS, D, hi - lo)
         if dsrc is not None:
-            rhs = rhs - w_dir * dsrc[l][:, :, None]
+            rhs = rhs - w_dir * dsrc[l, ..., lo:hi][:, :, None]
         if xsrc is not None:
-            m = xsrc.xmap[l].long()  # (Gb, W)
-            add = xval[gi, m.clamp(min=0)]  # (Gb, W, Km, BS, D)
+            m = xsrc.xmap[l, :, lo:hi].long()  # (Gb, hi - lo)
+            add = xval[gi, m.clamp(min=0)]  # (Gb, hi - lo, Km, BS, D)
             add = torch.where((m >= 0)[:, :, None, None, None], add, none)
             rhs = rhs + add.permute(0, 2, 3, 4, 1)
         parts = [rhs.to(op)]
         for fi, s in enumerate(shifts):
             s = int(s)
-            # out[..., w] = ring[..., w - s], zero where w < s
-            yf = torch.zeros_like(ring)
-            yf[..., s:] = ring[..., : W - s]
-            cf = cin[l][:, :, fi].to(op)  # (Gb, Km, W)
+            # out[..., w] = ring[..., w - s] for w in [lo, hi), zero where
+            # w < s
+            yf = torch.zeros_like(rhs, dtype=op)
+            a = max(lo, s)
+            if a < hi:
+                yf[..., a - lo:] = ring[..., a - s: hi - s]
+            cf = cin[l, :, :, fi, lo:hi].to(op)  # (Gb, Km, hi - lo)
             parts.append(yf * cf[:, :, None, None, :])
-        xcat = torch.cat(parts, dim=3).to(acc)  # (Gb, Km, BS, J, W)
-        sol = torch.matmul(bmat, xcat)  # (Gb, Km, BS, D, W)
-        ys[l] = sol.to(dtype)
-        ring = sol.to(op)
-        ms[:, :, l] = (sol * mw).sum(dim=2)
+        xcat = torch.cat(parts, dim=3).to(acc)  # (Gb, Km, BS, J, hi - lo)
+        if win is not None:
+            # the product runs at the full width on a zero-filled operand:
+            # a library's product may sum in another order at another
+            # width, and each column must be summed as in the full slab
+            # for the two to agree bit for bit
+            full = torch.zeros(xcat.shape[:-1] + (W,), dtype=acc,
+                               device=v.device)
+            full[..., lo:hi] = xcat
+            xcat = full
+        # (Gb, Km, BS, D, hi - lo)
+        sol = torch.matmul(bmat, xcat)[..., lo:hi]
+        ys[l, ..., lo:hi] = sol.to(dtype)
+        if win is None:
+            ring = sol.to(op)
+        else:
+            ring = torch.zeros_like(ring)
+            ring[..., lo:hi] = sol.to(op)
+        ms[:, :, l, :, lo:hi] = (sol * mw).sum(dim=2)
     return ys, ms
 
 
 def _kernel_args_ok(v, tensors, cast_bf16, shifts):
-    """Raise on anything the CUDA kernel does not take."""
+    """Raise on anything the CUDA kernel does not take (``tensors`` may
+    hold ``win``, the windows on the device as (L, 2) int32)."""
     L, Gb, Km, BS, D, W = v.shape
     want_state = torch.bfloat16 if cast_bf16 else torch.float32
     if v.dtype != want_state:
@@ -217,15 +290,17 @@ def _kernel_args_ok(v, tensors, cast_bf16, shifts):
     for name, t in tensors.items():
         if t.device != v.device:
             raise ValueError(f"{name} is on {t.device}, v on {v.device}")
-        if name == "xmap":
+        if name in ("xmap", "win"):
             if t.dtype != torch.int32:
-                raise ValueError(f"xmap must be int32, got {t.dtype}")
+                raise ValueError(f"{name} must be int32, got {t.dtype}")
         elif name != "v" and t.dtype != torch.float32:
             raise ValueError(f"{name} must be float32, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     if D not in KERNEL_D:
-        raise ValueError(f"the CUDA kernel is built for D in {KERNEL_D}, got {D}")
+        raise ValueError(
+            f"the CUDA kernel is built for D in {KERNEL_D}, got {D} (p = 3 "
+            f"has D = 64: ROADMAP.md queue 2, K1 item 5)")
     if not 1 <= len(shifts) <= KERNEL_MAX_FACES:
         raise ValueError(f"the CUDA kernel takes 1-3 faces, got {len(shifts)}")
     if W > KERNEL_MAX_W:
@@ -233,27 +308,48 @@ def _kernel_args_ok(v, tensors, cast_bf16, shifts):
             f"the CUDA kernel tiles W over one CTA's 8 warps, W <= "
             f"{KERNEL_MAX_W}; got W={W}"
         )
-    smem = kernel_smem_bytes(D, W, len(shifts), cast_bf16)
+    smem = kernel_smem_bytes(D, W, len(shifts), cast_bf16, L)
     if smem > _SMEM_LIMIT:
         raise ValueError(f"the kernel would need {smem} B of shared memory")
 
 
+def windows_on_device(win, L, W, device):
+    """Host windows, checked as ``_check_win`` does, as the ``(L, 2)`` int32
+    tensor on ``device`` that the kernel reads. A caller that launches many
+    sweeps of one problem uploads once and passes the tensor as ``win``."""
+    return torch.from_numpy(_check_win(win, L, W)).to(device)
+
+
 def _launch(v, ttc, bsrc, cin, bcat, macro_w, wvec, shifts, dsrc, xsrc,
-            cast_bf16, lib=None):
+            cast_bf16, lib=None, win=None):
     tensors = dict(v=v, ttc=ttc, bsrc=bsrc, cin=cin, bcat=bcat,
                    macro_w=macro_w, wvec=wvec)
     if dsrc is not None:
         tensors["dsrc"] = dsrc
     if xsrc is not None:
         tensors.update(xmap=xsrc.xmap, xval=xsrc.xval)
-    _kernel_args_ok(v, tensors, cast_bf16, shifts)
     L, Gb, Km, BS, D, W = v.shape
+    if win is not None:
+        if not isinstance(win, torch.Tensor):  # host windows: one upload
+            win = windows_on_device(win, L, W, v.device)
+        elif tuple(win.shape) != (L, 2):
+            raise ValueError(f"win has shape {tuple(win.shape)}, want "
+                             f"{(L, 2)}")
+        tensors["win"] = win
+    _kernel_args_ok(v, tensors, cast_bf16, shifts)
+    # the kernel writes every slot of ys (zeros outside the windows)
     ys = torch.empty_like(v)
     ms = torch.zeros((Gb, Km, L, D, W), dtype=torch.float32, device=v.device)
     lib = lib or _lib()
     s = [int(x) for x in shifts] + [0] * (KERNEL_MAX_FACES - len(shifts))
     with torch.cuda.device(v.device):
         stream = torch.cuda.current_stream(v.device).cuda_stream
+        ptrs = [win.data_ptr() if win is not None else None, ys.data_ptr(),
+                ms.data_ptr()]
+        if not getattr(lib, "takes_win", True):
+            if win is not None:
+                raise ValueError("this build's entry point takes no windows")
+            del ptrs[0]
         err = lib.pbte_lattice_ring_sweep(
             int(cast_bf16), D, v.data_ptr(), ttc.data_ptr(), bsrc.data_ptr(),
             cin.data_ptr(), bcat.data_ptr(), macro_w.data_ptr(),
@@ -261,8 +357,7 @@ def _launch(v, ttc, bsrc, cin, bcat, macro_w, wvec, shifts, dsrc, xsrc,
             xsrc.xmap.data_ptr() if xsrc is not None else None,
             xsrc.xval.data_ptr() if xsrc is not None else None,
             xsrc.xval.shape[1] if xsrc is not None else 0,
-            ys.data_ptr(), ms.data_ptr(), L, Gb, Km, BS, W, len(shifts),
-            *s, stream,
+            *ptrs, L, Gb, Km, BS, W, len(shifts), *s, stream,
         )
     if err != 0:
         msg = lib.pbte_cuda_error_string(err).decode()
@@ -271,26 +366,28 @@ def _launch(v, ttc, bsrc, cin, bcat, macro_w, wvec, shifts, dsrc, xsrc,
     return ys, ms
 
 
-def _lib(name="lattice_ring"):
+def _lib(name="lattice_ring", takes_win=True):
     """The kernel library built as ``name`` (see _build.load), its entry
-    points typed."""
+    points typed. ``takes_win=False`` types the entry points of a source
+    from before the window argument (bench_k1 times such a design against
+    the full slab): no ``win`` pointer, and no L in the shared-memory size."""
     lib = _build.load(name).lib
+    lib.takes_win = takes_win
     p, i = ctypes.c_void_p, ctypes.c_int
-    # 10 input pointers (through xmap, xval), U, the ys and ms pointers,
-    # then L, Gb, Km, BS, W, nf and three shifts, then the stream
+    # 10 input pointers (through xmap, xval), U, the win, ys and ms
+    # pointers, then L, Gb, Km, BS, W, nf and three shifts, then the stream
     lib.pbte_lattice_ring_sweep.argtypes = (
-        [i, i] + [p] * 10 + [i] + [p] * 2 + [i] * 9 + [p])
+        [i, i] + [p] * 10 + [i] + [p] * (2 + takes_win) + [i] * 9 + [p])
     lib.pbte_lattice_ring_sweep.restype = i
-    if hasattr(lib, "pbte_lattice_ring_smem_bytes"):
-        lib.pbte_lattice_ring_smem_bytes.argtypes = [i] * 4
-        lib.pbte_lattice_ring_smem_bytes.restype = ctypes.c_longlong
+    lib.pbte_lattice_ring_smem_bytes.argtypes = [i] * (4 + takes_win)
+    lib.pbte_lattice_ring_smem_bytes.restype = ctypes.c_longlong
     lib.pbte_cuda_error_string.argtypes = [i]
     lib.pbte_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 
 def lattice_ring_sweep(v, ttc, bsrc, cin, bcat, macro_w, wvec, *, shifts,
-                       dsrc=None, xsrc=None, cast_bf16=True):
+                       dsrc=None, xsrc=None, cast_bf16=True, win=None):
     """One lattice ring sweep of one Km bucket (see lattice_ring_sweep_ref
     for arguments and results).
 
@@ -301,12 +398,12 @@ def lattice_ring_sweep(v, ttc, bsrc, cin, bcat, macro_w, wvec, *, shifts,
     if v.device.type == "cpu":
         return lattice_ring_sweep_ref(
             v, ttc, bsrc, cin, bcat, macro_w, wvec, shifts=shifts, dsrc=dsrc,
-            xsrc=xsrc, cast_bf16=cast_bf16,
+            xsrc=xsrc, cast_bf16=cast_bf16, win=win,
         )
     if v.device.type != "cuda":
         raise ValueError(f"no lattice ring sweep for device {v.device}")
     return _launch(v, ttc, bsrc, cin, bcat, macro_w, wvec, shifts, dsrc, xsrc,
-                   cast_bf16)
+                   cast_bf16, win=win)
 
 
 lattice_ring_sweep.launches = 0

@@ -2,7 +2,8 @@
 
 This package's own copies of ``_lattice_ring_tables``
 (``pbte_tpu/solver/source_iteration.py``) and ``mirror_direction_map``
-(``pbte_tpu/validation/oracle.py``).
+(``pbte_tpu/validation/oracle.py``), and the per-level hull windows of the
+lattice slab (``ring_windows``).
 """
 
 from __future__ import annotations
@@ -64,6 +65,36 @@ def lattice_ring_tables(lat, plan, dirs_np):
         tables[g, lev, w] = np.arange(ne, dtype=np.int32)
         axis_faces[g] = np.where(sgn > 0, lat.face_minus, lat.face_plus)
     return tables, axis_faces, shifts
+
+
+def ring_windows(tables):
+    """Per-level hull windows of the lattice slab: ``(L, 2)`` int32 rows
+    ``[lo_l, hi_l)``, the first valid slot of level l and one past the last,
+    over the union of the groups (``lo = hi = 0`` for a level without an
+    element). The diagonal wavefront fills a narrow part of the plane near
+    the sweep's entry and exit corners, so a sweep that runs each level on
+    its window alone skips slots that are padding in every group.
+
+    The hull is pbte_tpu's (``win_lo``/``win_hi`` in its constructor, there
+    with an inclusive end). Its fitting of the hulls into a few segments of
+    128-lane windows (``_fit_ring_window``, ``_pick_ring_windows``,
+    ``PBTE_RING_MAX_SEGS``) serves the TPU's lane tiling and compile time
+    and has no counterpart here: the windows stay per level, and the kernel
+    rounds them out to its own tiles."""
+    vm = (np.asarray(tables) >= 0).any(axis=0)  # (L, W)
+    W = vm.shape[1]
+    lo = np.argmax(vm, axis=1)
+    hi = W - np.argmax(vm[:, ::-1], axis=1)
+    none = ~vm.any(axis=1)
+    lo[none] = hi[none] = 0
+    return np.stack([lo, hi], axis=1).astype(np.int32)
+
+
+def window_slots(win, tile=1):
+    """Slots a sweep over the windows ``win`` touches when every window is
+    rounded out to whole ``tile``-slot tiles."""
+    win = np.asarray(win, dtype=np.int64)
+    return int((-(-win[:, 1] // tile) * tile - win[:, 0] // tile * tile).sum())
 
 
 def mirror_direction_map(quad, dim: int, axes=None,

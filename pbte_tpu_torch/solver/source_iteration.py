@@ -28,10 +28,29 @@ outer step:
 State layout: a tuple of per-bucket ``(L, Gb, Km_b, BS, D, W)`` slabs of
 the mass-transformed state ``v = M^T u`` (band-major, as on the JAX
 Pallas path), float32 or, with ``PBTE_RING_STATE_BF16=1``, bfloat16.
+
+Hull windows (pbte_tpu's default on the flagship, its ``_step_ring_win``).
+The slab pads every level to the full plane of W slots; the constructor
+computes each level's hull ``[lo_l, hi_l)`` of valid slots once
+(``lattice_tables.ring_windows``) and every sweep runs each level on its
+window alone. The gate is pbte_tpu's: windows are taken when, rounded out
+to the kernel's 16-slot tiles, they keep under 95% of the L W slots, and
+``PBTE_RING_WINDOWS=0`` turns them off. pbte_tpu re-lays its windowed state
+out in segments and therefore windows only problems without lagged
+closures; here the state keeps the full-slab layout, and the closures'
+``(level, slot)`` gathers and ``xmap`` address valid elements, which lie
+inside the windows, so the same windows serve closure problems too. Slots
+outside a window are padding (exact-zero fixed points), so the results
+with and without windows are equal bit for bit.
+
+The solver's own float32 products (the einsums of ``step``, of the closure
+sources and of ``heat_flux``) run with TF32 off; the two process-wide flags
+are saved and restored around each, so the caller's settings stand.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 
@@ -40,10 +59,16 @@ import torch
 
 from pbte_tpu_torch.fem import assembly
 from pbte_tpu_torch.models import macroscopic
-from pbte_tpu_torch.ops.lattice_ring import ClosureSource, lattice_ring_sweep
+from pbte_tpu_torch.ops.lattice_ring import (
+    ClosureSource,
+    lattice_ring_sweep,
+    windows_on_device,
+)
 from pbte_tpu_torch.solver.lattice_tables import (
     lattice_ring_tables,
     mirror_direction_map,
+    ring_windows,
+    window_slots,
 )
 from pbte_tpu_torch.sweep import planner
 
@@ -52,6 +77,27 @@ _RING_FAMILY = "ROADMAP.md queue 1, item 6 (the rest of the ring family)"
 REFL_KEYS = ("dif_fint", "dif_cin", "dif_wplus", "dif_norm", "dif_fvec",
              "spc_cin", "spc_gk", "spc_fmv")
 _SCAN_PATH = "ROADMAP.md queue 1, item 7 (scan path)"
+_CHECKPOINT = "ROADMAP.md queue 1, item 9 (io/checkpoint.py)"
+# windows are rounded out to the kernel's m-tiles of this many slots, and
+# taken when they keep under this share of the slab (pbte_tpu's gate)
+WINDOW_TILE = 16
+WINDOW_MAX_SHARE = 0.95
+
+
+@contextlib.contextmanager
+def exact_f32_products():
+    """TF32 (about three decimal digits) off for the float32 matrix
+    products and convolutions inside; both process-wide flags are restored
+    on the way out. ``@exact_f32_products()`` wraps a function in it."""
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
 
 
 def checked_device(device) -> torch.device:
@@ -83,6 +129,8 @@ class SourceIterationSolver:
         *,
         diffuse_bcs=None,
         specular_bcs=None,
+        require_bcs: bool = True,  # False: a boundary attribute without a
+        # condition is taken as an isothermal wall at deviation 0
     ):
         device = torch.device(device)
         if dtype not in (torch.float32, torch.float64):
@@ -93,10 +141,6 @@ class SourceIterationSolver:
                 "CUDA kernel takes float32 or bfloat16 state"
             )
         self.device = device = checked_device(device)
-        # the closure einsums are float32 references for the kernel: keep
-        # TF32 (about three decimal digits) out of every product
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
         self.dtype = dtype
         np_dtype = np.float32 if dtype == torch.float32 else np.float64
 
@@ -144,7 +188,7 @@ class SourceIterationSolver:
             - set(diffuse_bcs)
             - set(specular_bcs)
         )
-        if missing:
+        if missing and require_bcs:
             raise ValueError(
                 f"boundary attributes without isothermal BC: {sorted(missing)}"
             )
@@ -203,6 +247,19 @@ class SourceIterationSolver:
             )
         self.shifts = tuple(int(s) for s in lat_shifts)
         self.W = W = lat_tabs.shape[2]
+        # per-level hull windows (L, 2), or None where they save too little
+        win = ring_windows(lat_tabs)
+        self.win = (
+            win
+            if os.environ.get("PBTE_RING_WINDOWS", "") != "0"
+            and window_slots(win, WINDOW_TILE) < WINDOW_MAX_SHARE * L * W
+            else None
+        )
+        # on a GPU the sweeps take the windows as a tensor, uploaded once
+        self.win_dev = (
+            windows_on_device(self.win, L, W, device)
+            if self.win is not None and device.type == "cuda" else None
+        )
         self.ne_pad = ne_pad = L * W
         nf_act = dim
 
@@ -437,9 +494,13 @@ class SourceIterationSolver:
 
     # -- one outer iteration -------------------------------------------------
 
+    @exact_f32_products()
     def step(self, u, Tc, Tv_prev):
         """One outer iteration: returns (u, Tc, Tv, residual), the residual
-        a 0-d tensor on the device."""
+        a 0-d tensor on the device. The state's dtype picks the sweep's
+        mode: bfloat16 slabs run with bfloat16 product operands, float32 or
+        float64 slabs exactly (so a solver built for bfloat16 state also
+        steps a float32 copy of it exactly: the polish of ``solve``)."""
         c = self.consts
         G, W, L, D = self.G, self.W, self.L, self.D
         tc_slab = (
@@ -456,7 +517,8 @@ class SourceIterationSolver:
                 u[bi], ttc_all[:, self._bucket_groups[bi]].contiguous(),
                 cb["bsrc0"], cb["cin"], cb["bcat"], cb["macro_w"], c["wvec"],
                 shifts=self.shifts, dsrc=cb.get("dsrc0"), xsrc=xsrc[bi],
-                cast_bf16=self.state_bf16,
+                cast_bf16=u[bi].dtype == torch.bfloat16,
+                win=self.win if self.win_dev is None else self.win_dev,
             )
             v_new.append(ys)
             m_parts.append(ms.sum(dim=1))  # (Gb, L, D, W)
@@ -471,6 +533,7 @@ class SourceIterationSolver:
         res = macroscopic.residual(Tv_new, Tv_prev)
         return tuple(v_new), Tc_new, Tv_new, res
 
+    @exact_f32_products()
     def _closure_sources(self, u):
         """Per-bucket lagged closure sources from the previous iterate u
         (the rhs additions of pbte_tpu's ``_step_ring``,
@@ -552,9 +615,29 @@ class SourceIterationSolver:
                      for cb, sm in zip(c["buckets"], sums))
 
     def solve(self, tol: float = 1e-7, max_iter: int = 101, state=None,
-              verbose: bool = True, callback=None, check_every: int = 1):
+              verbose: bool = True, callback=None, check_every: int = 1,
+              checkpoint_path: str | None = None, checkpoint_every: int = 25,
+              cycle_hook=None, cycle_every: int = 0, polish_iters: int = 0,
+              polish_extrapolate: bool = False):
         """Outer source iteration (ref: src/PBTESolver.cpp:208-332). The
-        residual is fetched to the host every ``check_every`` iterations."""
+        residual is fetched to the host every ``check_every`` iterations.
+
+        ``cycle_hook(it, u, Tc, Tv)`` is called with the live device state
+        every ``cycle_every`` iterations (a field-output cadence).
+
+        ``polish_iters`` exact steps follow the loop: the state slabs are
+        cast to the solver dtype (float32 after a bfloat16-state solve) and
+        stepped without operand rounding, which contracts the bias of the
+        rounded fixed point by the iteration's rate per step; the result
+        then carries exact-dtype slabs. ``polish_extrapolate`` adds two
+        exact steps, estimates the slowest mode's ratio r from their
+        successive Tc differences d1, d2 and jumps to the limit of its
+        geometric tail, x2 + d2 r / (1 - r) (Aitken), as pbte_tpu does.
+
+        ``checkpoint_path`` is not taken yet."""
+        if checkpoint_path is not None:
+            raise NotImplementedError(
+                f"solve(checkpoint_path=...): {_CHECKPOINT}")
         u, Tc, Tv = state if state is not None else self.initial_state()
         prev_Tv = Tv
         res = float("inf")
@@ -572,6 +655,33 @@ class SourceIterationSolver:
                     break
             prev_Tv = Tv_new
             Tc = Tc_new
+            if cycle_hook and cycle_every > 0 and it % cycle_every == 0:
+                cycle_hook(it, u, Tc, prev_Tv)
+        if polish_iters > 0:
+            u = tuple(x.to(self.dtype) for x in u)
+            for _ in range(polish_iters):
+                u, Tc, prev_Tv, res_dev = self.step(u, Tc, prev_Tv)
+                it += 1
+            if polish_extrapolate:
+                u1, Tc1, Tv1, _ = self.step(u, Tc, prev_Tv)
+                u2, Tc2, Tv2, res_dev = self.step(u1, Tc1, Tv1)
+                it += 2
+                d1 = (Tc1 - Tc).reshape(-1)
+                d2 = (Tc2 - Tc1).reshape(-1)
+                ratio = float(torch.dot(d2, d1)) / (
+                    float(torch.dot(d1, d1)) + 1e-300)
+                ratio = min(max(ratio, 0.0), 0.99995)
+                fac = ratio / (1.0 - ratio)
+                Tc = Tc2 + fac * d2.reshape(Tc2.shape)
+                u = tuple(a2 + fac * (a2 - a1) for a2, a1 in zip(u2, u1))
+                prev_Tv = Tv2
+                if verbose:
+                    print(f"[pbte_tpu_torch] polish extrapolation: mode "
+                          f"ratio r = {ratio:.6f}, jump factor {fac:.1f}")
+            res = float(res_dev)
+            if verbose:
+                print(f"[pbte_tpu_torch] polish x{polish_iters}: residual = "
+                      f"{res:.6e}")
         return SolveResult(
             u=u, Tc=Tc, Tv=prev_Tv, residual=res, iterations=it, solver=self
         )
@@ -614,6 +724,7 @@ class SourceIterationSolver:
         builds)."""
         return Tc
 
+    @exact_f32_products()
     def heat_flux(self, u):
         """Heat-flux coefficients Qc (dim, ne, D) and cell integrals Qv
         (dim, ne) of the bucketed state, on its device."""

@@ -290,21 +290,54 @@ def test_closure_step_hands_the_kernel_what_it_takes(monkeypatch, bf16):
     calls = []
 
     def checked(v, ttc, bsrc, cin, bcat, macro_w, wvec, *, shifts, dsrc,
-                xsrc, cast_bf16):
+                xsrc, cast_bf16, win):
         assert xsrc is not None
         tensors = dict(v=v, ttc=ttc, bsrc=bsrc, cin=cin, bcat=bcat,
                        macro_w=macro_w, wvec=wvec, xmap=xsrc.xmap,
                        xval=xsrc.xval)
+        assert win is ts.win and win is not None  # windows are on
+        tensors["win"] = torch.from_numpy(win)
         tlr._kernel_args_ok(v, tensors, cast_bf16, shifts)
         calls.append(cast_bf16)
         return tlr.lattice_ring_sweep_ref(
             v, ttc, bsrc, cin, bcat, macro_w, wvec, shifts=shifts, dsrc=dsrc,
-            xsrc=xsrc, cast_bf16=cast_bf16)
+            xsrc=xsrc, cast_bf16=cast_bf16, win=win)
 
     ts.ring_sweep = checked
     r = ts.solve(tol=0, max_iter=2, verbose=False)
     assert calls == [bf16] * (2 * len(ts.consts["buckets"]))
     assert torch.isfinite(r.Tc).all()
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", list(CASES))
+def test_windows_change_no_bit_with_closures(case, bf16, monkeypatch):
+    """The closure problems run with the same hull windows as the others
+    (pbte_tpu windows only problems without lagged closures, because it
+    re-lays its windowed state out; the port keeps the full-slab layout and
+    the closures address valid slots, which lie inside the windows): with
+    windows on and with PBTE_RING_WINDOWS=0 the state, Tc, Tv and the
+    residual are equal bit for bit after 3 steps, and every closure target
+    and source lies inside its level's window."""
+    monkeypatch.setenv("PBTE_RING_STATE_BF16", "1" if bf16 else "0")
+    ts = _port_solver(case, torch.float32)
+    monkeypatch.setenv("PBTE_RING_WINDOWS", "0")
+    tf = _port_solver(case, torch.float32)
+    assert ts.win is not None and tf.win is None and ts.state_bf16 == bf16
+    for cb in ts.consts["buckets"]:
+        lvl, _, slot = torch.nonzero(cb["xmap"] >= 0, as_tuple=True)
+        lo, hi = torch.from_numpy(ts.win).long()[lvl].T
+        assert len(slot) and ((lo <= slot) & (slot < hi)).all()
+        for pl, pw in (("per_sl", "per_sw"), ("refl_pl", "refl_pw")):
+            if pl in cb:
+                lo, hi = torch.from_numpy(ts.win).long()[cb[pl]].unbind(-1)
+                assert ((lo <= cb[pw]) & (cb[pw] < hi)).all()
+    rw = ts.solve(tol=0, max_iter=3, verbose=False)
+    rf = tf.solve(tol=0, max_iter=3, verbose=False)
+    assert torch.equal(rw.Tc, rf.Tc) and torch.equal(rw.Tv, rf.Tv)
+    assert rw.residual == rf.residual and float(rw.Tc.abs().max()) > 0
+    for a, b in zip(rw.u, rf.u):
+        assert a.dtype == b.dtype and torch.equal(a, b)
 
 
 def test_bf16_state_closures_track_f32(monkeypatch):

@@ -199,6 +199,44 @@ def test_lattice_ring_tables(case):
         np.testing.assert_array_equal(a, b)
 
 
+@pytest.mark.parametrize("case", list(CASES))
+def test_ring_windows(case):
+    """The per-level hull windows against win_lo / win_hi recomputed from
+    pbte_tpu's lattice tables as its constructor does
+    (pbte_tpu/solver/source_iteration.py:799-804; its win_hi is the last
+    valid slot, the port's hi one past it)."""
+    pj, pt, oj, ot, qj, qt = _plans(case)
+    lj = jplan.detect_lattice(oj.sweep_neighbor, oj.normals)
+    lt = tplan.detect_lattice(ot.sweep_neighbor, ot.normals)
+    lat_tables = _lattice_ring_tables(lj, pj, qj.directions[:, :3])[0]
+    vm = (lat_tables >= 0).any(axis=0)
+    win_lo = np.argmax(vm, axis=1)
+    win_hi = vm.shape[1] - 1 - np.argmax(vm[:, ::-1], axis=1)
+    win = tlt.ring_windows(
+        tlt.lattice_ring_tables(lt, pt, qt.directions[:, :3])[0])
+    assert win.dtype == np.int32 and win.shape == (vm.shape[0], 2)
+    np.testing.assert_array_equal(win[:, 0], win_lo)
+    np.testing.assert_array_equal(win[:, 1] - 1, win_hi)
+    # every valid slot lies in its level's window, in every group
+    inside = ((np.arange(vm.shape[1]) >= win[:, :1])
+              & (np.arange(vm.shape[1]) < win[:, 1:]))
+    assert not ((lat_tables >= 0) & ~inside).any()
+    assert tlt.window_slots(win) == int((win_hi - win_lo + 1).sum())
+    assert tlt.window_slots(win, 16) % 16 == 0
+    assert tlt.window_slots(win) <= tlt.window_slots(win, 16) <= vm.size
+
+
+def test_ring_windows_of_an_empty_level():
+    tables = np.full((2, 3, 8), -1)
+    tables[0, 0, 2:5] = 0
+    tables[1, 0, 4:7] = 0
+    tables[1, 2, 7] = 0
+    np.testing.assert_array_equal(tlt.ring_windows(tables),
+                                  [[2, 7], [0, 0], [7, 8]])
+    assert tlt.window_slots([[2, 7], [0, 0], [7, 8]]) == 6
+    assert tlt.window_slots([[2, 7], [0, 0], [7, 8]], 4) == 12
+
+
 def test_lattice_ring_tables_refuse_grazing_directions():
     """A one-polar-point rule lies in the xy plane: both refuse it."""
     _, _, oj, ot, _, _ = _plans("8x8x8_p2_az4")

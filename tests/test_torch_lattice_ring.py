@@ -236,7 +236,217 @@ def test_flagship_bucket_bound(dtype, nbytes, bound_ms):
 def test_kernel_shared_memory_fits_one_cta(cast):
     """The kernel's carve-up at the flagship's widths fits one CTA on
     Hopper (tiles at a row stride of 264 words), and grows with W."""
-    smem = tlr.kernel_smem_bytes(27, 256, 3, cast)
+    smem = tlr.kernel_smem_bytes(27, 256, 3, cast, 46)
     assert smem <= tlr._SMEM_LIMIT
-    assert smem == (8192 if cast else 32768) + 4 * 27 * 264 * 4 + 2 * 3 * 256 * 4
-    assert tlr.kernel_smem_bytes(27, 64, 3, cast) < smem
+    assert smem == ((8192 if cast else 32768) + 4 * 27 * 264 * 4
+                    + 2 * 3 * 256 * 4 + 46 * 8)
+    assert tlr.kernel_smem_bytes(27, 64, 3, cast, 46) < smem
+
+
+# ---- hull windows ---------------------------------------------------------
+
+WIN_SHAPES = {  # W, shifts: three faces, D = 8
+    "w16": (16, (0, 4, 1)),
+    "w25": (25, (0, 5, 1)),
+    "w36": (36, (0, 6, 1)),
+}
+
+
+def _windowed_inputs(dt, seed, W, shifts, dirichlet=False, closure=False,
+                     L=7, Gb=2, Km=3, BS=4, D=8, U=5):
+    """Random sweep inputs that keep the windows' contract: random windows
+    (some empty, some one slot wide), v, ttc, bsrc, dsrc and cin zero and
+    xmap -1 outside them, and cin zero where the upwind neighbour lies
+    outside the previous level's window. Returns (tensors, xsrc, win)."""
+    rng = np.random.default_rng(seed)
+    nf = len(shifts)
+    J = (1 + nf) * D
+    lo = rng.integers(0, W // 2, L)
+    hi = np.minimum(lo + rng.integers(0, W, L), W)
+    hi[1] = lo[1]  # an empty window
+    hi[2] = lo[2] + 1  # one slot
+    win = np.stack([lo, hi], axis=1).astype(np.int32)
+    inside = np.zeros((L, W), dtype=bool)
+    for l in range(L):
+        inside[l, lo[l]:hi[l]] = True
+    upwind = np.zeros((L, nf, W), dtype=bool)  # neighbour is in a window
+    for f, s in enumerate(shifts):
+        upwind[1:, f, s:] = inside[:-1, : W - s]
+
+    def r(*s):
+        return rng.standard_normal(s).astype(dt)
+
+    d = dict(
+        v=r(L, Gb, Km, BS, D, W) * inside[:, None, None, None, None],
+        ttc=r(L, Gb, D, W) * inside[:, None, None],
+        bsrc=r(L, Gb, Km, D, W) * inside[:, None, None, None],
+        cin=-np.abs(r(L, Gb, Km, nf, W)) * (
+            inside[:, None, :] & upwind)[:, None, None],
+        bcat=r(Gb, Km, BS, D, J) / J, macro_w=np.abs(r(Gb, Km, BS)),
+        wvec=r(4, BS),
+    )
+    if dirichlet:
+        d["dsrc"] = r(L, Gb, Km, D, W) * inside[:, None, None, None]
+    t = {k: torch.from_numpy(np.ascontiguousarray(a.astype(dt)))
+         for k, a in d.items()}
+    xsrc = None
+    if closure:
+        xmap = np.where((rng.random((L, Gb, W)) < 0.4) & inside[:, None],
+                        rng.integers(0, U, (L, Gb, W)), -1).astype(np.int32)
+        xsrc = tlr.ClosureSource(torch.from_numpy(xmap),
+                                 torch.from_numpy(r(Gb, U, Km, BS, D)))
+    return t, xsrc, win
+
+
+def _sweep_win(t, xsrc, shifts, cast, win, fn=tlr.lattice_ring_sweep_ref):
+    return fn(t["v"], t["ttc"], t["bsrc"], t["cin"], t["bcat"], t["macro_w"],
+              t["wvec"], shifts=shifts, dsrc=t.get("dsrc"), xsrc=xsrc,
+              cast_bf16=cast, win=win)
+
+
+@pytest.mark.parametrize("shape", list(WIN_SHAPES))
+@pytest.mark.parametrize("extra", ["none", "dsrc", "xsrc"])
+@pytest.mark.parametrize("mode", ["f32", "f64", "bf16"])
+def test_windowed_plain_equals_full_slab(mode, extra, shape):
+    """Under the windows' contract the windowed plain version equals the
+    full-slab plain version bit for bit (padded slots are exact-zero fixed
+    points), in every state type, with a Dirichlet source and with a
+    closure source; ys and ms are exact zeros outside the windows."""
+    W, shifts = WIN_SHAPES[shape]
+    dt = np.float64 if mode == "f64" else np.float32
+    t, xsrc, win = _windowed_inputs(dt, seed=11, W=W, shifts=shifts,
+                                    dirichlet=extra == "dsrc",
+                                    closure=extra == "xsrc")
+    cast = mode == "bf16"
+    if cast:
+        t["v"] = t["v"].to(torch.bfloat16)
+    ys_f, ms_f = _sweep_win(t, xsrc, shifts, cast, None)
+    ys_w, ms_w = _sweep_win(t, xsrc, shifts, cast, win)
+    assert ys_w.dtype == ys_f.dtype and ms_w.dtype == ms_f.dtype
+    assert torch.equal(ys_w, ys_f) and torch.equal(ms_w, ms_f)
+    assert ys_f.abs().max() > 0
+    for l, (lo, hi) in enumerate(win):
+        for a in (ys_w[l], ms_w[:, :, l]):
+            assert not a[..., :lo].any() and not a[..., hi:].any()
+    # the wrapper passes the windows on to the plain version on the CPU
+    ys_c, ms_c = _sweep_win(t, xsrc, shifts, cast, win,
+                            fn=tlr.lattice_ring_sweep)
+    assert torch.equal(ys_c, ys_w) and torch.equal(ms_c, ms_w)
+
+
+def test_windows_ignore_what_lies_outside():
+    """Level l is computed on its window alone: values outside the windows
+    (a breach of the contract) change nothing in the windowed result."""
+    W, shifts = WIN_SHAPES["w16"]
+    t, _, win = _windowed_inputs(np.float32, seed=12, W=W, shifts=shifts)
+    want = _sweep_win(t, None, shifts, False, win)
+    rng = np.random.default_rng(0)
+    dirty = dict(t)
+    for key in ("v", "ttc", "bsrc"):
+        noise = torch.from_numpy(rng.standard_normal(t[key].shape)
+                                 .astype(np.float32))
+        dirty[key] = torch.where(t[key] == 0, noise, t[key])
+    got = _sweep_win(dirty, None, shifts, False, win)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    full = _sweep_win(dirty, None, shifts, False, None)
+    assert not torch.equal(full[0], want[0])
+
+
+def test_full_windows_change_nothing():
+    """win=None is the full slab, and windows [0, W) on every level give
+    the same bits."""
+    d = _inputs(np.float32, seed=13, dirichlet=True)
+    t = {k: torch.from_numpy(v) for k, v in d.items()}
+    L, W = d["v"].shape[0], d["v"].shape[-1]
+    none = _sweep_win(t, None, SHIFTS, False, None)
+    full = _sweep_win(t, None, SHIFTS, False, [[0, W]] * L)
+    assert torch.equal(none[0], full[0]) and torch.equal(none[1], full[1])
+
+
+@pytest.mark.parametrize("case", ["lo_above_hi", "hi_above_w", "negative",
+                                  "shape"])
+def test_window_contract_violations_raise(case):
+    d = _inputs(np.float32, seed=14)
+    t = {k: torch.from_numpy(v) for k, v in d.items()}
+    L, W = d["v"].shape[0], d["v"].shape[-1]
+    win = np.tile(np.array([[2, 9]], dtype=np.int32), (L, 1))
+    if case == "lo_above_hi":
+        win[3] = (9, 2)
+    elif case == "hi_above_w":
+        win[0] = (0, W + 1)
+    elif case == "negative":
+        win[1] = (-1, 4)
+    else:
+        win = win[:-1]
+    for fn in (tlr.lattice_ring_sweep, tlr.lattice_ring_sweep_ref):
+        with pytest.raises(ValueError, match="win"):
+            _sweep_win(t, None, SHIFTS, False, win, fn=fn)
+    with pytest.raises(ValueError, match="win"):
+        tlr.sweep_cost(t["v"], 3, win=win)
+
+
+def test_kernel_takes_int32_windows():
+    """The CUDA kernel's argument checks take the windows as an int32
+    tensor and refuse another type; its shared memory holds L windows."""
+    v = torch.zeros((2, 1, 1, 2, 8, 16))
+    tlr._kernel_args_ok(v, dict(v=v, win=torch.zeros((2, 2),
+                                                     dtype=torch.int32)),
+                        False, SHIFTS)
+    with pytest.raises(ValueError, match="win"):
+        tlr._kernel_args_ok(v, dict(v=v, win=torch.zeros((2, 2),
+                                                         dtype=torch.int64)),
+                            False, SHIFTS)
+    assert (tlr.kernel_smem_bytes(27, 256, 3, False, 46)
+            == tlr.kernel_smem_bytes(27, 256, 3, False, 0) + 46 * 8)
+    with pytest.raises(TypeError):  # L is not optional: the windows take room
+        tlr.kernel_smem_bytes(27, 256, 3, False)
+
+
+def test_windows_on_device_checks_and_uploads():
+    """The tensor a caller hands the kernel in place of host windows: the
+    checked windows as (L, 2) int32 on the device asked for."""
+    t = tlr.windows_on_device([[0, 4], [2, 16], [5, 5]], 3, 16, "cpu")
+    assert t.dtype == torch.int32 and t.tolist() == [[0, 4], [2, 16], [5, 5]]
+    tlr._kernel_args_ok(torch.zeros((3, 1, 1, 2, 8, 16)),
+                        dict(win=t), False, SHIFTS)
+    for bad in ([[0, 17]] * 3, [[4, 2]] * 3, [[0, 4]] * 2):
+        with pytest.raises(ValueError, match="win"):
+            tlr.windows_on_device(bad, 3, 16, "cpu")
+    # the plain version and the bounds take that tensor as they take the list
+    v = torch.zeros((3, 1, 1, 2, 8, 16))
+    assert (tlr.sweep_cost(v, 3, win=t)
+            == tlr.sweep_cost(v, 3, win=[[0, 4], [2, 16], [5, 5]]))
+    assert tlr.sweep_cost(v, 3, win=t) < tlr.sweep_cost(v, 3)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sweep_cost_counts_window_slots(dtype):
+    """Full windows cost what no windows cost; the flagship's windows
+    (7,246 of 11,776 slots) cut every level-indexed operand and the flop in
+    that ratio and leave the factors (bcat, macro_w, wvec) whole, so no
+    bound counts a slot outside a window."""
+    L, Gb, Km, BS, D, W = 46, 4, 10, 40, 27, 256
+    v = torch.zeros((L, Gb, Km, BS, D, W), dtype=dtype, device="meta")
+    dsrc = torch.zeros((L, Gb, Km, D, W), device="meta")
+    xsrc = tlr.ClosureSource(
+        torch.zeros((L, Gb, W), dtype=torch.int32, device="meta"),
+        torch.zeros((Gb, 7, Km, BS, D), device="meta"))
+    for kw in (dict(), dict(dsrc=dsrc), dict(xsrc=xsrc)):
+        assert (tlr.sweep_cost(v, 3, win=[[0, W]] * L, **kw)
+                == tlr.sweep_cost(v, 3, **kw))
+        assert (tlr.sweep_bound_ms(v, 3, win=[[0, W]] * L, **kw)
+                == tlr.sweep_bound_ms(v, 3, **kw))
+    # the 16^3 lattice's hulls: 1, 17, ..., 241 slots, then 242 ... 256
+    i = np.arange(16)
+    lo = np.concatenate([np.zeros(16, int), i[1:], 16 * i[1:] + 15])
+    hi = np.concatenate([16 * i + 1, 241 + i[1:], np.full(15, 256)])
+    win = np.stack([lo, hi], axis=1)
+    slots = int((hi - lo).sum())
+    assert win.shape == (L, 2) and slots == 7246
+    fixed = 4 * (Gb * Km * BS * D * 4 * D + Gb * Km * BS + 4 * BS)
+    nbytes, flop = tlr.sweep_cost(v, 3)
+    nbytes_w, flop_w = tlr.sweep_cost(v, 3, win=win)
+    assert flop_w * L * W == flop * slots
+    assert (nbytes_w - fixed) * L * W == (nbytes - fixed) * slots
+    ms_w, by = tlr.sweep_bound_ms(v, 3, win=win)
+    assert by == "bytes" and ms_w < tlr.sweep_bound_ms(v, 3)[0]

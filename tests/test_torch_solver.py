@@ -186,15 +186,17 @@ def test_step_hands_the_kernel_what_it_takes(monkeypatch, bf16):
     calls = []
 
     def checked(v, ttc, bsrc, cin, bcat, macro_w, wvec, *, shifts, dsrc,
-                xsrc, cast_bf16):
+                xsrc, cast_bf16, win):
         assert xsrc is None  # no lagged closures on this problem
         tensors = dict(v=v, ttc=ttc, bsrc=bsrc, cin=cin, bcat=bcat,
                        macro_w=macro_w, wvec=wvec, dsrc=dsrc)
+        assert win is ts.win and win is not None  # windows are on
+        tensors["win"] = torch.from_numpy(win)
         tlr._kernel_args_ok(v, tensors, cast_bf16, shifts)
         calls.append(cast_bf16)
         return tlr.lattice_ring_sweep_ref(
             v, ttc, bsrc, cin, bcat, macro_w, wvec, shifts=shifts, dsrc=dsrc,
-            cast_bf16=cast_bf16)
+            cast_bf16=cast_bf16, win=win)
 
     ts.ring_sweep = checked
     ts.solve(tol=0, max_iter=2, verbose=False)
@@ -277,6 +279,331 @@ def test_port_matches_golden_on_cpu():
     ts = SourceIterationSolver(*unit_cube(**params), bcs, device="cpu")
     r = ts.solve(tol=0, max_iter=steps, verbose=False)
     np.testing.assert_allclose(r.Tc.numpy(), Tc_ref, rtol=2e-5, atol=5e-7)
+
+
+def _solve_states(case, steps=3, windows=True, bf16=False, dirichlet=False,
+                  dtype=torch.float32):
+    """(solver, result) of `steps` steps with hull windows on (the default)
+    or off (PBTE_RING_WINDOWS=0, read by the constructor)."""
+    env = {"PBTE_RING_WINDOWS": "1" if windows else "0",
+           "PBTE_RING_STATE_BF16": "1" if bf16 else "0"}
+    bcs, kw = (DIRICHLET_WALLS, DIRICHLET) if dirichlet else (WALL_BCS, {})
+    with pytest.MonkeyPatch.context() as mp:
+        for k, v in env.items():
+            mp.setenv(k, v)
+        ts = SourceIterationSolver(*_problem(case), bcs, dtype=dtype,
+                                   device="cpu", **kw)
+    assert (ts.win is not None) == windows and ts.state_bf16 == bf16
+    return ts, ts.solve(tol=0, max_iter=steps, verbose=False)
+
+
+def assert_same_bits(ra, rb):
+    assert torch.equal(ra.Tc, rb.Tc) and torch.equal(ra.Tv, rb.Tv)
+    assert len(ra.u) == len(rb.u)
+    for a, b in zip(ra.u, rb.u):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert ra.residual == rb.residual
+
+
+@pytest.mark.parametrize("case,dirichlet,bf16,dtype", [
+    ("9x8x8_p1", False, False, torch.float32),
+    ("8x8x8_p2", False, False, torch.float32),
+    ("8x8x8_p1_two_buckets", True, False, torch.float32),
+    ("8x8x8_p1_two_buckets", False, True, torch.float32),
+    ("9x8x8_p1", True, False, torch.float64),
+])
+def test_windows_change_no_bit(case, dirichlet, bf16, dtype):
+    """Hull windows on and PBTE_RING_WINDOWS=0 give the same u, Tc, Tv and
+    residual bit for bit (isothermal and Dirichlet walls, one and two
+    buckets, f32, bf16 and f64 state): slots outside the windows are
+    exact-zero fixed points."""
+    ts, r_w = _solve_states(case, windows=True, bf16=bf16,
+                            dirichlet=dirichlet, dtype=dtype)
+    _, r_f = _solve_states(case, windows=False, bf16=bf16,
+                           dirichlet=dirichlet, dtype=dtype)
+    assert_same_bits(r_w, r_f)
+    assert float(r_w.Tc.abs().max()) > 0
+    for ub in r_w.u:  # exact zeros outside the windows
+        for l, (lo, hi) in enumerate(ts.win):
+            assert not ub[l, ..., :lo].any() and not ub[l, ..., hi:].any()
+
+
+def test_windowed_step_matches_jax_step_ring_win():
+    """The port's windowed step against pbte_tpu's hull-windowed XLA ring
+    (_step_ring_win) in float64: the set-up of tests/test_ring.py's
+    test_ring_windowed_matches_full_slab (hex 16^3 p=1, 2x4 directions,
+    nspec=2, a Dirichlet face, 3 steps; pbte_tpu's 128-lane windows only
+    engage on a 256-slot plane), Tc and the state at rtol 1e-12 with atol
+    1e-12 of the field's max, as there."""
+    size = dict(nx=16, ny=16, nz=16, order=1, polar=2, azimuth=4, nspec=2)
+    js = JaxSolver(*torch_golden.jax_unit_cube(**size), DIRICHLET_WALLS,
+                   dtype=jnp.float64, sweep_mode="ring", **DIRICHLET)
+    assert js._ring_windowed and js.has_dirichlet
+    ts = SourceIterationSolver(*unit_cube(**size), DIRICHLET_WALLS,
+                               dtype=torch.float64, device="cpu", **DIRICHLET)
+    assert ts.win is not None and (ts.L, ts.W) == (46, 256)
+    assert int((ts.win[:, 1] - ts.win[:, 0]).sum()) == 7246
+    rj = js.solve(tol=0, max_iter=3, verbose=False)
+    rt = ts.solve(tol=0, max_iter=3, verbose=False)
+    Tj = np.asarray(rj.Tc)
+    np.testing.assert_allclose(rt.Tc.numpy(), Tj, rtol=1e-12,
+                               atol=1e-12 * np.abs(Tj).max())
+    uj = js._ring_u_standard(rj.u)
+    np.testing.assert_allclose(ts._ring_u_standard(rt.u), uj, rtol=1e-12,
+                               atol=1e-12 * np.abs(uj).max())
+
+
+def test_window_gate(monkeypatch):
+    """Windows are taken when, rounded out to the kernel's 16-slot tiles,
+    they keep under 95% of the slab (pbte_tpu's gate), and never with
+    PBTE_RING_WINDOWS=0. A 32x4x4 lattice has a 16-slot plane, one tile per
+    level: nothing to save."""
+    from pbte_tpu_torch.solver import source_iteration as tsi
+    from pbte_tpu_torch.solver.lattice_tables import window_slots
+
+    monkeypatch.delenv("PBTE_RING_WINDOWS", raising=False)
+    ts = SourceIterationSolver(*_problem("8x8x8_p1"), WALL_BCS, device="cpu")
+    slots = window_slots(ts.win, tsi.WINDOW_TILE)
+    assert slots == 1024 and slots < 0.95 * ts.L * ts.W
+    assert ts.win_dev is None  # the uploaded copy is for a GPU's kernel
+    thin = SourceIterationSolver(
+        *unit_cube(32, 4, 4, order=1, polar=2, azimuth=4, nspec=2), WALL_BCS,
+        device="cpu")
+    assert thin.W == 16 and thin.win is None
+    r = thin.solve(tol=0, max_iter=2, verbose=False)
+    assert torch.isfinite(r.Tc).all()
+    monkeypatch.setenv("PBTE_RING_WINDOWS", "0")
+    off = SourceIterationSolver(*_problem("8x8x8_p1"), WALL_BCS, device="cpu")
+    assert off.win is None
+
+
+@pytest.mark.parametrize("flag", [True, False])
+def test_solver_leaves_tf32_flags_alone(flag):
+    """Building a solver, stepping it and taking its views leaves both
+    process-wide TF32 flags as the caller set them; inside the solver's
+    products they are off."""
+    from pbte_tpu_torch.solver.source_iteration import exact_f32_products
+
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = flag
+        torch.backends.cudnn.allow_tf32 = flag
+        ts = SourceIterationSolver(*_problem("8x8x8_p1"), WALL_BCS,
+                                   device="cpu")
+        seen = []
+        inner = ts.ring_sweep
+
+        def spy(*a, **kw):
+            seen.append((torch.backends.cuda.matmul.allow_tf32,
+                         torch.backends.cudnn.allow_tf32))
+            return inner(*a, **kw)
+
+        ts.ring_sweep = spy
+        r = ts.solve(tol=0, max_iter=1, verbose=False)
+        ts.heat_flux(r.u)
+        assert seen == [(False, False)] * len(ts.consts["buckets"])
+        assert torch.backends.cuda.matmul.allow_tf32 is flag
+        assert torch.backends.cudnn.allow_tf32 is flag
+        with pytest.raises(RuntimeError, match="inside"):
+            with exact_f32_products():
+                raise RuntimeError("inside")
+        assert torch.backends.cuda.matmul.allow_tf32 is flag
+        assert torch.backends.cudnn.allow_tf32 is flag
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
+
+
+def _f64_pair(bcs=WALL_BCS, case="8x8x8_p1", **kw):
+    """pbte_tpu's XLA ring and the port's plain version in float64, each on
+    its own package's problem, with the same constructor options."""
+    js = JaxSolver(*_problem(case, torch_golden.jax_unit_cube), bcs,
+                   dtype=jnp.float64, sweep_mode="ring", use_pallas="off",
+                   **kw)
+    ts = SourceIterationSolver(*_problem(case), bcs, dtype=torch.float64,
+                               device="cpu", **kw)
+    assert js.sweep_mode == "ring" and js._ring_lattice
+    return js, ts
+
+
+def _assert_f64_state(js, ts, uj, Tcj, ut, Tct, tol=1e-12):
+    """Tc and the ring state (through both packages' _ring_u_standard) at
+    rtol `tol` with atol `tol` of the field's max."""
+    Tcj = np.asarray(Tcj)
+    np.testing.assert_allclose(Tct.numpy(), Tcj, rtol=tol,
+                               atol=tol * np.abs(Tcj).max())
+    uj = js._ring_u_standard(uj)
+    np.testing.assert_allclose(ts._ring_u_standard(ut), uj, rtol=tol,
+                               atol=tol * np.abs(uj).max())
+
+
+@pytest.mark.parametrize("extrapolate", [False, True])
+def test_polish_matches_jax(extrapolate):
+    """solve(polish_iters=3[, polish_extrapolate=True]) after 6 iterations
+    against pbte_tpu's solve with the same options, in float64 on the CPU:
+    Tc, the state, Tv, the residual and the iteration count (11 with the
+    Aitken jump's two extra steps, 9 without)."""
+    js, ts = _f64_pair()
+    opts = dict(tol=0, max_iter=6, verbose=False, polish_iters=3,
+                polish_extrapolate=extrapolate)
+    rj, rt = js.solve(**opts), ts.solve(**opts)
+    assert rt.iterations == rj.iterations == (11 if extrapolate else 9)
+    _assert_f64_state(js, ts, rj.u, rj.Tc, rt.u, rt.Tc)
+    Tvj = np.asarray(rj.Tv)
+    np.testing.assert_allclose(rt.Tv.numpy(), Tvj, rtol=1e-12,
+                               atol=1e-12 * np.abs(Tvj).max())
+    np.testing.assert_allclose(rt.residual, rj.residual, rtol=1e-9)
+    if extrapolate:  # the jump moved the state off the plain iterate
+        plain = ts.solve(tol=0, max_iter=11, verbose=False)
+        assert not torch.equal(plain.Tc, rt.Tc)
+
+
+def test_cycle_hook_matches_jax():
+    """cycle_hook under both packages' solve: called at the same
+    iterations, with the same live Tc, state and Tv each time."""
+    js, ts = _f64_pair()
+    seen_j, seen_t = [], []
+    opts = dict(tol=0, max_iter=5, verbose=False, cycle_every=2)
+    js.solve(cycle_hook=lambda it, u, Tc, Tv: seen_j.append(
+        (it, u, np.asarray(Tc), np.asarray(Tv))), **opts)
+    ts.solve(cycle_hook=lambda it, u, Tc, Tv: seen_t.append(
+        (it, u, Tc.clone(), Tv.clone())), **opts)
+    assert [s[0] for s in seen_t] == [s[0] for s in seen_j] == [2, 4]
+    for (_, uj, Tcj, Tvj), (_, ut, Tct, Tvt) in zip(seen_j, seen_t):
+        _assert_f64_state(js, ts, uj, Tcj, ut, Tct)
+        np.testing.assert_allclose(Tvt.numpy(), Tvj, rtol=1e-12,
+                                   atol=1e-12 * np.abs(Tvj).max())
+    seen_j.clear(), seen_t.clear()
+    for s, seen in ((js, seen_j), (ts, seen_t)):  # cycle_every = 0: never
+        s.solve(tol=0, max_iter=2, verbose=False,
+                cycle_hook=lambda *a, seen=seen: seen.append(a))
+    assert seen_j == [] and seen_t == []
+
+
+def test_require_bcs_false_matches_jax():
+    """A boundary attribute left without a condition: both packages raise
+    by default and, with require_bcs=False, step to the same Tc and state
+    (float64, 3 steps)."""
+    bcs = {a: t for a, t in WALL_BCS.items() if a != 2}
+    with pytest.raises(ValueError, match="without isothermal BC"):
+        JaxSolver(*_problem("8x8x8_p1", torch_golden.jax_unit_cube), bcs,
+                  dtype=jnp.float64, sweep_mode="ring", use_pallas="off")
+    js, ts = _f64_pair(bcs, require_bcs=False)
+    rj = js.solve(tol=0, max_iter=3, verbose=False)
+    rt = ts.solve(tol=0, max_iter=3, verbose=False)
+    _assert_f64_state(js, ts, rj.u, rj.Tc, rt.u, rt.Tc)
+    np.testing.assert_allclose(rt.residual, rj.residual, rtol=1e-9)
+
+
+def test_polish_equals_extra_steps_f64():
+    """solve(polish_iters=N) in float64, where every step is exact, equals
+    N more plain iterations (tests/test_ring.py's case for pbte_tpu)."""
+    ts = SourceIterationSolver(*_problem("8x8x8_p1"), WALL_BCS,
+                               dtype=torch.float64, device="cpu")
+    r1 = ts.solve(tol=0, max_iter=9, verbose=False)
+    r2 = ts.solve(tol=0, max_iter=6, verbose=False, polish_iters=3)
+    assert r2.iterations == 9
+    assert_same_bits(r1, r2)
+
+
+def test_polish_is_exact_f32_steps_after_bf16_state(monkeypatch):
+    """After a bf16-state solve, polish casts the slabs to float32 and
+    steps them without operand rounding: the same bits as a float32-state
+    solver stepping that state."""
+    monkeypatch.setenv("PBTE_RING_STATE_BF16", "1")
+    tb = SourceIterationSolver(*_problem("8x8x8_p1"), WALL_BCS, device="cpu")
+    monkeypatch.delenv("PBTE_RING_STATE_BF16")
+    tf = SourceIterationSolver(*_problem("8x8x8_p1"), WALL_BCS, device="cpu")
+    assert tb.state_bf16 and not tf.state_bf16
+    rb = tb.solve(tol=0, max_iter=3, verbose=False)
+    assert rb.u[0].dtype == torch.bfloat16
+    state = (tuple(x.float() for x in rb.u), rb.Tc, rb.Tv)
+    want = tf.solve(tol=0, max_iter=2, state=state, verbose=False)
+    got = tb.solve(tol=0, max_iter=3, verbose=False, polish_iters=2)
+    assert got.iterations == 5 and got.u[0].dtype == torch.float32
+    assert_same_bits(got, want)
+    assert not torch.equal(got.Tc, rb.Tc)
+
+
+def test_polish_extrapolation():
+    """The Aitken jump after the polish tail: x2 + d2 r / (1 - r) with r
+    from the Tc differences of two more steps (pbte_tpu's formula), and it
+    lands much closer to the fixed point than the same number of plain
+    steps (tests/test_ring.py's case for pbte_tpu, on an 8^3 lattice of
+    0.3 um, which converges to 1e-13 within 300 steps)."""
+    from pbte_tpu_torch import mesh as tmesh
+    from pbte_tpu_torch.fem import assembly as tasm
+
+    _, quad, tables = _problem("8x8x8_p1")
+    m = tmesh.make_cartesian_3d(8, 8, 8, "hex").scaled(3.0e-7)
+    ts = SourceIterationSolver(tasm.assemble(tmesh.connect(m), order=1), quad,
+                               tables, WALL_BCS, dtype=torch.float64,
+                               device="cpu")
+    base = ts.solve(tol=0, max_iter=48, verbose=False)
+    s1 = ts.step(base.u, base.Tc, base.Tv)
+    s2 = ts.step(*s1[:3])
+    d1, d2 = s1[1] - base.Tc, s2[1] - s1[1]
+    ratio = float((d2 * d1).sum() / (d1 * d1).sum())
+    assert 0.5 < ratio < 0.99995
+    fac = ratio / (1.0 - ratio)
+    extr = ts.solve(tol=0, max_iter=30, verbose=False, polish_iters=18,
+                    polish_extrapolate=True)
+    assert extr.iterations == 50
+    torch.testing.assert_close(extr.Tc, s2[1] + fac * d2, rtol=1e-12,
+                               atol=1e-14)
+    torch.testing.assert_close(
+        extr.u[0], s2[0][0] + fac * (s2[0][0] - s1[0][0]), rtol=1e-12,
+        atol=1e-12 * float(s2[0][0].abs().max()))
+    assert torch.equal(extr.Tv, s2[2])
+    ref = ts.solve(tol=1e-13, max_iter=400, verbose=False)
+    assert ref.residual < 1e-13
+    plain = ts.solve(tol=0, max_iter=50, verbose=False)
+    e_plain = float((plain.Tc - ref.Tc).abs().max())
+    e_extr = float((extr.Tc - ref.Tc).abs().max())
+    assert e_extr < 0.1 * e_plain
+
+
+def test_cycle_hook_cadence():
+    """cycle_hook sees the live state every cycle_every iterations, and not
+    at all with cycle_every = 0."""
+    ts = SourceIterationSolver(*_problem("8x8x8_p1"), WALL_BCS, device="cpu")
+    seen = []
+
+    def hook(it, u, Tc, Tv):
+        assert len(u) == len(ts.consts["buckets"])
+        assert Tc.shape == (ts.ne, ts.D) and Tv.shape == (ts.ne,)
+        seen.append((it, Tc.clone()))
+
+    r = ts.solve(tol=0, max_iter=7, verbose=False, cycle_hook=hook,
+                 cycle_every=3)
+    assert [it for it, _ in seen] == [3, 6]
+    assert not torch.equal(seen[0][1], seen[1][1])
+    assert not torch.equal(seen[1][1], r.Tc)
+    seen.clear()
+    ts.solve(tol=0, max_iter=3, verbose=False, cycle_hook=hook)
+    assert seen == []
+
+
+def test_checkpoint_options_name_their_item():
+    ts = SourceIterationSolver(*_problem("8x8x8_p1"), WALL_BCS, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 9"):
+        ts.solve(max_iter=1, verbose=False, checkpoint_path="x.npz")
+
+
+def test_require_bcs_false():
+    """A boundary attribute without a condition raises unless
+    require_bcs=False, which takes it as a wall at deviation 0: the same
+    bits as giving it 0."""
+    bcs = {a: t for a, t in WALL_BCS.items() if a != 2}
+    with pytest.raises(ValueError, match=r"without isothermal BC: \[2\]"):
+        SourceIterationSolver(*_problem("8x8x8_p1"), bcs, device="cpu")
+    loose = SourceIterationSolver(*_problem("8x8x8_p1"), bcs, device="cpu",
+                                  require_bcs=False)
+    zero = SourceIterationSolver(*_problem("8x8x8_p1"), dict(bcs) | {2: 0.0},
+                                 device="cpu")
+    assert_same_bits(loose.solve(tol=0, max_iter=2, verbose=False),
+                     zero.solve(tol=0, max_iter=2, verbose=False))
 
 
 def _gate_raises(prob, bcs, **kw):
@@ -369,7 +696,7 @@ def test_entry_points_default_to_the_gpu(monkeypatch, entry):
 def test_no_jax_import():
     """The port builds and steps a hex 8^3 problem in a process where
     importing JAX, or anything of pbte_tpu, fails; every module of the
-    port and chip_smoke.py import there too."""
+    port, chip_smoke.py and bench_torch.py import there too."""
     code = textwrap.dedent("""
         import importlib
         import pkgutil
@@ -387,7 +714,7 @@ def test_no_jax_import():
         import pbte_tpu_torch
         mods = [m.name for m in pkgutil.walk_packages(
             pbte_tpu_torch.__path__, "pbte_tpu_torch.")]
-        for name in mods + ["chip_smoke"]:
+        for name in mods + ["chip_smoke", "bench_torch"]:
             importlib.import_module(name)
         assert len(mods) > 15, mods
         from pbte_tpu_torch.problem import WALL_BCS, unit_cube
