@@ -17,13 +17,21 @@ Rows (each rebuilds the solver under its environment):
 
 - ``f32``: the primary row, the solver's defaults (hull windows on); it is
   also ``value``. An error in it ends the run.
-- ``f32_full_slab``: ``PBTE_RING_WINDOWS=0``.
 - ``bf16_state``: ``PBTE_RING_STATE_BF16=1``.
 - ``diffuse_walls``: ``problem.DIFFUSE_WALLS`` (x faces isothermal, the other
   four diffuse: the lagged closure sources).
 - ``p3_f32``: order 3, 4x4 = 16 directions, as ``bench.py``'s row. The CUDA
   kernel is built for D in {8, 27}, so on the GPU this row records the error
   it raises (ROADMAP.md queue 2, K1 item 5).
+- ``f64_state``: ``dtype=torch.float64`` (the float64 kernel on the GPU),
+  timed as the others, with its ``k1_share_of_bound``.
+- ``f64_bicgstab``: the float64 problem solved with
+  ``solve(accelerate="bicgstab", tol=1e-8)`` from the zero state (at most
+  ``ACCEL_MAX_ITER`` step applications, the residual read every
+  ``ACCEL_CHECK_EVERY`` of them): ``step_applications``, ``wall_s``
+  (ending in a synchronise), ``ms_per_step_application``, the final
+  ``linear_relres`` and ``tv_residual``, and the peak memory. The time per
+  step application includes the Krylov vector updates.
 
 An extra row that fails records ``{"error": ...}``; ``PBTE_BENCH_ROWS=0``
 skips the extra rows.
@@ -70,6 +78,13 @@ from pbte_tpu_torch.solver.source_iteration import (  # noqa: E402
 
 WARMUP_STEPS = 2
 K1_TIMED_STEPS = 5
+ACCEL_TOL = 1e-8
+ACCEL_MAX_ITER = 1500
+# residual reads every 10 BiCGStab iterations, as chip_smoke.py: the
+# stagnation guard then waits 120 step applications, past the plateaus of
+# the flagship's f64 relres near 1e-3 (a run reading every iteration
+# stopped on one at 1.06e-3, measured on an H100)
+ACCEL_CHECK_EVERY = 20
 BASELINE_NOTE = (
     "bench.py measures its baseline with pbte_tpu's C++ mirror solver "
     "(pbte_tpu/native/); pbte_tpu_torch has no copy of it yet and imports "
@@ -123,9 +138,8 @@ def k1_share_of_bound(solver, state):
     return out
 
 
-def run_row(name, device, steps, size, env=None, solver_kw=None, shares=False):
-    """Build the solver under ``env`` and time ``steps`` steps; returns the
-    row and the solver's shape."""
+def build(device, size, env=None, solver_kw=None):
+    """(solver, set-up seconds) of the problem built under ``env``."""
     env = env or {}
     saved = {k: os.environ.get(k) for k in env}
     os.environ.update(env)
@@ -142,6 +156,19 @@ def run_row(name, device, steps, size, env=None, solver_kw=None, shares=False):
                 os.environ.pop(k, None)
             else:
                 os.environ[k] = v
+    return solver, setup_s
+
+
+def release(device):
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def run_row(name, device, steps, size, env=None, solver_kw=None, shares=False):
+    """Build the solver under ``env`` and time ``steps`` steps; returns the
+    row and the solver's shape."""
+    solver, setup_s = build(device, size, env, solver_kw)
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     u, Tc, Tv = solver.initial_state()
@@ -171,10 +198,42 @@ def run_row(name, device, steps, size, env=None, solver_kw=None, shares=False):
         f"{row['dof_per_s']:.4g} DOF/s (set-up {setup_s:.1f} s, residual "
         f"{res:.3e})")
     del solver, u, Tc, Tv
-    gc.collect()
-    if device.type == "cuda":
-        torch.cuda.empty_cache()
+    release(device)
     return row, shape
+
+
+def run_bicgstab_row(device, size):
+    """The float64 problem solved by BiCGStab to ACCEL_TOL from the zero
+    state; returns the row."""
+    solver, setup_s = build(device, size, solver_kw=dict(
+        bc_temps=problem.WALL_BCS, dtype=torch.float64))
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    relres = []
+    sync(device)
+    t0 = time.perf_counter()
+    r = solver.solve(tol=ACCEL_TOL, max_iter=ACCEL_MAX_ITER, verbose=False,
+                     check_every=ACCEL_CHECK_EVERY, accelerate="bicgstab",
+                     callback=lambda nmv, res: relres.append(res))
+    sync(device)
+    wall = time.perf_counter() - t0
+    if not (torch.isfinite(r.Tc).all() and r.residual == r.residual):
+        raise RuntimeError("row f64_bicgstab: Tc or the residual is not "
+                           "finite")
+    row = dict(step_applications=r.iterations, wall_s=wall,
+               ms_per_step_application=wall / r.iterations * 1e3,
+               linear_relres=relres[-1] if relres else None,
+               tv_residual=r.residual, tol=ACCEL_TOL,
+               setup_s=round(setup_s, 2), state=str(solver.state_dtype))
+    if device.type == "cuda":
+        row["max_memory_allocated"] = torch.cuda.max_memory_allocated(device)
+    log(f"row f64_bicgstab: {r.iterations} step applications in "
+        f"{wall:.2f} s ({row['ms_per_step_application']:.3f} ms each), "
+        f"linear relres {row['linear_relres']}, Tv residual "
+        f"{r.residual:.3e}")
+    del solver, r
+    release(device)
+    return row
 
 
 def main(argv=None) -> int:
@@ -214,21 +273,29 @@ def main(argv=None) -> int:
     rows["f32"], shape = run_row("f32", device, steps, size, shares=True)
 
     if os.environ.get("PBTE_BENCH_ROWS", "1") != "0":
+        f64 = dict(bc_temps=problem.WALL_BCS, dtype=torch.float64)
         extra = [
-            ("f32_full_slab", size, {"PBTE_RING_WINDOWS": "0"}, None),
-            ("bf16_state", size, {"PBTE_RING_STATE_BF16": "1"}, None),
-            ("diffuse_walls", size, {}, problem.DIFFUSE_WALLS),
+            ("bf16_state", size, {"PBTE_RING_STATE_BF16": "1"}, None, False),
+            ("diffuse_walls", size, {}, problem.DIFFUSE_WALLS, False),
             # bench.py's production-order row: p=3, 4x4 = 16 directions
-            ("p3_f32", dict(size, order=3, polar=4, azimuth=4), {}, None),
+            ("p3_f32", dict(size, order=3, polar=4, azimuth=4), {}, None,
+             False),
+            ("f64_state", size, {}, f64, True),
         ]
-        for name, row_size, env, solver_kw in extra:
+        for name, row_size, env, solver_kw, shares in extra:
             try:
                 rows[name], _ = run_row(name, device, steps, row_size, env,
-                                        solver_kw)
+                                        solver_kw, shares=shares)
             except Exception as e:  # an extra row never breaks the primary
                 rows[name] = {"error": f"{type(e).__name__}: {e}"[:300]}
                 log(f"row {name} FAILED: {e}")
-                gc.collect()
+                release(device)
+        try:
+            rows["f64_bicgstab"] = run_bicgstab_row(device, size)
+        except Exception as e:
+            rows["f64_bicgstab"] = {"error": f"{type(e).__name__}: {e}"[:300]}
+            log(f"row f64_bicgstab FAILED: {e}")
+            release(device)
 
     primary = rows["f32"]
     shares = primary.pop("k1_share_of_bound", None)

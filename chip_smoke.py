@@ -1,7 +1,8 @@
 """GPU smoke run of pbte_tpu_torch: build the CUDA kernels, hold each to its
 plain PyTorch version at the shapes its path gives it, run the flagship
-source iteration (isothermal walls, then diffuse walls) and the copy probe
-through them, and check the results against the pbte_tpu goldens.
+source iteration (isothermal walls, diffuse walls, bf16 state, and in
+float64 through the BiCGStab-accelerated solve) and the copy probe through
+them, and check the results against the pbte_tpu goldens.
 
 Usage (from the root of a checkout, on a machine with one CUDA GPU):
 
@@ -15,7 +16,8 @@ Phases (a failing phase raises and the script exits non-zero):
    shared-memory reports of every kernel;
 3. K1 vs plain version at the flagship's two Km-bucket shapes, with the
    solver's real operators and seeded random state, for f32 state, bf16
-   state, a Dirichlet source and a random sparse lagged closure source:
+   state, f64 state (the float64 kernel, with the operators in float64), a
+   Dirichlet source and a random sparse lagged closure source:
    errors, CUDA-event times, and each launch's bound (the larger of its
    bytes over 3.35 TB/s and its flop over the tensor-core peak of its
    state type) with the share of it the kernel reaches. Then the same with
@@ -24,7 +26,8 @@ Phases (a failing phase raises and the script exits non-zero):
    kernel is held to the windowed plain version at the same tolerances and
    to the full-slab kernel on the same inputs (ys bit for bit, ms to 1e-6
    of max: its atomics add in another order), timed in turns with it, and
-   both bounds are printed (full slab; in-window slots only);
+   both bounds are printed (full slab; in-window slots only); the
+   wrapper's shared-memory sizes against the library's, in all three types;
 4. the copy probe (python -m pbte_tpu_torch.bench_dma): every K2 and K3
    configuration held bit-exact (torch.equal) to its input at small and
    ragged totals (one vector, a block less 16 bytes, a block plus 16 bytes,
@@ -37,14 +40,26 @@ Phases (a failing phase raises and the script exits non-zero):
    windows as the solver takes them by default: setup, 2 warm-up + 30 timed
    steps, ms/step, element-ordinate DOF/s, peak memory, residuals, kernel
    launches; then 3 steps through the kernel and through the plain version
-   from one state; then a second solver built with PBTE_RING_WINDOWS=0 and
-   10 timed steps of each in turns (windows, full slab, full slab,
-   windows), the two held bit-equal in Tc after the same steps;
+   from one state;
 6. the same flagship as a film: x faces isothermal, the other four diffuse
-   (the lagged closure through K1's xsrc), measured as phase 5;
+   (the lagged closure through K1's xsrc), measured as phase 5; then the
+   flagship with bf16 state (PBTE_RING_STATE_BF16=1), the same way;
 7. the golden Tc of pbte_tpu's Pallas path (tests/data/torch_port_golden.npz)
    and of its XLA ring with periodic, diffuse and specular walls
-   (tests/data/torch_port_golden_closures.npz) against the port on the GPU.
+   (tests/data/torch_port_golden_closures.npz) against the port on the GPU,
+   and the float64 BiCGStab golden of its XLA ring
+   (tests/data/torch_port_golden_accel.npz) against the port's float64
+   kernel path;
+8. the f64 flagship (the f32 solvers freed first, so the peak is its own):
+   set-up, 2 + 30 timed steps and 3 steps kernel vs plain as phase 5; then
+   solve(accelerate="bicgstab", tol=1e-8) with its K1 launches (2 per step
+   application: nothing fell back to the plain version), wall time, linear
+   relres, Tv residual and peak memory; the plain f64 solve to the same Tv
+   residual, its steps, seconds and Tc against the accelerated one; and
+   refined_solve with the f32 flagship solver as the base and the f64
+   solver's step as the defect step: the defect before and after one round,
+   the correction steps, and the bound ||d(x_ref)|| / (1 - rho) with rho
+   the plain solve's rate over its last steps.
 
 The line before the last is the card's name and power limit, the one before
 it {"kernels": [...]}, the last line {"ok": true, "device": {...}}.
@@ -64,7 +79,6 @@ import torch
 WARMUP_STEPS = 2
 TIMED_STEPS = 30
 TIMED_LAUNCHES = 10
-AB_STEPS = 10  # timed steps per turn of the windows on/off comparison
 # windowed vs full-slab kernel on the same inputs: ys is bit-equal; ms sums
 # the same band terms by atomics in another order
 WIN_MS_RTOL = 1e-6
@@ -81,6 +95,30 @@ F32_RTOL = 1e-5
 BF16_ULPS = 2
 BF16_MS_RTOL = 1e-3
 GOLDEN_RTOL = 2e-5
+# f64 state, kernel vs plain: both sum in float64 in another order (and ms
+# by atomics in run-to-run order)
+F64_RTOL = 1e-12
+# the f64 BiCGStab golden: pbte_tpu's XLA ring and the kernel sum in another
+# order, and the recurrence carries that on (1e-14 between pbte_tpu and the
+# port on the CPU at this cap)
+ACCEL_GOLDEN_RTOL = 1e-9
+ACCEL_TOL = 1e-8  # linear relative residual of the f64 flagship solve
+ACCEL_MAX_ITER = 1500
+# the residual is read every 10 BiCGStab iterations: the stagnation guard
+# then stops only after 120 step applications without a 10% gain. At the
+# flagship the f64 relres plateaus near 1e-3 for 30-60 of them, and where a
+# run crosses such a plateau depends on the order of the ms atomics: a run
+# reading every iteration (check_every=2) stopped there at 1.06e-3
+# (measured on an H100), two others went on to 1e-8
+ACCEL_CHECK_EVERY = 20
+# the plain f64 solve to the accelerated solve's Tv residual: it contracts
+# by ~0.9925 a step at the flagship, so ~2100 steps (1500 reached 6.2e-8 of
+# the 7.6e-10 asked for, measured on an H100)
+PLAIN_MAX_ITER = 3000
+ACCEL_PEAK_LIMIT = 75e9  # bytes of device memory the f64 solve may reach
+# the accelerated and the plain f64 solve to the same Tv residual
+ACCEL_TC_RTOL = 1e-5
+REFINE_GAIN = 100.0  # least fall of the f64 defect in one refinement round
 
 
 def log(*a):
@@ -88,9 +126,12 @@ def log(*a):
 
 
 def rel_err(got, ref):
-    """max|got - ref| / max|ref|, and max|got - ref|."""
-    d = (got.float() - ref.float()).abs().max().item()
-    return d / max(ref.float().abs().max().item(), 1e-30), d
+    """max|got - ref| / max|ref|, and max|got - ref| (in float64 where
+    either is float64)."""
+    dt = (torch.float64 if torch.float64 in (got.dtype, ref.dtype)
+          else torch.float32)
+    d = (got.to(dt) - ref.to(dt)).abs().max().item()
+    return d / max(ref.to(dt).abs().max().item(), 1e-300), d
 
 
 def bf16_ulp_of_max(ref):
@@ -125,7 +166,7 @@ K1_CASES = (
      (0, "f32", False, True, False), (1, "f32", False, True, False),
      (0, "f32", False, False, True)]
     + [(bi, state, dirichlet, not dirichlet, True)
-       for bi in (0, 1) for state in ("f32", "bf16")
+       for bi in (0, 1) for state in ("f32", "bf16", "f64")
        for dirichlet in (True, False)]
 )
 
@@ -150,12 +191,14 @@ def phase_kernel_vs_plain(solver, lr):
         # host windows for the plain version and the bounds, the solver's
         # uploaded tensor for the kernel
         win, win_k = (solver.win, solver.win_dev) if windowed else (None, None)
+        f64 = state == "f64"
+        np_dt = np.float64 if f64 else np.float32
 
         def rnd(*shape):
             """Seeded normal values of a slab-shaped operand (L first, W
             last), zero outside the windows in a windowed case."""
             t = torch.from_numpy(
-                rng.standard_normal(shape, dtype=np.float32)).cuda()
+                rng.standard_normal(shape, dtype=np_dt)).cuda()
             if windowed and shape[0] == L:
                 t *= inside_t.view((L,) + (1,) * (len(shape) - 2) + (W,))
             return t
@@ -175,8 +218,10 @@ def phase_kernel_vs_plain(solver, lr):
         cast = state == "bf16"
         if cast:
             v = v.to(torch.bfloat16)
-        args = (v, ttc, cb["bsrc0"], cb["cin"], cb["bcat"], cb["macro_w"],
-                c["wvec"])
+        ops = [cb["bsrc0"], cb["cin"], cb["bcat"], cb["macro_w"], c["wvec"]]
+        if f64:  # the float64 kernel takes float64 operators
+            ops = [t.double() for t in ops]
+        args = (v, ttc, *ops)
         kw = dict(shifts=solver.shifts, dsrc=dsrc, xsrc=xsrc, cast_bf16=cast)
         tag = (f"bucket {bi} {state}{' dirichlet' if dirichlet else ''}"
                f"{' closure' if closure else ''}"
@@ -193,6 +238,10 @@ def phase_kernel_vs_plain(solver, lr):
             ys_ulps = ys_abs / bf16_ulp_of_max(ys_r)
             ok = ys_ulps <= BF16_ULPS and ms_rel <= BF16_MS_RTOL
             tol = f"ys <= {BF16_ULPS} bf16 ulps of max, ms rel <= {BF16_MS_RTOL}"
+        elif f64:
+            ys_ulps = None
+            ok = ys_rel <= F64_RTOL and ms_rel <= F64_RTOL
+            tol = f"ys, ms rel <= {F64_RTOL}"
         else:
             ys_ulps = None
             ok = ys_rel <= F32_RTOL and ms_rel <= F32_RTOL
@@ -262,18 +311,19 @@ def phase_kernel_vs_plain(solver, lr):
 
 def check_k1_smem(solver, lr):
     """The wrapper's shared-memory check (lr.kernel_smem_bytes) against the
-    kernel's own carve-up, at the flagship's shapes in both modes."""
+    kernels' own carve-ups, at the flagship's shapes in all three types."""
     lib = lr._lib()
-    W, D, nf = solver.W, solver.D, len(solver.shifts)
-    for cast in (0, 1):
-        got = lib.pbte_lattice_ring_smem_bytes(cast, D, W, nf, solver.L)
-        want = lr.kernel_smem_bytes(D, W, nf, bool(cast), solver.L)
-        if got != want:
-            raise RuntimeError(f"K1 shared memory: the kernel takes {got} B, "
-                               f"the wrapper checks {want} B (cast={cast})")
-    log(f"[smoke] K1 shared memory per CTA at D={D} W={W}: f32 "
-        f"{lr.kernel_smem_bytes(D, W, nf, False, solver.L)} B, bf16 "
-        f"{lr.kernel_smem_bytes(D, W, nf, True, solver.L)} B")
+    W, D, nf, L = solver.W, solver.D, len(solver.shifts), solver.L
+    got = {torch.float32: lib.pbte_lattice_ring_smem_bytes(0, D, W, nf, L),
+           torch.bfloat16: lib.pbte_lattice_ring_smem_bytes(1, D, W, nf, L),
+           torch.float64: lib.pbte_lattice_ring_smem_bytes_f64(D, W, nf, L)}
+    for state, n in got.items():
+        want = lr.kernel_smem_bytes(D, W, nf, state, L)
+        if n != want:
+            raise RuntimeError(f"K1 shared memory: the kernel takes {n} B, "
+                               f"the wrapper checks {want} B ({state})")
+    log(f"[smoke] K1 shared memory per CTA at D={D} W={W}: "
+        + ", ".join(f"{str(k).split('.')[-1]} {v} B" for k, v in got.items()))
 
 
 def edge_totals(block):
@@ -349,11 +399,17 @@ def phase_dma(dma, bench_dma):
     return res, launches, errs
 
 
+STATE_KEYS = {torch.float32: "f32", torch.bfloat16: "bf16",
+              torch.float64: "f64"}
+
+
 def phase_flagship(solver, lr, setup_s, name):
-    """Time a flagship step through the kernel; returns (launches, row)."""
+    """Time a flagship step through the kernel; returns (launches of the
+    solver's state type, row)."""
+    key = STATE_KEYS[solver.state_dtype]
     torch.cuda.reset_peak_memory_stats()
     u, Tc, Tv = solver.initial_state()
-    lr.lattice_ring_sweep.launches = 0
+    lr.reset_launches()
     res = []
     for _ in range(WARMUP_STEPS):
         u, Tc, Tv, r = solver.step(u, Tc, Tv)
@@ -365,7 +421,7 @@ def phase_flagship(solver, lr, setup_s, name):
         res.append(r)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = lr.lattice_ring_sweep.launches
+    launches = lr.lattice_ring_sweep.launches_by_state[key]
     res = [float(x) for x in res]
     want = len(solver.consts["buckets"]) * (WARMUP_STEPS + TIMED_STEPS)
     ne, D, K, BS = solver.ne, solver.D, solver.K, solver.BS
@@ -378,8 +434,9 @@ def phase_flagship(solver, lr, setup_s, name):
         launches=launches, residuals=res,
     )
     log(f"[smoke] {name} " + json.dumps(row))
-    if launches != want:
-        raise RuntimeError(f"{name}: {launches} kernel launches, want {want}")
+    if launches != want or lr.lattice_ring_sweep.launches != want:
+        raise RuntimeError(f"{name}: {lr.lattice_ring_sweep.launches_by_state}"
+                           f" kernel launches, want {want} {key}")
     if Tc.shape != (ne, D) or not torch.isfinite(Tc).all():
         raise RuntimeError(f"{name}: Tc is not finite of shape (ne, D)")
     if not (np.all(np.isfinite(res)) and res[-1] < res[0]):
@@ -398,56 +455,15 @@ def phase_flagship(solver, lr, setup_s, name):
     solver.ring_sweep = lr.lattice_ring_sweep
     torch.cuda.synchronize()
     tc_rel, tc_abs = rel_err(outs[0], outs[1])
+    # bf16 state: a sum next to a bf16 rounding boundary rounds the other
+    # way on one side and the steps carry it on
+    tol = {"f32": F32_RTOL, "bf16": BF16_MS_RTOL, "f64": F64_RTOL}[key]
     log(f"[smoke] {name} 3 steps kernel vs plain: Tc rel {tc_rel:.3e} "
-        f"(abs {tc_abs:.3e}), tolerance {F32_RTOL}")
-    if not tc_rel <= F32_RTOL:
+        f"(abs {tc_abs:.3e}), tolerance {tol}")
+    if not tc_rel <= tol:
         raise RuntimeError(f"{name} Tc: kernel disagrees with plain version")
     row["tc_kernel_vs_plain_rel"] = tc_rel
     return launches, row
-
-
-def timed_steps(solver, steps):
-    """(ms per step, Tc) of `steps` steps after the warm-up steps, from the
-    initial state."""
-    u, Tc, Tv = solver.initial_state()
-    for _ in range(WARMUP_STEPS):
-        u, Tc, Tv, _ = solver.step(u, Tc, Tv)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(steps):
-        u, Tc, Tv, _ = solver.step(u, Tc, Tv)
-    torch.cuda.synchronize()
-    return (time.perf_counter() - t0) / steps * 1e3, Tc
-
-
-def phase_windows_ab(solver, build_full, name, row):
-    """The step with hull windows (solver) and with PBTE_RING_WINDOWS=0 (a
-    second solver from build_full), AB_STEPS timed steps each in turns:
-    windows, full slab, full slab, windows. The same steps give the same
-    Tc up to the order of the ms atomics, carried through the steps."""
-    os.environ["PBTE_RING_WINDOWS"] = "0"
-    try:
-        full, _ = build_full()
-    finally:
-        del os.environ["PBTE_RING_WINDOWS"]
-    if solver.win is None or full.win is not None:
-        raise RuntimeError(f"{name}: windows on/off not as asked")
-    ms = {"windows": [], "full_slab": []}
-    tcs = {}
-    for key in ("windows", "full_slab", "full_slab", "windows"):
-        t, tcs[key] = timed_steps(solver if key == "windows" else full,
-                                  AB_STEPS)
-        ms[key].append(t)
-    tc_rel, _ = rel_err(tcs["windows"], tcs["full_slab"])
-    row["windows_ab_ms_per_step"] = ms
-    row["windows_vs_full_slab_tc_rel"] = tc_rel
-    log(f"[smoke] {name} windows on/off, {AB_STEPS} steps each in turns: "
-        f"windows {ms['windows'][0]:.3f} / {ms['windows'][1]:.3f} ms/step, "
-        f"full slab (PBTE_RING_WINDOWS=0) {ms['full_slab'][0]:.3f} / "
-        f"{ms['full_slab'][1]:.3f} ms/step; Tc windows vs full slab rel "
-        f"{tc_rel:.3e}, tolerance {F32_RTOL}")
-    if not tc_rel <= F32_RTOL:
-        raise RuntimeError(f"{name}: windows change Tc")
 
 
 PARAM_KEYS = ("nx", "ny", "nz", "order", "polar", "azimuth", "nspec")
@@ -474,6 +490,175 @@ def phase_golden(SourceIterationSolver, unit_cube, file):
     if not rel <= GOLDEN_RTOL:
         raise RuntimeError(f"GPU Tc disagrees with the pbte_tpu golden {file}")
     return rel
+
+
+def phase_accel_golden(SourceIterationSolver, unit_cube, lr):
+    """The port's float64 BiCGStab solve through the f64 kernel against
+    pbte_tpu's float64 XLA ring (tests/data/torch_port_golden_accel.npz):
+    Tc and Tv, the step count and the Tv residual."""
+    golden = pathlib.Path(__file__).resolve().parent / "tests" / "data"
+    with np.load(golden / "torch_port_golden_accel.npz") as d:
+        params = {k: int(d[k]) for k in PARAM_KEYS}
+        bcs = dict(zip(d["bc_attrs"].tolist(), d["bc_temps"].tolist()))
+        ref = {k: torch.from_numpy(d[k]).cuda() for k in ("Tc", "Tv")}
+        steps, max_iter = int(d["iterations"]), int(d["max_iter"])
+        ref_res = float(d["residual"])
+    s = SourceIterationSolver(*unit_cube(**params), bcs, device="cuda",
+                              dtype=torch.float64)
+    lr.reset_launches()
+    r = s.solve(tol=0, max_iter=max_iter, verbose=False,
+                accelerate="bicgstab")
+    n_f64 = lr.lattice_ring_sweep.launches_by_state["f64"]
+    tc_rel, tc_abs = rel_err(r.Tc, ref["Tc"])
+    tv_rel, _ = rel_err(r.Tv, ref["Tv"])
+    res_rel = abs(r.residual - ref_res) / ref_res
+    log(f"[smoke] golden torch_port_golden_accel.npz {params} f64 bicgstab "
+        f"max_iter={max_iter}: {r.iterations} step applications (golden "
+        f"{steps}), {n_f64} f64 kernel launches, Tc rel {tc_rel:.3e} (abs "
+        f"{tc_abs:.3e}), Tv rel {tv_rel:.3e}, Tv residual rel "
+        f"{res_rel:.3e}, tolerance {ACCEL_GOLDEN_RTOL}")
+    if not (r.iterations == steps
+            and n_f64 == len(s.consts["buckets"]) * steps
+            and max(tc_rel, tv_rel, res_rel) <= ACCEL_GOLDEN_RTOL):
+        raise RuntimeError("the GPU's f64 BiCGStab solve disagrees with the "
+                           "pbte_tpu golden")
+    return tc_rel
+
+
+def tree_norm(tree):
+    """sqrt of the sum of squares over the leaves of a state tree."""
+    from pbte_tpu_torch.solver.accel import tree_dot
+
+    return float(torch.sqrt(tree_dot(tree, tree)))
+
+
+def phase_f64_flagship(SourceIterationSolver, problem, lr, walls):
+    """The f64 flagship: timed steps, the accelerated solve, the plain solve
+    to the same Tv residual, and refined_solve on an f32 base. Returns
+    (f64 kernel launches of the phase, row)."""
+    from pbte_tpu_torch.solver import accel
+
+    s64, setup_s = build_flagship(SourceIterationSolver, problem,
+                                  "f64 flagship", dtype=torch.float64,
+                                  **walls)
+    launches, row = phase_flagship(s64, lr, setup_s, "f64 flagship")
+    torch.cuda.empty_cache()
+
+    # the accelerated solve
+    torch.cuda.reset_peak_memory_stats()
+    lr.reset_launches()
+    relres = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    acc = s64.solve(tol=ACCEL_TOL, max_iter=ACCEL_MAX_ITER, verbose=False,
+                    check_every=ACCEL_CHECK_EVERY, accelerate="bicgstab",
+                    callback=lambda nmv, res: relres.append(res))
+    torch.cuda.synchronize()
+    acc_s = time.perf_counter() - t0
+    acc_peak = torch.cuda.max_memory_allocated()
+    acc_launches = lr.lattice_ring_sweep.launches_by_state["f64"]
+    launches += acc_launches
+    nb = len(s64.consts["buckets"])
+    row.update(bicgstab=dict(
+        step_applications=acc.iterations, wall_s=acc_s,
+        ms_per_step_application=acc_s / acc.iterations * 1e3,
+        linear_relres=relres[-1], tv_residual=acc.residual,
+        max_memory_allocated=acc_peak, k1_launches=acc_launches))
+    log(f"[smoke] f64 flagship bicgstab: {acc.iterations} step applications "
+        f"in {acc_s:.2f} s ({acc_s / acc.iterations * 1e3:.2f} ms each), "
+        f"linear relres {relres[-1]:.3e}, Tv residual {acc.residual:.3e}, "
+        f"peak {acc_peak / 1e9:.2f} GB, K1 f64 launches {acc_launches} "
+        f"(want {nb} x {acc.iterations}); relres every read: "
+        f"{[float(f'{x:.3e}') for x in relres]}")
+    if acc_launches != nb * acc.iterations or lr.lattice_ring_sweep.launches \
+            != acc_launches:
+        raise RuntimeError("the accelerated solve did not run every step "
+                           "through the f64 kernel")
+    if not (relres[-1] <= ACCEL_TOL and acc_peak < ACCEL_PEAK_LIMIT
+            and torch.isfinite(acc.Tc).all()):
+        raise RuntimeError(f"the accelerated f64 solve: {row['bicgstab']}")
+    Tc_acc = acc.Tc
+    del acc
+    torch.cuda.empty_cache()
+
+    # the plain solve to the same Tv residual
+    lr.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    tv_res = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain = s64.solve(tol=row["bicgstab"]["tv_residual"],
+                      max_iter=PLAIN_MAX_ITER, verbose=False,
+                      callback=lambda it, res: tv_res.append(res))
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    launches += lr.lattice_ring_sweep.launches_by_state["f64"]
+    tc_rel, _ = rel_err(Tc_acc, plain.Tc)
+    # the plain iteration's rate over its last 100 steps (the slowest mode)
+    n = min(100, len(tv_res) - 1)
+    rho = (tv_res[-1] / tv_res[-1 - n]) ** (1.0 / n)
+    row.update(plain=dict(
+        steps=plain.iterations, wall_s=plain_s, tv_residual=plain.residual,
+        max_memory_allocated=torch.cuda.max_memory_allocated(), rate=rho,
+        tc_vs_bicgstab_rel=tc_rel))
+    ratio = plain.iterations / row["bicgstab"]["step_applications"]
+    log(f"[smoke] f64 flagship plain solve to Tv residual "
+        f"{row['bicgstab']['tv_residual']:.3e}: {plain.iterations} steps in "
+        f"{plain_s:.2f} s (residual {plain.residual:.3e}), {ratio:.2f}x the "
+        f"accelerated step applications, {plain_s / acc_s:.2f}x its wall "
+        f"time; rate over the last {n} steps {rho:.5f}; Tc accelerated vs "
+        f"plain rel {tc_rel:.3e}, tolerance {ACCEL_TC_RTOL}")
+    if not (ratio >= 3 and tc_rel <= ACCEL_TC_RTOL
+            and plain.residual < row["bicgstab"]["tv_residual"]):
+        raise RuntimeError(f"accelerated vs plain f64: {row['plain']}")
+    del plain
+    torch.cuda.empty_cache()
+
+    # iterative refinement of an f32 solve with the f64 defect step
+    s32, _ = build_flagship(SourceIterationSolver, problem, "f32 base",
+                            **walls)
+    lr.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = accel.refined_solve(s32, s64.step, tol=1e-7, max_iter=3000,
+                              inner_tol=1e-4, inner_max_iter=2000,
+                              verbose=False, check_every=10)
+    torch.cuda.synchronize()
+    ref_s = time.perf_counter() - t0
+    launches += lr.lattice_ring_sweep.launches_by_state["f64"]
+    x_ref = (out["u_refined"], out["Tc_refined"])
+    Tv0 = torch.zeros((s64.ne,), dtype=torch.float64, device=s64.device)
+    u_p, Tc_p, _, _ = s64.step(*x_ref, Tv0)
+    launches += nb
+    d_after = tree_norm(tuple(a.sub_(b) for a, b in zip(u_p, x_ref[0]))
+                        + (Tc_p - x_ref[1],))
+    del u_p, Tc_p
+    gain = out["defect_norm"] / d_after
+    base_rel, _ = rel_err(out["base_result"].Tc, Tc_acc)
+    ref_rel, _ = rel_err(out["Tc_refined"], Tc_acc)
+    row.update(refined=dict(
+        base_steps=out["base_result"].iterations, wall_s=ref_s,
+        defect_before=out["defect_norm"], defect_after=d_after, gain=gain,
+        correction_steps=out["correction_steps"],
+        correction_relres=out["correction_relres"],
+        certified_bound=d_after / (1.0 - rho),
+        tc_base_vs_bicgstab_rel=base_rel,
+        tc_refined_vs_bicgstab_rel=ref_rel,
+        max_memory_allocated=torch.cuda.max_memory_allocated()))
+    log(f"[smoke] f64 refined_solve (f32 base): "
+        f"{out['base_result'].iterations} base steps, defect "
+        f"{out['defect_norm']:.3e} -> {d_after:.3e} ({gain:.1f}x) after "
+        f"{out['correction_steps']} correction steps (relres "
+        f"{out['correction_relres']:.2e}), bound ||d||/(1-rho) "
+        f"{d_after / (1.0 - rho):.3e}; Tc vs the accelerated f64 solve: "
+        f"base {base_rel:.3e}, refined {ref_rel:.3e}; {ref_s:.2f} s")
+    if not gain >= REFINE_GAIN:
+        raise RuntimeError(f"refined_solve: the defect fell {gain:.1f}x, "
+                           f"want >= {REFINE_GAIN}")
+    del out, x_ref, s32, s64
+    torch.cuda.empty_cache()
+    log(f"[smoke] f64 flagship " + json.dumps(row))
+    return launches, row
 
 
 def build_flagship(SourceIterationSolver, problem, name, **kw):
@@ -532,47 +717,83 @@ def main() -> int:
         f"bound, on {card}")
 
     launches, flag = phase_flagship(solver, lr, setup_s, "flagship")
-    phase_windows_ab(
-        solver, lambda: build_flagship(SourceIterationSolver, problem,
-                                       "flagship, full slab",
-                                       bc_temps=WALL_BCS),
-        "flagship", flag)
     del solver
     torch.cuda.empty_cache()
 
-    def build_film(name="diffuse-wall flagship"):
-        return build_flagship(SourceIterationSolver, problem, name,
-                              **DIFFUSE_WALLS)
-
-    film, film_setup_s = build_film()
+    film, film_setup_s = build_flagship(SourceIterationSolver, problem,
+                                        "diffuse-wall flagship",
+                                        **DIFFUSE_WALLS)
     film_launches, film_row = phase_flagship(film, lr, film_setup_s,
                                              "diffuse-wall flagship")
-    phase_windows_ab(
-        film, lambda: build_film("diffuse-wall flagship, full slab"),
-        "diffuse-wall flagship", film_row)
     del film
+    torch.cuda.empty_cache()
+
+    os.environ["PBTE_RING_STATE_BF16"] = "1"
+    try:
+        bf16, bf16_setup_s = build_flagship(
+            SourceIterationSolver, problem, "bf16-state flagship",
+            bc_temps=WALL_BCS)
+    finally:
+        del os.environ["PBTE_RING_STATE_BF16"]
+    bf16_launches, bf16_row = phase_flagship(bf16, lr, bf16_setup_s,
+                                             "bf16-state flagship")
+    del bf16
     torch.cuda.empty_cache()
 
     golden_rel = phase_golden(SourceIterationSolver, unit_cube,
                               "torch_port_golden.npz")
     closure_rel = phase_golden(SourceIterationSolver, unit_cube,
                                "torch_port_golden_closures.npz")
+    accel_rel = phase_accel_golden(SourceIterationSolver, unit_cube, lr)
+
+    f64_launches, f64_row = phase_f64_flagship(
+        SourceIterationSolver, problem, lr, dict(bc_temps=WALL_BCS))
 
     jax_mods = sorted(m for m in sys.modules
                       if m.split(".")[0] in ("jax", "jaxlib"))
     if jax_mods:
         raise RuntimeError(f"the port imported JAX: {jax_mods[:5]}")
 
-    # the launch the flagship's step makes: bucket 0, f32, hull windows
-    main_row = next(r for r in rows if r["windows"] and r["bucket"] == 0
-                    and r["state"] == "f32" and not r["dirichlet"]
-                    and not r["xsrc"])
+    # the launch the flagship's step makes: bucket 0, hull windows (f32 with
+    # no source; bf16 and f64 with the Dirichlet source, the case measured
+    # with windows in those types)
+    def main_row(state):
+        return next(r for r in rows if r["windows"] and r["bucket"] == 0
+                    and r["state"] == state and not r["xsrc"]
+                    and r["dirichlet"] == (state != "f32"))
+
+    acc = f64_row["bicgstab"]
     log(f"[smoke] summary: flagship {flag['ms_per_step']:.3f} ms/step, "
         f"{flag['dof_per_s']:.4g} DOF/s; diffuse-wall flagship "
         f"{film_row['ms_per_step']:.3f} ms/step, "
-        f"{film_row['dof_per_s']:.4g} DOF/s; best copy {best['name']} "
+        f"{film_row['dof_per_s']:.4g} DOF/s; bf16 state "
+        f"{bf16_row['ms_per_step']:.3f} ms/step; f64 "
+        f"{f64_row['ms_per_step']:.3f} ms/step, bicgstab "
+        f"{acc['step_applications']} step applications in "
+        f"{acc['wall_s']:.2f} s against {f64_row['plain']['steps']} plain "
+        f"steps in {f64_row['plain']['wall_s']:.2f} s, peak "
+        f"{acc['max_memory_allocated'] / 1e9:.2f} GB; refined defect "
+        f"{f64_row['refined']['gain']:.1f}x; best copy {best['name']} "
         f"{best['gbs']:.1f} GB/s; golden rel {golden_rel:.3e}, closure "
-        f"golden rel {closure_rel:.3e}; on {card}")
+        f"golden rel {closure_rel:.3e}, f64 bicgstab golden rel "
+        f"{accel_rel:.3e}; on {card}")
+
+    def k1_entry(name, state, n):
+        r = main_row(state)
+        return {
+            "name": name,
+            "route": "cuda",
+            "source": "pbte_tpu_torch/csrc/lattice_ring.cu",
+            "replaces": "pbte_tpu/ops/lattice_ring.py:234",
+            "launches": n,
+            "max_abs_err": max(max(x["ys_abs"], x["ms_abs"])
+                               for x in rows if x["state"] == state),
+            "ms": r["kernel_ms"],
+            "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"],
+            "library_ms": None,
+        }
 
     def best_row(prefix):
         """The fastest row of a kernel: its paired median ms and the plain
@@ -587,20 +808,9 @@ def main() -> int:
     copy_bound_ms = dma_res["bytes_per_call"] / lr.H100_BYTES_PER_S * 1e3
 
     log(json.dumps({"kernels": [
-        {
-            "name": "lattice_ring_sweep",
-            "route": "cuda",
-            "source": "pbte_tpu_torch/csrc/lattice_ring.cu",
-            "replaces": "pbte_tpu/ops/lattice_ring.py:234",
-            "launches": launches + film_launches,
-            "max_abs_err": max(max(r["ys_abs"], r["ms_abs"])
-                               for r in rows if r["state"] == "f32"),
-            "ms": main_row["kernel_ms"],
-            "plain_ms": main_row["plain_ms"],
-            "bound_ms": main_row["bound_ms"],
-            "bound_by": main_row["bound_by"],
-            "library_ms": None,
-        },
+        k1_entry("lattice_ring_sweep", "f32", launches + film_launches),
+        k1_entry("lattice_ring_sweep_bf16", "bf16", bf16_launches),
+        k1_entry("lattice_ring_sweep_f64", "f64", f64_launches),
         {
             "name": "dma_auto_copy",
             "route": "cuda",

@@ -13,14 +13,16 @@
 //   nb_f[i, w]  = cin[l,g,k,f,w] * ring[i, w - s_f]   (zero where w < s_f)
 //   sol[:, w]   = bcat[g,k,b] (D, J) @ [rhs; nb_0; nb_1; nb_2][:, w]
 //   ys[l,g,k,b] = sol;  ring = sol;  ms[g,k,l] += macro_w[g,k,b] * sol
-// with J = (1 + nf) D and f32 accumulation. In cast mode (bf16 state) the
-// product operands (rhs, nb_f, bcat) and the ring are rounded to bf16 as the
-// TPU kernel does; in exact mode every operand is f32. (xmap, xval) is the
-// lagged closure source (periodic wraps, diffuse and specular walls), kept
-// sparse: xmap (L, Gb, W) int32 names the closure row u of a slab slot (or
-// -1), xval (Gb, U, Km, BS, D) f32 holds each row's rhs addition. It cannot
-// fold into v because relax_w is exactly 0 on the band with the largest
-// inverse Knudsen number. A null xmap (or dsrc) skips the loads.
+// with J = (1 + nf) D and f32 accumulation (float64 state: a kernel of its
+// own, lattice_ring_f64_kernel below, accumulates in float64). In cast mode
+// (bf16 state) the product operands (rhs, nb_f, bcat) and the ring are
+// rounded to bf16 as the TPU kernel does; in exact mode every operand is
+// f32. (xmap, xval) is the lagged closure source (periodic wraps, diffuse
+// and specular walls), kept sparse: xmap (L, Gb, W) int32 names the closure
+// row u of a slab slot (or -1), xval (Gb, U, Km, BS, D) f32 holds each
+// row's rhs addition. It cannot fold into v because relax_w is exactly 0 on
+// the band with the largest inverse Knudsen number. A null xmap (or dsrc)
+// skips the loads.
 //
 // Hull windows. win (L, 2) int32 gives each level's window [lo_l, hi_l) of
 // slab columns (null: every level runs the full slab). The caller warrants
@@ -725,6 +727,231 @@ cudaError_t dispatch_d(int D, const void* v, const float* ttc,
   }
 }
 
+// ---- float64 state ---------------------------------------------------------
+//
+// The same recurrence with float64 state, float64 operands (ttc, bsrc, cin,
+// bcat, macro_w, wvec, dsrc, xval) and float64 accumulation: the counterpart
+// of lattice_ring_sweep_ref(..., cast_bf16=False) on float64 tensors, and of
+// pbte_tpu's float64 XLA ring (its Pallas kernel takes float32 state only).
+// The Krylov-accelerated solve needs it: in float32 the outer step is affine
+// only to a ~2.7e-3 defect, where every Krylov recurrence stalls.
+//
+// Design: one role, FP64 FMAs on the CUDA cores (a first kernel, right
+// before fast; the FP64 tensor cores, mma.sync m8n8k4, are open work). One
+// CTA per (g, k, b) runs the L levels in order, as above; one thread per
+// slab column w (blockDim = W rounded up to a warp). Per level a thread
+// forms its column's rhs from device memory and multiplies it into D
+// float64 accumulators as it goes (face 0), then adds the three face blocks
+// from the ring tile in shared memory (the previous level's solution, read
+// at column w - s_f and scaled by its own cin[f, w]). The factor sits in
+// shared memory transposed, one (D rounded to even)-wide row per k index, so
+// a thread reads a row as double2 values that every lane of the warp reads
+// at once (a broadcast). The ring tile is read and written along the
+// columns: a warp's 32 lanes touch 32 consecutive doubles of one row, which
+// is conflict-free at any row stride, so its rows are W rounded up to a
+// warp and no more. One ring tile: the level's reads of it end at a
+// __syncthreads before its solution is written there, and a second
+// __syncthreads orders those writes before the next level's reads.
+// Columns outside a level's window write exact zeros to ys and to the ring
+// tile (the plain version's ring is zero there), so the Krylov vectors stay
+// zero on the padding. ms adds its band terms with float64 atomics, in an
+// order that varies from run to run.
+//
+// Shared memory at the flagship (D = 27, W = 256, three faces): the factor
+// 108 x 28 x 8 = 24,192 B, the ring tile 27 x 256 x 8 = 55,296 B, and the
+// windows: 79,856 B, so two CTAs (512 threads, <= 128 registers each) share
+// an SM and one CTA's loads overlap the other's FMAs. (The f32 carve-up,
+// two solution and two rhs tiles of 27 x 264 words, would take 269,424 B in
+// float64 against 232,448.)
+//
+// What bounds it on an H100 SXM at the flagship bucket 0 with the hull
+// windows: 5.18 GB (v in, ys out, the float64 ms partials and operands) take
+// 1.55 ms at 3.35 TB/s; its 6.76e10 flop take 1.01 ms at the FP64 tensor-core
+// peak of 67 TFLOP/s, and 2.0 ms at the 34 TFLOP/s of the FP64 FMAs this
+// design uses. Per level a CTA's loads and its FMAs run one after the
+// other; the second CTA on the SM is what overlaps them.
+
+constexpr int kF64MaxThreads = 256;
+
+// factor row (one k index) padded to whole double2 values
+__host__ __device__ constexpr int f64_row(int D) { return (D + 1) / 2 * 2; }
+// ring tile row stride: W rounded up to a warp's columns
+__host__ __device__ constexpr int f64_stride(int W) {
+  return (W + 31) / 32 * 32;
+}
+
+// Shared-memory carve-up of the float64 kernel (byte offsets), the same on
+// host and device: the transposed factor, one ring tile, the L windows
+template <int D>
+struct SmemF64 {
+  size_t bfac, ring, wins, total;
+  __host__ __device__ SmemF64(int W, int nf, int L) {
+    bfac = 0;
+    ring = align16(sizeof(double) * (1 + nf) * D * f64_row(D));
+    wins = ring + align16(sizeof(double) * D * f64_stride(W));
+    total = wins + align16(sizeof(int2) * L);
+  }
+};
+
+// acc[i] += col[i] * x for i < D, col 16-byte aligned (a factor row)
+template <int D>
+__device__ __forceinline__ void axpy_f64(double (&acc)[D],
+                                         const double* col, double x) {
+#pragma unroll
+  for (int i = 0; i + 1 < D; i += 2) {
+    const double2 c = *reinterpret_cast<const double2*>(col + i);
+    acc[i] = fma(c.x, x, acc[i]);
+    acc[i + 1] = fma(c.y, x, acc[i + 1]);
+  }
+  if constexpr (D % 2 != 0) acc[D - 1] = fma(col[D - 1], x, acc[D - 1]);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kF64MaxThreads, 2)
+lattice_ring_f64_kernel(const double* __restrict__ v,
+                        const double* __restrict__ ttc,
+                        const double* __restrict__ bsrc,
+                        const double* __restrict__ cin,
+                        const double* __restrict__ bcat,
+                        const double* __restrict__ macro_w,
+                        const double* __restrict__ wvec,
+                        const double* __restrict__ dsrc,
+                        const int* __restrict__ xmap,
+                        const double* __restrict__ xval, int n_u,
+                        const int* __restrict__ win, double* __restrict__ ys,
+                        double* __restrict__ ms, int L, int Gb, int Km,
+                        int BS, int W, int nf, Shifts sh) {
+  constexpr int DP = f64_row(D);
+  const int WS = f64_stride(W);
+  const int J = (1 + nf) * D;
+  const SmemF64<D> lay(W, nf, L);
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  // bf[kk * DP + i] = bcat[i, kk] (zero for i >= D)
+  double* bf = reinterpret_cast<double*>(smem + lay.bfac);
+  double* ring = reinterpret_cast<double*>(smem + lay.ring);  // (D, WS)
+  int2* wins = reinterpret_cast<int2*>(smem + lay.wins);
+
+  const int tid = threadIdx.x;
+  const int b = blockIdx.x % BS;
+  const int gk = blockIdx.x / BS;  // g * Km + k
+  const int g = gk / Km;
+  const int k = gk % Km;
+  const size_t DW = static_cast<size_t>(D) * W;
+
+  {
+    const double* blk = bcat + (static_cast<size_t>(gk) * BS + b) * D * J;
+    for (int idx = tid; idx < J * DP; idx += blockDim.x) {
+      const int kk = idx / DP;
+      const int i = idx - kk * DP;
+      bf[idx] = i < D ? blk[static_cast<size_t>(i) * J + kk] : 0.0;
+    }
+  }
+  for (int i = tid; i < D * WS; i += blockDim.x) ring[i] = 0.0;
+  for (int l = tid; l < L; l += blockDim.x) {
+    wins[l] = win != nullptr ? make_int2(__ldg(win + 2 * l),
+                                         __ldg(win + 2 * l + 1))
+                             : make_int2(0, W);
+  }
+  __syncthreads();
+
+  const double w_src = wvec[b];
+  const double w_rel = wvec[BS + b];
+  const double w_bcv = wvec[2 * BS + b];
+  const double w_dir = wvec[3 * BS + b];
+  const double mw = macro_w[static_cast<size_t>(gk) * BS + b];
+  const int w = tid;  // this thread's slab column (idle where w >= W)
+
+  for (int l = 0; l < L; ++l) {
+    const int2 wl = wins[l];
+    const bool on = w >= wl.x && w < wl.y;
+    const size_t lg = static_cast<size_t>(l) * Gb + g;
+    const size_t lgk = lg * Km + k;
+    double acc[D];
+#pragma unroll
+    for (int i = 0; i < D; ++i) acc[i] = 0.0;
+    if (on) {
+      // face 0: this column's rhs, multiplied in as it is formed
+      const double* v_l = v + (lgk * BS + b) * DW + w;
+      const double* ttc_l = ttc + lg * DW + w;
+      const double* bsrc_l = bsrc + lgk * DW + w;
+      const double* dsrc_l = dsrc != nullptr ? dsrc + lgk * DW + w : nullptr;
+      const double* xv = nullptr;
+      if (xmap != nullptr) {
+        const int u = __ldg(xmap + lg * W + w);
+        if (u >= 0) {
+          xv = xval + ((static_cast<size_t>(g) * n_u + u) * Km + k) * BS * D +
+               static_cast<size_t>(b) * D;
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < D; ++j) {
+        const size_t o = static_cast<size_t>(j) * W;
+        double x = w_src * __ldg(ttc_l + o) + w_rel * __ldg(v_l + o) -
+                   w_bcv * __ldg(bsrc_l + o);
+        if (dsrc_l != nullptr) x -= w_dir * __ldg(dsrc_l + o);
+        if (xv != nullptr) x += __ldg(xv + j);
+        axpy_f64<D>(acc, bf + j * DP, x);
+      }
+      // faces: the ring at column w - s_f scaled by cin[f, w] (zero where
+      // w < s_f)
+#pragma unroll
+      for (int f = 0; f < kMaxFaces; ++f) {
+        if (f >= nf) break;
+        const int s = sh.s[f];
+        if (w < s) continue;
+        const double c = __ldg(cin + (lgk * nf + f) * W + w);
+        const double* rf = ring + (w - s);
+        const double* bff = bf + static_cast<size_t>(1 + f) * D * DP;
+#pragma unroll
+        for (int j = 0; j < D; ++j) {
+          axpy_f64<D>(acc, bff + j * DP, rf[j * WS] * c);
+        }
+      }
+    }
+    __syncthreads();  // every read of level l-1's ring is done
+    if (w < W) {
+      double* ys_l = ys + (lgk * BS + b) * DW + w;
+      if (on) {
+        double* ms_l = ms + (static_cast<size_t>(gk) * L + l) * DW + w;
+#pragma unroll
+        for (int j = 0; j < D; ++j) {
+          ring[j * WS + w] = acc[j];
+          ys_l[static_cast<size_t>(j) * W] = acc[j];
+          atomicAdd(ms_l + static_cast<size_t>(j) * W, mw * acc[j]);
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < D; ++j) {
+          ring[j * WS + w] = 0.0;
+          ys_l[static_cast<size_t>(j) * W] = 0.0;
+        }
+      }
+    }
+    __syncthreads();  // level l's ring is written before level l+1 reads it
+  }
+}
+
+template <int D>
+cudaError_t launch_f64(const double* v, const double* ttc, const double* bsrc,
+                       const double* cin, const double* bcat,
+                       const double* macro_w, const double* wvec,
+                       const double* dsrc, const int* xmap,
+                       const double* xval, int n_u, const int* win,
+                       double* ys, double* ms, int L, int Gb, int Km, int BS,
+                       int W, int nf, Shifts sh, cudaStream_t stream) {
+  const size_t smem = SmemF64<D>(W, nf, L).total;
+  auto kernel = lattice_ring_f64_kernel<D>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  kernel<<<Gb * Km * BS, f64_stride(W), smem, stream>>>(
+      v, ttc, bsrc, cin, bcat, macro_w, wvec, dsrc, xmap, xval, n_u, win, ys,
+      ms, L, Gb, Km, BS, W, nf, sh);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -774,6 +1001,46 @@ long long pbte_lattice_ring_smem_bytes(int cast_bf16, int D, int W, int nf,
         cast_bf16 ? smem_bytes<27, __nv_bfloat16, true>(W, nf, L)
                   : smem_bytes<27, float, false>(W, nf, L));
   }
+  return -1;
+}
+
+// float64 state, float64 operands and accumulation (ms in float64); the
+// arguments of pbte_lattice_ring_sweep less cast_bf16, with the same
+// contract (ms zeroed by the caller, ys written in full).
+int pbte_lattice_ring_sweep_f64(int D, const double* v, const double* ttc,
+                                const double* bsrc, const double* cin,
+                                const double* bcat, const double* macro_w,
+                                const double* wvec, const double* dsrc,
+                                const int* xmap, const double* xval, int n_u,
+                                const int* win, double* ys, double* ms, int L,
+                                int Gb, int Km, int BS, int W, int nf, int s0,
+                                int s1, int s2, void* stream) {
+  if (nf < 1 || nf > kMaxFaces || W < 1 || W > kF64MaxThreads || L < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const Shifts sh{{s0, s1, s2}};
+  auto st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  switch (D) {
+    case 8:
+      err = launch_f64<8>(v, ttc, bsrc, cin, bcat, macro_w, wvec, dsrc, xmap,
+                          xval, n_u, win, ys, ms, L, Gb, Km, BS, W, nf, sh,
+                          st);
+      break;
+    case 27:
+      err = launch_f64<27>(v, ttc, bsrc, cin, bcat, macro_w, wvec, dsrc,
+                           xmap, xval, n_u, win, ys, ms, L, Gb, Km, BS, W, nf,
+                           sh, st);
+      break;
+    default:
+      err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
+}
+
+long long pbte_lattice_ring_smem_bytes_f64(int D, int W, int nf, int L) {
+  if (D == 8) return static_cast<long long>(SmemF64<8>(W, nf, L).total);
+  if (D == 27) return static_cast<long long>(SmemF64<27>(W, nf, L).total);
   return -1;
 }
 

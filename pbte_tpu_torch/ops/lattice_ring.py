@@ -9,7 +9,9 @@ lattice offsets. Arguments and results keep the JAX wrapper's layouts.
 
 ``lattice_ring_sweep`` takes the plain version for CPU tensors and launches
 the hand-written kernel (``csrc/lattice_ring.cu``) for CUDA tensors; it
-never falls back from one to the other.
+never falls back from one to the other. The kernel comes in three state
+types: float32 (exact operands), bfloat16 (bf16 operands and ring, f32
+sums) and float64 (float64 operands and sums, a kernel of its own).
 
 Hull windows. The slab pads every level to the full plane of W slots, but a
 level's elements lie in a narrower hull. With ``win``, an ``(L, 2)`` integer
@@ -43,15 +45,23 @@ KERNEL_MAX_FACES = 3
 _SMEM_LIMIT = 232448  # bytes of shared memory one CTA may use on Hopper
 
 
-def kernel_smem_bytes(D, W, nf, cast_bf16, L):
-    """Dynamic shared memory of one kernel launch, as csrc/lattice_ring.cu
-    carves it (``Smem``): the factor block in mma fragment order, two f32
-    solution tiles and two f32 rhs tiles (row stride padded to 32k + 8
-    words), two tiles of shifted inflow coefficients and the L levels'
-    windows."""
+def kernel_smem_bytes(D, W, nf, state, L):
+    """Dynamic shared memory of one kernel launch for state of type
+    ``state``, as csrc/lattice_ring.cu carves it. float32 and bfloat16
+    (``Smem``): the factor block in mma fragment order, two f32 solution
+    tiles and two f32 rhs tiles (row stride padded to 32k + 8 words), two
+    tiles of shifted inflow coefficients and the L levels' windows. float64
+    (``SmemF64``): the transposed factor (rows of D rounded to even), one
+    ring tile (row stride W rounded to 32) and the windows."""
     def a16(n):
         return -(-n // 16) * 16
 
+    if state == torch.float64:
+        return (a16(8 * (1 + nf) * D * (-(-D // 2) * 2))
+                + a16(8 * D * (-(-W // 32) * 32)) + a16(8 * L))
+    if state not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"no kernel for {state} state")
+    cast_bf16 = state == torch.bfloat16
     kstep = 16 if cast_bf16 else 8
     kt_face = -(-D // kstep)
     nt = -(-D // 8)
@@ -129,32 +139,38 @@ def _check_shapes(v, ttc, bsrc, cin, bcat, macro_w, wvec, shifts, dsrc,
 
 # NVIDIA H100 SXM data-sheet peaks (dense): HBM bytes/s, and the product's
 # flop/s by state type: bf16 on the tensor cores; f32 as 3xTF32, three TF32
-# products per f32 product (faster than the 67 TFLOP/s of exact f32 FMAs)
+# products per f32 product (faster than the 67 TFLOP/s of exact f32 FMAs);
+# f64 on the FP64 tensor cores (67 TFLOP/s; the FP64 FMAs peak at 34)
 H100_BYTES_PER_S = 3.35e12
-H100_FLOPS = {torch.float32: 495e12 / 3, torch.bfloat16: 989e12}
+H100_FLOPS = {torch.float32: 495e12 / 3, torch.bfloat16: 989e12,
+              torch.float64: 67e12}
 
 
 def sweep_cost(v, nf, dsrc=None, xsrc=None, win=None):
     """(bytes, flop) one sweep must move and compute: every input read once
     (v, ttc, bsrc, cin, bcat, macro_w, wvec, and dsrc, xmap, xval where
-    given) and every output written once (ys like v, the f32 ms partials);
-    2 D J flop per (slot, group, slot k, band). With ``win`` every operand
-    that has a level axis, and the flop, count the slots inside the windows
-    only (the work that is asked for, whatever implements it)."""
+    given) and every output written once (ys like v, the ms partials);
+    2 D J flop per (slot, group, slot k, band). Each operand counts at its
+    element size: the kernel's operands and ms are float64 with float64
+    state and float32 otherwise, xmap is int32, dsrc and xval count as
+    given. With ``win`` every operand that has a level axis, and the flop,
+    count the slots inside the windows only (the work that is asked for,
+    whatever implements it)."""
     L, Gb, Km, BS, D, W = v.shape
     J = (1 + nf) * D
     win = _check_win(win, L, W)
     # (level, slot) pairs of the slab that the sweep computes
     LW = L * W if win is None else int((win[:, 1] - win[:, 0]).sum())
     n_state = LW * Gb * Km * BS * D
-    f32 = (LW * Gb * D + LW * Gb * Km * D + LW * Gb * Km * nf
-           + Gb * Km * BS * D * J + Gb * Km * BS + 4 * BS
-           + Gb * Km * LW * D)
+    n_ops = (LW * Gb * D + LW * Gb * Km * D + LW * Gb * Km * nf
+             + Gb * Km * BS * D * J + Gb * Km * BS + 4 * BS
+             + Gb * Km * LW * D)
+    op_size = 8 if v.dtype == torch.float64 else 4
+    nbytes = 2 * n_state * v.element_size() + op_size * n_ops
     if dsrc is not None:
-        f32 += LW * Gb * Km * D
-    nbytes = 2 * n_state * v.element_size() + 4 * f32
+        nbytes += LW * Gb * Km * D * dsrc.element_size()
     if xsrc is not None:
-        nbytes += LW * Gb * 4 + xsrc.xval.numel() * 4
+        nbytes += LW * Gb * 4 + xsrc.xval.numel() * xsrc.xval.element_size()
     return nbytes, 2 * LW * Gb * Km * BS * D * J
 
 
@@ -277,24 +293,29 @@ def lattice_ring_sweep_ref(v, ttc, bsrc, cin, bcat, macro_w, wvec, *,
 
 
 def _kernel_args_ok(v, tensors, cast_bf16, shifts):
-    """Raise on anything the CUDA kernel does not take (``tensors`` may
-    hold ``win``, the windows on the device as (L, 2) int32)."""
+    """Raise on anything the CUDA kernels do not take (``tensors`` may
+    hold ``win``, the windows on the device as (L, 2) int32): float32 or
+    bfloat16 state with float32 operands, or float64 state with float64
+    operands; no mix."""
     L, Gb, Km, BS, D, W = v.shape
-    want_state = torch.bfloat16 if cast_bf16 else torch.float32
-    if v.dtype != want_state:
+    ok = ((torch.bfloat16,) if cast_bf16
+          else (torch.float32, torch.float64))
+    if v.dtype not in ok:
         raise ValueError(
-            f"the CUDA kernel takes float32 state with cast_bf16=False or "
-            f"bfloat16 state with cast_bf16=True, got {v.dtype} with "
-            f"cast_bf16={cast_bf16}"
+            f"the CUDA kernels take float32 or float64 state with "
+            f"cast_bf16=False and bfloat16 state with cast_bf16=True, got "
+            f"{v.dtype} with cast_bf16={cast_bf16}"
         )
+    op = torch.float64 if v.dtype == torch.float64 else torch.float32
     for name, t in tensors.items():
         if t.device != v.device:
             raise ValueError(f"{name} is on {t.device}, v on {v.device}")
         if name in ("xmap", "win"):
             if t.dtype != torch.int32:
                 raise ValueError(f"{name} must be int32, got {t.dtype}")
-        elif name != "v" and t.dtype != torch.float32:
-            raise ValueError(f"{name} must be float32, got {t.dtype}")
+        elif name != "v" and t.dtype != op:
+            raise ValueError(f"{name} must be {op} with {v.dtype} state, "
+                             f"got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     if D not in KERNEL_D:
@@ -308,7 +329,7 @@ def _kernel_args_ok(v, tensors, cast_bf16, shifts):
             f"the CUDA kernel tiles W over one CTA's 8 warps, W <= "
             f"{KERNEL_MAX_W}; got W={W}"
         )
-    smem = kernel_smem_bytes(D, W, len(shifts), cast_bf16, L)
+    smem = kernel_smem_bytes(D, W, len(shifts), v.dtype, L)
     if smem > _SMEM_LIMIT:
         raise ValueError(f"the kernel would need {smem} B of shared memory")
 
@@ -337,9 +358,12 @@ def _launch(v, ttc, bsrc, cin, bcat, macro_w, wvec, shifts, dsrc, xsrc,
                              f"{(L, 2)}")
         tensors["win"] = win
     _kernel_args_ok(v, tensors, cast_bf16, shifts)
+    f64 = v.dtype == torch.float64
     # the kernel writes every slot of ys (zeros outside the windows)
     ys = torch.empty_like(v)
-    ms = torch.zeros((Gb, Km, L, D, W), dtype=torch.float32, device=v.device)
+    ms = torch.zeros((Gb, Km, L, D, W),
+                     dtype=torch.float64 if f64 else torch.float32,
+                     device=v.device)
     lib = lib or _lib()
     s = [int(x) for x in shifts] + [0] * (KERNEL_MAX_FACES - len(shifts))
     with torch.cuda.device(v.device):
@@ -347,11 +371,12 @@ def _launch(v, ttc, bsrc, cin, bcat, macro_w, wvec, shifts, dsrc, xsrc,
         ptrs = [win.data_ptr() if win is not None else None, ys.data_ptr(),
                 ms.data_ptr()]
         if not getattr(lib, "takes_win", True):
-            if win is not None:
-                raise ValueError("this build's entry point takes no windows")
+            if win is not None or f64:
+                raise ValueError("this build's entry point takes no windows "
+                                 "and no float64 state")
             del ptrs[0]
-        err = lib.pbte_lattice_ring_sweep(
-            int(cast_bf16), D, v.data_ptr(), ttc.data_ptr(), bsrc.data_ptr(),
+        args = (
+            D, v.data_ptr(), ttc.data_ptr(), bsrc.data_ptr(),
             cin.data_ptr(), bcat.data_ptr(), macro_w.data_ptr(),
             wvec.data_ptr(), dsrc.data_ptr() if dsrc is not None else None,
             xsrc.xmap.data_ptr() if xsrc is not None else None,
@@ -359,10 +384,15 @@ def _launch(v, ttc, bsrc, cin, bcat, macro_w, wvec, shifts, dsrc, xsrc,
             xsrc.xval.shape[1] if xsrc is not None else 0,
             *ptrs, L, Gb, Km, BS, W, len(shifts), *s, stream,
         )
+        if f64:
+            err = lib.pbte_lattice_ring_sweep_f64(*args)
+        else:
+            err = lib.pbte_lattice_ring_sweep(int(cast_bf16), *args)
     if err != 0:
         msg = lib.pbte_cuda_error_string(err).decode()
         raise RuntimeError(f"lattice_ring kernel launch failed: {msg} ({err})")
     lattice_ring_sweep.launches += 1
+    lattice_ring_sweep.launches_by_state[_STATE_NAMES[v.dtype]] += 1
     return ys, ms
 
 
@@ -381,6 +411,12 @@ def _lib(name="lattice_ring", takes_win=True):
     lib.pbte_lattice_ring_sweep.restype = i
     lib.pbte_lattice_ring_smem_bytes.argtypes = [i] * (4 + takes_win)
     lib.pbte_lattice_ring_smem_bytes.restype = ctypes.c_longlong
+    if hasattr(lib, "pbte_lattice_ring_sweep_f64"):  # not in older designs
+        lib.pbte_lattice_ring_sweep_f64.argtypes = (
+            [i] + [p] * 10 + [i] + [p] * 3 + [i] * 9 + [p])
+        lib.pbte_lattice_ring_sweep_f64.restype = i
+        lib.pbte_lattice_ring_smem_bytes_f64.argtypes = [i] * 4
+        lib.pbte_lattice_ring_smem_bytes_f64.restype = ctypes.c_longlong
     lib.pbte_cuda_error_string.argtypes = [i]
     lib.pbte_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -392,8 +428,10 @@ def lattice_ring_sweep(v, ttc, bsrc, cin, bcat, macro_w, wvec, *, shifts,
     for arguments and results).
 
     CPU tensors run the plain PyTorch version. CUDA tensors launch the CUDA
-    kernel on the current stream, or raise if it cannot take them; each
-    launch adds one to ``lattice_ring_sweep.launches``."""
+    kernel on the current stream (float64 state: the float64 kernel), or
+    raise if it cannot take them; each launch adds one to
+    ``lattice_ring_sweep.launches`` and to its state type's count in
+    ``lattice_ring_sweep.launches_by_state`` ("f32", "bf16", "f64")."""
     _check_shapes(v, ttc, bsrc, cin, bcat, macro_w, wvec, shifts, dsrc, xsrc)
     if v.device.type == "cpu":
         return lattice_ring_sweep_ref(
@@ -406,4 +444,15 @@ def lattice_ring_sweep(v, ttc, bsrc, cin, bcat, macro_w, wvec, *, shifts,
                    cast_bf16, win=win)
 
 
-lattice_ring_sweep.launches = 0
+_STATE_NAMES = {torch.float32: "f32", torch.bfloat16: "bf16",
+                torch.float64: "f64"}
+
+
+def reset_launches():
+    """Set every launch count of the sweep kernels to 0."""
+    lattice_ring_sweep.launches = 0
+    lattice_ring_sweep.launches_by_state = dict.fromkeys(
+        _STATE_NAMES.values(), 0)
+
+
+reset_launches()

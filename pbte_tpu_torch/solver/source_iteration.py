@@ -27,15 +27,21 @@ outer step:
 
 State layout: a tuple of per-bucket ``(L, Gb, Km_b, BS, D, W)`` slabs of
 the mass-transformed state ``v = M^T u`` (band-major, as on the JAX
-Pallas path), float32 or, with ``PBTE_RING_STATE_BF16=1``, bfloat16.
+Pallas path), float32 or, with ``PBTE_RING_STATE_BF16=1``, bfloat16, or
+float64 (``dtype=torch.float64``, on the CPU or the GPU: every operand, the
+sweep's sums, Tc, Tv and the residual are then float64).
+
+``solve(accelerate="bicgstab")`` solves the same fixed point by BiCGStab
+over the affine step (``solver/accel.py``), in far fewer steps with
+float64 state.
 
 Hull windows (pbte_tpu's default on the flagship, its ``_step_ring_win``).
 The slab pads every level to the full plane of W slots; the constructor
 computes each level's hull ``[lo_l, hi_l)`` of valid slots once
 (``lattice_tables.ring_windows``) and every sweep runs each level on its
 window alone. The gate is pbte_tpu's: windows are taken when, rounded out
-to the kernel's 16-slot tiles, they keep under 95% of the L W slots, and
-``PBTE_RING_WINDOWS=0`` turns them off. pbte_tpu re-lays its windowed state
+to the kernel's 16-slot tiles, they keep under 95% of the L W slots
+(``WINDOW_MAX_SHARE``). pbte_tpu re-lays its windowed state
 out in segments and therefore windows only problems without lagged
 closures; here the state keeps the full-slab layout, and the closures'
 ``(level, slot)`` gathers and ``xmap`` address valid elements, which lie
@@ -78,6 +84,8 @@ REFL_KEYS = ("dif_fint", "dif_cin", "dif_wplus", "dif_norm", "dif_fvec",
              "spc_cin", "spc_gk", "spc_fmv")
 _SCAN_PATH = "ROADMAP.md queue 1, item 7 (scan path)"
 _CHECKPOINT = "ROADMAP.md queue 1, item 9 (io/checkpoint.py)"
+_COMPENSATED = ('ROADMAP.md "Not to port": accel.compensated_outer reaches '
+                'the same floor as the plain float32 iteration')
 # windows are rounded out to the kernel's m-tiles of this many slots, and
 # taken when they keep under this share of the slab (pbte_tpu's gate)
 WINDOW_TILE = 16
@@ -132,14 +140,15 @@ class SourceIterationSolver:
         require_bcs: bool = True,  # False: a boundary attribute without a
         # condition is taken as an isothermal wall at deviation 0
     ):
-        device = torch.device(device)
         if dtype not in (torch.float32, torch.float64):
             raise ValueError(f"dtype must be float32 or float64, got {dtype}")
-        if dtype == torch.float64 and device.type != "cpu":
-            raise NotImplementedError(
-                "float64 runs on the CPU only, through the plain sweep; the "
-                "CUDA kernel takes float32 or bfloat16 state"
-            )
+        # bf16 state (same opt-in as pbte_tpu): halves the state streams;
+        # the product operands and the ring are then bf16 as well, and the
+        # macroscopic partials stay f32
+        self.state_bf16 = os.environ.get("PBTE_RING_STATE_BF16", "") == "1"
+        if self.state_bf16 and dtype == torch.float64:
+            raise ValueError("PBTE_RING_STATE_BF16=1 rounds float32 state to "
+                             "bfloat16; unset it for float64 state")
         self.device = device = checked_device(device)
         self.dtype = dtype
         np_dtype = np.float32 if dtype == torch.float32 else np.float64
@@ -249,12 +258,8 @@ class SourceIterationSolver:
         self.W = W = lat_tabs.shape[2]
         # per-level hull windows (L, 2), or None where they save too little
         win = ring_windows(lat_tabs)
-        self.win = (
-            win
-            if os.environ.get("PBTE_RING_WINDOWS", "") != "0"
-            and window_slots(win, WINDOW_TILE) < WINDOW_MAX_SHARE * L * W
-            else None
-        )
+        self.win = (win if window_slots(win, WINDOW_TILE)
+                    < WINDOW_MAX_SHARE * L * W else None)
         # on a GPU the sweeps take the windows as a tensor, uploaded once
         self.win_dev = (
             windows_on_device(self.win, L, W, device)
@@ -464,13 +469,6 @@ class SourceIterationSolver:
             torch.arange(len(gs), device=device)[:, None]
             for gs, _ in self._ring_buckets
         )
-        # bf16 state (same opt-in as pbte_tpu): halves the state streams;
-        # the product operands and the ring are then bf16 as well, and the
-        # macroscopic partials stay f32
-        self.state_bf16 = (
-            dtype == torch.float32
-            and os.environ.get("PBTE_RING_STATE_BF16", "") == "1"
-        )
         self.state_dtype = torch.bfloat16 if self.state_bf16 else dtype
         # the sweep the step calls; the wrapper launches the CUDA kernel for
         # CUDA tensors (assign lattice_ring_sweep_ref to compare with the
@@ -617,7 +615,8 @@ class SourceIterationSolver:
     def solve(self, tol: float = 1e-7, max_iter: int = 101, state=None,
               verbose: bool = True, callback=None, check_every: int = 1,
               checkpoint_path: str | None = None, checkpoint_every: int = 25,
-              cycle_hook=None, cycle_every: int = 0, polish_iters: int = 0,
+              accelerate: str | None = None, cycle_hook=None,
+              cycle_every: int = 0, polish_iters: int = 0,
               polish_extrapolate: bool = False):
         """Outer source iteration (ref: src/PBTESolver.cpp:208-332). The
         residual is fetched to the host every ``check_every`` iterations.
@@ -634,10 +633,26 @@ class SourceIterationSolver:
         successive Tc differences d1, d2 and jumps to the limit of its
         geometric tail, x2 + d2 r / (1 - r) (Aitken), as pbte_tpu does.
 
+        ``accelerate="bicgstab"`` solves the same fixed point as the linear
+        system (I - A) x = b by BiCGStab, one plain step per matvec
+        (``accel.bicgstab_outer``; float32 or float64 state, float64 for
+        deep tolerances): ``tol`` is then the linear relative residual, the
+        result carries the Tv residual of a final plain step, and
+        ``iterations`` counts step applications. ``None`` or ``"none"`` is
+        the plain loop.
+
         ``checkpoint_path`` is not taken yet."""
+        if accelerate not in (None, "none", "bicgstab", "compensated"):
+            raise ValueError(f"unknown accelerate={accelerate!r}")
         if checkpoint_path is not None:
             raise NotImplementedError(
                 f"solve(checkpoint_path=...): {_CHECKPOINT}")
+        if accelerate == "compensated":
+            raise NotImplementedError(
+                f"solve(accelerate='compensated'): {_COMPENSATED}")
+        if accelerate == "bicgstab":
+            return self._solve_bicgstab(tol, max_iter, state, verbose,
+                                        callback, check_every)
         u, Tc, Tv = state if state is not None else self.initial_state()
         prev_Tv = Tv
         res = float("inf")
@@ -685,6 +700,26 @@ class SourceIterationSolver:
         return SolveResult(
             u=u, Tc=Tc, Tv=prev_Tv, residual=res, iterations=it, solver=self
         )
+
+    def _solve_bicgstab(self, tol, max_iter, state, verbose, callback,
+                        check_every):
+        """BiCGStab on (I - A) x = b, one matvec = one plain step
+        (accel.bicgstab_outer); ``iterations`` counts step applications so
+        they compare with the plain loop."""
+        from pbte_tpu_torch.solver import accel
+
+        if self.state_bf16:
+            raise ValueError(
+                "accelerate='bicgstab' needs exact-dtype state recurrences; "
+                "unset PBTE_RING_STATE_BF16"
+            )
+        u_f, Tc_f, Tv_f, tv_res, nmv = accel.bicgstab_outer(
+            self.step, self.initial_state(), state, tol, max_iter,
+            verbose=verbose, callback=callback, check_every=check_every,
+            label="pbte_tpu_torch",
+        )
+        return SolveResult(u=u_f, Tc=Tc_f, Tv=Tv_f, residual=tv_res,
+                           iterations=nmv, solver=self)
 
     # -- views ----------------------------------------------------------------
 

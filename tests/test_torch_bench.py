@@ -22,7 +22,6 @@ BENCH_KEYS = {"metric", "value", "unit", "vs_baseline",
 
 def _run(args, env_extra, timeout=600):
     env = dict(os.environ, PYTHONPATH=str(REPO), **TINY, **env_extra)
-    env.pop("PBTE_RING_WINDOWS", None)
     env.pop("PBTE_RING_STATE_BF16", None)
     return subprocess.run([sys.executable, "bench_torch.py", *args], cwd=REPO,
                           env=env, capture_output=True, text=True,
@@ -60,19 +59,26 @@ def test_no_device_number_from_a_cpu_run(cpu_result):
 
 
 def test_rows(cpu_result):
-    """The five rows; each extra row ran under its own settings."""
+    """The six rows; each extra row ran under its own settings, the
+    float64 ones in float64 (the accelerated row to its tolerance)."""
     rows = cpu_result["rows"]
-    assert list(rows) == ["f32", "f32_full_slab", "bf16_state",
-                          "diffuse_walls", "p3_f32"]
+    assert list(rows) == ["f32", "bf16_state", "diffuse_walls", "p3_f32",
+                          "f64_state", "f64_bicgstab"]
+    acc = rows.pop("f64_bicgstab")
     for name, row in rows.items():
         assert "error" not in row, (name, row)
         assert row["dof_per_s"] > 0 and row["ms_per_step"] > 0
-        assert row["windows"] == (name != "f32_full_slab")
-        assert row["state"] == ("torch.bfloat16" if name == "bf16_state"
-                                else "torch.float32")
-    # same steps from the same state: windows change no bit
-    assert rows["f32"]["residual"] == rows["f32_full_slab"]["residual"]
+        assert row["windows"]
+        assert row["state"] == {"bf16_state": "torch.bfloat16",
+                                "f64_state": "torch.float64"}.get(
+                                    name, "torch.float32")
     assert rows["diffuse_walls"]["residual"] != rows["f32"]["residual"]
+    assert "error" not in acc, acc
+    assert acc["state"] == "torch.float64"
+    assert 0 < acc["linear_relres"] < acc["tol"] == 1e-8
+    assert 3 <= acc["step_applications"] < 1500
+    assert acc["wall_s"] > 0 and acc["ms_per_step_application"] > 0
+    assert "max_memory_allocated" not in acc
 
 
 @pytest.mark.parametrize("arg,want", [

@@ -316,12 +316,14 @@ def test_windows_change_no_bit_with_closures(case, bf16, monkeypatch):
     (pbte_tpu windows only problems without lagged closures, because it
     re-lays its windowed state out; the port keeps the full-slab layout and
     the closures address valid slots, which lie inside the windows): with
-    windows on and with PBTE_RING_WINDOWS=0 the state, Tc, Tv and the
+    windows on and off (the gate closed) the state, Tc, Tv and the
     residual are equal bit for bit after 3 steps, and every closure target
     and source lies inside its level's window."""
+    from pbte_tpu_torch.solver import source_iteration as tsi
+
     monkeypatch.setenv("PBTE_RING_STATE_BF16", "1" if bf16 else "0")
     ts = _port_solver(case, torch.float32)
-    monkeypatch.setenv("PBTE_RING_WINDOWS", "0")
+    monkeypatch.setattr(tsi, "WINDOW_MAX_SHARE", 0.0)
     tf = _port_solver(case, torch.float32)
     assert ts.win is not None and tf.win is None and ts.state_bf16 == bf16
     for cb in ts.consts["buckets"]:

@@ -196,11 +196,46 @@ def test_kernel_argument_checks(case):
 
 def test_kernel_arguments_of_the_flagship_pass():
     """The flagship's bucket shapes (D=27, W=256, three faces) are taken in
-    both state modes."""
+    all three state types."""
     v = torch.zeros((46, 4, 10, 40, 27, 256), device="meta")
-    for dt, cast in ((torch.float32, False), (torch.bfloat16, True)):
+    for dt, cast in ((torch.float32, False), (torch.bfloat16, True),
+                     (torch.float64, False)):
         vv = v.to(dt)
         tlr._kernel_args_ok(vv, dict(v=vv), cast, (0, 16, 1))
+
+
+def test_kernel_takes_float64_state_with_float64_operands():
+    """float64 state goes to the float64 kernel with float64 operands (and
+    int32 xmap and windows) at the flagship's bucket-0 shape, on CPU
+    tensors; any mix of types, or cast mode, raises."""
+    L, Gb, Km, BS, D, W = 46, 4, 10, 40, 27, 256
+    f64 = dict(dtype=torch.float64)
+    t = dict(
+        v=torch.zeros((L, Gb, Km, BS, D, W), **f64),
+        ttc=torch.zeros((L, Gb, D, W), **f64),
+        bsrc=torch.zeros((L, Gb, Km, D, W), **f64),
+        cin=torch.zeros((L, Gb, Km, 3, W), **f64),
+        bcat=torch.zeros((Gb, Km, BS, D, 4 * D), **f64),
+        macro_w=torch.zeros((Gb, Km, BS), **f64),
+        wvec=torch.zeros((4, BS), **f64),
+        dsrc=torch.zeros((L, Gb, Km, D, W), **f64),
+        xmap=torch.zeros((L, Gb, W), dtype=torch.int32),
+        xval=torch.zeros((Gb, 3, Km, BS, D), **f64),
+        win=torch.zeros((L, 2), dtype=torch.int32),
+    )
+    shifts = (0, 16, 1)
+    tlr._kernel_args_ok(t["v"], t, False, shifts)
+    with pytest.raises(ValueError, match="cast_bf16"):
+        tlr._kernel_args_ok(t["v"], t, True, shifts)
+    for name, dt in (("ttc", torch.float32), ("bcat", torch.float32),
+                     ("xval", torch.float32), ("xmap", torch.int64),
+                     ("win", torch.int64)):
+        bad = dict(t, **{name: t[name].to(dt)})
+        with pytest.raises(ValueError, match=name):
+            tlr._kernel_args_ok(t["v"], bad, False, shifts)
+    v32 = t["v"].float()
+    with pytest.raises(ValueError, match="ttc"):  # f32 state, f64 operands
+        tlr._kernel_args_ok(v32, dict(t, v=v32), False, shifts)
 
 
 def test_wrapper_rejects_other_devices():
@@ -216,13 +251,15 @@ def test_wrapper_rejects_other_devices():
 @pytest.mark.parametrize("dtype,nbytes,bound_ms", [
     (torch.float32, 4200939392, 1.25401175880597),
     (torch.bfloat16, 2166046592, 0.646581072238806),
+    (torch.float64, 8401878784, 2.50802351761194),
 ])
 def test_flagship_bucket_bound(dtype, nbytes, bound_ms):
     """The bound chip_smoke.py reports for the flagship's bucket 0 (46
     levels, 4 groups x 10 slots x 40 bands, D=27, W=256, three faces): its
-    bytes (every input read once, every output written once) over
-    3.35 TB/s, above its 1.1e11 flop over the tensor-core peak (3xTF32 at
-    495/3 TFLOP/s for f32 state, bf16 at 989 TFLOP/s)."""
+    bytes (every input read once, every output written once; float64 state
+    reads float64 operands and writes float64 ms partials) over 3.35 TB/s,
+    above its 1.1e11 flop over the tensor-core peak (3xTF32 at 495/3
+    TFLOP/s for f32 state, bf16 at 989 TFLOP/s, FP64 at 67 TFLOP/s)."""
     v = torch.zeros((46, 4, 10, 40, 27, 256), dtype=dtype, device="meta")
     got_bytes, flop = tlr.sweep_cost(v, 3)
     assert got_bytes == nbytes and flop == 2 * 46 * 4 * 10 * 40 * 27 * 108 * 256
@@ -232,15 +269,25 @@ def test_flagship_bucket_bound(dtype, nbytes, bound_ms):
     assert flop / tlr.H100_FLOPS[dtype] * 1e3 < ms
 
 
-@pytest.mark.parametrize("cast", [False, True])
+@pytest.mark.parametrize("cast", [False, True, "f64"])
 def test_kernel_shared_memory_fits_one_cta(cast):
     """The kernel's carve-up at the flagship's widths fits one CTA on
-    Hopper (tiles at a row stride of 264 words), and grows with W."""
-    smem = tlr.kernel_smem_bytes(27, 256, 3, cast, 46)
+    Hopper (f32 and bf16: four tiles at a row stride of 264 words; f64: the
+    transposed factor and one ring tile, small enough for two CTAs per SM),
+    and grows with W."""
+    state = {False: torch.float32, True: torch.bfloat16,
+             "f64": torch.float64}[cast]
+    smem = tlr.kernel_smem_bytes(27, 256, 3, state, 46)
     assert smem <= tlr._SMEM_LIMIT
-    assert smem == ((8192 if cast else 32768) + 4 * 27 * 264 * 4
-                    + 2 * 3 * 256 * 4 + 46 * 8)
-    assert tlr.kernel_smem_bytes(27, 64, 3, cast, 46) < smem
+    if state == torch.float64:
+        assert smem == 108 * 28 * 8 + 27 * 256 * 8 + 46 * 8 == 79856
+        assert 2 * smem <= 228 * 1024
+    else:
+        assert smem == ((8192 if cast else 32768) + 4 * 27 * 264 * 4
+                        + 2 * 3 * 256 * 4 + 46 * 8)
+    assert tlr.kernel_smem_bytes(27, 64, 3, state, 46) < smem
+    with pytest.raises(ValueError, match="no kernel"):
+        tlr.kernel_smem_bytes(27, 256, 3, torch.float16, 46)
 
 
 # ---- hull windows ---------------------------------------------------------
@@ -396,10 +443,11 @@ def test_kernel_takes_int32_windows():
         tlr._kernel_args_ok(v, dict(v=v, win=torch.zeros((2, 2),
                                                          dtype=torch.int64)),
                             False, SHIFTS)
-    assert (tlr.kernel_smem_bytes(27, 256, 3, False, 46)
-            == tlr.kernel_smem_bytes(27, 256, 3, False, 0) + 46 * 8)
+    for state in (torch.float32, torch.float64):
+        assert (tlr.kernel_smem_bytes(27, 256, 3, state, 46)
+                == tlr.kernel_smem_bytes(27, 256, 3, state, 0) + 46 * 8)
     with pytest.raises(TypeError):  # L is not optional: the windows take room
-        tlr.kernel_smem_bytes(27, 256, 3, False)
+        tlr.kernel_smem_bytes(27, 256, 3, torch.float32)
 
 
 def test_windows_on_device_checks_and_uploads():
@@ -419,7 +467,8 @@ def test_windows_on_device_checks_and_uploads():
     assert tlr.sweep_cost(v, 3, win=t) < tlr.sweep_cost(v, 3)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float64])
 def test_sweep_cost_counts_window_slots(dtype):
     """Full windows cost what no windows cost; the flagship's windows
     (7,246 of 11,776 slots) cut every level-indexed operand and the flop in
@@ -443,10 +492,37 @@ def test_sweep_cost_counts_window_slots(dtype):
     win = np.stack([lo, hi], axis=1)
     slots = int((hi - lo).sum())
     assert win.shape == (L, 2) and slots == 7246
-    fixed = 4 * (Gb * Km * BS * D * 4 * D + Gb * Km * BS + 4 * BS)
+    op = 8 if dtype == torch.float64 else 4  # the kernel's operand size
+    fixed = op * (Gb * Km * BS * D * 4 * D + Gb * Km * BS + 4 * BS)
     nbytes, flop = tlr.sweep_cost(v, 3)
     nbytes_w, flop_w = tlr.sweep_cost(v, 3, win=win)
     assert flop_w * L * W == flop * slots
     assert (nbytes_w - fixed) * L * W == (nbytes - fixed) * slots
     ms_w, by = tlr.sweep_bound_ms(v, 3, win=win)
     assert by == "bytes" and ms_w < tlr.sweep_bound_ms(v, 3)[0]
+    if dtype == torch.float64:  # the f64 kernel's windowed bounds
+        assert (nbytes_w, flop_w) == (5184201664, 67613875200)
+        np.testing.assert_allclose(ms_w, 1.5475228847761193, rtol=1e-12)
+        v1 = torch.zeros((L, Gb, 6, BS, D, W), dtype=dtype, device="meta")
+        assert tlr.sweep_cost(v1, 3, win=win)[0] == 3113025728
+        np.testing.assert_allclose(tlr.sweep_bound_ms(v1, 3, win=win)[0],
+                                   0.9292614113432835, rtol=1e-12)
+
+
+def test_sweep_cost_counts_operands_by_element_size():
+    """dsrc and xval count at their own element size; the kernel's other
+    operands and ms at 8 bytes with float64 state, 4 otherwise."""
+    L, Gb, Km, BS, D, W = 3, 2, 2, 4, 8, 16
+    for dt, op in ((torch.float32, 4), (torch.float64, 8)):
+        v = torch.zeros((L, Gb, Km, BS, D, W), dtype=dt)
+        dsrc = torch.zeros((L, Gb, Km, D, W), dtype=dt)
+        xsrc = tlr.ClosureSource(torch.zeros((L, Gb, W), dtype=torch.int32),
+                                 torch.zeros((Gb, 5, Km, BS, D), dtype=dt))
+        base = tlr.sweep_cost(v, 3)[0]
+        assert base == 2 * v.numel() * op + op * (
+            L * W * Gb * D + L * W * Gb * Km * D + L * W * Gb * Km * 3
+            + Gb * Km * BS * D * 4 * D + Gb * Km * BS + 4 * BS
+            + Gb * Km * L * W * D)
+        assert tlr.sweep_cost(v, 3, dsrc=dsrc)[0] == base + dsrc.numel() * op
+        assert tlr.sweep_cost(v, 3, xsrc=xsrc)[0] == (
+            base + L * Gb * W * 4 + xsrc.xval.numel() * op)

@@ -284,13 +284,14 @@ def test_port_matches_golden_on_cpu():
 def _solve_states(case, steps=3, windows=True, bf16=False, dirichlet=False,
                   dtype=torch.float32):
     """(solver, result) of `steps` steps with hull windows on (the default)
-    or off (PBTE_RING_WINDOWS=0, read by the constructor)."""
-    env = {"PBTE_RING_WINDOWS": "1" if windows else "0",
-           "PBTE_RING_STATE_BF16": "1" if bf16 else "0"}
+    or off (the constructor's gate closed: WINDOW_MAX_SHARE = 0)."""
+    from pbte_tpu_torch.solver import source_iteration as tsi
+
     bcs, kw = (DIRICHLET_WALLS, DIRICHLET) if dirichlet else (WALL_BCS, {})
     with pytest.MonkeyPatch.context() as mp:
-        for k, v in env.items():
-            mp.setenv(k, v)
+        mp.setenv("PBTE_RING_STATE_BF16", "1" if bf16 else "0")
+        if not windows:
+            mp.setattr(tsi, "WINDOW_MAX_SHARE", 0.0)
         ts = SourceIterationSolver(*_problem(case), bcs, dtype=dtype,
                                    device="cpu", **kw)
     assert (ts.win is not None) == windows and ts.state_bf16 == bf16
@@ -313,7 +314,7 @@ def assert_same_bits(ra, rb):
     ("9x8x8_p1", True, False, torch.float64),
 ])
 def test_windows_change_no_bit(case, dirichlet, bf16, dtype):
-    """Hull windows on and PBTE_RING_WINDOWS=0 give the same u, Tc, Tv and
+    """Hull windows on and off (the gate closed) give the same u, Tc, Tv and
     residual bit for bit (isothermal and Dirichlet walls, one and two
     buckets, f32, bf16 and f64 state): slots outside the windows are
     exact-zero fixed points."""
@@ -355,13 +356,14 @@ def test_windowed_step_matches_jax_step_ring_win():
 
 def test_window_gate(monkeypatch):
     """Windows are taken when, rounded out to the kernel's 16-slot tiles,
-    they keep under 95% of the slab (pbte_tpu's gate), and never with
-    PBTE_RING_WINDOWS=0. A 32x4x4 lattice has a 16-slot plane, one tile per
-    level: nothing to save."""
+    they keep under 95% of the slab (pbte_tpu's gate, WINDOW_MAX_SHARE), and
+    never with the gate closed. A 32x4x4 lattice has a 16-slot plane, one
+    tile per level: nothing to save. The PBTE_RING_WINDOWS switch is gone:
+    it changes nothing."""
     from pbte_tpu_torch.solver import source_iteration as tsi
     from pbte_tpu_torch.solver.lattice_tables import window_slots
 
-    monkeypatch.delenv("PBTE_RING_WINDOWS", raising=False)
+    monkeypatch.setenv("PBTE_RING_WINDOWS", "0")
     ts = SourceIterationSolver(*_problem("8x8x8_p1"), WALL_BCS, device="cpu")
     slots = window_slots(ts.win, tsi.WINDOW_TILE)
     assert slots == 1024 and slots < 0.95 * ts.L * ts.W
@@ -372,7 +374,7 @@ def test_window_gate(monkeypatch):
     assert thin.W == 16 and thin.win is None
     r = thin.solve(tol=0, max_iter=2, verbose=False)
     assert torch.isfinite(r.Tc).all()
-    monkeypatch.setenv("PBTE_RING_WINDOWS", "0")
+    monkeypatch.setattr(tsi, "WINDOW_MAX_SHARE", 0.0)
     off = SourceIterationSolver(*_problem("8x8x8_p1"), WALL_BCS, device="cpu")
     assert off.win is None
 
@@ -667,11 +669,53 @@ def test_gate_small_mesh_keeps_face_order():
                  WALL_BCS)
 
 
-def test_gate_f64_on_gpu_device():
-    """float64 is taken on the CPU only (checked before any allocation)."""
-    with pytest.raises(NotImplementedError, match="CPU only"):
+def test_gate_f64_on_gpu_device(monkeypatch):
+    """float64 is taken on a GPU too (the float64 kernel): with no GPU
+    visible it raises only for the missing device, and the flagship's two
+    float64 bucket shapes pass the kernel's argument checks and fit its
+    shared memory."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
         SourceIterationSolver(*_problem("9x8x8_p1"), WALL_BCS,
                               dtype=torch.float64, device="cuda")
+    for km in (10, 6):
+        v = torch.zeros((46, 4, km, 40, 27, 256), dtype=torch.float64,
+                        device="meta")
+        tlr._kernel_args_ok(v, dict(v=v), False, (0, 16, 1))
+    assert tlr.kernel_smem_bytes(27, 256, 3, torch.float64, 46) == 79856
+
+
+def test_f64_step_hands_the_kernel_what_it_takes():
+    """Every sweep call of a float64 step passes the float64 kernel's
+    argument checks (float64 operands, int32 windows and closure map), with
+    the Dirichlet source on and with diffuse walls."""
+    for bcs, kw in ((DIRICHLET_WALLS, DIRICHLET),
+                    ({5: -0.5, 3: 0.5}, dict(diffuse_bcs=[1, 2, 4, 6]))):
+        ts = SourceIterationSolver(*_problem("9x8x8_p1"), bcs,
+                                   dtype=torch.float64, device="cpu", **kw)
+        calls = []
+
+        def checked(v, ttc, bsrc, cin, bcat, macro_w, wvec, *, shifts, dsrc,
+                    xsrc, cast_bf16, win):
+            tensors = dict(v=v, ttc=ttc, bsrc=bsrc, cin=cin, bcat=bcat,
+                           macro_w=macro_w, wvec=wvec,
+                           win=tlr.windows_on_device(win, v.shape[0],
+                                                     v.shape[-1], "cpu"))
+            if dsrc is not None:
+                tensors["dsrc"] = dsrc
+            if xsrc is not None:
+                tensors.update(xmap=xsrc.xmap, xval=xsrc.xval)
+            assert v.dtype == torch.float64 and not cast_bf16
+            tlr._kernel_args_ok(v, tensors, cast_bf16, shifts)
+            calls.append((dsrc is not None, xsrc is not None))
+            return tlr.lattice_ring_sweep_ref(
+                v, ttc, bsrc, cin, bcat, macro_w, wvec, shifts=shifts,
+                dsrc=dsrc, xsrc=xsrc, cast_bf16=cast_bf16, win=win)
+
+        ts.ring_sweep = checked
+        ts.solve(tol=0, max_iter=2, verbose=False)
+        want = ("dirichlet_bcs" in kw, "diffuse_bcs" in kw)
+        assert calls == [want] * (2 * len(ts.consts["buckets"]))
 
 
 @pytest.mark.parametrize("entry", ["solver", "consts", "state"])
@@ -694,7 +738,8 @@ def test_entry_points_default_to_the_gpu(monkeypatch, entry):
 
 
 def test_no_jax_import():
-    """The port builds and steps a hex 8^3 problem in a process where
+    """The port builds and steps a hex 8^3 problem, and solves it in float64
+    with solve(accelerate="bicgstab") (solver/accel.py), in a process where
     importing JAX, or anything of pbte_tpu, fails; every module of the
     port, chip_smoke.py and bench_torch.py import there too."""
     code = textwrap.dedent("""
@@ -728,6 +773,13 @@ def test_no_jax_import():
         for _ in range(2):
             u, Tc, Tv, r = s.step(u, Tc, Tv)
         assert torch.isfinite(Tc).all() and bool(torch.isfinite(r))
+        from pbte_tpu_torch.solver import accel
+        assert callable(accel.bicgstab_outer)
+        s64 = SourceIterationSolver(
+            *unit_cube(8, 8, 8, order=1, polar=2, azimuth=4, nspec=2),
+            WALL_BCS, dtype=torch.float64, device="cpu")
+        r = s64.solve(tol=0, max_iter=6, verbose=False, accelerate="bicgstab")
+        assert r.iterations == 5 and torch.isfinite(r.Tc).all()
         assert not any(m.split(".")[0] in ("jax", "jaxlib", "pbte_tpu")
                        for m in sys.modules)
         print("no-jax ok")

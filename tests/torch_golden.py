@@ -11,14 +11,23 @@ bf16 operand staging off, ``PBTE_RING_BF16=0``) on a hex 8^3, p=1,
 periodic, z faces isothermal, one y face diffuse and the other specular;
 5 outer steps from the zero state.
 
-Both build their problems from pbte_tpu's own host layers
+``build_accel()`` runs its float64 XLA ring (``sweep_mode="ring"``) on a
+hex 8^3, p=1, 8-direction, nspec=2 problem with the flagship walls through
+the BiCGStab outer solve, ``solve(accelerate="bicgstab", tol=0,
+max_iter=18)``, and keeps Tc, Tv, the Tv residual and the step count
+(a cap of 18 step applications: from ~19 on, at a plateau of the
+recurrence, the rounding of the summation order grows ~1e3-fold every two
+steps, to 1e-7 of Tc at a cap of 24, measured between pbte_tpu and the port
+on the CPU).
+
+All three build their problems from pbte_tpu's own host layers
 (``jax_unit_cube``), the same unit cube ``pbte_tpu_torch.problem.unit_cube``
 builds from the port's copy of them.
 
-``python tests/torch_golden.py`` writes both to ``tests/data/``;
-tests/test_torch_solver.py regenerates them and checks them against the
-committed files, and chip_smoke.py holds pbte_tpu_torch's CUDA kernel path
-on a GPU to them.
+``python tests/torch_golden.py`` writes them to ``tests/data/``;
+tests/test_torch_solver.py and tests/test_torch_accel.py regenerate them
+and check them against the committed files, and chip_smoke.py holds
+pbte_tpu_torch's CUDA kernel path on a GPU to them.
 """
 
 from __future__ import annotations
@@ -41,6 +50,11 @@ CLOSURE_PERIODIC = (0,)
 CLOSURE_BCS = {1: -0.5, 6: 0.5}
 CLOSURE_DIFFUSE = (2,)
 CLOSURE_SPECULAR = (4,)
+
+
+PATH_ACCEL = DATA / "torch_port_golden_accel.npz"
+ACCEL_PARAMS = dict(nx=8, ny=8, nz=8, order=1, polar=2, azimuth=4, nspec=2)
+ACCEL_MAX_ITER = 18
 
 
 def jax_unit_cube(nx, ny, nz, order, polar, azimuth, nspec, periodic=()):
@@ -140,7 +154,35 @@ def build_closures() -> dict:
     return dict(fields, Tc=tcs, residual=res)
 
 
+def build_accel() -> dict:
+    import jax.numpy as jnp
+
+    from pbte_tpu.solver.source_iteration import SourceIterationSolver
+
+    s = SourceIterationSolver(*jax_unit_cube(**ACCEL_PARAMS), WALL_BCS,
+                              dtype=jnp.float64, sweep_mode="ring")
+    if not (s.sweep_mode == "ring" and s._ring_lattice
+            and not s._use_pallas_ring):
+        raise RuntimeError("the accelerated golden must come from the "
+                           "float64 XLA lattice ring")
+    r = s.solve(tol=0, max_iter=ACCEL_MAX_ITER, verbose=False,
+                accelerate="bicgstab")
+    attrs = sorted(WALL_BCS)
+    return dict(
+        **{k: np.int64(v) for k, v in ACCEL_PARAMS.items()},
+        max_iter=np.int64(ACCEL_MAX_ITER),
+        bc_attrs=np.array(attrs, dtype=np.int64),
+        bc_temps=np.array([WALL_BCS[a] for a in attrs]),
+        Tc=np.asarray(r.Tc),  # (ne, D) f64
+        Tv=np.asarray(r.Tv),  # (ne,) f64
+        residual=np.float64(r.residual),
+        iterations=np.int64(r.iterations),
+    )
+
+
 GOLDENS = {PATH: build, PATH_CLOSURES: build_closures}
+# the accelerated golden (tests/test_torch_accel.py checks it is current)
+ACCEL_GOLDENS = {PATH_ACCEL: build_accel}
 
 
 if __name__ == "__main__":
@@ -153,6 +195,6 @@ if __name__ == "__main__":
     jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_enable_x64", True)
     DATA.mkdir(parents=True, exist_ok=True)
-    for path, fn in GOLDENS.items():
+    for path, fn in {**GOLDENS, **ACCEL_GOLDENS}.items():
         np.savez_compressed(path, **fn())
         print(f"wrote {path}")
