@@ -13,7 +13,8 @@ Phases (a failing phase raises and the script exits non-zero):
 1. versions, the device and its power limit (no GPU: exit 1);
 2. nvcc builds of pbte_tpu_torch/csrc/lattice_ring.cu (K1) and
    csrc/dma_copy.cu (K2, K3), concurrently, with the ptxas register /
-   shared-memory reports of every kernel;
+   shared-memory reports of every kernel, and the registers and spill of
+   each float64 K1 instantiation on a line of their own;
 3. K1 vs plain version at the flagship's two Km-bucket shapes, with the
    solver's real operators and seeded random state, for f32 state, bf16
    state, f64 state (the float64 kernel, with the operators in float64), a
@@ -324,6 +325,35 @@ def check_k1_smem(solver, lr):
                                f"the wrapper checks {want} B ({state})")
     log(f"[smoke] K1 shared memory per CTA at D={D} W={W}: "
         + ", ".join(f"{str(k).split('.')[-1]} {v} B" for k, v in got.items()))
+
+
+def f64_ptxas(log):
+    """The ptxas report of each float64 K1 instantiation in a build log:
+    {"D=27 dsrc": {"registers": r, "spill_stores": s, "spill_loads": s}}."""
+    import re
+
+    out, key = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            k = re.search(r"lattice_ring_f64_kernelILi(\d+)ELb([01])E",
+                          m.group(1))
+            key = (f"D={k.group(1)}{' dsrc' if k.group(2) == '1' else ''}"
+                   if k else None)
+            if key:
+                out[key] = {}
+            continue
+        if key is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out[key].update(spill_stores=int(m.group(1)),
+                            spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[key]["registers"] = int(m.group(1))
+    return out
 
 
 def edge_totals(block):
@@ -699,6 +729,12 @@ def main() -> int:
         f"{ {k: round(b.seconds, 1) for k, b in built.items()} } s)")
     for b in built.values():
         log(b.log.strip())
+    f64_regs = f64_ptxas(built["lattice_ring"].log)
+    log("[smoke] K1 f64 ptxas " + json.dumps(f64_regs))
+    if len(f64_regs) != 4:
+        raise RuntimeError(f"want the ptxas report of 4 float64 K1 "
+                           f"instantiations (D 8, 27; with and without "
+                           f"dsrc), got {sorted(f64_regs)}")
 
     problem = unit_cube(**FLAGSHIP)
     solver, setup_s = build_flagship(SourceIterationSolver, problem,

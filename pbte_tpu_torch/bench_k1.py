@@ -17,7 +17,9 @@ timed in turns with today's full slab::
 
 At the flagship's two Km-bucket shapes, with the solver's operators and
 seeded random state zeroed outside the solver's hull windows (f32 state;
-bf16 state; bucket 1 with a Dirichlet source), every design is launched
+bf16 state; bucket 1 with a Dirichlet source; f64 state with a Dirichlet
+source in both buckets, the operators of a float64 solver), every design
+that has an entry point for the case's state is launched
 with the windows, held to the current one (max |diff| over max) and timed
 in turns with it and with ``full_slab``, the current build launched
 without windows on the same inputs: ``--rounds`` rounds, each a CUDA-event
@@ -31,7 +33,15 @@ launches, every slot for a full-slab launch) and the share of it.
 Usage (on a machine with a CUDA GPU, from the root of a checkout)::
 
     python -m pbte_tpu_torch.bench_k1 [--design no_ms=:PBTE_K1_NO_MS] \\
-        [--reps 5] [--rounds 5] [--out F]
+        [--state f64] [--reps 5] [--rounds 5] [--out F]
+
+``--state`` (repeatable) keeps the cases of those state types. The f64
+cases time the float64 kernel against an earlier one, e.g. the one-role
+FP64 FMA kernel of commit fdfeb19::
+
+    git show fdfeb19:pbte_tpu_torch/csrc/lattice_ring.cu > build/k1_fma.cu
+    python -m pbte_tpu_torch.bench_k1 --design fma=build/k1_fma.cu \\
+        --state f64
 
 It prints the JSON to stdout (or writes ``--out``); it exits 1 without a
 GPU.
@@ -54,7 +64,8 @@ from pbte_tpu_torch.ops import lattice_ring as lr
 
 # (bucket, state, Dirichlet source)
 CASES = ((0, "f32", False), (0, "bf16", False), (1, "f32", True),
-         (1, "bf16", False))
+         (1, "bf16", False), (0, "f64", True), (1, "f64", True))
+STATES = ("f32", "bf16", "f64")
 
 
 def parse_design(arg):
@@ -75,8 +86,9 @@ def parse_design(arg):
 
 
 def case_inputs(solver, bi, state, dirichlet, rng):
-    """The sweep's arguments at one bucket shape: the solver's operators,
-    seeded random v, ttc (and dsrc), zero outside the solver's windows."""
+    """The sweep's arguments at one bucket shape: the solver's operators
+    (a float64 solver's for f64 state), seeded random v, ttc (and dsrc) in
+    the state's precision, zero outside the solver's windows."""
     c = solver.consts
     cb = c["buckets"][bi]
     L, D, W, BS = solver.L, solver.D, solver.W, solver.BS
@@ -86,9 +98,10 @@ def case_inputs(solver, bi, state, dirichlet, rng):
         inside[l, lo:hi] = 1.0
     inside = torch.from_numpy(inside).cuda()
 
+    np_dt = np.float64 if state == "f64" else np.float32
+
     def rnd(*shape):
-        t = torch.from_numpy(
-            rng.standard_normal(shape, dtype=np.float32)).cuda()
+        t = torch.from_numpy(rng.standard_normal(shape, dtype=np_dt)).cuda()
         return t * inside.view((L,) + (1,) * (len(shape) - 2) + (W,))
 
     v = rnd(L, Gb, Km, BS, D, W)
@@ -128,12 +141,19 @@ def time_designs(runs, reps, rounds):
     return out
 
 
-def run(designs, reps, rounds):
+def cases_of(states):
+    """The CASES of the given state types (all of them for None)."""
+    unknown = set(states or ()) - set(STATES)
+    if unknown:
+        raise ValueError(f"unknown states {sorted(unknown)}, want {STATES}")
+    return [c for c in CASES if not states or c[1] in states]
+
+
+def run(designs, reps, rounds, states=None):
     from pbte_tpu_torch.problem import FLAGSHIP, WALL_BCS, unit_cube
     from pbte_tpu_torch.solver.source_iteration import SourceIterationSolver
 
     builds = ["current"] + [d[0] for d in designs]
-    names = builds + ["full_slab"]
     flags = {"current": frozenset()} | {d[0]: d[3] for d in designs}
     committed = _build.CSRC_DIR / "lattice_ring.cu"
     sources = {"current": (committed, ())} | {
@@ -144,26 +164,41 @@ def run(designs, reps, rounds):
     build_s = time.perf_counter() - t0
     libs = {n: lr._lib(n, takes_win="nowin" not in flags[n]) for n in builds}
     full = {n for n in builds if "full" in flags[n]} | {"full_slab"}
-    solver = SourceIterationSolver(*unit_cube(**FLAGSHIP), WALL_BCS,
-                                   device="cuda")
-    if solver.win is None:
-        raise RuntimeError("the flagship solver took no hull windows")
+    cases = cases_of(states)
+    problem = unit_cube(**FLAGSHIP)
+    solvers = {}
+
+    def solver_of(state):
+        dt = torch.float64 if state == "f64" else torch.float32
+        if dt not in solvers:
+            s = SourceIterationSolver(*problem, WALL_BCS, device="cuda",
+                                      dtype=dt)
+            if s.win is None:
+                raise RuntimeError("the flagship solver took no hull windows")
+            solvers[dt] = s
+        return solvers[dt]
+
     rng = np.random.default_rng(0)
     rows = []
-    for bi, state, dirichlet in CASES:
+    for bi, state, dirichlet in cases:
+        solver = solver_of(state)
         args, kw = case_inputs(solver, bi, state, dirichlet, rng)
+        # a design from before the float64 kernel sits out the f64 cases
+        case_builds = [n for n in builds if state != "f64"
+                       or hasattr(libs[n], "pbte_lattice_ring_sweep_f64")]
         runs = {n: launcher(libs[n], args, kw,
                             None if n in full else solver.win_dev)
-                for n in builds}
+                for n in case_builds}
         runs["full_slab"] = launcher(libs["current"], args, kw, None)
         # every design against the committed build launched the same way
         # (the inputs respect the windows' contract, so the two references
         # differ in the order of the ms atomics alone)
         errs = {}
+        dt = torch.float64 if state == "f64" else torch.float32
         held_to = {
-            "current": [n for n in builds[1:] if n not in full]
+            "current": [n for n in case_builds[1:] if n not in full]
             + ["full_slab"],
-            "full_slab": [n for n in builds if n in full],
+            "full_slab": [n for n in case_builds if n in full],
         }
         for ref_name, group in held_to.items():
             ref = runs[ref_name]()
@@ -171,8 +206,8 @@ def run(designs, reps, rounds):
             for n in group:
                 got = runs[n]()
                 torch.cuda.synchronize()
-                errs[n] = [((a.float() - b.float()).abs().max()
-                            / b.float().abs().max()).item()
+                errs[n] = [((a.to(dt) - b.to(dt)).abs().max()
+                            / b.to(dt).abs().max()).item()
                            for a, b in zip(got, ref)]
                 del got
             del ref
@@ -185,7 +220,7 @@ def run(designs, reps, rounds):
         row = dict(bucket=bi, shape=list(args[0].shape), state=state,
                    dirichlet=dirichlet, bound_ms=bound, bound_by=by,
                    full_slab_bound_ms=full_bound, designs={})
-        for n in names:
+        for n in runs:
             med = statistics.median(ms[n])
             row["designs"][n] = dict(
                 ms=med, windows=n not in full,
@@ -215,6 +250,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--design", action="append", default=[],
                     help="NAME=[PATH][:DEFINE,...]")
+    ap.add_argument("--state", action="append", default=[],
+                    choices=STATES, help="keep the cases of this state type")
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--rounds", type=int, default=5)
     ap.add_argument("--out", default=None)
@@ -223,7 +260,8 @@ def main(argv=None) -> int:
         print("[bench_k1] no CUDA device: this probe runs on a GPU only",
               file=sys.stderr)
         return 1
-    res = run([parse_design(d) for d in a.design], a.reps, a.rounds)
+    res = run([parse_design(d) for d in a.design], a.reps, a.rounds,
+              a.state)
     text = json.dumps(res, indent=1)
     if a.out:
         with open(a.out, "w") as f:

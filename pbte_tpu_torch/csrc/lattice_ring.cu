@@ -736,78 +736,120 @@ cudaError_t dispatch_d(int D, const void* v, const float* ttc,
 // The Krylov-accelerated solve needs it: in float32 the outer step is affine
 // only to a ~2.7e-3 defect, where every Krylov recurrence stalls.
 //
-// Design: one role, FP64 FMAs on the CUDA cores (a first kernel, right
-// before fast; the FP64 tensor cores, mma.sync m8n8k4, are open work). One
-// CTA per (g, k, b) runs the L levels in order, as above; one thread per
-// slab column w (blockDim = W rounded up to a warp). Per level a thread
-// forms its column's rhs from device memory and multiplies it into D
-// float64 accumulators as it goes (face 0), then adds the three face blocks
-// from the ring tile in shared memory (the previous level's solution, read
-// at column w - s_f and scaled by its own cin[f, w]). The factor sits in
-// shared memory transposed, one (D rounded to even)-wide row per k index, so
-// a thread reads a row as double2 values that every lane of the warp reads
-// at once (a broadcast). The ring tile is read and written along the
-// columns: a warp's 32 lanes touch 32 consecutive doubles of one row, which
-// is conflict-free at any row stride, so its rows are W rounded up to a
-// warp and no more. One ring tile: the level's reads of it end at a
-// __syncthreads before its solution is written there, and a second
-// __syncthreads orders those writes before the next level's reads.
-// Columns outside a level's window write exact zeros to ys and to the ring
-// tile (the plain version's ring is zero there), so the Krylov vectors stay
-// zero on the padding. ms adds its band terms with float64 atomics, in an
-// order that varies from run to run.
+// Design: the pattern of the f32 kernel above in float64. One CTA runs one
+// (g, k, b) over all L levels. Per level the product sol (W x D) = X (W x J)
+// . B^T (J x D) runs on the FP64 tensor cores (DMMA, mma.sync m16n8k4 .f64;
+// wgmma has no float64): W is the M dimension in 16-row m-tiles, D is padded
+// to 8-column n-tiles (27 -> 32) and each face block to whole 4-deep k-steps
+// (27 -> 28; the factor's padding is zero, so the A rows it meets only need
+// to be finite). m16n8k4 pads K least: on an H100 it ran the flagship's
+// bucket 0 7% faster than m16n8k8 (whose consumers spilled 28 B) and 1.67x
+// faster than m16n8k16 (336 B spilled; PERF.md section 6). The factor sits
+// in shared memory in B-fragment order, written once per CTA. A fragments
+// come from shared memory: the rhs tile, and the ring (the previous
+// level's solution) read at row w - s_f and scaled by cin[f, w], zero for
+// w < s_f. Sums are float64 throughout; the order of a column's sum is
+// fixed by the tile code, whatever the window.
 //
-// Shared memory at the flagship (D = 27, W = 256, three faces): the factor
-// 108 x 28 x 8 = 24,192 B, the ring tile 27 x 256 x 8 = 55,296 B, and the
-// windows: 79,856 B, so two CTAs (512 threads, <= 128 registers each) share
-// an SM and one CTA's loads overlap the other's FMAs. (The f32 carve-up,
-// two solution and two rhs tiles of 27 x 264 words, would take 269,424 B in
-// float64 against 232,448.)
+// Warp specialisation, loads in flight: 8 producer warps build level l+1's
+// rhs tile and shifted inflow coefficients (reading v, ttc, bsrc, dsrc, cin,
+// xmap and the closure rows from device memory and L2) while the 8 consumer
+// warps multiply level l. The rhs and cin tiles are double-buffered by level
+// parity, handed over by named barriers (full / empty per buffer, 512
+// threads in every phase). There is one solution tile, which is also the
+// next level's ring: the consumers write level l's solution into it after a
+// consumer barrier that ends every read of it as level l's ring, and a second
+// one orders those writes before level l+1 reads them.
+//
+// The consumers, not the producers, stream the solution out: each warp,
+// after writing its own m-tiles' columns of the solution tile, reads them
+// back (the warp's own writes, so no barrier) and stores them as ys and as
+// the ms atomics, 2 rows x 16 columns per instruction, whole 128-byte lines.
+// With one solution tile a producer pass over it would have to end before
+// the consumers write the next level, so the producers' loads and those
+// stores would run one after the other and set the pace together; the
+// consumers' stores cost them issue slots only. The producers store the zeros
+// of ys outside the window's m-tiles.
+//
+// Hull windows as in the f32 kernel: the consumers run the window's m-tiles
+// only; columns of those tiles outside the window get a zero rhs and zero
+// inflow coefficients, so their solution is an exact zero, and ys there is
+// stored as such; ms is added for the window's columns only. Rows of the
+// solution tile that a level does not compute keep an earlier level's
+// finite solution, which the next level reads only where its cin is zero.
+// So windowed ys equals the full slab's bit for bit, and ys is exact zeros
+// outside the windows (Krylov vectors stay zero on the padding).
+//
+// Shared memory at the flagship (D = 27, W = 256, three faces, row stride
+// 260 doubles, which is 4 mod 16: the 16 lanes of a half-warp's 8-byte
+// fragment read fall on 16 distinct 8-byte bank pairs; a stride of 8 mod 16
+// would put two lanes on each): the factor 4 faces x 7 k-steps x 4 n-tiles
+// x 32 lanes x 8 B = 28,672 B, one solution tile 27 x 260 x 8 = 56,160 B,
+// two rhs tiles 112,320 B, two shifted-cin tiles 12,288 B and 46 windows:
+// 209,808 B, one CTA (16 warps) per SM.
 //
 // What bounds it on an H100 SXM at the flagship bucket 0 with the hull
 // windows: 5.18 GB (v in, ys out, the float64 ms partials and operands) take
 // 1.55 ms at 3.35 TB/s; its 6.76e10 flop take 1.01 ms at the FP64 tensor-core
-// peak of 67 TFLOP/s, and 2.0 ms at the 34 TFLOP/s of the FP64 FMAs this
-// design uses. Per level a CTA's loads and its FMAs run one after the
-// other; the second CTA on the SM is what overlaps them.
+// peak of 67 TFLOP/s (1.3 ms with the padding of D, K and the m-tiles).
+// Measured on an H100 (PERF.md section 6): 5.43 ms, 0.29 of the bound,
+// against 10.71 for the one-role FP64-FMA kernel it replaces; the memory
+// side alone (no product) 4.86 ms, the product alone 3.29 (28 TFLOP/s of
+// padded work), so the two overlap well and neither reaches its bound:
+// every band re-reads ttc, bsrc and dsrc from L2, which the bound counts
+// once. Giving the producers more registers (setmaxnreg 144/112, 152/104),
+// an L2 prefetch of level l+2's v rows and the producers streaming ys and
+// ms out of the solution tile (1.45x) were slower and are not kept.
+//
+// Measurement variants: PBTE_K1_NO_MS, PBTE_K1_NO_YS, PBTE_K1_NO_PRODUCT and
+// PBTE_K1_NO_LOADS as above.
 
-constexpr int kF64MaxThreads = 256;
+// Tile geometry of one D
+template <int D>
+struct GeoF64 {
+  static constexpr int KP = (D + 3) / 4 * 4;  // face depth in 4-deep k-steps
+  static constexpr int KT_FACE = KP / 4;      // k-steps per face block
+  static constexpr int NT = (D + 7) / 8;      // 8-column n-tiles of D
+};
 
-// factor row (one k index) padded to whole double2 values
-__host__ __device__ constexpr int f64_row(int D) { return (D + 1) / 2 * 2; }
-// ring tile row stride: W rounded up to a warp's columns
-__host__ __device__ constexpr int f64_stride(int W) {
-  return (W + 31) / 32 * 32;
+// row stride of the float64 tiles: W rounded to m-tiles plus 4 doubles
+__host__ __device__ constexpr int f64_tile_stride(int W) {
+  return (W + 15) / 16 * 16 + 4;
 }
 
 // Shared-memory carve-up of the float64 kernel (byte offsets), the same on
-// host and device: the transposed factor, one ring tile, the L windows
+// host and device: the factor in fragment order, one solution tile, two rhs
+// tiles and two shifted-cin tiles (level parity), and the L windows
 template <int D>
 struct SmemF64 {
-  size_t bfac, ring, wins, total;
+  size_t bfrag, sol, rhs, cinc, wins, tile, cin_tile, total;
   __host__ __device__ SmemF64(int W, int nf, int L) {
-    bfac = 0;
-    ring = align16(sizeof(double) * (1 + nf) * D * f64_row(D));
-    wins = ring + align16(sizeof(double) * D * f64_stride(W));
+    using G = GeoF64<D>;
+    tile = align16(sizeof(double) * D * f64_tile_stride(W));
+    cin_tile = align16(sizeof(double) * nf * cin_stride(W));
+    bfrag = 0;
+    sol = align16(sizeof(double) * (1 + nf) * G::KT_FACE * G::NT * 32);
+    rhs = sol + tile;
+    cinc = rhs + 2 * tile;
+    wins = cinc + 2 * cin_tile;
     total = wins + align16(sizeof(int2) * L);
   }
 };
 
-// acc[i] += col[i] * x for i < D, col 16-byte aligned (a factor row)
-template <int D>
-__device__ __forceinline__ void axpy_f64(double (&acc)[D],
-                                         const double* col, double x) {
-#pragma unroll
-  for (int i = 0; i + 1 < D; i += 2) {
-    const double2 c = *reinterpret_cast<const double2*>(col + i);
-    acc[i] = fma(c.x, x, acc[i]);
-    acc[i + 1] = fma(c.y, x, acc[i + 1]);
-  }
-  if constexpr (D % 2 != 0) acc[D - 1] = fma(col[D - 1], x, acc[D - 1]);
+// d += A B on the FP64 tensor cores, one m16n8k4 product. A (16 x 4, row):
+// a0, a1 are rows gq, gq + 8 of k column tq; B (4 x 8, col): b is k row tq
+// of column gq; d[q] is row gq + 8 (q >> 1), column 2 tq + (q & 1) (gq =
+// lane / 4, tq = lane % 4).
+__device__ __forceinline__ void mma_f64(double (&d)[4], double a0, double a1,
+                                        double b) {
+  asm("mma.sync.aligned.m16n8k4.row.col.f64.f64.f64.f64 "
+      "{%0,%1,%2,%3}, {%4,%5}, {%6}, {%0,%1,%2,%3};\n"
+      : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
+      : "d"(a0), "d"(a1), "d"(b));
 }
 
-template <int D>
-__global__ void __launch_bounds__(kF64MaxThreads, 2)
+template <int D, bool DIR>
+__global__ void __launch_bounds__(kThreads, 1)
 lattice_ring_f64_kernel(const double* __restrict__ v,
                         const double* __restrict__ ttc,
                         const double* __restrict__ bsrc,
@@ -821,16 +863,23 @@ lattice_ring_f64_kernel(const double* __restrict__ v,
                         const int* __restrict__ win, double* __restrict__ ys,
                         double* __restrict__ ms, int L, int Gb, int Km,
                         int BS, int W, int nf, Shifts sh) {
-  constexpr int DP = f64_row(D);
-  const int WS = f64_stride(W);
+  using G = GeoF64<D>;
+  constexpr int NT = G::NT;
+  constexpr int KT_FACE = G::KT_FACE;
+  const int WP = f64_tile_stride(W);
+  const int WC = cin_stride(W);
   const int J = (1 + nf) * D;
   const SmemF64<D> lay(W, nf, L);
 
   extern __shared__ __align__(16) unsigned char smem[];
-  // bf[kk * DP + i] = bcat[i, kk] (zero for i >= D)
-  double* bf = reinterpret_cast<double*>(smem + lay.bfac);
-  double* ring = reinterpret_cast<double*>(smem + lay.ring);  // (D, WS)
-  int2* wins = reinterpret_cast<int2*>(smem + lay.wins);
+  double* sol = reinterpret_cast<double*>(smem + lay.sol);  // (D, WP)
+  auto rhs_t = [&](int s) {  // (D, WP)
+    return reinterpret_cast<double*>(smem + lay.rhs + s * lay.tile);
+  };
+  auto cinc_t = [&](int s) {  // (nf, WC)
+    return reinterpret_cast<double*>(smem + lay.cinc + s * lay.cin_tile);
+  };
+  int2* wins = reinterpret_cast<int2*>(smem + lay.wins);  // [lo, hi) per level
 
   const int tid = threadIdx.x;
   const int b = blockIdx.x % BS;
@@ -839,100 +888,279 @@ lattice_ring_f64_kernel(const double* __restrict__ v,
   const int k = gk % Km;
   const size_t DW = static_cast<size_t>(D) * W;
 
+  // the factor in B-fragment order: entry (kt NT + n) 32 + lane holds
+  // B[kk][i] = bcat[i, f D + jj] for k-step kt of face block f, k index
+  // jj = 4 (kt mod KT_FACE) + tq and column i = 8 n + gq (zero where
+  // jj >= D or i >= D)
   {
     const double* blk = bcat + (static_cast<size_t>(gk) * BS + b) * D * J;
-    for (int idx = tid; idx < J * DP; idx += blockDim.x) {
-      const int kk = idx / DP;
-      const int i = idx - kk * DP;
-      bf[idx] = i < D ? blk[static_cast<size_t>(i) * J + kk] : 0.0;
+    double* bf = reinterpret_cast<double*>(smem + lay.bfrag);
+    const int n_frag = (1 + nf) * KT_FACE * NT * 32;
+    for (int idx = tid; idx < n_frag; idx += kThreads) {
+      const int ln = idx & 31;
+      const int nt = (idx >> 5) % NT;
+      const int kt = (idx >> 5) / NT;
+      const int f = kt / KT_FACE;
+      const int jj = (kt - f * KT_FACE) * 4 + (ln & 3);
+      const int i = nt * 8 + (ln >> 2);
+      bf[idx] = (jj < D && i < D)
+                    ? blk[static_cast<size_t>(i) * J + f * D + jj]
+                    : 0.0;
     }
   }
-  for (int i = tid; i < D * WS; i += blockDim.x) ring[i] = 0.0;
-  for (int l = tid; l < L; l += blockDim.x) {
+  // the solution tile zero (level 0's ring), the padding columns [W, WP) of
+  // the rhs tiles and both cin tiles zero (no pass writes the padding)
+  for (int i = tid; i < D * WP; i += kThreads) sol[i] = 0.0;
+  for (int i = tid; i < 2 * D * (WP - W); i += kThreads) {
+    const int r = i / (WP - W);  // (tile, row) pair
+    rhs_t(r / D)[(r % D) * WP + W + (i - r * (WP - W))] = 0.0;
+  }
+  for (int i = tid; i < static_cast<int>(2 * lay.cin_tile / 8);
+       i += kThreads) {
+    cinc_t(0)[i] = 0.0;
+  }
+  for (int l = tid; l < L; l += kThreads) {
     wins[l] = win != nullptr ? make_int2(__ldg(win + 2 * l),
                                          __ldg(win + 2 * l + 1))
                              : make_int2(0, W);
   }
   __syncthreads();
 
-  const double w_src = wvec[b];
-  const double w_rel = wvec[BS + b];
-  const double w_bcv = wvec[2 * BS + b];
-  const double w_dir = wvec[3 * BS + b];
-  const double mw = macro_w[static_cast<size_t>(gk) * BS + b];
-  const int w = tid;  // this thread's slab column (idle where w >= W)
+  if (tid >= kConsumerThreads) {
+    // ---- producer warps: level l+1's rhs in, ys zeros out ----
+    const int p = tid - kConsumerThreads;
+    const int R = kProducerThreads / W;  // rows per pass (W <= 256)
+    const int pw = p % W;
+    const int pj = p / W;
+    const bool on = pj < R;
+    const double w_src = wvec[b];
+    const double w_rel = wvec[BS + b];
+    const double w_bcv = wvec[2 * BS + b];
+    const double w_dir = wvec[3 * BS + b];
 
-  for (int l = 0; l < L; ++l) {
-    const int2 wl = wins[l];
-    const bool on = w >= wl.x && w < wl.y;
-    const size_t lg = static_cast<size_t>(l) * Gb + g;
-    const size_t lgk = lg * Km + k;
-    double acc[D];
+    // one column pass over the rows j = pj, pj + R, ... < D (unrolled when
+    // one pass covers every row: every row's loads are in flight at once)
+    auto rows = [&](auto&& body) {
+      if (R == 1) {
 #pragma unroll
-    for (int i = 0; i < D; ++i) acc[i] = 0.0;
-    if (on) {
-      // face 0: this column's rhs, multiplied in as it is formed
-      const double* v_l = v + (lgk * BS + b) * DW + w;
-      const double* ttc_l = ttc + lg * DW + w;
-      const double* bsrc_l = bsrc + lgk * DW + w;
-      const double* dsrc_l = dsrc != nullptr ? dsrc + lgk * DW + w : nullptr;
+        for (int j = 0; j < D; ++j) body(j);
+      } else {
+        for (int j = pj; j < D; j += R) body(j);
+      }
+    };
+    // the window's m-tiles as columns [lo, hi) (empty: none)
+    auto tiles = [&](int l) {
+      const int2 wl = wins[l];
+      return wl.y > wl.x ? make_int2(wl.x & ~15, (wl.y + 15) & ~15)
+                         : make_int2(0, 0);
+    };
+    // rhs tile and shifted inflow coefficients of level l into tile l & 1:
+    // the columns of the window's m-tiles (no consumer reads the others);
+    // a column outside the window gets zeros by a select, with its loads
+    // (of the padding, zero by the windows' contract) left in place: a
+    // second body for such columns spilled in the f32 kernel
+    auto prep = [&](int l) {
+      const int2 tw = tiles(l);
+      if (!on || pw < tw.x || pw >= tw.y) return;
+      const int2 wl = wins[l];
+      const bool inw = pw >= wl.x && pw < wl.y;
+      double* rhs = rhs_t(l & 1);
+      double* cinc = cinc_t(l & 1);
+#ifdef PBTE_K1_NO_LOADS
+      for (int f = pj; f < nf; f += R) cinc[f * WC + pw] = 0.0;
+      rows([&](int j) { rhs[j * WP + pw] = 0.0; });
+      return;
+#endif
+      const size_t lg = static_cast<size_t>(l) * Gb + g;
+      const size_t lgk = lg * Km + k;
+      for (int f = pj; f < nf; f += R) {
+        const double c = __ldg(cin + (lgk * nf + f) * W + pw);
+        cinc[f * WC + pw] = inw && pw >= sh.s[f] ? c : 0.0;
+      }
       const double* xv = nullptr;
       if (xmap != nullptr) {
-        const int u = __ldg(xmap + lg * W + w);
-        if (u >= 0) {
+        const int u = __ldg(xmap + lg * W + pw);
+        if (u >= 0 && inw) {
           xv = xval + ((static_cast<size_t>(g) * n_u + u) * Km + k) * BS * D +
                static_cast<size_t>(b) * D;
         }
       }
-#pragma unroll
-      for (int j = 0; j < D; ++j) {
+      const double* v_l = v + (lgk * BS + b) * DW + pw;
+      const double* ttc_l = ttc + lg * DW + pw;
+      const double* bsrc_l = bsrc + lgk * DW + pw;
+      const double* dsrc_l = DIR ? dsrc + lgk * DW + pw : nullptr;
+      rows([&](int j) {
         const size_t o = static_cast<size_t>(j) * W;
         double x = w_src * __ldg(ttc_l + o) + w_rel * __ldg(v_l + o) -
                    w_bcv * __ldg(bsrc_l + o);
-        if (dsrc_l != nullptr) x -= w_dir * __ldg(dsrc_l + o);
+        if constexpr (DIR) x -= w_dir * __ldg(dsrc_l + o);
         if (xv != nullptr) x += __ldg(xv + j);
-        axpy_f64<D>(acc, bf + j * DP, x);
+        rhs[j * WP + pw] = inw ? x : 0.0;
+      });
+    };
+    // ys of level l outside the window's m-tiles: zeros (the consumers
+    // store the rest)
+    auto zeros = [&](int l) {
+#ifndef PBTE_K1_NO_YS
+      const int2 tw = tiles(l);
+      if (!on || (pw >= tw.x && pw < tw.y)) return;
+      const size_t lgk = (static_cast<size_t>(l) * Gb + g) * Km + k;
+      double* ys_l = ys + (lgk * BS + b) * DW + pw;
+      rows([&](int j) { ys_l[static_cast<size_t>(j) * W] = 0.0; });
+#endif
+    };
+
+    prep(0);
+    bar_arrive(kRhsFull + 0, kThreads);
+    for (int l = 0; l < L; ++l) {
+      if (l + 1 < L) {
+        const int s1 = (l + 1) & 1;
+        if (l + 1 >= 2) bar_sync(kRhsEmpty + s1, kThreads);
+        prep(l + 1);
+        bar_arrive(kRhsFull + s1, kThreads);
       }
-      // faces: the ring at column w - s_f scaled by cin[f, w] (zero where
-      // w < s_f)
+      zeros(l);
+    }
+    return;
+  }
+
+  // ---- consumer warps: each level's product on the FP64 tensor cores,
+  // then its solution into the tile and out as ys and ms ----
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int gq = lane >> 2;  // fragment group: rows gq, gq + 8
+  const int tq = lane & 3;   // thread in group: k (and n) columns
+  const double mw = macro_w[static_cast<size_t>(gk) * BS + b];
+
+  for (int l = 0; l < L; ++l) {
+    const int s = l & 1;
+    const double* rhs = rhs_t(s);
+    const double* cinc = cinc_t(s);
+    // the window's m-tiles [t0, t0 + nt): this warp runs tile t0 + warp
+    // and, in a window of more than 8 tiles, tile t0 + warp + 8
+    const int2 wl = wins[l];
+    const int t0 = wl.x >> 4;
+    const int nt = wl.y > wl.x ? ((wl.y + 15) >> 4) - t0 : 0;
+    bar_sync(kRhsFull + s, kThreads);
+
+    // acc[w, i] = sum_kk A[w, kk] B[kk, i] over the face blocks (face 0:
+    // the rhs tile; face f >= 1: the ring, shifted and scaled)
+    double acc[kMTilesPerWarp][NT][4];
 #pragma unroll
-      for (int f = 0; f < kMaxFaces; ++f) {
-        if (f >= nf) break;
-        const int s = sh.s[f];
-        if (w < s) continue;
-        const double c = __ldg(cin + (lgk * nf + f) * W + w);
-        const double* rf = ring + (w - s);
-        const double* bff = bf + static_cast<size_t>(1 + f) * D * DP;
+    for (int m = 0; m < kMTilesPerWarp; ++m)
 #pragma unroll
-        for (int j = 0; j < D; ++j) {
-          axpy_f64<D>(acc, bff + j * DP, rf[j * WS] * c);
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[m][n][q] = 0.0;
+
+#ifndef PBTE_K1_NO_PRODUCT
+#pragma unroll
+    for (int f = 0; f <= kMaxFaces; ++f) {
+      if (f > nf) break;
+      // per m-tile: this lane's two A rows, the ring rows they read and
+      // their inflow coefficients
+      int row[kMTilesPerWarp][2];
+      double cf[kMTilesPerWarp][2];
+#pragma unroll
+      for (int m = 0; m < kMTilesPerWarp; ++m) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int w = (t0 + warp + m * kConsumerWarps) * 16 + gq + 8 * h;
+          if (f == 0) {
+            row[m][h] = w;
+            cf[m][h] = 1.0;
+          } else {
+            const int wc = w < WC ? w : WC - 1;
+            cf[m][h] = cinc[(f - 1) * WC + wc];
+            row[m][h] = w >= sh.s[f - 1] ? w - sh.s[f - 1] : 0;
+          }
+        }
+      }
+      const double* src = f == 0 ? rhs : sol;
+#pragma unroll
+      for (int kt = 0; kt < KT_FACE; ++kt) {
+        const int kt_all = f * KT_FACE + kt;
+        const int j = kt * 4 + tq;  // the tile row of this lane's k column
+        const int jr = (j < D ? j : D - 1) * WP;
+        double a[kMTilesPerWarp][2];
+#pragma unroll
+        for (int m = 0; m < kMTilesPerWarp; ++m) {
+          if (warp + m * kConsumerWarps >= nt) continue;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const double x = src[jr + row[m][h]];
+            a[m][h] = f == 0 ? x : cf[m][h] * x;
+          }
+        }
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+          const double q = reinterpret_cast<const double*>(
+              smem + lay.bfrag)[(kt_all * NT + n) * 32 + lane];
+#pragma unroll
+          for (int m = 0; m < kMTilesPerWarp; ++m) {
+            if (warp + m * kConsumerWarps < nt) {
+              mma_f64(acc[m][n], a[m][0], a[m][1], q);
+            }
+          }
         }
       }
     }
-    __syncthreads();  // every read of level l-1's ring is done
-    if (w < W) {
-      double* ys_l = ys + (lgk * BS + b) * DW + w;
-      if (on) {
-        double* ms_l = ms + (static_cast<size_t>(gk) * L + l) * DW + w;
+#endif
+    // the rhs and cin tiles of this level are free for level l+2
+    if (l + 2 < L) bar_arrive(kRhsEmpty + s, kThreads);
+    // every consumer's read of the solution tile as level l's ring is done
+    bar_sync(kConsumers, kConsumerThreads);
 #pragma unroll
-        for (int j = 0; j < D; ++j) {
-          ring[j * WS + w] = acc[j];
-          ys_l[static_cast<size_t>(j) * W] = acc[j];
-          atomicAdd(ms_l + static_cast<size_t>(j) * W, mw * acc[j]);
-        }
-      } else {
+    for (int m = 0; m < kMTilesPerWarp; ++m) {
+      if (warp + m * kConsumerWarps >= nt) continue;
+      const int w0 = (t0 + warp + m * kConsumerWarps) * 16 + gq;
 #pragma unroll
-        for (int j = 0; j < D; ++j) {
-          ring[j * WS + w] = 0.0;
-          ys_l[static_cast<size_t>(j) * W] = 0.0;
+      for (int n = 0; n < NT; ++n) {
+        const int i0 = n * 8 + 2 * tq;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int w = w0 + 8 * (q >> 1);
+          const int i = i0 + (q & 1);
+          if (w < W && i < D) sol[i * WP + w] = acc[m][n][q];
         }
       }
     }
-    __syncthreads();  // level l's ring is written before level l+1 reads it
+    __syncwarp();
+    // this warp's m-tiles out of the tile: ys (zeros included) and the ms
+    // partials of the window's columns, 2 rows x 16 columns a step
+    {
+      const size_t lgk = (static_cast<size_t>(l) * Gb + g) * Km + k;
+      double* ys_l = ys + (lgk * BS + b) * DW;
+      double* ms_l = ms + (static_cast<size_t>(gk) * L + l) * DW;
+      const int c = lane & 15;
+      const int jh = lane >> 4;
+#pragma unroll
+      for (int m = 0; m < kMTilesPerWarp; ++m) {
+        if (warp + m * kConsumerWarps >= nt) continue;
+        const int w = (t0 + warp + m * kConsumerWarps) * 16 + c;
+        const bool inw = w >= wl.x && w < wl.y;
+        if (w >= W) continue;
+#pragma unroll
+        for (int it = 0; it < (D + 1) / 2; ++it) {
+          const int j = 2 * it + jh;
+          if (j >= D) break;
+          const double x = sol[j * WP + w];
+          const size_t o = static_cast<size_t>(j) * W + w;
+#ifndef PBTE_K1_NO_YS
+          ys_l[o] = x;
+#endif
+#ifndef PBTE_K1_NO_MS
+          if (inw) atomicAdd(ms_l + o, mw * x);
+#endif
+        }
+      }
+    }
+    // level l's solution is in the tile before level l+1 reads it
+    bar_sync(kConsumers, kConsumerThreads);
   }
 }
 
-template <int D>
+template <int D, bool DIR>
 cudaError_t launch_f64(const double* v, const double* ttc, const double* bsrc,
                        const double* cin, const double* bcat,
                        const double* macro_w, const double* wvec,
@@ -941,16 +1169,38 @@ cudaError_t launch_f64(const double* v, const double* ttc, const double* bsrc,
                        double* ys, double* ms, int L, int Gb, int Km, int BS,
                        int W, int nf, Shifts sh, cudaStream_t stream) {
   const size_t smem = SmemF64<D>(W, nf, L).total;
-  auto kernel = lattice_ring_f64_kernel<D>;
+  auto kernel = lattice_ring_f64_kernel<D, DIR>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  kernel<<<Gb * Km * BS, f64_stride(W), smem, stream>>>(
+  kernel<<<Gb * Km * BS, kThreads, smem, stream>>>(
       v, ttc, bsrc, cin, bcat, macro_w, wvec, dsrc, xmap, xval, n_u, win, ys,
       ms, L, Gb, Km, BS, W, nf, sh);
   return cudaGetLastError();
 }
+
+// the kernel of one D, with or without the Dirichlet source (a compile-time
+// choice: a load behind a run-time test on each row does not stay in
+// flight with the others)
+template <int D>
+cudaError_t launch_f64_d(const double* v, const double* ttc,
+                         const double* bsrc, const double* cin,
+                         const double* bcat, const double* macro_w,
+                         const double* wvec, const double* dsrc,
+                         const int* xmap, const double* xval, int n_u,
+                         const int* win, double* ys, double* ms, int L,
+                         int Gb, int Km, int BS, int W, int nf, Shifts sh,
+                         cudaStream_t stream) {
+  return dsrc != nullptr
+             ? launch_f64<D, true>(v, ttc, bsrc, cin, bcat, macro_w, wvec,
+                                   dsrc, xmap, xval, n_u, win, ys, ms, L, Gb,
+                                   Km, BS, W, nf, sh, stream)
+             : launch_f64<D, false>(v, ttc, bsrc, cin, bcat, macro_w, wvec,
+                                    dsrc, xmap, xval, n_u, win, ys, ms, L, Gb,
+                                    Km, BS, W, nf, sh, stream);
+}
+
 
 }  // namespace
 
@@ -1015,7 +1265,7 @@ int pbte_lattice_ring_sweep_f64(int D, const double* v, const double* ttc,
                                 const int* win, double* ys, double* ms, int L,
                                 int Gb, int Km, int BS, int W, int nf, int s0,
                                 int s1, int s2, void* stream) {
-  if (nf < 1 || nf > kMaxFaces || W < 1 || W > kF64MaxThreads || L < 1) {
+  if (nf < 1 || nf > kMaxFaces || W < 1 || W > kMaxW || L < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Shifts sh{{s0, s1, s2}};
@@ -1023,14 +1273,14 @@ int pbte_lattice_ring_sweep_f64(int D, const double* v, const double* ttc,
   cudaError_t err;
   switch (D) {
     case 8:
-      err = launch_f64<8>(v, ttc, bsrc, cin, bcat, macro_w, wvec, dsrc, xmap,
-                          xval, n_u, win, ys, ms, L, Gb, Km, BS, W, nf, sh,
-                          st);
+      err = launch_f64_d<8>(v, ttc, bsrc, cin, bcat, macro_w, wvec, dsrc,
+                            xmap, xval, n_u, win, ys, ms, L, Gb, Km, BS, W,
+                            nf, sh, st);
       break;
     case 27:
-      err = launch_f64<27>(v, ttc, bsrc, cin, bcat, macro_w, wvec, dsrc,
-                           xmap, xval, n_u, win, ys, ms, L, Gb, Km, BS, W, nf,
-                           sh, st);
+      err = launch_f64_d<27>(v, ttc, bsrc, cin, bcat, macro_w, wvec, dsrc,
+                             xmap, xval, n_u, win, ys, ms, L, Gb, Km, BS, W,
+                             nf, sh, st);
       break;
     default:
       err = cudaErrorInvalidValue;

@@ -45,20 +45,34 @@ KERNEL_MAX_FACES = 3
 _SMEM_LIMIT = 232448  # bytes of shared memory one CTA may use on Hopper
 
 
+def f64_tile_stride(W):
+    """Row stride, in doubles, of the float64 kernel's tiles: W rounded to
+    16-row m-tiles plus 4, which is 4 mod 16, so the 16 lanes of a
+    half-warp's 8-byte A-fragment read (rows gq + 8h, tile rows tq + 4s)
+    fall on 16 distinct 8-byte bank pairs."""
+    return -(-W // 16) * 16 + 4
+
+
 def kernel_smem_bytes(D, W, nf, state, L):
     """Dynamic shared memory of one kernel launch for state of type
     ``state``, as csrc/lattice_ring.cu carves it. float32 and bfloat16
     (``Smem``): the factor block in mma fragment order, two f32 solution
     tiles and two f32 rhs tiles (row stride padded to 32k + 8 words), two
     tiles of shifted inflow coefficients and the L levels' windows. float64
-    (``SmemF64``): the transposed factor (rows of D rounded to even), one
-    ring tile (row stride W rounded to 32) and the windows."""
+    (``SmemF64``): the factor in m16n8k4 B-fragment order (each face block
+    padded to 4-deep k-steps, D to 8-column n-tiles), one solution tile and
+    two rhs tiles (row stride W rounded to 16 plus 4 doubles), two tiles of
+    shifted inflow coefficients and the windows."""
     def a16(n):
         return -(-n // 16) * 16
 
     if state == torch.float64:
-        return (a16(8 * (1 + nf) * D * (-(-D // 2) * 2))
-                + a16(8 * D * (-(-W // 32) * 32)) + a16(8 * L))
+        kt_face = -(-D // 4)
+        nt = -(-D // 8)
+        wc = -(-W // 16) * 16
+        return (a16(8 * (1 + nf) * kt_face * nt * 32)
+                + 3 * a16(8 * D * f64_tile_stride(W)) + 2 * a16(8 * nf * wc)
+                + a16(8 * L))
     if state not in (torch.float32, torch.bfloat16):
         raise ValueError(f"no kernel for {state} state")
     cast_bf16 = state == torch.bfloat16

@@ -99,6 +99,29 @@ def test_bench_k1_design_arguments(arg, want):
         bench_k1.parse_design("x=:@fulll")
 
 
+@pytest.mark.parametrize("states,want", [
+    (["f64"], [(0, "f64", True), (1, "f64", True)]),
+    (["f32", "bf16"], [(0, "f32", False), (0, "bf16", False),
+                       (1, "f32", True), (1, "bf16", False)]),
+    (None, None),
+])
+def test_bench_k1_cases(states, want):
+    """bench_k1 times the float64 kernel at both flagship buckets with a
+    Dirichlet source (the f64 flagship's launches), beside the f32 and bf16
+    cases; --state keeps the cases of the types asked for, and an earlier
+    source given as a design (the FMA kernel of commit fdfeb19: no flags)
+    is timed in turns."""
+    from pbte_tpu_torch import bench_k1
+
+    got = bench_k1.cases_of(states)
+    assert got == (list(bench_k1.CASES) if want is None else want)
+    assert {s for _, s, _ in got} <= set(bench_k1.STATES)
+    with pytest.raises(ValueError, match="unknown states"):
+        bench_k1.cases_of(["f16"])
+    assert bench_k1.parse_design("pr8=build/k1_pr8.cu") == (
+        "pr8", "build/k1_pr8.cu", (), frozenset())
+
+
 def test_extra_rows_can_be_skipped():
     proc = _run(["--device", "cpu"], {"PBTE_BENCH_ROWS": "0"})
     assert proc.returncode == 0, proc.stderr[-3000:]

@@ -273,21 +273,79 @@ def test_flagship_bucket_bound(dtype, nbytes, bound_ms):
 def test_kernel_shared_memory_fits_one_cta(cast):
     """The kernel's carve-up at the flagship's widths fits one CTA on
     Hopper (f32 and bf16: four tiles at a row stride of 264 words; f64: the
-    transposed factor and one ring tile, small enough for two CTAs per SM),
-    and grows with W."""
+    factor in m16n8k4 fragment order, one solution tile and two rhs tiles
+    at a row stride of 260 doubles, one CTA per SM), and grows with W."""
     state = {False: torch.float32, True: torch.bfloat16,
              "f64": torch.float64}[cast]
     smem = tlr.kernel_smem_bytes(27, 256, 3, state, 46)
     assert smem <= tlr._SMEM_LIMIT
     if state == torch.float64:
-        assert smem == 108 * 28 * 8 + 27 * 256 * 8 + 46 * 8 == 79856
-        assert 2 * smem <= 228 * 1024
+        # factor: 4 faces x 7 k-steps x 4 n-tiles x 32 lanes x 1 double
+        assert smem == (4 * 7 * 4 * 32 * 8 + 3 * 27 * 260 * 8
+                        + 2 * 3 * 256 * 8 + 46 * 8) == 209808
+        assert 2 * smem > 228 * 1024  # one CTA per SM
     else:
         assert smem == ((8192 if cast else 32768) + 4 * 27 * 264 * 4
                         + 2 * 3 * 256 * 4 + 46 * 8)
     assert tlr.kernel_smem_bytes(27, 64, 3, state, 46) < smem
     with pytest.raises(ValueError, match="no kernel"):
         tlr.kernel_smem_bytes(27, 256, 3, torch.float16, 46)
+
+
+def _f64_smem_of_c_struct(D, W, nf, L):
+    """SmemF64 of csrc/lattice_ring.cu written out: the factor (1 + nf)
+    faces x KT_FACE 4-deep k-steps x NT n-tiles x 32 lanes x 1 double,
+    then one solution and two rhs tiles (D rows of the padded stride), two
+    cin tiles (nf rows of W rounded to 16) and L int2 windows, each block
+    rounded up to 16 bytes."""
+    def a16(n):
+        return (n + 15) // 16 * 16
+
+    kt_face, nt = (D + 3) // 4, (D + 7) // 8
+    wp = (W + 15) // 16 * 16 + 4
+    wc = (W + 15) // 16 * 16
+    offs = [a16((1 + nf) * kt_face * nt * 32 * 8)]  # the solution tile
+    offs.append(offs[-1] + a16(8 * D * wp))  # the rhs tiles
+    offs.append(offs[-1] + 2 * a16(8 * D * wp))  # the cin tiles
+    offs.append(offs[-1] + 2 * a16(8 * nf * wc))  # the windows
+    return offs[-1] + a16(8 * L)
+
+
+@pytest.mark.parametrize("D", [8, 27])
+@pytest.mark.parametrize("W", [64, 256])
+@pytest.mark.parametrize("nf", [1, 3])
+def test_f64_kernel_shared_memory(D, W, nf):
+    """The wrapper's float64 carve-up equals the C struct's, fits one CTA
+    on Hopper at every width the kernel takes, and grows with W and L by
+    the tiles' and the windows' bytes."""
+    f64 = torch.float64
+    smem = tlr.kernel_smem_bytes(D, W, nf, f64, 46)
+    assert smem == _f64_smem_of_c_struct(D, W, nf, 46)
+    assert smem % 16 == 0
+    assert tlr.kernel_smem_bytes(D, 256, 3, f64, 46) <= tlr._SMEM_LIMIT
+    assert tlr.kernel_smem_bytes(D, W, nf, f64, 48) - smem == 2 * 8
+    assert (tlr.kernel_smem_bytes(D, W + 16, nf, f64, 46) - smem
+            == 3 * 8 * D * 16 + 2 * 8 * nf * 16)
+    # the last level of padding columns still fits: the stride covers the
+    # m-tiles a consumer warp reads
+    assert tlr.f64_tile_stride(W) >= -(-W // 16) * 16
+
+
+@pytest.mark.parametrize("W", [16, 25, 64, 100, 256])
+def test_f64_tile_stride_reads_free_of_bank_conflicts(W):
+    """A half-warp's 8-byte A-fragment read (lane 4 gq + tq reads column
+    gq of an m-tile in tile row tq) falls on 16 distinct 8-byte bank pairs
+    at the f64 stride; a stride of 8 mod 16 doubles would put two lanes on
+    each pair (two wavefronts where one will do)."""
+    def pairs(stride, half):
+        lanes = range(16 * half, 16 * half + 16)
+        return {((ln & 3) * stride + (ln >> 2)) % 16 for ln in lanes}
+
+    wp = tlr.f64_tile_stride(W)
+    assert wp % 16 == 4 and wp >= W
+    for half in (0, 1):
+        assert len(pairs(wp, half)) == 16
+        assert len(pairs(wp + 4, half)) == 8
 
 
 # ---- hull windows ---------------------------------------------------------

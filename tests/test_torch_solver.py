@@ -682,7 +682,7 @@ def test_gate_f64_on_gpu_device(monkeypatch):
         v = torch.zeros((46, 4, km, 40, 27, 256), dtype=torch.float64,
                         device="meta")
         tlr._kernel_args_ok(v, dict(v=v), False, (0, 16, 1))
-    assert tlr.kernel_smem_bytes(27, 256, 3, torch.float64, 46) == 79856
+    assert tlr.kernel_smem_bytes(27, 256, 3, torch.float64, 46) == 209808
 
 
 def test_f64_step_hands_the_kernel_what_it_takes():
