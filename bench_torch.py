@@ -32,6 +32,12 @@ Rows (each rebuilds the solver under its environment):
   (ending in a synchronise), ``ms_per_step_application``, the final
   ``linear_relres`` and ``tv_residual``, and the peak memory. The time per
   step application includes the Krylov vector updates.
+- ``tet_scan``: the reference's legacy production tet shape through the
+  scan path (``problem.tet_cube(**problem.LEGACY_TET)`` with
+  ``problem.LEGACY_TET_SOLVER``: the 5^3 6-tet cuboid, p=3, 16x24 = 384
+  directions, 2x20 bands, f32, the class-batched full factor cache), timed
+  as the others. Its order, polar and azimuth points and bands take the
+  PBTE_BENCH_* overrides where they are set.
 
 An extra row that fails records ``{"error": ...}``; ``PBTE_BENCH_ROWS=0``
 skips the extra rows.
@@ -138,15 +144,16 @@ def k1_share_of_bound(solver, state):
     return out
 
 
-def build(device, size, env=None, solver_kw=None):
-    """(solver, set-up seconds) of the problem built under ``env``."""
+def build(device, size, env=None, solver_kw=None, make=None):
+    """(solver, set-up seconds) of the problem ``make(**size)`` (the unit
+    cube by default) built under ``env``."""
     env = env or {}
     saved = {k: os.environ.get(k) for k in env}
     os.environ.update(env)
     try:
         t0 = time.perf_counter()
         solver = SourceIterationSolver(
-            *problem.unit_cube(**size), device=device,
+            *(make or problem.unit_cube)(**size), device=device,
             **(solver_kw or dict(bc_temps=problem.WALL_BCS)))
         sync(device)
         setup_s = time.perf_counter() - t0
@@ -165,10 +172,11 @@ def release(device):
         torch.cuda.empty_cache()
 
 
-def run_row(name, device, steps, size, env=None, solver_kw=None, shares=False):
+def run_row(name, device, steps, size, env=None, solver_kw=None, shares=False,
+            make=None):
     """Build the solver under ``env`` and time ``steps`` steps; returns the
     row and the solver's shape."""
-    solver, setup_s = build(device, size, env, solver_kw)
+    solver, setup_s = build(device, size, env, solver_kw, make)
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     u, Tc, Tv = solver.initial_state()
@@ -188,7 +196,7 @@ def run_row(name, device, steps, size, env=None, solver_kw=None, shares=False):
         dof_per_s=steps * solver.K * solver.BS * solver.ne * solver.D / dt,
         ms_per_step=dt / steps * 1e3, setup_s=round(setup_s, 2),
         windows=solver.win is not None, state=str(solver.state_dtype),
-        residual=res,
+        residual=res, sweep_mode=solver.sweep_mode,
     )
     if device.type == "cuda":
         row["max_memory_allocated"] = torch.cuda.max_memory_allocated(device)
@@ -295,6 +303,22 @@ def main(argv=None) -> int:
         except Exception as e:
             rows["f64_bicgstab"] = {"error": f"{type(e).__name__}: {e}"[:300]}
             log(f"row f64_bicgstab FAILED: {e}")
+            release(device)
+        # the legacy production tet shape on the scan path
+        tet = dict(problem.LEGACY_TET, **{
+            k: int(os.environ[f"PBTE_BENCH_{k.upper()}"])
+            for k in ("order", "polar", "azimuth", "nspec")
+            if f"PBTE_BENCH_{k.upper()}" in os.environ})
+        try:
+            rows["tet_scan"], tet_shape = run_row(
+                "tet_scan", device, steps, tet, solver_kw=dict(
+                    bc_temps=problem.WALL_BCS, **problem.LEGACY_TET_SOLVER),
+                make=problem.tet_cube)
+            rows["tet_scan"]["shape"] = dict(tet_shape, n=tet["n"],
+                                             order=tet["order"])
+        except Exception as e:
+            rows["tet_scan"] = {"error": f"{type(e).__name__}: {e}"[:300]}
+            log(f"row tet_scan FAILED: {e}")
             release(device)
 
     primary = rows["f32"]

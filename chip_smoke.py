@@ -2,7 +2,8 @@
 plain PyTorch version at the shapes its path gives it, run the flagship
 source iteration (isothermal walls, diffuse walls, bf16 state, and in
 float64 through the BiCGStab-accelerated solve) and the copy probe through
-them, and check the results against the pbte_tpu goldens.
+them, run the legacy production tet shape through the scan path, and check
+the results against the pbte_tpu goldens.
 
 Usage (from the root of a checkout, on a machine with one CUDA GPU):
 
@@ -48,9 +49,11 @@ Phases (a failing phase raises and the script exits non-zero):
 7. the golden Tc of pbte_tpu's Pallas path (tests/data/torch_port_golden.npz)
    and of its XLA ring with periodic, diffuse and specular walls
    (tests/data/torch_port_golden_closures.npz) against the port on the GPU,
-   and the float64 BiCGStab golden of its XLA ring
+   the float64 BiCGStab golden of its XLA ring
    (tests/data/torch_port_golden_accel.npz) against the port's float64
-   kernel path;
+   kernel path, and the golden of its f32 scan path on a 3^3 6-tet cube
+   with diffuse walls (tests/data/torch_port_golden_scan.npz) against the
+   port's scan on the GPU;
 8. the f64 flagship (the f32 solvers freed first, so the peak is its own):
    set-up, 2 + 30 timed steps and 3 steps kernel vs plain as phase 5; then
    solve(accelerate="bicgstab", tol=1e-8) with its K1 launches (2 per step
@@ -60,7 +63,17 @@ Phases (a failing phase raises and the script exits non-zero):
    refined_solve with the f32 flagship solver as the base and the f64
    solver's step as the defect step: the defect before and after one round,
    the correction steps, and the bound ||d(x_ref)|| / (1 - rho) with rho
-   the plain solve's rate over its last steps.
+   the plain solve's rate over its last steps;
+9. the reference's legacy production tet shape through the scan path
+   (``problem.tet_cube(**LEGACY_TET)``: the 5^3 6-tet cuboid, p=3, 16x24
+   = 384 directions, 2x20 bands, f32, ``sweep_mode="scan"`` with the
+   class-batched full factor cache): set-up, 2 warm-up + 10 timed steps,
+   ms/step, element-ordinate DOF/s, peak memory; the CUDA launches per
+   step, the device's busy share (kernel time per step over the timed
+   step, and over the profiled step), the top kernels and the top ops by
+   device time from torch.profiler over 2 more steps; then 3 steps in f32 against 3 in f64 from the zero
+   state. The scan path runs as torch ops (pbte_tpu's scan reaches no
+   Pallas kernel), so no kernel of the kernels line launches in it.
 
 The line before the last is the card's name and power limit, the one before
 it {"kernels": [...]}, the last line {"ok": true, "device": {...}}.
@@ -120,6 +133,13 @@ ACCEL_PEAK_LIMIT = 75e9  # bytes of device memory the f64 solve may reach
 # the accelerated and the plain f64 solve to the same Tv residual
 ACCEL_TC_RTOL = 1e-5
 REFINE_GAIN = 100.0  # least fall of the f64 defect in one refinement round
+TET_TIMED_STEPS = 10
+TET_PROFILED_STEPS = 2
+TET_COMPARE_STEPS = 3
+# the legacy tet shape, 3 f32 steps against 3 f64 steps from the zero
+# state: 3.1e-7 of max measured on the CPU at the 3^3 cube with the same
+# angles, bands and order; held at pbte_tpu's f32 tolerance
+TET_F32_F64_RTOL = 2e-5
 
 
 def log(*a):
@@ -555,6 +575,182 @@ def phase_accel_golden(SourceIterationSolver, unit_cube, lr):
     return tc_rel
 
 
+def phase_scan_golden(SourceIterationSolver, tet_cube):
+    """The port's f32 scan on the GPU against pbte_tpu's scan golden
+    (tests/data/torch_port_golden_scan.npz: a 6-tet cube with diffuse
+    walls, the class-batched full factor cache)."""
+    golden = pathlib.Path(__file__).resolve().parent / "tests" / "data"
+    with np.load(golden / "torch_port_golden_scan.npz") as d:
+        params = {k: int(d[k]) for k in ("n", "order", "polar", "azimuth",
+                                         "nspec")}
+        bcs = dict(zip(d["bc_attrs"].tolist(), d["bc_temps"].tolist()))
+        ref = torch.from_numpy(d["Tc"][-1]).cuda()
+        steps = int(d["steps"])
+        diffuse = d["diffuse"].tolist()
+    s = SourceIterationSolver(*tet_cube(**params), bcs, device="cuda",
+                              diffuse_bcs=diffuse, sweep_mode="scan",
+                              cache_policy="full")
+    r = s.solve(tol=0, max_iter=steps, verbose=False)
+    rel, ab = rel_err(r.Tc, ref)
+    log(f"[smoke] golden torch_port_golden_scan.npz {params} diffuse="
+        f"{diffuse} scan {s.cache_policy} ncls={s._scan.ncls} {steps} steps: "
+        f"Tc rel {rel:.3e} (abs {ab:.3e}), tolerance {GOLDEN_RTOL}")
+    if not (s.sweep_mode == "scan" and rel <= GOLDEN_RTOL):
+        raise RuntimeError("the GPU's scan path disagrees with the pbte_tpu "
+                           "scan golden")
+    return rel
+
+
+def profile_steps(solver, state, n):
+    """torch.profiler over n steps from ``state``: per step, the device
+    kernel launches, the copies and fills, and the device milliseconds,
+    and the kernels that took the most device time; None for each where
+    the profiler saw no device activity."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        s = state
+        for _ in range(n):
+            s = solver.step(*s)[:3]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not dev:
+        return dict(launches_per_step=None, copies_per_step=None,
+                    device_ms_per_step=None, profiled_ms_per_step=None,
+                    top=None, top_ops=None)
+    ops = []  # (aten op, self device us): the ops that launched kernels
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0))
+        if us > 0 and e.key.startswith("aten::"):
+            ops.append((e.key, us))
+    ops.sort(key=lambda kv: -kv[1])
+    copies = [e for e in dev if e.name.startswith(("Memcpy", "Memset"))]
+    by_name = {}
+    for e in dev:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    us = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return dict(
+        launches_per_step=(len(dev) - len(copies)) / n,
+        copies_per_step=len(copies) / n,
+        device_ms_per_step=us / n / 1e3,
+        profiled_ms_per_step=wall / n * 1e3,
+        top=[dict(name=k[:100], ms_per_step=v / n / 1e3, share=v / us)
+             for k, v in top],
+        top_ops=[dict(op=k, ms_per_step=v / n / 1e3, share=v / us)
+                 for k, v in ops[:10]])
+
+
+def phase_tet_scan(SourceIterationSolver, problem, lr, card):
+    """The legacy production tet shape through the scan path (phase 9);
+    returns its row."""
+    prob = problem.tet_cube(**problem.LEGACY_TET)
+    t0 = time.perf_counter()
+    s = SourceIterationSolver(*prob, problem.WALL_BCS, device="cuda",
+                              **problem.LEGACY_TET_SOLVER)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    sv = s._scan
+    ne, D, K, BS = s.ne, s.D, s.K, s.BS
+    state_bytes = s.G * s.Km * BS * D * ne * 4
+    log(f"[smoke] legacy tet {problem.LEGACY_TET} setup {setup_s:.1f} s: "
+        f"sweep_mode={s.sweep_mode} cache_policy={s.cache_policy} "
+        f"ncls={sv.ncls} G={s.G} Km={s.Km} L={s.L} W={s.W} segments="
+        f"{sv.segments} hoisted rhs={sv._hoist_rhs} sequential groups="
+        f"{sv._seq_groups}, f32 state {state_bytes / 1e9:.3f} GB")
+    if not (s.sweep_mode == "scan" and s.cache_policy == "full"
+            and sv.ncls > 0):
+        raise RuntimeError("the legacy tet shape did not take the scan path "
+                           "with the class factor cache")
+    torch.cuda.reset_peak_memory_stats()
+    lr.reset_launches()
+    u, Tc, Tv = s.initial_state()
+    res = []
+    for _ in range(WARMUP_STEPS):
+        u, Tc, Tv, r = s.step(u, Tc, Tv)
+        res.append(r)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(TET_TIMED_STEPS):
+        u, Tc, Tv, r = s.step(u, Tc, Tv)
+        res.append(r)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    res = [float(x) for x in res]
+    ms = wall / TET_TIMED_STEPS * 1e3
+    row = dict(
+        ne=ne, D=D, K=K, BS=BS, G=s.G, Km=s.Km, L=s.L, ncls=sv.ncls,
+        segments=len(sv.segments), setup_s=setup_s, ms_per_step=ms,
+        dof_per_s=TET_TIMED_STEPS * K * BS * ne * D / wall,
+        max_memory_allocated=torch.cuda.max_memory_allocated(),
+        k1_launches=lr.lattice_ring_sweep.launches, residuals=res)
+    if Tc.shape != (ne, D) or not torch.isfinite(Tc).all():
+        raise RuntimeError("legacy tet: Tc is not finite of shape (ne, D)")
+    if not (np.all(np.isfinite(res)) and res[-1] < res[0]):
+        raise RuntimeError(f"legacy tet: residuals not finite and falling: "
+                           f"{res}")
+    try:
+        prof = profile_steps(s, (u, Tc, Tv), TET_PROFILED_STEPS)
+    except Exception as e:  # the profiler is a reading, not the path
+        log(f"[smoke] legacy tet profiler failed: {type(e).__name__}: {e}")
+        prof = dict(launches_per_step=None, copies_per_step=None,
+                    device_ms_per_step=None, profiled_ms_per_step=None,
+                    top=None, top_ops=None)
+    row.update(prof)
+    # the device's busy share: its kernel time per step over the timed
+    # (unprofiled) step, and over the profiled steps themselves
+    dms = prof["device_ms_per_step"]
+    row["busy_share"] = None if dms is None else dms / ms
+    row["busy_share_profiled"] = (None if dms is None
+                                  else dms / prof["profiled_ms_per_step"])
+    del u, Tc, Tv
+
+    # 3 steps in f32 and in f64 from the zero state
+    outs = {}
+    for dt in (torch.float32, torch.float64):
+        if dt == torch.float64:
+            del s
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            s = SourceIterationSolver(*prob, problem.WALL_BCS,
+                                      device="cuda", dtype=dt,
+                                      **problem.LEGACY_TET_SOLVER)
+            torch.cuda.synchronize()
+            row["f64_setup_s"] = time.perf_counter() - t0
+            torch.cuda.reset_peak_memory_stats()
+        st = s.initial_state()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(TET_COMPARE_STEPS):
+            st = s.step(*st)[:3]
+        torch.cuda.synchronize()
+        row[f"{STATE_KEYS[dt]}_ms_per_step"] = (
+            (time.perf_counter() - t0) / TET_COMPARE_STEPS * 1e3)
+        outs[dt] = st[1]
+        del st
+    row["f64_max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    rel, ab = rel_err(outs[torch.float32], outs[torch.float64])
+    row["f32_vs_f64_rel"] = rel
+    del s, outs
+    torch.cuda.empty_cache()
+    log(f"[smoke] legacy tet scan " + json.dumps(row))
+    log(f"[smoke] legacy tet scan: {ms:.3f} ms/step, "
+        f"{row['dof_per_s']:.4g} DOF/s, peak "
+        f"{row['max_memory_allocated'] / 1e9:.2f} GB, "
+        f"{prof['launches_per_step']} launches/step, busy share "
+        f"{row['busy_share']}, f32 vs f64 {TET_COMPARE_STEPS} steps Tc rel "
+        f"{rel:.3e} (abs {ab:.3e}), tolerance {TET_F32_F64_RTOL}; on {card}")
+    if not rel <= TET_F32_F64_RTOL:
+        raise RuntimeError("legacy tet: f32 and f64 scans disagree")
+    return row
+
+
 def tree_norm(tree):
     """sqrt of the sum of squares over the leaves of a state tree."""
     from pbte_tpu_torch.solver.accel import tree_dot
@@ -711,6 +907,7 @@ def main() -> int:
     from pbte_tpu_torch.ops import _build
     from pbte_tpu_torch.ops import dma_copy as dma
     from pbte_tpu_torch.ops import lattice_ring as lr
+    from pbte_tpu_torch import problem as problem_mod
     from pbte_tpu_torch.problem import (DIFFUSE_WALLS, FLAGSHIP, WALL_BCS,
                                         unit_cube)
     from pbte_tpu_torch.solver.source_iteration import SourceIterationSolver
@@ -781,9 +978,13 @@ def main() -> int:
     closure_rel = phase_golden(SourceIterationSolver, unit_cube,
                                "torch_port_golden_closures.npz")
     accel_rel = phase_accel_golden(SourceIterationSolver, unit_cube, lr)
+    scan_rel = phase_scan_golden(SourceIterationSolver, problem_mod.tet_cube)
 
     f64_launches, f64_row = phase_f64_flagship(
         SourceIterationSolver, problem, lr, dict(bc_temps=WALL_BCS))
+    torch.cuda.empty_cache()
+
+    tet = phase_tet_scan(SourceIterationSolver, problem_mod, lr, card)
 
     jax_mods = sorted(m for m in sys.modules
                       if m.split(".")[0] in ("jax", "jaxlib"))
@@ -812,7 +1013,9 @@ def main() -> int:
         f"{f64_row['refined']['gain']:.1f}x; best copy {best['name']} "
         f"{best['gbs']:.1f} GB/s; golden rel {golden_rel:.3e}, closure "
         f"golden rel {closure_rel:.3e}, f64 bicgstab golden rel "
-        f"{accel_rel:.3e}; on {card}")
+        f"{accel_rel:.3e}, scan golden rel {scan_rel:.3e}; legacy tet scan "
+        f"{tet['ms_per_step']:.3f} ms/step, {tet['dof_per_s']:.4g} DOF/s; "
+        f"on {card}")
 
     def k1_entry(name, state, n):
         r = main_row(state)

@@ -1,15 +1,19 @@
-"""PyTorch + CUDA port of pbte_tpu's lattice-ring solve.
+"""PyTorch + CUDA port of pbte_tpu's solver.
 
 The port imports PyTorch and never JAX, and nothing of ``pbte_tpu``. It
-keeps its own copy of the numpy host layers the lattice path needs, trimmed
-to what it calls and held to pbte_tpu's by tests/test_torch_host_layers.py:
+keeps its own copy of the numpy host layers, trimmed to what it calls and
+held to pbte_tpu's by tests/test_torch_host_layers.py:
 
-- ``mesh``: hex box meshes, face tables, periodic pairing;
-- ``fem``: hex quadrature, the L2 nodal basis, consistent DG assembly and
-  the geometry-class helpers;
+- ``mesh``: tri, quad, tet, hex and mixed meshes (builtins, the gmsh and
+  MFEM readers), face tables, periodic pairing;
+- ``fem``: quadrature and L2 nodal bases on every reference element,
+  assembly in both face modes, the geometry-class helpers and supercell
+  detection;
 - ``angular``: the discrete-ordinates quadrature;
 - ``material``: the non-gray SMRT silicon tables;
-- ``sweep``: upwind levelization, the sweep plan, lattice detection;
+- ``sweep``: upwind levelization, the sweep plan, lattice detection, the
+  reference's greedy orders;
+- ``validation.oracle``: the sequential numpy oracle (a test reference);
 
 and the modules that were JAX in pbte_tpu:
 
@@ -21,12 +25,17 @@ and the modules that were JAX in pbte_tpu:
 - ``ops.dma_copy``: the streaming copies of pbte_tpu's DMA probe, a plain
   version and two CUDA kernels (``csrc/dma_copy.cu``), driven by
   ``bench_dma`` (``python -m pbte_tpu_torch.bench_dma``);
-- ``solver.source_iteration``: ``SourceIterationSolver`` restricted to the
-  single-class Cartesian lattice path, with periodic, diffuse and specular
-  closures (``solver.lattice_tables`` holds its lattice host tables);
+- ``solver.source_iteration``: ``SourceIterationSolver`` on the
+  single-class lattice ring, with periodic, diffuse and specular closures
+  (``solver.lattice_tables`` holds its lattice host tables), resolving
+  ``sweep_mode`` as pbte_tpu does and dispatching every other mesh to
+  ``solver.scan``, the level-window scan (torch ops);
+- ``solver.accel``: BiCGStab over the state, correction solves, refinement;
+- ``io.checkpoint``: checkpoints with pbte_tpu's fields;
 - ``convert``: numpy consts/state from ``pbte_tpu`` into this package's
-  layouts (used by the parity tests);
-- ``problem``: the unit-cube lattice problems, the flagship among them.
+  layouts, ring and scan (used by the parity tests);
+- ``problem``: the unit-cube problems, the flagship and the legacy
+  production tet shape among them.
 
 The entry points (``SourceIterationSolver``, ``consts_from_numpy``,
 ``state_from_numpy``) run on the GPU unless the caller passes

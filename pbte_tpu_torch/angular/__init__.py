@@ -1,1 +1,1 @@
-"""angular layer of the lattice path (this package's own copy; see its modules)."""
+"""angular layer (this package's own copy; see its modules)."""

@@ -1,11 +1,12 @@
-"""Carry pbte_tpu's lattice-ring operators and state into this package.
+"""Carry pbte_tpu's operators and state into this package.
 
-``pbte_tpu``'s ``SourceIterationSolver`` on its lattice ring (the Pallas
-kernel path, or the XLA ring ``_step_ring`` with its lagged closures) keeps
-its operators in a ``consts`` pytree; mapped to numpy (for example with
+``pbte_tpu``'s ``SourceIterationSolver`` keeps its operators in a
+``consts`` pytree; mapped to numpy (for example with
 ``jax.tree.map(np.asarray, solver.consts)``) they become this package's
-consts dict, so both packages can step from the same operators and the same
-state. This module imports no JAX: it takes numpy arrays.
+consts dict, on the lattice ring (the Pallas kernel path, or the XLA ring
+``_step_ring`` with its lagged closures) and on the scan, so both packages
+can step from the same operators and the same state. This module imports
+no JAX: it takes numpy arrays.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from pbte_tpu_torch.solver.scan import level_tables, pick_level_segments
 from pbte_tpu_torch.solver.source_iteration import (
     REFL_KEYS,
     checked_device,
@@ -44,7 +46,9 @@ _PER_KEYS = ("per_cpl", "per_cin", "per_sl", "per_sw")
 
 
 def consts_from_numpy(np_consts: dict, device="cuda") -> dict:
-    """pbte_tpu lattice-ring consts (numpy leaves) -> this package's consts.
+    """pbte_tpu consts (numpy leaves) -> this package's consts: the scan
+    path's (``scan_consts_from_numpy``) where they hold no ring buckets,
+    else the lattice ring's.
 
     Takes the Pallas path's consts and the XLA ring's (``sweep_mode="ring"``
     with ``use_pallas="off"``; not hull-windowed, which no closure problem
@@ -55,6 +59,8 @@ def consts_from_numpy(np_consts: dict, device="cuda") -> dict:
     when some entry is valid. ``device`` defaults to the GPU and raises
     without one (``device="cpu"`` for the CPU)."""
     device = checked_device(device)
+    if "ring_b" not in np_consts:
+        return scan_consts_from_numpy(np_consts, device)
     mats = np_consts["mats"]
     periodic = bool(np.asarray(np_consts["per_valid"]).any())
     buckets = []
@@ -98,15 +104,101 @@ def consts_from_numpy(np_consts: dict, device="cuda") -> dict:
     )
 
 
-def state_from_numpy(u, Tc, Tv, device="cuda", layout="bsd"):
-    """pbte_tpu lattice-ring state (per-bucket slabs, Tc, Tv) -> tensors.
+# pbte_tpu's scan consts this package reads as they are (mass_t and
+# coupling are 1-wide dummies under its class-compressed streams)
+_SCAN_KEYS = ("perm", "pos_of_elem", "basis_int_glob", "macro_w", "flux_w",
+              "src_w", "relax_w", "vg", "mass_t", "coupling", "dif_pos",
+              "dif_fint", "dif_cin", "dif_wplus", "dif_norm", "spc_pos",
+              "spc_fm", "spc_cin", "spc_gk", "spc_src")
 
-    ``layout`` names the slabs' trailing axes as pbte_tpu's checkpoints
-    tag them: "bsd" for the Pallas path's ``(L, Gb, Km, BS, D, W)`` (this
-    package's layout), "dbs" for the XLA ring's ``(L, Gb, Km, D, BS, W)``,
-    whose BS and D axes are swapped here. ``device`` defaults to the GPU
-    and raises without one (``device="cpu"`` for the CPU)."""
+
+def scan_consts_from_numpy(c: dict, device="cuda") -> dict:
+    """pbte_tpu scan consts (numpy leaves) -> this package's scan consts.
+
+    The factor cache follows from the shape of ``mats``: the class cache
+    (A^-1 per class and its one-hot), A^-1 per element, the eigen factors
+    per class or per element, or the on-the-fly transport blocks beside
+    ``mass``. The constant sources (``bsrc``, ``dsrc``) and inflow
+    coefficients (``cin_int``, ``per_cin``) are formed from pbte_tpu's
+    ``fdot``, ``nbr_pos``, ``bc_T``, ``face_int`` and ``dvec`` as its step
+    forms them, and the level windows from its ``offsets``, ``counts`` and
+    ``nbr_pos`` (the segments recomputed: ``pick_level_segments`` is its
+    function). The periodic tables, zero-valid dummies on every pbte_tpu
+    problem, are taken only when some entry is valid."""
     device = checked_device(device)
+    a = {k: np.asarray(v) for k, v in c.items()
+         if k not in ("mats", "levels")}
+    mats = c["mats"]
+    mats = (tuple(np.asarray(m) for m in mats) if isinstance(mats, tuple)
+            else np.asarray(mats))
+    class_ops = "cls_massT" in a  # pbte_tpu's class-compressed streams
+    out = {k: _tensor(a[k], device) for k in _SCAN_KEYS
+           if k in a and not (class_ops and k in ("mass_t", "coupling"))}
+    nbr_pos, fdot = a["nbr_pos"], a["fdot"]  # (G, nf, ne), (G, Km, nf, ne)
+    cin = np.minimum(fdot, 0.0)
+    is_b = (nbr_pos < 0)[:, None]
+    cin_bnd = np.where(is_b, cin, 0.0)
+    out["cin_int"] = _tensor(np.where(is_b, 0.0, cin), device)
+    out["vg_bc_w"] = _tensor(a["vg"] * a["bc_w"], device)
+    if not class_ops:
+        bsrc = np.einsum("gkfE,gfE,gfiE->gkiE", cin_bnd, a["bc_T"],
+                         a["face_int"])
+    else:  # the face integral per class
+        cls_pos = np.argmax(mats[1], axis=1)  # (G, ne)
+        fint = np.moveaxis(a["cls_fint"][cls_pos], 1, -1)  # (G, nf, D, ne)
+        bsrc = np.einsum("gkfE,gfE,gfiE->gkiE", cin_bnd, a["bc_T"], fint)
+        out["cls_massT"] = _tensor(a["cls_massT"], device)
+        out["cls_cpl"] = _tensor(a["cls_cpl"], device)
+        out["cls_pos"] = _tensor(cls_pos, device)
+        if "dvec" in a:  # the scalar g per face
+            a["dvec"] = a["dvec"][:, :, None] * fint
+    out["bsrc"] = _tensor(bsrc, device)
+    if "dvec" in a:
+        out["dsrc"] = _tensor(np.einsum("gkfE,gfiE->gkiE", cin_bnd,
+                                        a["dvec"]), device)
+    if a["per_valid"].any():
+        gi = np.arange(fdot.shape[0])[:, None]
+        per_cin = (np.minimum(fdot[gi, :, a["per_face"], a["per_pos"]], 0.0)
+                   * a["per_valid"][:, :, None]).transpose(0, 2, 1)
+        out.update(per_pos=_tensor(a["per_pos"], device),
+                   per_src=_tensor(a["per_src"], device),
+                   per_cpl=_tensor(a["per_cpl"], device),
+                   per_cin=_tensor(per_cin, device))
+    cls_pos, ncls, policy = None, 0, "full"
+    if isinstance(mats, tuple) and len(mats) == 2:  # class A^-1
+        out["a_cls"] = _tensor(np.moveaxis(mats[0], -1, 3), device)
+        cls_pos, ncls = np.argmax(mats[1], axis=1), mats[1].shape[1]
+    elif isinstance(mats, tuple):  # eigen, per class (4) or element (3)
+        policy = "eigen"
+        for k, m in zip(("eig_P", "eig_Q", "eig_lam"), mats):
+            out[k] = _tensor(m, device)
+        if len(mats) == 4:
+            cls_pos, ncls = np.argmax(mats[3], axis=1), mats[3].shape[1]
+    elif mats.ndim == 6:  # A^-1 per element
+        out["a_inv"] = _tensor(mats, device)
+    else:  # on-the-fly
+        policy = "on-the-fly"
+        out["g_mat"] = _tensor(mats, device)
+        out["mass"] = _tensor(a["mass"], device)
+    out["levels"] = level_tables(
+        a["offsets"], a["counts"], nbr_pos, pick_level_segments(a["counts"]),
+        cls_pos, ncls, policy == "full", device)
+    return out
+
+
+def state_from_numpy(u, Tc, Tv, device="cuda", layout="bsd"):
+    """pbte_tpu state (u, Tc, Tv) -> tensors.
+
+    On the scan u is one array (G, Km, BS, D, ne) and ``layout`` is not
+    read. On the lattice ring u is the per-bucket slabs, and ``layout``
+    names their trailing axes as pbte_tpu's checkpoints tag them: "bsd"
+    for the Pallas path's ``(L, Gb, Km, BS, D, W)`` (this package's
+    layout), "dbs" for the XLA ring's ``(L, Gb, Km, D, BS, W)``, whose BS
+    and D axes are swapped here. ``device`` defaults to the GPU and raises
+    without one (``device="cpu"`` for the CPU)."""
+    device = checked_device(device)
+    if not isinstance(u, (tuple, list)):
+        return _tensor(u, device), _tensor(Tc, device), _tensor(Tv, device)
     if layout not in ("bsd", "dbs"):
         raise ValueError(f"layout must be 'bsd' or 'dbs', got {layout!r}")
     if layout == "dbs":

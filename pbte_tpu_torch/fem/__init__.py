@@ -1,1 +1,1 @@
-"""fem layer of the lattice path (this package's own copy; see its modules)."""
+"""fem layer (this package's own copy; see its modules)."""

@@ -1,1 +1,1 @@
-"""material layer of the lattice path (this package's own copy; see its modules)."""
+"""material layer (this package's own copy; see its modules)."""

@@ -1,4 +1,4 @@
-"""Unit-cube lattice problems, built from this package's numpy host layers.
+"""Unit-cube problems, built from this package's numpy host layers.
 
 The flagship is ``unit_cube(16, 16, 16, order=2, polar=4, azimuth=16,
 nspec=20)`` with ``WALL_BCS``: the problem ``bench.py`` and
@@ -6,6 +6,12 @@ nspec=20)`` with ``WALL_BCS``: the problem ``bench.py`` and
 microns, consistent DG faces, silicon 2 x nspec bands). ``DIFFUSE_WALLS``
 turns it into a film between two isothermal x faces whose other four faces
 reflect diffusely.
+
+``tet_cube(**LEGACY_TET)`` with ``WALL_BCS`` is the reference's legacy
+production shape (pbte_tpu's ``scripts/bench_tet.py``): the 5^3 cuboid
+split into 6 tets per cell (750 elements) at p=3 (D=20), 16 x 24 = 384
+directions and 2 x 20 bands, consistent faces; pbte_tpu scans it with the
+supercell merge off, and so does ``sweep_mode="scan"`` here.
 
 Boundary attributes of the cube: 1 and 6 are the z faces (bottom, top),
 2 and 4 the y faces, 3 and 5 the x faces.
@@ -21,6 +27,9 @@ from pbte_tpu_torch.material import nongray_smrt as mat
 # isothermal walls: attr 6 hot, the rest cold
 WALL_BCS = {1: -0.5, 2: -0.5, 3: -0.5, 4: -0.5, 5: -0.5, 6: 0.5}
 FLAGSHIP = dict(nx=16, ny=16, nz=16, order=2, polar=4, azimuth=16, nspec=20)
+LEGACY_TET = dict(n=5, order=3, polar=16, azimuth=24, nspec=20)
+# the scan path's solver keywords for it: the class-batched full cache
+LEGACY_TET_SOLVER = dict(sweep_mode="scan", cache_policy="full")
 # x faces isothermal, the other four diffuse (keyword arguments of the solver
 # after ops, quad, tables)
 DIFFUSE_WALLS = dict(bc_temps={3: 0.5, 5: -0.5}, diffuse_bcs=[1, 2, 4, 6])
@@ -32,7 +41,20 @@ def unit_cube(nx, ny, nz, order, polar, azimuth, nspec, periodic=()):
     m = pmesh.make_cartesian_3d(nx, ny, nz, "hex").scaled(1.0e-6)
     if len(periodic):
         m = pmesh.make_periodic(m, [int(a) for a in periodic])
-    ops = assembly.assemble(pmesh.connect(m), order=order)
+    ops = assembly.assemble(pmesh.connect(m), order=order,
+                            face_mode="consistent")
+    quad = ang.build(ang.AngularOptions(
+        dimension=3, polar_points=polar, azimuth_points=azimuth))
+    tables = mat.build_tables(mat.SILICON, num_spectral=nspec)
+    return ops, quad, tables
+
+
+def tet_cube(n, order, polar, azimuth, nspec):
+    """(ops, quad, tables) of the n^3 unit cube split into 6 tets per cell,
+    in microns, with consistent faces."""
+    m = pmesh.make_cartesian_3d(n, n, n, "tet").scaled(1.0e-6)
+    ops = assembly.assemble(pmesh.connect(m), order=order,
+                            face_mode="consistent")
     quad = ang.build(ang.AngularOptions(
         dimension=3, polar_points=polar, azimuth_points=azimuth))
     tables = mat.build_tables(mat.SILICON, num_spectral=nspec)

@@ -1,11 +1,26 @@
-"""Source-iteration PBTE solver on the lattice ring sweep (PyTorch + CUDA).
+"""Source-iteration PBTE solver (PyTorch + CUDA).
 
-Port of ``pbte_tpu/solver/source_iteration.py::SourceIterationSolver``,
-restricted to a single-class Cartesian box lattice swept by the
-shift-structured ring on one device (no supercell merge): the path of its
-Pallas kernel, plus the lagged closures its XLA ring ``_step_ring`` runs on
-the same lattice (periodic wraps, diffuse and specular walls). The flagship
-(hex 16^3, p=2, 64 directions x 40 bands, f32) takes this path.
+Port of ``pbte_tpu/solver/source_iteration.py::SourceIterationSolver`` on
+one device, with two of its sweeps:
+
+- the shift-structured lattice ring on a single-class Cartesian box
+  lattice (no supercell merge): the path of its Pallas kernel, plus the
+  lagged closures its XLA ring ``_step_ring`` runs on the same lattice
+  (periodic wraps, diffuse and specular walls). The flagship (hex 16^3,
+  p=2, 64 directions x 40 bands, f32) takes this path;
+- the compact level-window scan (``solver/scan.py``) for every other mesh
+  pbte_tpu scans: tri, quad, tet, hex and mixed meshes, small meshes,
+  meshes read from gmsh or MFEM files, under the ``full``, ``on-the-fly``
+  and ``eigen`` factor caches.
+
+``sweep_mode="auto"`` resolves as pbte_tpu's structural gates do, less its
+TPU memory budgets: faces are canonicalised at ne >= 512; a detected
+simplex-lattice split goes to pbte_tpu's supercell ring, a single-class
+lattice to the lattice ring, a multi-class lattice or a general mesh of
+small upwind gap to pbte_tpu's other ring variants; the rest is scanned.
+The ring variants this package lacks (ROADMAP.md queue 1, items 6b, 6c and
+6d) raise ``NotImplementedError``; ``sweep_mode="scan"`` solves those
+problems. The rest of this docstring is the lattice ring's.
 
 Construction is numpy host math on this package's own host layers (FEM
 class helpers, sweep plan, lattice tables); the results become tensors on
@@ -63,27 +78,28 @@ import os
 import numpy as np
 import torch
 
-from pbte_tpu_torch.fem import assembly
+from pbte_tpu_torch.fem import assembly, supercell
 from pbte_tpu_torch.models import macroscopic
 from pbte_tpu_torch.ops.lattice_ring import (
     ClosureSource,
     lattice_ring_sweep,
     windows_on_device,
 )
+from pbte_tpu_torch.solver import scan
 from pbte_tpu_torch.solver.lattice_tables import (
     lattice_ring_tables,
-    mirror_direction_map,
     ring_windows,
     window_slots,
 )
 from pbte_tpu_torch.sweep import planner
 
-_RING_FAMILY = "ROADMAP.md queue 1, item 6 (the rest of the ring family)"
+_MULTI_CLASS = "ROADMAP.md queue 1, item 6d (multi-class lattices)"
+_SUPERCELL = "ROADMAP.md queue 1, item 6b (supercell two-matmul ring)"
+_ONE_HOT_RING = "ROADMAP.md queue 1, item 6c (general one-hot ring)"
+_SCAN_SOLVES = "sweep_mode='scan' solves the same problem"
 # the reflective-wall consts, global (the gather crosses buckets)
 REFL_KEYS = ("dif_fint", "dif_cin", "dif_wplus", "dif_norm", "dif_fvec",
              "spc_cin", "spc_gk", "spc_fmv")
-_SCAN_PATH = "ROADMAP.md queue 1, item 7 (scan path)"
-_CHECKPOINT = "ROADMAP.md queue 1, item 9 (io/checkpoint.py)"
 _COMPENSATED = ('ROADMAP.md "Not to port": accel.compensated_outer reaches '
                 'the same floor as the plain float32 iteration')
 # windows are rounded out to the kernel's m-tiles of this many slots, and
@@ -139,16 +155,24 @@ class SourceIterationSolver:
         specular_bcs=None,
         require_bcs: bool = True,  # False: a boundary attribute without a
         # condition is taken as an isothermal wall at deviation 0
+        sweep_mode: str = "auto",  # "auto" | "scan" | "ring"
+        cache_policy: str = "full",  # the scan path's factor cache: "full"
+        # | "on-the-fly" (alias "per-iteration") | "eigen"
     ):
         if dtype not in (torch.float32, torch.float64):
             raise ValueError(f"dtype must be float32 or float64, got {dtype}")
+        if cache_policy == "per-iteration":
+            cache_policy = "on-the-fly"
+        if cache_policy not in ("full", "on-the-fly", "eigen"):
+            raise ValueError(f"unknown cache_policy: {cache_policy}")
+        if sweep_mode not in ("auto", "scan", "ring"):
+            raise ValueError(f"unknown sweep_mode: {sweep_mode}")
+        self.cache_policy = cache_policy
         # bf16 state (same opt-in as pbte_tpu): halves the state streams;
         # the product operands and the ring are then bf16 as well, and the
         # macroscopic partials stay f32
-        self.state_bf16 = os.environ.get("PBTE_RING_STATE_BF16", "") == "1"
-        if self.state_bf16 and dtype == torch.float64:
-            raise ValueError("PBTE_RING_STATE_BF16=1 rounds float32 state to "
-                             "bfloat16; unset it for float64 state")
+        # (the scan path keeps exact-dtype state, as pbte_tpu's does)
+        self.state_bf16 = False
         self.device = device = checked_device(device)
         self.dtype = dtype
         np_dtype = np.float32 if dtype == torch.float32 else np.float64
@@ -163,13 +187,14 @@ class SourceIterationSolver:
         inv_kn = tables.flat("inv_kn").astype(np.float64)
         vg = tables.flat("vg").astype(np.float64)
         heat_cap = tables.flat("heat_cap").astype(np.float64)
-        dt_inv = float(inv_kn.max())
+        self.dt_inv = dt_inv = float(inv_kn.max())
 
         # ---- canonical face ordering: collapses the geometry-class count
         # of translation-invariant meshes (hex 6 -> 1). Gated to ne >= 512
-        # exactly as pbte_tpu is, so small meshes keep their face order
-        # (and their classes) there and here.
-        if ne >= 512:
+        # and the ring-capable modes exactly as pbte_tpu is, so small
+        # meshes and the scan mode keep their face order (and classes).
+        cls = None
+        if sweep_mode in ("auto", "ring") and ne >= 512:
             cls0 = assembly.element_classes(ops, merge=False)
             ops_c = assembly.permute_faces(
                 ops, assembly.canonical_face_perm(ops)
@@ -179,8 +204,6 @@ class SourceIterationSolver:
                 ops, cls = ops_c, cls1
             else:
                 cls = assembly.element_classes(ops)
-        else:
-            cls = assembly.element_classes(ops)
 
         # boundary check as pbte_tpu's: reflective walls need no
         # temperature, and periodic faces have a neighbour (no boundary)
@@ -202,14 +225,21 @@ class SourceIterationSolver:
                 f"boundary attributes without isothermal BC: {sorted(missing)}"
             )
 
-        nf = ops.faces_per_elem
-        bc_T = np.zeros((ne, nf))
-        for attr, T in bc_temps.items():
-            bc_T[ops.face_attr == int(attr)] = float(T)
-        dvec = np.zeros((ne, nf, D))
-        for attr, gval in dirichlet_bcs.items():
-            sel = ops.face_attr == int(attr)
-            dvec[sel] = float(gval) * ops.face_int[sel]
+        # ---- supercell gate: pbte_tpu merges detected simplex lattices
+        # (6-tet, 2-tri splits) into block super elements and ring-sweeps
+        # the macro lattice, a path this package does not have yet
+        if (sweep_mode in ("auto", "ring") and not dirichlet_bcs
+                and not (diffuse_bcs or specular_bcs)
+                and not ops.periodic.any()
+                and float(np.abs(quad.directions[:, :dim]).min()) > 1e-14
+                and cls is not None and 2 <= int(cls.max()) + 1 <= 8):
+            sc = supercell.detect(ops, cls)
+            if sc is not None and supercell.verify_acyclic(
+                    sc, quad.directions):
+                raise NotImplementedError(
+                    f"a {sc.gsz}-element split of a Cartesian lattice, which "
+                    f"pbte_tpu runs as a supercell ring: {_SUPERCELL}; "
+                    f"{_SCAN_SOLVES}")
 
         # ---- sweep plan, slot-major (G, Km) layout, Km buckets -------------
         sweep_nbr = ops.sweep_neighbor
@@ -224,6 +254,66 @@ class SourceIterationSolver:
         dir_valid = dirs_pad >= 0
         dirs_np = quad.directions[:, :dim]
         dirs_safe = np.where(dir_valid, dirs_pad, 0)
+        self.L = L = plan.max_levels
+
+        # ---- path resolution: pbte_tpu's ring decision, less its TPU
+        # memory budgets. The ring takes single-class Cartesian lattices
+        # (this package's lattice path) and, on pbte_tpu, multi-class
+        # lattices and general meshes of small upwind gap through one-hot
+        # selection; everything else is the scan.
+        self.sweep_mode = "scan"
+        lt = None
+        if sweep_mode in ("auto", "ring"):
+            if cls is None:
+                cls = assembly.element_classes(ops)
+            ncls = int(cls.max()) + 1
+            lat = planner.detect_lattice(sweep_nbr, ops.normals)
+            lt = (None if lat is None
+                  else lattice_ring_tables(lat, plan, dirs_np))
+            if lt is not None:
+                ring = ncls <= 8 or sweep_mode == "ring"
+            else:
+                ring = sweep_mode == "ring" or (
+                    ncls <= 8 and min(plan.max_width, ne) >= 64
+                    and _upwind_gap(plan, sweep_nbr, ne) <= 4)
+            if ring and lt is None:
+                raise NotImplementedError(
+                    "not a Cartesian box lattice with an octant leveling "
+                    "(simplex, unstructured or axis-grazing), which pbte_tpu "
+                    f"sweeps with its one-hot ring: {_ONE_HOT_RING}; "
+                    f"{_SCAN_SOLVES}")
+            if ring:
+                self.sweep_mode = "ring"
+        if self.sweep_mode == "scan":
+            self._scan = scan.ScanSweep(
+                ops, quad, tables, plan, dirs_pad, bc_temps=bc_temps,
+                dirichlet_bcs=dirichlet_bcs, diffuse_bcs=diffuse_bcs,
+                specular_bcs=specular_bcs, cache_policy=cache_policy,
+                cls_cache=cls, dtype=dtype, device=device)
+            sv = self._scan
+            self.cache_policy = sv.cache_policy  # after the eigen guard
+            self.W, self.ne_pad, self.consts = sv.W, sv.ne_pad, sv.consts
+            self._perm = sv._perm
+            self.win = None  # the lattice ring's hull windows
+            self.has_periodic = sv.has_periodic
+            self._dif_on, self._spc_on = sv._dif_on, sv._spc_on
+            self.state_dtype = dtype
+            return
+        self._scan = None
+        self.state_bf16 = os.environ.get("PBTE_RING_STATE_BF16", "") == "1"
+        if self.state_bf16 and dtype == torch.float64:
+            raise ValueError("PBTE_RING_STATE_BF16=1 rounds float32 state to "
+                             "bfloat16; unset it for float64 state")
+
+        nf = ops.faces_per_elem
+        bc_T = np.zeros((ne, nf))
+        for attr, T in bc_temps.items():
+            bc_T[ops.face_attr == int(attr)] = float(T)
+        dvec = np.zeros((ne, nf, D))
+        for attr, gval in dirichlet_bcs.items():
+            sel = ops.face_attr == int(attr)
+            dvec[sel] = float(gval) * ops.face_int[sel]
+
         # groups of equal slot count run as one bucket with exactly that
         # many slots (flagship octants: [10]*4 and [6]*4)
         km_req = np.maximum(sizes, 1)
@@ -231,28 +321,20 @@ class SourceIterationSolver:
             (np.flatnonzero(km_req == kv), int(kv))
             for kv in sorted({int(x) for x in km_req}, reverse=True)
         ]
-        self.L = L = plan.max_levels
 
         # ---- the kernel's gate: single-class lattice with class coupling --
         if int(cls.max()) + 1 != 1:
             raise NotImplementedError(
-                f"{int(cls.max()) + 1} geometry classes (multi-class "
-                f"lattices, and meshes below 512 elements, whose faces are "
-                f"not canonicalised): {_RING_FAMILY}"
-            )
-        lat = planner.detect_lattice(sweep_nbr, ops.normals)
-        lt = None if lat is None else lattice_ring_tables(lat, plan, dirs_np)
-        if lt is None:
-            raise NotImplementedError(
-                "not a Cartesian box lattice with an octant leveling "
-                f"(simplex, unstructured or axis-grazing): {_RING_FAMILY} "
-                f"and {_SCAN_PATH}"
+                f"{int(cls.max()) + 1} geometry classes on a lattice, which "
+                f"pbte_tpu rings with per-element couplings: "
+                f"{_MULTI_CLASS}; {_SCAN_SOLVES}"
             )
         lat_tabs, act_f, lat_shifts = lt
         ccpl = assembly.class_coupling(ops, cls)
         if ccpl is None:
             raise NotImplementedError(
-                f"per-element neighbour coupling: {_RING_FAMILY}"
+                f"per-element neighbour coupling on a lattice: "
+                f"{_MULTI_CLASS}; {_SCAN_SOLVES}"
             )
         self.shifts = tuple(int(s) for s in lat_shifts)
         self.W = W = lat_tabs.shape[2]
@@ -478,7 +560,11 @@ class SourceIterationSolver:
     # -- state -------------------------------------------------------------
 
     def initial_state(self):
-        """Zero state slabs, Tc and Tv (ref: PBTESolver::CreateInitialCoefficients)."""
+        """Zero state, Tc and Tv (ref: PBTESolver::CreateInitialCoefficients):
+        per-bucket slabs on the ring, one (G, Km, BS, D, ne) tensor on the
+        scan."""
+        if self._scan is not None:
+            return self._scan.initial_state()
         u = tuple(
             torch.zeros(
                 (self.L, len(gs), km_b, self.BS, self.D, self.W),
@@ -498,7 +584,10 @@ class SourceIterationSolver:
         a 0-d tensor on the device. The state's dtype picks the sweep's
         mode: bfloat16 slabs run with bfloat16 product operands, float32 or
         float64 slabs exactly (so a solver built for bfloat16 state also
-        steps a float32 copy of it exactly: the polish of ``solve``)."""
+        steps a float32 copy of it exactly: the polish of ``solve``). The
+        scan path leaves its input state as it was."""
+        if self._scan is not None:
+            return self._scan.step(u, Tc, Tv_prev)
         c = self.consts
         G, W, L, D = self.G, self.W, self.L, self.D
         tc_slab = (
@@ -641,18 +730,20 @@ class SourceIterationSolver:
         ``iterations`` counts step applications. ``None`` or ``"none"`` is
         the plain loop.
 
-        ``checkpoint_path`` is not taken yet."""
+        ``checkpoint_path`` writes a resumable ``.npz`` every
+        ``checkpoint_every`` iterations (``io.checkpoint``, pbte_tpu's
+        fields; BiCGStab writes its iterate every ``checkpoint_every``
+        Krylov iterations); ``io.checkpoint.load_checkpoint`` gives the
+        ``state`` to resume from."""
         if accelerate not in (None, "none", "bicgstab", "compensated"):
             raise ValueError(f"unknown accelerate={accelerate!r}")
-        if checkpoint_path is not None:
-            raise NotImplementedError(
-                f"solve(checkpoint_path=...): {_CHECKPOINT}")
         if accelerate == "compensated":
             raise NotImplementedError(
                 f"solve(accelerate='compensated'): {_COMPENSATED}")
         if accelerate == "bicgstab":
             return self._solve_bicgstab(tol, max_iter, state, verbose,
-                                        callback, check_every)
+                                        callback, check_every,
+                                        checkpoint_path, checkpoint_every)
         u, Tc, Tv = state if state is not None else self.initial_state()
         prev_Tv = Tv
         res = float("inf")
@@ -672,8 +763,13 @@ class SourceIterationSolver:
             Tc = Tc_new
             if cycle_hook and cycle_every > 0 and it % cycle_every == 0:
                 cycle_hook(it, u, Tc, prev_Tv)
+            if checkpoint_path and it % checkpoint_every == 0:
+                from pbte_tpu_torch.io.checkpoint import save_checkpoint
+
+                save_checkpoint(checkpoint_path, self, u, Tc, prev_Tv, it,
+                                res if np.isfinite(res) else float(res_dev))
         if polish_iters > 0:
-            u = tuple(x.to(self.dtype) for x in u)
+            u = _smap(lambda x: x.to(self.dtype), u)
             for _ in range(polish_iters):
                 u, Tc, prev_Tv, res_dev = self.step(u, Tc, prev_Tv)
                 it += 1
@@ -688,7 +784,7 @@ class SourceIterationSolver:
                 ratio = min(max(ratio, 0.0), 0.99995)
                 fac = ratio / (1.0 - ratio)
                 Tc = Tc2 + fac * d2.reshape(Tc2.shape)
-                u = tuple(a2 + fac * (a2 - a1) for a2, a1 in zip(u2, u1))
+                u = _smap(lambda a2, a1: a2 + fac * (a2 - a1), u2, u1)
                 prev_Tv = Tv2
                 if verbose:
                     print(f"[pbte_tpu_torch] polish extrapolation: mode "
@@ -702,7 +798,7 @@ class SourceIterationSolver:
         )
 
     def _solve_bicgstab(self, tol, max_iter, state, verbose, callback,
-                        check_every):
+                        check_every, checkpoint_path, checkpoint_every):
         """BiCGStab on (I - A) x = b, one matvec = one plain step
         (accel.bicgstab_outer); ``iterations`` counts step applications so
         they compare with the plain loop."""
@@ -713,9 +809,17 @@ class SourceIterationSolver:
                 "accelerate='bicgstab' needs exact-dtype state recurrences; "
                 "unset PBTE_RING_STATE_BF16"
             )
+        save_ckpt = None
+        if checkpoint_path:
+            from pbte_tpu_torch.io.checkpoint import accel_ckpt_saver
+
+            save_ckpt = accel_ckpt_saver(
+                checkpoint_path, self,
+                torch.zeros((self.ne,), dtype=self.dtype, device=self.device))
         u_f, Tc_f, Tv_f, tv_res, nmv = accel.bicgstab_outer(
             self.step, self.initial_state(), state, tol, max_iter,
             verbose=verbose, callback=callback, check_every=check_every,
+            save_ckpt=save_ckpt, ckpt_every=checkpoint_every,
             label="pbte_tpu_torch",
         )
         return SolveResult(u=u_f, Tc=Tc_f, Tv=Tv_f, residual=tv_res,
@@ -737,8 +841,10 @@ class SourceIterationSolver:
         return out
 
     def u_by_direction(self, u):
-        """Map the bucketed ring state to direction-major physical
-        coefficients (K, BS, ne, D) (numpy)."""
+        """Map the state to direction-major physical coefficients
+        (K, BS, ne, D) (numpy)."""
+        if self._scan is not None:
+            return self._scan.u_by_direction(u)
         us = self._ring_u_standard(u)
         out = np.zeros((self.K, self.BS, self.ne, self.D), dtype=us.dtype)
         for g in range(self.G):
@@ -762,7 +868,9 @@ class SourceIterationSolver:
     @exact_f32_products()
     def heat_flux(self, u):
         """Heat-flux coefficients Qc (dim, ne, D) and cell integrals Qv
-        (dim, ne) of the bucketed state, on its device."""
+        (dim, ne) of the state, on its device."""
+        if self._scan is not None:
+            return self._scan.heat_flux(u)
         c = self.consts
         G, D, ne = self.G, self.D, self.ne
         parts = []
@@ -778,6 +886,29 @@ class SourceIterationSolver:
         Qc = torch.einsum("eij,dej->dei", c["ring_invMT"], Qc)
         Qv = torch.einsum("dei,ei->de", Qc, c["basis_int_glob"])
         return Qc, Qv
+
+
+def _smap(fn, *states):
+    """fn over a state's tensors: the ring's per-bucket tuple or the scan's
+    single tensor."""
+    if isinstance(states[0], tuple):
+        return tuple(fn(*parts) for parts in zip(*states))
+    return fn(*states)
+
+
+def _upwind_gap(plan, sweep_nbr, ne):
+    """The largest level gap H between an element and an upwind neighbour,
+    over all groups (pbte_tpu's one-hot ring gate, H <= 4)."""
+    G, L = plan.num_groups, plan.max_levels
+    lev_of = np.zeros((G, ne), dtype=np.int32)
+    for g in range(G):
+        for lv in range(L):
+            row = plan.levels[g, lv]
+            lev_of[g, row[row >= 0]] = lv
+    nbr_s = np.where(sweep_nbr >= 0, sweep_nbr, 0)
+    gaps = lev_of[:, :, None] - lev_of[:, nbr_s]  # (G, ne, nf)
+    gaps = np.where(sweep_nbr[None] >= 0, gaps, 0)
+    return max(1, int(gaps.max()))
 
 
 def closure_scatter(L, W, per_pl=None, per_pw=None, refl_pl=None,
@@ -854,78 +985,36 @@ def _periodic_tables(ops, perm_safe, pos_valid, pos_of_elem, fdot, invMT, W):
 
 def _reflective_tables(ops, quad, dirs_pad, pos_of_elem, invMT, W,
                        diffuse_bcs, specular_bcs):
-    """Lagged diffuse and specular walls (pbte_tpu's constructor,
-    ``source_iteration.py:1060-1161``). Returns None without reflective
-    faces, else numpy tables: diffuse ``dif_fint`` (P_d, D), ``dif_cin`` and
-    ``dif_wplus`` (G, Km, P_d), ``dif_norm`` (P_d,) and ``dif_fvec``
-    (P_d, D) = fint M^-T; specular ``spc_cin`` (G, Km, P_s), ``spc_gk``
-    (G, Km, P_s) the flat (group, slot) of the mirror direction and
-    ``spc_fmv`` (P_s, D, D) = face mass M^-T; the (level, slot) scatter
-    pairs ``pl``, ``pw`` (G, P_d + P_s), diffuse rows first; and P_d."""
-    dim = ops.dim
-    Km = dirs_pad.shape[1]
-    dir_valid = dirs_pad >= 0
-    dirs_safe = np.where(dir_valid, dirs_pad, 0)
-    dirs_np = quad.directions[:, :dim]
-    w_glob = quad.weights
-    bnd = (ops.neighbor < 0) & ops.face_valid
-    out, pls, pws = {}, [], []
-    rows_d = np.argwhere(np.isin(ops.face_attr, diffuse_bcs) & bnd)
-    if len(rows_d):
-        d_e, d_f = rows_d[:, 0], rows_d[:, 1]
-        n_d = ops.normals[d_e, d_f]  # (P, dim)
-        sdotn_g = np.einsum(
-            "gkd,pd->gkp", dirs_np[dirs_safe], n_d
-        ) * dir_valid[..., None]  # (G, Km, P), padded slots zeroed
-        cn = (
-            w_glob[:, None]
-            * np.maximum(-np.einsum("kd,pd->kp", dirs_np, n_d), 0.0)
-        ).sum(axis=0)  # (P,) incoming-hemisphere weight
-        area = ops.face_int[d_e, d_f].sum(axis=-1)  # |F|
-        fint = ops.face_int[d_e, d_f]
-        pos = pos_of_elem[:, d_e]  # (G, P)
-        out.update(
-            dif_fint=fint,
-            dif_cin=np.minimum(sdotn_g, 0.0),
-            dif_wplus=(w_glob[dirs_safe][..., None] * dir_valid[..., None]
-                       * np.maximum(sdotn_g, 0.0)),
-            dif_norm=1.0 / np.maximum(cn * area, 1e-300),
-            dif_fvec=np.einsum("pi,pij->pj", fint, invMT[d_e]),
-        )
-        pls.append(pos // W)
-        pws.append(pos % W)
-    rows_s = np.argwhere(np.isin(ops.face_attr, specular_bcs) & bnd)
-    if len(rows_s):
-        s_e, s_f = rows_s[:, 0], rows_s[:, 1]
-        n_s = ops.normals[s_e, s_f]  # (P, dim)
-        if np.abs(np.abs(n_s).max(axis=-1) - 1.0).max() > 1e-9:
-            raise ValueError("specular faces must be axis-aligned")
-        ax_p = np.argmax(np.abs(n_s), axis=-1)  # (P,)
-        mirror = mirror_direction_map(
-            quad, dim, axes=set(int(a) for a in ax_p)
-        )  # (dim, K) global-direction map
-        g_of_dir, k_of_dir = planner.dir_slot_maps(dirs_pad)
-        km_glob = np.where(
-            dir_valid[..., None],
-            mirror[ax_p[None, None, :], dirs_safe[..., None]], 0,
-        )  # (G, Km, P)
-        sdotn_g = np.einsum(
-            "gkd,pd->gkp", dirs_np[dirs_safe], n_s
-        ) * dir_valid[..., None]
-        pos = pos_of_elem[:, s_e]
-        out.update(
-            spc_cin=np.minimum(sdotn_g, 0.0),
-            spc_gk=g_of_dir[km_glob] * Km + k_of_dir[km_glob],
-            spc_fmv=np.einsum("pil,plj->pij", ops.face_mass[s_e, s_f],
-                              invMT[s_e]),
-        )
-        pls.append(pos // W)
-        pws.append(pos % W)
-    if not out:
+    """Lagged diffuse and specular walls on the ring: the scan's tables
+    (``scan.reflective_tables``) with the element's M^-T folded in, as the
+    ring carries v = M^T u. Returns None without reflective faces, else
+    numpy tables: diffuse ``dif_fint`` (P_d, D), ``dif_cin`` and
+    ``dif_wplus`` (G, Km, P_d), ``dif_norm`` (P_d,) and ``dif_fvec`` (P_d,
+    D) = fint M^-T; specular ``spc_cin`` (G, Km, P_s), ``spc_gk`` (G, Km,
+    P_s) the flat (group, slot) of the mirror direction and ``spc_fmv``
+    (P_s, D, D) = face mass M^-T; the (level, slot) scatter pairs ``pl``,
+    ``pw`` (G, P_d + P_s), diffuse rows first; and P_d."""
+    t = scan.reflective_tables(ops, quad, dirs_pad, pos_of_elem, diffuse_bcs,
+                               specular_bcs)
+    if not t:
         return None
-    out["pl"] = np.concatenate(pls, axis=1)
-    out["pw"] = np.concatenate(pws, axis=1)
-    out["Pd"] = len(rows_d)
+    bnd = (ops.neighbor < 0) & ops.face_valid
+    out, pos = {}, []
+    if "dif_fint" in t:
+        d_e = np.argwhere(np.isin(ops.face_attr, diffuse_bcs) & bnd)[:, 0]
+        out.update({k: t[k] for k in ("dif_fint", "dif_cin", "dif_wplus",
+                                      "dif_norm")})
+        out["dif_fvec"] = np.einsum("pi,pij->pj", t["dif_fint"], invMT[d_e])
+        pos.append(t["dif_pos"])
+    if "spc_fm" in t:
+        s_e = np.argwhere(np.isin(ops.face_attr, specular_bcs) & bnd)[:, 0]
+        out.update(spc_cin=t["spc_cin"], spc_gk=t["spc_gk"],
+                   spc_fmv=np.einsum("pil,plj->pij", t["spc_fm"],
+                                     invMT[s_e]))
+        pos.append(t["spc_pos"])
+    pos = np.concatenate(pos, axis=1)
+    out["pl"], out["pw"] = pos // W, pos % W
+    out["Pd"] = t["dif_pos"].shape[1] if "dif_pos" in t else 0
     return out
 
 

@@ -1,1 +1,1 @@
-"""sweep layer of the lattice path (this package's own copy; see its modules)."""
+"""sweep layer (this package's own copy; see its modules)."""

@@ -1,7 +1,7 @@
 """Sweep planning: upwind DAG levelization and lattice detection.
 
-This package's own copy of the parts of ``pbte_tpu/sweep/planner.py`` the
-lattice path uses. For each direction, element e depends on its neighbour
+This package's own copy of ``pbte_tpu/sweep/planner.py`` (less the sweep
+log writer). For each direction, element e depends on its neighbour
 across face f iff outward_normal(e, f) . s < 0; the dependency graph is
 Kahn-layered into wavefront levels. Directions with the same upwind sign
 pattern share one DAG and one level table (a group). pbte_tpu levels
@@ -69,6 +69,10 @@ class SweepPlan:
     @property
     def max_levels(self) -> int:
         return self.levels.shape[1]
+
+    @property
+    def max_width(self) -> int:
+        return self.levels.shape[2]
 
 
 def dir_slot_maps(dirs_pad: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
@@ -203,3 +207,38 @@ def detect_lattice(neighbor: np.ndarray, normals: np.ndarray,
         face_minus=face_minus,
         face_plus=face_plus,
     )
+
+
+def greedy_orders(neighbor: np.ndarray, normals: np.ndarray,
+                  directions: np.ndarray) -> list:
+    """The reference's greedy sweep order per direction (the element order
+    of ``validation.oracle``): repeated passes over elements in index
+    order; an element is ready when every interior-face neighbour with
+    outward_normal . dir < 0 is already processed; processing within a pass
+    makes later elements ready in the same pass; a pass with no progress
+    raises. pbte_tpu runs the same passes natively where built."""
+    K = directions.shape[0]
+    ne, nf = neighbor.shape
+    dim = normals.shape[-1]
+    orders = []
+    for k in range(K):
+        dots = normals @ directions[k, :dim]  # (ne, nf)
+        upwind = (dots < 0.0) & (neighbor >= 0)
+        processed = np.zeros(ne, dtype=bool)
+        order = []
+        while len(order) < ne:
+            progressed = False
+            for e in range(ne):
+                if processed[e]:
+                    continue
+                deps = neighbor[e][upwind[e]]
+                if np.all(processed[deps]):
+                    order.append(e)
+                    processed[e] = True
+                    progressed = True
+            if not progressed:
+                raise SweepCycleError(
+                    "angular sweep ordering stalled; check mesh connectivity"
+                )
+        orders.append(np.asarray(order, dtype=np.int32))
+    return orders

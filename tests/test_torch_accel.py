@@ -294,7 +294,8 @@ def _solvers(walls, dtype=64, scale=1e-6):
         jprob = (passembly.assemble(pmesh.connect(jm), order=1,
                                     face_mode="consistent"), *jprob[1:])
         tm = tmesh.make_cartesian_3d(8, 8, 8, "hex").scaled(scale)
-        tprob = (tassembly.assemble(tmesh.connect(tm), order=1), *tprob[1:])
+        tprob = (tassembly.assemble(tmesh.connect(tm), order=1,
+                                    face_mode="consistent"), *tprob[1:])
     old = os.environ.get("PBTE_RING_BF16")
     os.environ["PBTE_RING_BF16"] = "0"  # pbte_tpu's f32 ring: exact operands
     try:
@@ -435,10 +436,10 @@ def test_refined_solve_matches_jax(inner, refine_problem, _flush_denormals):
 
 # ---- refusals ---------------------------------------------------------------
 
-def test_accelerate_refusals(monkeypatch):
+def test_accelerate_refusals(monkeypatch, tmp_path):
     """bf16 state with bicgstab, "compensated" (not ported), an unknown
-    value, a checkpoint with or without acceleration, and float64 with
-    PBTE_RING_STATE_BF16=1."""
+    value and float64 with PBTE_RING_STATE_BF16=1 are refused; a
+    checkpoint with or without acceleration is written."""
     prob = unit_cube(**SIZE)
     ts = SourceIterationSolver(*prob, WALL_BCS, dtype=torch.float64,
                                device="cpu")
@@ -446,10 +447,11 @@ def test_accelerate_refusals(monkeypatch):
         ts.solve(max_iter=3, verbose=False, accelerate="compensated")
     with pytest.raises(ValueError, match="unknown accelerate"):
         ts.solve(max_iter=3, verbose=False, accelerate="gmres")
-    for acc in (None, "bicgstab"):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            ts.solve(max_iter=3, verbose=False, accelerate=acc,
-                     checkpoint_path="x.npz")
+    for acc in (None, "bicgstab"):  # checkpoints are taken (item 9)
+        path = str(tmp_path / f"{acc}.npz")
+        ts.solve(max_iter=6, verbose=False, accelerate=acc,
+                 checkpoint_path=path, checkpoint_every=1)
+        assert os.path.exists(path)
     r = ts.solve(tol=0, max_iter=3, verbose=False, accelerate="none")
     assert r.iterations == 3
     monkeypatch.setenv("PBTE_RING_STATE_BF16", "1")

@@ -59,11 +59,13 @@ def test_no_device_number_from_a_cpu_run(cpu_result):
 
 
 def test_rows(cpu_result):
-    """The six rows; each extra row ran under its own settings, the
-    float64 ones in float64 (the accelerated row to its tolerance)."""
-    rows = cpu_result["rows"]
+    """The seven rows; each extra row ran under its own settings, the
+    float64 ones in float64 (the accelerated row to its tolerance); the
+    tet_scan row is held by test_tet_scan_row."""
+    rows = dict(cpu_result["rows"])
     assert list(rows) == ["f32", "bf16_state", "diffuse_walls", "p3_f32",
-                          "f64_state", "f64_bicgstab"]
+                          "f64_state", "f64_bicgstab", "tet_scan"]
+    rows.pop("tet_scan")
     acc = rows.pop("f64_bicgstab")
     for name, row in rows.items():
         assert "error" not in row, (name, row)
@@ -79,6 +81,21 @@ def test_rows(cpu_result):
     assert 3 <= acc["step_applications"] < 1500
     assert acc["wall_s"] > 0 and acc["ms_per_step_application"] > 0
     assert "max_memory_allocated" not in acc
+
+
+def test_tet_scan_row(cpu_result):
+    """The legacy tet row: the 5^3 6-tet cube on the scan path, f32, with
+    the run's order, angles and bands (p=1, 8 directions, 2 bands here);
+    the primary value stays the f32 flagship's."""
+    row = cpu_result["rows"]["tet_scan"]
+    assert "error" not in row, row
+    assert row["sweep_mode"] == "scan" and not row["windows"]
+    assert row["state"] == "torch.float32"
+    assert row["shape"] == {"ne": 750, "D": 4, "K": 8, "BS": 2, "n": 5,
+                            "order": 1}
+    assert row["dof_per_s"] > 0 and row["ms_per_step"] > 0
+    assert cpu_result["value"] == cpu_result["rows"]["f32"]["dof_per_s"]
+    assert cpu_result["rows"]["f32"]["sweep_mode"] == "ring"
 
 
 @pytest.mark.parametrize("arg,want", [

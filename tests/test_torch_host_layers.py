@@ -6,10 +6,14 @@ same float64 operations in the same order (pbte_tpu's native C++
 levelization, where built, gives the same integer levels as the port's
 numpy fixpoint). Cases: 8^3 and 9x8x8 hex lattices (9x8x8 makes x the
 major axis), p = 1 and 2, azimuth 4 and 8 (one or two Km buckets), x faces
-periodic or not.
+periodic or not; and, for the scan path, the tri, quad, tet and mixed
+builders, the gmsh and MFEM readers on config/mesh/*, every quadrature
+rule and reference element, assembly in both face modes, the geometry
+classes of simplex meshes, supercell detection and the level segments.
 """
 
 import functools
+import pathlib
 
 import numpy as np
 import pytest
@@ -17,14 +21,24 @@ import pytest
 from pbte_tpu import mesh as jmesh
 from pbte_tpu.angular import quadrature as jang
 from pbte_tpu.fem import assembly as jasm
+from pbte_tpu.fem import quadrature as jquad
+from pbte_tpu.fem import reference as jref
+from pbte_tpu.fem import supercell as jsc
 from pbte_tpu.material import nongray_smrt as jmat
 from pbte_tpu.models import macroscopic as jmac
-from pbte_tpu.solver.source_iteration import _lattice_ring_tables
+from pbte_tpu.solver.source_iteration import (
+    _lattice_ring_tables,
+    _pick_level_segments,
+)
 from pbte_tpu.sweep import planner as jplan
 from pbte_tpu.validation.oracle import mirror_direction_map
 from pbte_tpu_torch import mesh as tmesh
 from pbte_tpu_torch.angular import quadrature as tang
 from pbte_tpu_torch.fem import assembly as tasm
+from pbte_tpu_torch.fem import quadrature as tquad
+from pbte_tpu_torch.fem import reference as tref
+from pbte_tpu_torch.fem import supercell as tsc
+from pbte_tpu_torch.solver.scan import pick_level_segments
 from pbte_tpu_torch.material import nongray_smrt as tmat
 from pbte_tpu_torch.models import macroscopic as tmac
 from pbte_tpu_torch.solver import lattice_tables as tlt
@@ -64,7 +78,7 @@ def _ops(case):
     order = CASES[case][3]
     tj, tt = _topos(case)
     return (jasm.assemble(tj, order=order, face_mode="consistent"),
-            tasm.assemble(tt, order=order))
+            tasm.assemble(tt, order=order, face_mode="consistent"))
 
 
 def _canonical(asm, ops):
@@ -279,3 +293,195 @@ def test_macro_and_flux_weights(azimuth, nspec):
                                   jmac.macro_weights(qj, tj))
     np.testing.assert_array_equal(tmac.flux_weights(qt, tt, 3),
                                   jmac.flux_weights(qj, tj, 3))
+
+
+# ---- the scan path's host layers: every geometry ------------------------
+
+MESH_DIR = pathlib.Path(__file__).resolve().parents[1] / "config" / "mesh"
+# name -> builder over a mesh module
+MESHES = {
+    "tri_4x3": lambda m: m.make_cartesian_2d(4, 3, m.GEOM_TRIANGLE),
+    "quad_3x4": lambda m: m.make_cartesian_2d(3, 4, m.GEOM_QUAD),
+    "mixed_2d_4x4": lambda m: m.make_mixed_2d(4, 4),
+    "tet_2x3x2": lambda m: m.make_cartesian_3d(2, 3, 2, m.GEOM_TET),
+    "prism_2x2x2": lambda m: m.make_cartesian_3d(2, 2, 2, "prism"),
+    "mixed_3d": lambda m: m.load_builtin("unit-cube-mixed"),
+    "unit-square-mixed": lambda m: m.load_builtin("unit-square-mixed"),
+    "unit-cube-tet": lambda m: m.load_builtin("unit-cube-tet"),
+    **{f.name: (lambda m, f=f: m.load_mesh(str(f)))
+       for f in sorted(MESH_DIR.iterdir())},
+}
+MESH_KEYS = ("vertices", "elem_verts", "elem_attr", "bdry_verts",
+             "bdry_attr", "elem_geom")
+
+
+@functools.lru_cache(maxsize=None)
+def _geo_topos(name):
+    return tuple(tmod.connect(MESHES[name](tmod).scaled(1.0e-6))
+                 for tmod in (jmesh, tmesh))
+
+
+@functools.lru_cache(maxsize=None)
+def _geo_ops(name, order, face_mode):
+    tj, tt = _geo_topos(name)
+    return (jasm.assemble(tj, order=order, face_mode=face_mode),
+            tasm.assemble(tt, order=order, face_mode=face_mode))
+
+
+@pytest.mark.parametrize("name", list(MESHES))
+def test_builders_and_readers(name):
+    """Builtins and the gmsh / MFEM readers: the same MeshData and the same
+    face tables."""
+    mj, mt = MESHES[name](jmesh), MESHES[name](tmesh)
+    assert (mt.dim, mt.geom) == (mj.dim, mj.geom)
+    for key in MESH_KEYS:
+        a, b = getattr(mj, key), getattr(mt, key)
+        assert (a is None) == (b is None), key
+        if a is not None:
+            np.testing.assert_array_equal(b, a, err_msg=key)
+    tj, tt = _geo_topos(name)
+    _equal_fields(tj, tt, TOPO_KEYS)
+
+
+@pytest.mark.parametrize("face_mode", ["mfem-parity", "consistent"])
+@pytest.mark.parametrize("name,order", [
+    ("tri_4x3", 1), ("tri_4x3", 3), ("quad_3x4", 2), ("mixed_2d_4x4", 2),
+    ("tet_2x3x2", 1), ("tet_2x3x2", 3), ("prism_2x2x2", 1), ("mixed_3d", 2),
+    ("unit-square-iso.mesh", 1), ("unit-cube-tet-iso.mesh", 2),
+    ("unit-cube-mixed.mesh", 1),
+])
+def test_assemble_every_geometry(name, order, face_mode):
+    oj, ot = _geo_ops(name, order, face_mode)
+    _equal_fields(oj, ot, OPS_KEYS + ("elem_face",))
+    np.testing.assert_array_equal(ot.face_valid, oj.face_valid)
+    assert (ot.geom, ot.order, ot.dim) == (oj.geom, oj.order, oj.dim)
+
+
+def test_assemble_defaults_to_mfem_parity():
+    """The port's default face mode is pbte_tpu's (golden parity)."""
+    tj, tt = _geo_topos("tri_4x3")
+    _equal_fields(jasm.assemble(tj, order=1), tasm.assemble(tt, order=1),
+                  OPS_KEYS)
+    with pytest.raises(ValueError, match="face_mode"):
+        tasm.assemble(tt, order=1, face_mode="textbook")
+
+
+@pytest.mark.parametrize("name,order,face_mode", [
+    ("tri_4x3", 1, "mfem-parity"), ("quad_3x4", 1, "consistent"),
+    ("tet_2x3x2", 3, "consistent"), ("mixed_3d", 1, "consistent"),
+    ("cuboid_5x5x5.msh", 1, "consistent"),
+    ("unit-cube-tet-iso.mesh", 1, "mfem-parity"),
+])
+def test_simplex_classes_and_face_order(name, order, face_mode):
+    """element_classes (fine and merged), canonical_face_perm,
+    permute_faces and class_coupling on simplex and mixed meshes."""
+    oj, ot = _geo_ops(name, order, face_mode)
+    for merge in (False, True):
+        np.testing.assert_array_equal(tasm.element_classes(ot, merge=merge),
+                                      jasm.element_classes(oj, merge=merge))
+    np.testing.assert_array_equal(tasm.canonical_face_perm(ot),
+                                  jasm.canonical_face_perm(oj))
+    (cj_ops, cj), (ct_ops, ct) = _canonical(jasm, oj), _canonical(tasm, ot)
+    _equal_fields(cj_ops, ct_ops, OPS_KEYS)
+    np.testing.assert_array_equal(ct, cj)
+    a, b = tasm.class_coupling(ct_ops, ct), jasm.class_coupling(cj_ops, cj)
+    assert (a is None) == (b is None)
+    if a is not None:
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("name", ["cuboid_5x5x5.msh", "tet_2x3x2"])
+def test_supercell_detection(name):
+    """detect and verify_acyclic on the canonical 6-tet split (the 5^3
+    cuboid merges into 125 cells; 2x3x2 merges too)."""
+    (cj_ops, cj), (ct_ops, ct) = (_canonical(jasm, _geo_ops(name, 1,
+                                                            "consistent")[0]),
+                                  _canonical(tasm, _geo_ops(name, 1,
+                                                            "consistent")[1]))
+    sj, st = jsc.detect(cj_ops, cj), tsc.detect(ct_ops, ct)
+    assert (sj is None) == (st is None)
+    assert st is not None
+    assert (st.gsz, st.ncell, st.D, st.Dp, st.lat_dims) == (
+        sj.gsz, sj.ncell, sj.D, sj.Dp, sj.lat_dims)
+    for key in ("cell_of", "cls_of", "elem_at", "int_normals", "int_fmass",
+                "int_cpl", "int_dst", "int_src", "basis_int_cells"):
+        np.testing.assert_array_equal(getattr(st, key), getattr(sj, key),
+                                      err_msg=key)
+    _equal_fields(sj.super_ops, st.super_ops, OPS_KEYS)
+    qj, qt = _quads(8)
+    assert tsc.verify_acyclic(st, qt.directions) == jsc.verify_acyclic(
+        sj, qj.directions)
+
+
+@pytest.mark.parametrize("degree", [1, 2, 3, 5, 7])
+def test_quadrature_rules(degree):
+    for rule in ("segment_rule", "triangle_rule", "quad_rule", "tet_rule",
+                 "hex_rule", "prism_rule", "pyramid_rule"):
+        for a, b in zip(getattr(tquad, rule)(degree),
+                        getattr(jquad, rule)(degree)):
+            np.testing.assert_array_equal(a, b, err_msg=rule)
+    for geom in ("triangle", "quad", "tet", "hex", "prism", "pyramid"):
+        for a, b in zip(tquad.volume_rule(geom, degree),
+                        jquad.volume_rule(geom, degree)):
+            np.testing.assert_array_equal(a, b, err_msg=geom)
+    for geom in ("triangle", "quad", "tet", "hex"):
+        for a, b in zip(tquad.face_rule(geom, degree),
+                        jquad.face_rule(geom, degree)):
+            np.testing.assert_array_equal(a, b, err_msg=geom)
+    for nv in (2, 3, 4):
+        for a, b in zip(tquad.face_rule_nv(nv, degree),
+                        jquad.face_rule_nv(nv, degree)):
+            np.testing.assert_array_equal(a, b, err_msg=str(nv))
+
+
+@pytest.mark.parametrize("geom", ["triangle", "quad", "tet", "hex", "prism",
+                                  "pyramid"])
+def test_reference_elements(geom):
+    """Nodes, exponents, the nodal basis and its gradients, and the vertex
+    shapes and their gradients at seeded reference points."""
+    dim = 2 if geom in ("triangle", "quad") else 3
+    pts = np.random.default_rng(3).uniform(0.05, 0.3, (7, dim))
+    for p in (0, 1, 2, 3):
+        np.testing.assert_array_equal(tref.nodes(geom, p),
+                                      jref.nodes(geom, p))
+        np.testing.assert_array_equal(tref.exponents(geom, p),
+                                      jref.exponents(geom, p))
+        bj, bt = jref.basis(geom, p), tref.basis(geom, p)
+        np.testing.assert_array_equal(bt.coeff, bj.coeff)
+        np.testing.assert_array_equal(bt.eval(pts), bj.eval(pts))
+        np.testing.assert_array_equal(bt.eval_grad(pts), bj.eval_grad(pts))
+    np.testing.assert_array_equal(tref.vertex_shape(geom, pts),
+                                  jref.vertex_shape(geom, pts))
+    np.testing.assert_array_equal(tref.vertex_shape_grad(geom, pts),
+                                  jref.vertex_shape_grad(geom, pts))
+
+
+@pytest.mark.parametrize("name", ["tri_4x3", "unit-square-iso.mesh",
+                                  "unit-cube-tet-iso.mesh"])
+def test_scan_plan_and_greedy_orders(name):
+    """The sweep plan, the level segments of the compact layout and the
+    reference's greedy orders on simplex meshes."""
+    oj, ot = _geo_ops(name, 1, "mfem-parity")
+    dim = ot.dim
+    qj, qt = (m.build(m.AngularOptions(dimension=dim, polar_points=2,
+                                       azimuth_points=8))
+              for m in (jang, tang))
+    pj = jplan.build_plan(oj.sweep_neighbor, oj.normals, qj.directions)
+    pt = tplan.build_plan(ot.sweep_neighbor, ot.normals, qt.directions)
+    for key in ("group_of_dir", "levels", "n_levels", "level_of_elem"):
+        np.testing.assert_array_equal(getattr(pt, key), getattr(pj, key))
+    assert pt.max_width == pj.max_width
+    counts = (pt.levels >= 0).sum(axis=2)
+    assert pick_level_segments(counts) == _pick_level_segments(counts)
+    for a, b in zip(tplan.greedy_orders(ot.sweep_neighbor, ot.normals,
+                                        qt.directions[:, :dim]),
+                    jplan.greedy_orders(oj.sweep_neighbor, oj.normals,
+                                        qj.directions[:, :dim])):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_load_mesh_refuses_missing_files(tmp_path):
+    with pytest.raises(FileNotFoundError):
+        tmesh.load_mesh(str(tmp_path / "none.mesh"))
+    with pytest.raises(ValueError, match="built-in"):
+        tmesh.load_mesh("unit-torus")

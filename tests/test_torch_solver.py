@@ -539,7 +539,8 @@ def test_polish_extrapolation():
 
     _, quad, tables = _problem("8x8x8_p1")
     m = tmesh.make_cartesian_3d(8, 8, 8, "hex").scaled(3.0e-7)
-    ts = SourceIterationSolver(tasm.assemble(tmesh.connect(m), order=1), quad,
+    ts = SourceIterationSolver(tasm.assemble(tmesh.connect(m), order=1,
+                                             face_mode="consistent"), quad,
                                tables, WALL_BCS, dtype=torch.float64,
                                device="cpu")
     base = ts.solve(tol=0, max_iter=48, verbose=False)
@@ -587,10 +588,21 @@ def test_cycle_hook_cadence():
     assert seen == []
 
 
-def test_checkpoint_options_name_their_item():
+def test_checkpoint_options_name_their_item(tmp_path):
+    """The checkpoint options (ROADMAP.md queue 1, item 9) are taken now: a
+    solve writes its state at the cadence, and the file resumes to the
+    same iterate (tests/test_torch_checkpoint.py holds the rest)."""
+    from pbte_tpu_torch.io.checkpoint import load_checkpoint
+
     ts = SourceIterationSolver(*_problem("8x8x8_p1"), WALL_BCS, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        ts.solve(max_iter=1, verbose=False, checkpoint_path="x.npz")
+    path = str(tmp_path / "x.npz")
+    ts.solve(tol=0, max_iter=2, verbose=False, checkpoint_path=path,
+             checkpoint_every=2)
+    state, it, _ = load_checkpoint(path, ts)
+    assert it == 2
+    ref = ts.solve(tol=0, max_iter=3, verbose=False)
+    assert_same_bits(ts.solve(tol=0, max_iter=1, verbose=False, state=state),
+                     ref)
 
 
 def test_require_bcs_false():
@@ -613,10 +625,18 @@ def _gate_raises(prob, bcs, **kw):
         SourceIterationSolver(*prob, bcs, device="cpu", **kw)
 
 
+def _gate_scans(prob, bcs, **kw):
+    """Off the lattice ring, the problem takes the scan path, as pbte_tpu's
+    solver does (tests/test_torch_scan.py holds the resolution of both
+    packages side by side)."""
+    ts = SourceIterationSolver(*prob, bcs, device="cpu", **kw)
+    assert ts.sweep_mode == "scan"
+
+
 def test_gate_periodic():
     """Periodic wraps on the single-class lattice are taken (lagged through
     the sweep's xsrc); a periodic mesh below 512 elements has several
-    geometry classes and still raises."""
+    geometry classes and takes the scan path."""
     def periodic_ops(n):
         m = pmesh.make_periodic(
             pmesh.make_cartesian_3d(n, n, n, "hex").scaled(1e-6), [0])
@@ -628,45 +648,55 @@ def test_gate_periodic():
     ts = SourceIterationSolver(periodic_ops(8), quad, tables, bcs,
                                device="cpu")
     assert ts.has_periodic and "per_cpl" in ts.consts["buckets"][0]
-    _gate_raises((periodic_ops(7), quad, tables), bcs)
+    _gate_scans((periodic_ops(7), quad, tables), bcs)
 
 
 @pytest.mark.parametrize("kind", ["diffuse_bcs", "specular_bcs"])
 def test_gate_reflective(kind):
     """Reflective walls on the lattice are taken and need no temperature;
-    below 512 elements (several classes) the gate still raises."""
+    below 512 elements (several classes) they take the scan path."""
     bcs = {5: -0.5, 3: 0.5}
     ts = SourceIterationSolver(*_problem("9x8x8_p1"), bcs, device="cpu",
                                **{kind: [1, 2, 4, 6]})
     on = ts._dif_on if kind == "diffuse_bcs" else ts._spc_on
     assert on and "refl_pl" in ts.consts["buckets"][0]
-    _gate_raises(unit_cube(7, 7, 7, order=1, polar=2, azimuth=4, nspec=2),
-                 bcs, **{kind: [1, 2, 4, 6]})
+    _gate_scans(unit_cube(7, 7, 7, order=1, polar=2, azimuth=4, nspec=2),
+                bcs, **{kind: [1, 2, 4, 6]})
     with pytest.raises(ValueError, match="without isothermal BC"):
         SourceIterationSolver(*_problem("9x8x8_p1"), bcs, device="cpu",
                               **{kind: [1, 2]})
 
 
 def test_gate_tet_mesh():
-    m = pmesh.make_cartesian_3d(4, 4, 4, "tet").scaled(1e-6)
-    ops = assembly.assemble(pmesh.connect(m), order=1, face_mode="consistent")
+    """A 4^3 6-tet mesh (384 elements, faces not canonicalised) is scanned;
+    at 5^3 and above pbte_tpu merges the split into supercells, a ring
+    this package does not have yet: that raises, naming the item."""
     _, quad, tables = _problem("9x8x8_p1")
-    _gate_raises((ops, quad, tables), WALL_BCS)
+    for n in (4, 5):
+        m = pmesh.make_cartesian_3d(n, n, n, "tet").scaled(1e-6)
+        ops = assembly.assemble(pmesh.connect(m), order=1,
+                                face_mode="consistent")
+        if n == 4:
+            _gate_scans((ops, quad, tables), WALL_BCS)
+        else:
+            with pytest.raises(NotImplementedError, match="item 6b"):
+                SourceIterationSolver(ops, quad, tables, WALL_BCS,
+                                      device="cpu")
 
 
 def test_gate_axis_grazing_directions():
-    """A one-polar-point 3D rule lies in the xy plane: no octant leveling."""
-    with pytest.raises(NotImplementedError, match="box lattice"):
-        SourceIterationSolver(
-            *unit_cube(8, 8, 8, order=1, polar=1, azimuth=4, nspec=2),
-            WALL_BCS, device="cpu")
+    """A one-polar-point 3D rule lies in the xy plane: no octant leveling,
+    so the lattice ring refuses it and the mesh is scanned."""
+    _gate_scans(unit_cube(8, 8, 8, order=1, polar=1, azimuth=4, nspec=2),
+                WALL_BCS)
 
 
 def test_gate_small_mesh_keeps_face_order():
     """Below 512 elements faces are not canonicalised (as in pbte_tpu), so
-    a hex mesh has several classes and is not on the kernel path."""
-    _gate_raises(unit_cube(7, 7, 7, order=1, polar=2, azimuth=4, nspec=2),
-                 WALL_BCS)
+    a hex mesh has several classes and is not on the kernel path: it is
+    scanned."""
+    _gate_scans(unit_cube(7, 7, 7, order=1, polar=2, azimuth=4, nspec=2),
+                WALL_BCS)
 
 
 def test_gate_f64_on_gpu_device(monkeypatch):

@@ -20,9 +20,15 @@ recurrence, the rounding of the summation order grows ~1e3-fold every two
 steps, to 1e-7 of Tc at a cap of 24, measured between pbte_tpu and the port
 on the CPU).
 
-All three build their problems from pbte_tpu's own host layers
-(``jax_unit_cube``), the same unit cube ``pbte_tpu_torch.problem.unit_cube``
-builds from the port's copy of them.
+``build_scan()`` runs its scan path (``sweep_mode="scan"``, f32, the
+class-batched ``full`` factor cache) on a 3^3 6-tet cube at p=2 with
+consistent faces, 8 directions and nspec=2: attribute 6 hot, 1, 3 and 5
+cold, the y faces (2 and 4) diffuse; 5 outer steps from the zero state.
+
+All four build their problems from pbte_tpu's own host layers
+(``jax_unit_cube``, ``jax_tet_cube``), the same problems
+``pbte_tpu_torch.problem.unit_cube`` and ``tet_cube`` build from the
+port's copy of them.
 
 ``python tests/torch_golden.py`` writes them to ``tests/data/``;
 tests/test_torch_solver.py and tests/test_torch_accel.py regenerate them
@@ -52,6 +58,11 @@ CLOSURE_DIFFUSE = (2,)
 CLOSURE_SPECULAR = (4,)
 
 
+PATH_SCAN = DATA / "torch_port_golden_scan.npz"
+SCAN_PARAMS = dict(n=3, order=2, polar=2, azimuth=4, nspec=2)
+SCAN_BCS = {1: -0.5, 3: -0.5, 5: -0.5, 6: 0.5}
+SCAN_DIFFUSE = (2, 4)
+
 PATH_ACCEL = DATA / "torch_port_golden_accel.npz"
 ACCEL_PARAMS = dict(nx=8, ny=8, nz=8, order=1, polar=2, azimuth=4, nspec=2)
 ACCEL_MAX_ITER = 18
@@ -74,6 +85,34 @@ def jax_unit_cube(nx, ny, nz, order, polar, azimuth, nspec, periodic=()):
         dimension=3, polar_points=polar, azimuth_points=azimuth))
     tables = mat.build_tables(mat.SILICON, num_spectral=nspec)
     return ops, quad, tables
+
+
+def jax_tet_cube(n, order, polar, azimuth, nspec):
+    """(ops, quad, tables) of pbte_tpu_torch.problem.tet_cube from
+    pbte_tpu's host layers: the n^3 6-tet unit cube in microns, consistent
+    faces, silicon."""
+    from pbte_tpu import mesh as pmesh
+    from pbte_tpu.angular import quadrature as ang
+    from pbte_tpu.fem import assembly
+    from pbte_tpu.material import nongray_smrt as mat
+
+    m = pmesh.make_cartesian_3d(n, n, n, "tet").scaled(1.0e-6)
+    ops = assembly.assemble(pmesh.connect(m), order=order,
+                            face_mode="consistent")
+    quad = ang.build(ang.AngularOptions(
+        dimension=3, polar_points=polar, azimuth_points=azimuth))
+    tables = mat.build_tables(mat.SILICON, num_spectral=nspec)
+    return ops, quad, tables
+
+
+def scan_solver_args(d, tet_cube) -> tuple:
+    """(problem, bc_temps, solver keywords) of the scan golden's fields,
+    the problem built by ``tet_cube`` (jax_tet_cube or the port's)."""
+    prob = tet_cube(**{k: int(d[k]) for k in SCAN_PARAMS})
+    bcs = dict(zip(np.asarray(d["bc_attrs"]).tolist(),
+                   np.asarray(d["bc_temps"]).tolist()))
+    return prob, bcs, dict(diffuse_bcs=np.asarray(d["diffuse"]).tolist(),
+                           sweep_mode="scan", cache_policy="full")
 
 
 def _steps(s):
@@ -154,6 +193,29 @@ def build_closures() -> dict:
     return dict(fields, Tc=tcs, residual=res)
 
 
+def build_scan() -> dict:
+    import jax.numpy as jnp
+
+    from pbte_tpu.solver.source_iteration import SourceIterationSolver
+
+    attrs = sorted(SCAN_BCS)
+    fields = dict(
+        **{k: np.int64(v) for k, v in SCAN_PARAMS.items()},
+        steps=np.int64(STEPS),
+        bc_attrs=np.array(attrs, dtype=np.int64),
+        bc_temps=np.array([SCAN_BCS[a] for a in attrs]),
+        diffuse=np.array(SCAN_DIFFUSE, dtype=np.int64),
+    )
+    prob, bcs, kw = scan_solver_args(fields, jax_tet_cube)
+    s = SourceIterationSolver(*prob, bcs, dtype=jnp.float32, **kw)
+    if not (s.sweep_mode == "scan" and s.cache_policy == "full"
+            and s.ncls > 0 and s._dif_on):
+        raise RuntimeError("the scan golden must come from the f32 scan "
+                           "path with the class factor cache")
+    tcs, res = _steps(s)
+    return dict(fields, Tc=tcs, residual=res)
+
+
 def build_accel() -> dict:
     import jax.numpy as jnp
 
@@ -183,6 +245,8 @@ def build_accel() -> dict:
 GOLDENS = {PATH: build, PATH_CLOSURES: build_closures}
 # the accelerated golden (tests/test_torch_accel.py checks it is current)
 ACCEL_GOLDENS = {PATH_ACCEL: build_accel}
+# the scan golden (tests/test_torch_scan.py checks it is current)
+SCAN_GOLDENS = {PATH_SCAN: build_scan}
 
 
 if __name__ == "__main__":
@@ -195,6 +259,6 @@ if __name__ == "__main__":
     jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_enable_x64", True)
     DATA.mkdir(parents=True, exist_ok=True)
-    for path, fn in {**GOLDENS, **ACCEL_GOLDENS}.items():
+    for path, fn in {**GOLDENS, **ACCEL_GOLDENS, **SCAN_GOLDENS}.items():
         np.savez_compressed(path, **fn())
         print(f"wrote {path}")
