@@ -68,11 +68,14 @@ Phases (a failing phase raises and the script exits non-zero):
    (``problem.tet_cube(**LEGACY_TET)``: the 5^3 6-tet cuboid, p=3, 16x24
    = 384 directions, 2x20 bands, f32, ``sweep_mode="scan"`` with the
    class-batched full factor cache): set-up, 2 warm-up + 10 timed steps,
-   ms/step, element-ordinate DOF/s, peak memory; the CUDA launches per
-   step, the device's busy share (kernel time per step over the timed
-   step, and over the profiled step), the top kernels and the top ops by
-   device time from torch.profiler over 2 more steps; then 3 steps in f32 against 3 in f64 from the zero
-   state. The scan path runs as torch ops (pbte_tpu's scan reaches no
+   ms/step, element-ordinate DOF/s, peak memory; from torch.profiler over
+   2 more steps the CUDA launches per step, the device's busy share (its
+   kernel time over the wall time of those same steps) and the top kernels
+   and ops by device time (a profiler that sees no device activity fails
+   the phase); then 3 steps in f32 against 3 in f64 from the zero state,
+   and 3 f32 steps with the class streams (``scan.CLASS_OPS_BUDGET``, a
+   memory fallback this shape does not reach) forced, against the f32
+   steps. The scan path runs as torch ops (pbte_tpu's scan reaches no
    Pallas kernel), so no kernel of the kernels line launches in it.
 
 The line before the last is the card's name and power limit, the one before
@@ -140,6 +143,9 @@ TET_COMPARE_STEPS = 3
 # state: 3.1e-7 of max measured on the CPU at the 3^3 cube with the same
 # angles, bands and order; held at pbte_tpu's f32 tolerance
 TET_F32_F64_RTOL = 2e-5
+# the class streams against the per-element streams, 3 f32 steps each:
+# the same products in another order (1e-13 of max in f64 on the CPU)
+TET_CLASS_STREAMS_RTOL = 2e-5
 
 
 def log(*a):
@@ -695,34 +701,41 @@ def phase_tet_scan(SourceIterationSolver, problem, lr, card):
     if not (np.all(np.isfinite(res)) and res[-1] < res[0]):
         raise RuntimeError(f"legacy tet: residuals not finite and falling: "
                            f"{res}")
-    try:
-        prof = profile_steps(s, (u, Tc, Tv), TET_PROFILED_STEPS)
-    except Exception as e:  # the profiler is a reading, not the path
-        log(f"[smoke] legacy tet profiler failed: {type(e).__name__}: {e}")
-        prof = dict(launches_per_step=None, copies_per_step=None,
-                    device_ms_per_step=None, profiled_ms_per_step=None,
-                    top=None, top_ops=None)
+    prof = profile_steps(s, (u, Tc, Tv), TET_PROFILED_STEPS)
+    if prof["launches_per_step"] is None:
+        raise RuntimeError("legacy tet: torch.profiler saw no device activity")
     row.update(prof)
-    # the device's busy share: its kernel time per step over the timed
-    # (unprofiled) step, and over the profiled steps themselves
-    dms = prof["device_ms_per_step"]
-    row["busy_share"] = None if dms is None else dms / ms
-    row["busy_share_profiled"] = (None if dms is None
-                                  else dms / prof["profiled_ms_per_step"])
+    # the device's busy share: kernel time over wall time, both of the
+    # profiled steps
+    row["busy_share"] = (prof["device_ms_per_step"]
+                         / prof["profiled_ms_per_step"])
     del u, Tc, Tv
 
-    # 3 steps in f32 and in f64 from the zero state
+    # 3 steps from the zero state: f32, f64, and f32 with the class streams
+    from pbte_tpu_torch.solver import scan
+
     outs = {}
-    for dt in (torch.float32, torch.float64):
-        if dt == torch.float64:
+    for key, dt, budget in (("f32", torch.float32, None),
+                            ("f64", torch.float64, None),
+                            ("f32_class_streams", torch.float32, 0)):
+        if key != "f32":
             del s
             torch.cuda.empty_cache()
-            t0 = time.perf_counter()
-            s = SourceIterationSolver(*prob, problem.WALL_BCS,
-                                      device="cuda", dtype=dt,
-                                      **problem.LEGACY_TET_SOLVER)
-            torch.cuda.synchronize()
-            row["f64_setup_s"] = time.perf_counter() - t0
+            saved = scan.CLASS_OPS_BUDGET
+            if budget is not None:
+                scan.CLASS_OPS_BUDGET = budget
+            try:
+                t0 = time.perf_counter()
+                s = SourceIterationSolver(*prob, problem.WALL_BCS,
+                                          device="cuda", dtype=dt,
+                                          **problem.LEGACY_TET_SOLVER)
+                torch.cuda.synchronize()
+            finally:
+                scan.CLASS_OPS_BUDGET = saved
+            row[f"{key}_setup_s"] = time.perf_counter() - t0
+            if s._scan._scan_cls_ops != (budget is not None):
+                raise RuntimeError(f"legacy tet {key}: class streams "
+                                   f"{s._scan._scan_cls_ops}")
             torch.cuda.reset_peak_memory_stats()
         st = s.initial_state()
         torch.cuda.synchronize()
@@ -730,13 +743,17 @@ def phase_tet_scan(SourceIterationSolver, problem, lr, card):
         for _ in range(TET_COMPARE_STEPS):
             st = s.step(*st)[:3]
         torch.cuda.synchronize()
-        row[f"{STATE_KEYS[dt]}_ms_per_step"] = (
+        row[f"{key}_ms_per_step"] = (
             (time.perf_counter() - t0) / TET_COMPARE_STEPS * 1e3)
-        outs[dt] = st[1]
+        if key != "f32":
+            row[f"{key}_max_memory_allocated"] = (
+                torch.cuda.max_memory_allocated())
+        outs[key] = st[1]
         del st
-    row["f64_max_memory_allocated"] = torch.cuda.max_memory_allocated()
-    rel, ab = rel_err(outs[torch.float32], outs[torch.float64])
+    rel, ab = rel_err(outs["f32"], outs["f64"])
     row["f32_vs_f64_rel"] = rel
+    cs_rel, _ = rel_err(outs["f32_class_streams"], outs["f32"])
+    row["class_streams_vs_f32_rel"] = cs_rel
     del s, outs
     torch.cuda.empty_cache()
     log(f"[smoke] legacy tet scan " + json.dumps(row))
@@ -744,10 +761,15 @@ def phase_tet_scan(SourceIterationSolver, problem, lr, card):
         f"{row['dof_per_s']:.4g} DOF/s, peak "
         f"{row['max_memory_allocated'] / 1e9:.2f} GB, "
         f"{prof['launches_per_step']} launches/step, busy share "
-        f"{row['busy_share']}, f32 vs f64 {TET_COMPARE_STEPS} steps Tc rel "
-        f"{rel:.3e} (abs {ab:.3e}), tolerance {TET_F32_F64_RTOL}; on {card}")
+        f"{row['busy_share']:.4f}, f32 vs f64 {TET_COMPARE_STEPS} steps Tc "
+        f"rel {rel:.3e} (abs {ab:.3e}), tolerance {TET_F32_F64_RTOL}; class "
+        f"streams {row['f32_class_streams_ms_per_step']:.3f} ms/step, Tc rel "
+        f"{cs_rel:.3e} to the f32 steps, tolerance {TET_CLASS_STREAMS_RTOL}; "
+        f"on {card}")
     if not rel <= TET_F32_F64_RTOL:
         raise RuntimeError("legacy tet: f32 and f64 scans disagree")
+    if not cs_rel <= TET_CLASS_STREAMS_RTOL:
+        raise RuntimeError("legacy tet: the class streams disagree")
     return row
 
 

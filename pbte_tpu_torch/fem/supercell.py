@@ -1,11 +1,12 @@
 """Macro-cell ("supercell") detection: simplex lattice meshes as block lattices.
 
-This package's own copy of ``SuperCell``, ``detect`` and ``verify_acyclic``
-of ``pbte_tpu/fem/supercell.py``, which ``SourceIterationSolver`` needs to
-resolve ``sweep_mode="auto"`` as pbte_tpu does: where a 6-tet (3D) or
-2-triangle (2D) split of a Cartesian lattice is detected, pbte_tpu merges
-each macro cell into one super element and ring-sweeps the macro lattice
-(ROADMAP.md queue 1, item 6b, not yet in this package).
+This package's own copy of ``detect`` and ``verify_acyclic`` of
+``pbte_tpu/fem/supercell.py`` (its checks, without the merged operators),
+which ``SourceIterationSolver`` needs to resolve ``sweep_mode="auto"`` as
+pbte_tpu does: where a 6-tet (3D) or 2-triangle (2D) split of a Cartesian
+lattice is detected, pbte_tpu merges each macro cell into one super
+element and ring-sweeps the macro lattice (ROADMAP.md queue 1, item 6b,
+not yet in this package).
 
 Everything is detected and verified, never assumed: connected components
 over non-axis faces must tile the mesh into equal cells containing one
@@ -26,72 +27,18 @@ from pbte_tpu_torch.fem import assembly as _assembly
 
 @dataclasses.dataclass
 class SuperCell:
-    """Verified macro-cell structure + the merged ElementOps."""
+    """A verified macro-cell structure: what ``verify_acyclic`` and the
+    solver's supercell gate read (pbte_tpu's ``SuperCell`` less the merged
+    operators, which its supercell ring builds)."""
 
     gsz: int  # member elements per cell (== geometry class count)
     ncell: int
-    D: int  # member (fine) DOF count
-    Dp: int  # gsz * D
-    cell_of: np.ndarray  # (ne,) cell index per fine element
-    cls_of: np.ndarray  # (ne,) class index per fine element
-    elem_at: np.ndarray  # (ncell, gsz) fine element of class c in cell m
-    super_ops: "._assembly.ElementOps"
-    # intra-cell face list (each geometric intra face appears once per SIDE,
-    # carrying that side's outward normal, its own outflow face-mass and its
-    # inflow coupling to the other side): compact (D, D) blocks + class ids
+    # intra-cell face list (each geometric intra face once per SIDE, with
+    # that side's outward normal): destination and source classes
     int_normals: np.ndarray  # (n_int, dim)
-    int_fmass: np.ndarray  # (n_int, D, D) outflow block at (dst, dst)
-    int_cpl: np.ndarray  # (n_int, D, D) inflow block at (dst, src)
     int_dst: np.ndarray  # (n_int,)
     int_src: np.ndarray  # (n_int,)
-    # fine-element basis integrals arranged per (cell, class) for the
-    # per-element Tv reduction (residual semantics follow the FINE mesh:
-    # ref src/MacroscopicQuantities.cpp:130-166)
-    basis_int_cells: np.ndarray  # (ncell, gsz, D)
     lat_dims: tuple = ()  # verified macro box extents
-
-    @property
-    def ne_fine(self) -> int:
-        return self.ncell * self.gsz
-
-    def scatter_fine(self) -> np.ndarray:
-        """(ncell * gsz,) fine element id of flattened (cell, class) blocks:
-        fine_array[scatter] = cell_blocked_array.reshape(-1, ...)."""
-        return self.elem_at.reshape(-1)
-
-    def to_fine(self, a_super: np.ndarray) -> np.ndarray:
-        """(ncell, Dp, ...) block layout -> (ne, D, ...) fine layout."""
-        lead = a_super.shape[:1]
-        rest = a_super.shape[2:]
-        blk = a_super.reshape(lead + (self.gsz, self.D) + rest)
-        out = np.empty((self.ne_fine, self.D) + rest, a_super.dtype)
-        out[self.scatter_fine()] = blk.reshape(
-            (self.ncell * self.gsz, self.D) + rest
-        )
-        return out
-
-    def gmat_internal(self, dirs: np.ndarray) -> np.ndarray:
-        """Intra-cell contribution to the super transport operator:
-        (nk, Dp, Dp) with G[k] += max(s.n_j, 0) * fmass_j at (dst, dst)
-        + min(s.n_j, 0) * cpl_j at (dst, src) for every intra side j.
-        Matches the member-element outflow/inflow terms the sequential
-        sweep applies (ref: src/PBTESolver.cpp:146-168, 261-300), with the
-        inflow neighbor now an unknown of the same block system."""
-        nk = dirs.shape[0]
-        dim = self.int_normals.shape[1]
-        G = np.zeros((nk, self.Dp, self.Dp))
-        fd = dirs[:, :dim] @ self.int_normals.T  # (nk, n_int)
-        D = self.D
-        for j in range(self.int_normals.shape[0]):
-            c, cp = int(self.int_dst[j]), int(self.int_src[j])
-            r = slice(c * D, (c + 1) * D)
-            G[:, r, r] += (
-                np.maximum(fd[:, j], 0.0)[:, None, None] * self.int_fmass[j]
-            )
-            G[:, r, cp * D : (cp + 1) * D] += (
-                np.minimum(fd[:, j], 0.0)[:, None, None] * self.int_cpl[j]
-            )
-        return G
 
 
 def _axis_face_mask(normals: np.ndarray, tol: float = 1e-9) -> np.ndarray:
@@ -164,7 +111,6 @@ def detect(ops, cls: np.ndarray | None = None) -> SuperCell | None:
     # ---- static (class, face) maps ---------------------------------------
     # intra faces: (c, f) -> src class, identical normal (class-guaranteed)
     # axis faces:  (c, f) -> (axis, sign, src class) with one macro step
-    D = ops.ndof
     reps = np.array([int(np.flatnonzero(cls == c)[0]) for c in range(gsz)])
     int_rows = []  # (dst, f, src)
     ax_rows = {}  # (c, f) -> (axis, sign, src_cls or -1)
@@ -223,9 +169,9 @@ def detect(ops, cls: np.ndarray | None = None) -> SuperCell | None:
     if any(len(m) == 0 for m in members):
         return None
 
-    # super neighbor / attrs; verify member faces agree per (cell, slot)
+    # super neighbours; member faces agree per (cell, slot) in their
+    # neighbour cell and attribute
     s_nbr = np.full((ncell, nfp), -1, dtype=np.int64)
-    s_attr = np.zeros((ncell, nfp), dtype=ops.face_attr.dtype)
     for slot, mem in enumerate(members):
         nbc_all = None
         att_all = None
@@ -242,7 +188,6 @@ def detect(ops, cls: np.ndarray | None = None) -> SuperCell | None:
                 if not np.array_equal(att_all, att):
                     return None
         s_nbr[:, slot] = nbc_all
-        s_attr[:, slot] = att_all
 
     # ---- lattice coordinates (verified box) --------------------------------
     from pbte_tpu_torch.sweep import planner as _planner
@@ -256,71 +201,13 @@ def detect(ops, cls: np.ndarray | None = None) -> SuperCell | None:
     if lat is None:
         return None
 
-    # ---- merged operator tensors (translation-invariant: one representative
-    # cell, broadcast views — no O(ncell * Dp^2) host memory) ----------------
-    Dp = gsz * D
-    mass_r = np.zeros((Dp, Dp))
-    stiff_r = np.zeros((dim, Dp, Dp))
-    basis_r = np.zeros(Dp)
-    for c in range(gsz):
-        r = slice(c * D, (c + 1) * D)
-        mass_r[r, r] = ops.mass[reps[c]]
-        stiff_r[:, r, r] = ops.stiff[reps[c]]
-        basis_r[r] = ops.basis_int[reps[c]]
-    fmass_r = np.zeros((nfp, Dp, Dp))
-    cpl_r = np.zeros((nfp, Dp, Dp))
-    fint_r = np.zeros((nfp, Dp))
-    for slot, mem in enumerate(members):
-        for (c, f, src_cls) in mem:
-            r = slice(c * D, (c + 1) * D)
-            fmass_r[slot, r, r] = ops.face_mass[reps[c], f]
-            fint_r[slot, r] = ops.face_int[reps[c], f]
-            if src_cls >= 0:
-                e0 = elem_at[:, c][nbr[elem_at[:, c], f] >= 0]
-                if len(e0):
-                    cpl_r[
-                        slot, r, src_cls * D : (src_cls + 1) * D
-                    ] = ops.coupling[e0[0], f]
-
-    int_normals, int_fm, int_cp, int_dst, int_src = [], [], [], [], []
-    for (c, f, src_cls) in int_rows:
-        int_normals.append(normals[reps[c], f])
-        int_fm.append(ops.face_mass[reps[c], f])
-        int_cp.append(ops.coupling[elem_at[0, c], f])
-        int_dst.append(c)
-        int_src.append(src_cls)
-
-    super_ops = _assembly.ElementOps(
-        geom=f"super[{ops.geom}x{gsz}]",
-        order=ops.order,
-        dim=dim,
-        basis_int=np.broadcast_to(basis_r, (ncell, Dp)),
-        mass=np.broadcast_to(mass_r, (ncell, Dp, Dp)),
-        stiff=np.broadcast_to(stiff_r, (ncell, dim, Dp, Dp)),
-        face_mass=np.broadcast_to(fmass_r, (ncell, nfp, Dp, Dp)),
-        face_int=np.broadcast_to(fint_r, (ncell, nfp, Dp)),
-        # coupling blocks are position-independent; the solver masks
-        # boundary faces with cin=0, so a broadcast interior pattern is safe
-        coupling=np.broadcast_to(cpl_r, (ncell, nfp, Dp, Dp)),
-        normals=np.broadcast_to(s_normals_row, (ncell, nfp, dim)),
-        neighbor=s_nbr,
-        face_attr=s_attr,
-    )
     return SuperCell(
         gsz=gsz,
         ncell=ncell,
-        D=D,
-        Dp=Dp,
-        cell_of=cell_of,
-        cls_of=cls,
-        elem_at=elem_at,
-        super_ops=super_ops,
-        int_normals=np.asarray(int_normals),
-        int_fmass=np.asarray(int_fm),
-        int_cpl=np.asarray(int_cp),
-        int_dst=np.asarray(int_dst, dtype=np.int64),
-        int_src=np.asarray(int_src, dtype=np.int64),
-        basis_int_cells=ops.basis_int[elem_at],  # (ncell, gsz, D)
+        int_normals=np.asarray([normals[reps[c], f]
+                                for (c, f, _src) in int_rows]),
+        int_dst=np.asarray([r[0] for r in int_rows], dtype=np.int64),
+        int_src=np.asarray([r[2] for r in int_rows], dtype=np.int64),
         lat_dims=lat.dims,
     )
 

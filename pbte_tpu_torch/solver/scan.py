@@ -30,9 +30,11 @@ One outer step, all direction groups batched in every op (pbte_tpu's
 
 Memory fallbacks, for the 80 GB card: the rhs is assembled per level
 window when the two hoisted ``(G, Km, BS, D, ne)`` temporaries would pass
-``HOIST_BUDGET``, and the on-the-fly policy runs the groups one after the
-other when its batched inverse would pass ``SEQ_BUDGET``. Neither has an
-argument or a switch.
+``HOIST_BUDGET``; the on-the-fly policy runs the groups one after the
+other when its batched inverse would pass ``SEQ_BUDGET``; and the
+class-batched full cache rebuilds each window's mass and coupling blocks
+from per-class tensors (the class streams) when their group-replicated
+copies would pass ``CLASS_OPS_BUDGET``. None has an argument or a switch.
 
 Host math is float64 numpy; the constants go to ``device`` in the solver
 dtype. Every window op is a torch op: pbte_tpu's scan reaches no Pallas
@@ -41,7 +43,6 @@ kernel (its level body is XLA einsums and gathers).
 
 from __future__ import annotations
 
-import os
 import warnings
 
 import numpy as np
@@ -60,6 +61,12 @@ HOIST_BUDGET = 16e9
 # of A, their inverse and the LU workspace over all groups) above which the
 # groups run one after the other
 SEQ_BUDGET = 24e9
+# bytes of the group-replicated mass_t (G, D, D, ne) and coupling (G, nf, D,
+# D, ne) streams above which the class-batched full cache takes them from
+# (ncls, ...) class tensors instead, with a window-local rhs (pbte_tpu's
+# PBTE_SCAN_CLASS_OPS streams; ~13 GB at its refined-tet growth shape, G=34,
+# ne=48k, p=3; 0.14 GB at the legacy 5^3 tet shape)
+CLASS_OPS_BUDGET = 8e9
 
 
 def pick_level_segments(counts, max_segments=6):
@@ -107,9 +114,13 @@ class ScanSweep:
     """Constants and step of the scan path for one problem (built by
     ``SourceIterationSolver``; its attributes are the solver's)."""
 
-    def __init__(self, ops, quad, tables, plan, dirs_pad, *, bc_temps,
-                 dirichlet_bcs, diffuse_bcs, specular_bcs, cache_policy,
-                 cls_cache, dtype, device):
+    def __init__(self, ops, quad, tables, plan, dirs_pad, band, *, bc_T,
+                 dvec, diffuse_bcs, specular_bcs, cache_policy, cls_cache,
+                 dtype, device):
+        """``band`` is the solver's (inv_kn, vg, heat_cap, dt_inv): three
+        (BS,) tables and the pseudo time step's inverse; ``bc_T`` (ne, nf)
+        the wall temperatures and ``dvec`` (ne, nf, D) the Dirichlet
+        inflow, None without one."""
         np_dtype = np.float32 if dtype == torch.float32 else np.float64
         itemsize = np.dtype(np_dtype).itemsize
         self.dtype, self.device = dtype, device
@@ -118,22 +129,11 @@ class ScanSweep:
         self.nf = nf = ops.faces_per_elem
         self.dim = dim = ops.dim
         self.K = quad.num_directions
-        self.BS = BS = tables.num_branches * tables.num_spectral
         omega = quad.total_weight
-        inv_kn = tables.flat("inv_kn").astype(np.float64)
-        vg = tables.flat("vg").astype(np.float64)
-        heat_cap = tables.flat("heat_cap").astype(np.float64)
-        self.dt_inv = dt_inv = float(inv_kn.max())
+        inv_kn, vg, heat_cap, dt_inv = band
+        self.BS = BS = len(vg)
         self.has_periodic = bool(ops.periodic.any())
-        self.has_dirichlet = bool(dirichlet_bcs)
-
-        bc_T = np.zeros((ne, nf))
-        for attr, T in bc_temps.items():
-            bc_T[ops.face_attr == int(attr)] = float(T)
-        dvec = np.zeros((ne, nf, D))
-        for attr, gval in dirichlet_bcs.items():
-            sel = ops.face_attr == int(attr)
-            dvec[sel] = float(gval) * ops.face_int[sel]
+        self.has_dirichlet = dvec is not None
 
         self.G = G = plan.num_groups
         self.Km = Km = dirs_pad.shape[1]
@@ -182,12 +182,16 @@ class ScanSweep:
                                  diffuse_bcs, specular_bcs)
         self._dif_on, self._spc_on = "dif_fint" in refl, "spc_fm" in refl
 
-        # ---- class-compressed operator streams (pbte_tpu's opt-in) ---------
+        # ---- class-compressed operator streams (memory fallback) -----------
+        # where every element of a class shares its mass and couplings
+        # (verified); not with lagged closures, which scatter into the
+        # hoisted rhs these streams drop
         self._scan_cls_ops = False
         if (self._cls is not None and cache_policy == "full"
                 and not self.has_periodic
                 and not refl
-                and os.environ.get("PBTE_SCAN_CLASS_OPS", "") == "1"):
+                and G * (1 + nf) * D * D * ne * itemsize
+                > CLASS_OPS_BUDGET):
             cpl_cls = assembly.class_coupling(ops, self._cls)
             ok = cpl_cls is not None
             for arr in (ops.mass, ops.face_int) if ok else ():

@@ -256,6 +256,15 @@ class SourceIterationSolver:
         dirs_safe = np.where(dir_valid, dirs_pad, 0)
         self.L = L = plan.max_levels
 
+        nf = ops.faces_per_elem
+        bc_T = np.zeros((ne, nf))
+        for attr, T in bc_temps.items():
+            bc_T[ops.face_attr == int(attr)] = float(T)
+        dvec = np.zeros((ne, nf, D))
+        for attr, gval in dirichlet_bcs.items():
+            sel = ops.face_attr == int(attr)
+            dvec[sel] = float(gval) * ops.face_int[sel]
+
         # ---- path resolution: pbte_tpu's ring decision, less its TPU
         # memory budgets. The ring takes single-class Cartesian lattices
         # (this package's lattice path) and, on pbte_tpu, multi-class
@@ -286,10 +295,12 @@ class SourceIterationSolver:
                 self.sweep_mode = "ring"
         if self.sweep_mode == "scan":
             self._scan = scan.ScanSweep(
-                ops, quad, tables, plan, dirs_pad, bc_temps=bc_temps,
-                dirichlet_bcs=dirichlet_bcs, diffuse_bcs=diffuse_bcs,
-                specular_bcs=specular_bcs, cache_policy=cache_policy,
-                cls_cache=cls, dtype=dtype, device=device)
+                ops, quad, tables, plan, dirs_pad,
+                (inv_kn, vg, heat_cap, dt_inv), bc_T=bc_T,
+                dvec=dvec if dirichlet_bcs else None,
+                diffuse_bcs=diffuse_bcs, specular_bcs=specular_bcs,
+                cache_policy=cache_policy, cls_cache=cls, dtype=dtype,
+                device=device)
             sv = self._scan
             self.cache_policy = sv.cache_policy  # after the eigen guard
             self.W, self.ne_pad, self.consts = sv.W, sv.ne_pad, sv.consts
@@ -304,15 +315,6 @@ class SourceIterationSolver:
         if self.state_bf16 and dtype == torch.float64:
             raise ValueError("PBTE_RING_STATE_BF16=1 rounds float32 state to "
                              "bfloat16; unset it for float64 state")
-
-        nf = ops.faces_per_elem
-        bc_T = np.zeros((ne, nf))
-        for attr, T in bc_temps.items():
-            bc_T[ops.face_attr == int(attr)] = float(T)
-        dvec = np.zeros((ne, nf, D))
-        for attr, gval in dirichlet_bcs.items():
-            sel = ops.face_attr == int(attr)
-            dvec[sel] = float(gval) * ops.face_int[sel]
 
         # groups of equal slot count run as one bucket with exactly that
         # many slots (flagship octants: [10]*4 and [6]*4)

@@ -9,7 +9,9 @@ Tv and the state u after 3 outer steps from the zero state are compared:
 - float64 to 1e-12 of each field's max |.|;
 - float32 at pbte_tpu's own tolerance, ``rtol=2e-5, atol=5e-7``, on each
   field divided by its max |.| in pbte_tpu (Tv holds cell integrals of
-  ~1e-19 on micron meshes, so the absolute term needs a scale).
+  ~1e-19 on micron meshes, so the absolute term needs a scale); the eigen
+  cache's float32 cases with ``atol`` 80 eps = 9.5e-6 (``EIGEN_F32_ATOL``:
+  cond(V) eps at the largest estimate among them, each estimate recorded).
 
 Cases: 2D triangles and quads, the triangle / quad builtin
 ``unit-square-mixed``, the 2-element ``unit-square-iso.mesh`` with 2D
@@ -164,6 +166,24 @@ def assert_fields_match(js, ts, rj, rt, f64, atol=5e-7):
 
 RUNS = [(c[:3], f64) for c in CASES for f64 in (True, False)
         if f64 or not c[3]]
+# the eigen cache's condition estimate cond(V) on each float32 case that
+# keeps it (the rest fall back to the class cache), as measured
+EIGEN_F32_COND = {
+    ("tri_4x4", 1, "mfem-parity"): 69.0,
+    ("unit-square-mixed", 1, "mfem-parity"): 79.7,
+    ("cuboid_5x5x5", 1, "consistent"): 15.8,
+    ("quad_4x4", 1, "mfem-parity"): 44.2,
+    ("quad_4x4", 2, "consistent"): 43.8,
+    ("unit-square-iso", 1, "mfem-parity"): 69.0,
+    ("unit-cube-tet-iso", 1, "mfem-parity"): 49.0,
+    ("unit-cube-mixed", 1, "consistent"): 17.0,
+    ("tet_2x2x2", 1, "consistent"): 11.3,
+}
+# the factor pair V, V^-1 amplifies rounding by cond(V): the two packages'
+# float32 applies differ by up to cond(V) eps of max (largest measured:
+# 3.3e-6 of max on u of the p = 2 quads, estimate 43.8), so the eigen cases
+# take the absolute term at the largest estimate above times float32's eps
+EIGEN_F32_ATOL = 80.0 * float(np.finfo(np.float32).eps)  # 9.5e-6
 
 
 @pytest.mark.parametrize("policy", POLICIES)
@@ -183,11 +203,9 @@ def test_scan_matches_pbte_tpu(case, f64, policy):
     rt = ts.solve(tol=0, max_iter=STEPS, verbose=False)
     atol = 5e-7
     if ts.cache_policy == "eigen" and not f64:
-        # the factor pair V, V^-1 amplifies rounding by cond(V): the two
-        # packages' f32 applies differ by up to cond(V) eps of max
-        # (measured: 1.0e-6 of max on the triangles, estimate 69, and
-        # 1.7e-6 on the p = 2 quads, estimate 44)
-        atol = max(atol, ts._scan.cond_max * float(np.finfo(np.float32).eps))
+        assert ts._scan.cond_max == pytest.approx(EIGEN_F32_COND[case],
+                                                  abs=0.05)
+        atol = EIGEN_F32_ATOL
     assert_fields_match(js, ts, rj, rt, f64, atol=atol)
     assert rt.residual == pytest.approx(rj.residual, rel=1e-9 if f64 else
                                         1e-3)
@@ -428,9 +446,9 @@ def test_arguments_are_validated():
                                       "class_streams"])
 def test_memory_fallbacks_change_no_result(fallback, monkeypatch):
     """The window-local rhs (HOIST_BUDGET), the sequential groups of the
-    on-the-fly cache (SEQ_BUDGET) and pbte_tpu's opt-in class-compressed
-    operator streams (PBTE_SCAN_CLASS_OPS=1) give the hoisted, batched
-    result to 1e-13 of max in float64."""
+    on-the-fly cache (SEQ_BUDGET) and the class-compressed operator streams
+    (CLASS_OPS_BUDGET), each forced by a budget of 0, give the hoisted,
+    batched result to 1e-13 of max in float64."""
     tp = tet_cube(2, order=2, polar=2, azimuth=4, nspec=2)
     bcs = _walls(tp[0])
     policy = "on-the-fly" if fallback == "sequential_groups" else "full"
@@ -441,7 +459,7 @@ def test_memory_fallbacks_change_no_result(fallback, monkeypatch):
     elif fallback == "sequential_groups":
         monkeypatch.setattr(tscan, "SEQ_BUDGET", 0)
     else:
-        monkeypatch.setenv("PBTE_SCAN_CLASS_OPS", "1")
+        monkeypatch.setattr(tscan, "CLASS_OPS_BUDGET", 0)
     ts = SourceIterationSolver(*tp, bcs, dtype=torch.float64, device="cpu",
                                cache_policy=policy)
     sv = ts._scan
@@ -449,10 +467,24 @@ def test_memory_fallbacks_change_no_result(fallback, monkeypatch):
              "sequential_groups": sv._seq_groups,
              "class_streams": sv._scan_cls_ops and not sv._hoist_rhs}
     assert taken[fallback] and ref._scan._hoist_rhs
+    assert not ref._scan._scan_cls_ops and not ref._scan._seq_groups
     a = ref.solve(tol=0, max_iter=STEPS, verbose=False)
     b = ts.solve(tol=0, max_iter=STEPS, verbose=False)
     for x, y in ((a.Tc, b.Tc), (a.u, b.u)):
         assert (y - x).abs().max() <= 1e-13 * x.abs().max()
+
+
+def test_bench_scan_rows_and_needs_a_gpu(tmp_path):
+    """bench_scan times every cache policy and the forced class streams at
+    the legacy tet shape, and exits 1 without a GPU, writing nothing."""
+    from pbte_tpu_torch import bench_scan
+
+    assert {r[1] for r in bench_scan.ROWS} == set(POLICIES)
+    assert [r[2] for r in bench_scan.ROWS].count(0) == 1
+    out = tmp_path / "scan.json"
+    if not torch.cuda.is_available():
+        assert bench_scan.main(["--out", str(out)]) == 1
+        assert not out.exists()
 
 
 def test_step_leaves_its_input_alone():
@@ -511,8 +543,8 @@ def test_step_through_bridge(case, monkeypatch):
     """The port's scan step on pbte_tpu's own operators
     (convert.consts_from_numpy) from pbte_tpu's state after one step
     (convert.state_from_numpy) equals pbte_tpu's next step to 1e-12 of max
-    in float64; with PBTE_SCAN_CLASS_OPS=1 too (the class-compressed
-    streams)."""
+    in float64; with the class-compressed streams too (pbte_tpu's
+    PBTE_SCAN_CLASS_OPS=1, the port's CLASS_OPS_BUDGET at 0)."""
     import jax
 
     from pbte_tpu_torch.convert import consts_from_numpy, state_from_numpy
@@ -523,6 +555,7 @@ def test_step_through_bridge(case, monkeypatch):
                       and not bcs else (False,)):
         if class_ops:
             monkeypatch.setenv("PBTE_SCAN_CLASS_OPS", "1")
+            monkeypatch.setattr(tscan, "CLASS_OPS_BUDGET", 0)
         js, ts = _pair(mesh, order, face_mode, True, bcs=bcs or None,
                        cache_policy=case[3], **kw)
         sv = ts._scan
