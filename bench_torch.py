@@ -38,6 +38,13 @@ Rows (each rebuilds the solver under its environment):
   directions, 2x20 bands, f32, the class-batched full factor cache), timed
   as the others. Its order, polar and azimuth points and bands take the
   PBTE_BENCH_* overrides where they are set.
+- ``tet_super``: the same shape with the solver's defaults, which merge the
+  6-tet split into a 5^3 lattice of super elements (D' = 6 D) and take the
+  supercell ring; timed as the others, then solved from the zero state to
+  a Tv residual of ``CONVERGE_TOL`` (1e-7) with the residual read every
+  ``CONVERGE_CHECK_EVERY`` (20) steps, as pbte_tpu's
+  ``scripts/converge_tet.py`` measures it: ``converge_steps``,
+  ``converge_wall_s`` (ending in a synchronise) and ``converge_residual``.
 
 An extra row that fails records ``{"error": ...}``; ``PBTE_BENCH_ROWS=0``
 skips the extra rows.
@@ -91,6 +98,11 @@ ACCEL_MAX_ITER = 1500
 # the flagship's f64 relres near 1e-3 (a run reading every iteration
 # stopped on one at 1.06e-3, measured on an H100)
 ACCEL_CHECK_EVERY = 20
+# the tet_super row's solve to convergence (scripts/converge_tet.py's
+# PBTE_TETC_TOL, PBTE_TETC_MAXIT and residual cadence)
+CONVERGE_TOL = 1e-7
+CONVERGE_MAX_ITER = 3000
+CONVERGE_CHECK_EVERY = 20
 BASELINE_NOTE = (
     "bench.py measures its baseline with pbte_tpu's C++ mirror solver "
     "(pbte_tpu/native/); pbte_tpu_torch has no copy of it yet and imports "
@@ -173,9 +185,10 @@ def release(device):
 
 
 def run_row(name, device, steps, size, env=None, solver_kw=None, shares=False,
-            make=None):
-    """Build the solver under ``env`` and time ``steps`` steps; returns the
-    row and the solver's shape."""
+            make=None, converge=False):
+    """Build the solver under ``env`` and time ``steps`` steps (and with
+    ``converge`` solve from the zero state to ``CONVERGE_TOL``); returns
+    the row and the solver's shape."""
     solver, setup_s = build(device, size, env, solver_kw, make)
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
@@ -197,11 +210,25 @@ def run_row(name, device, steps, size, env=None, solver_kw=None, shares=False,
         ms_per_step=dt / steps * 1e3, setup_s=round(setup_s, 2),
         windows=solver.win is not None, state=str(solver.state_dtype),
         residual=res, sweep_mode=solver.sweep_mode,
+        supercell=solver._super is not None,
     )
     if device.type == "cuda":
         row["max_memory_allocated"] = torch.cuda.max_memory_allocated(device)
         if shares:
             row["k1_share_of_bound"] = k1_share_of_bound(solver, (u, Tc, Tv))
+    if converge:
+        del u, Tc, Tv
+        sync(device)
+        t0 = time.perf_counter()
+        r = solver.solve(tol=CONVERGE_TOL, max_iter=CONVERGE_MAX_ITER,
+                         check_every=CONVERGE_CHECK_EVERY, verbose=False)
+        sync(device)
+        row.update(converge_steps=r.iterations,
+                   converge_wall_s=time.perf_counter() - t0,
+                   converge_residual=r.residual, converge_tol=CONVERGE_TOL)
+        log(f"row {name}: {r.iterations} steps to a Tv residual of "
+            f"{r.residual:.3e} in {row['converge_wall_s']:.2f} s")
+        u = Tc = Tv = r = None
     log(f"row {name}: {row['ms_per_step']:.3f} ms/step -> "
         f"{row['dof_per_s']:.4g} DOF/s (set-up {setup_s:.1f} s, residual "
         f"{res:.3e})")
@@ -304,7 +331,8 @@ def main(argv=None) -> int:
             rows["f64_bicgstab"] = {"error": f"{type(e).__name__}: {e}"[:300]}
             log(f"row f64_bicgstab FAILED: {e}")
             release(device)
-        # the legacy production tet shape on the scan path
+        # the legacy production tet shape on the scan path (pbte_tpu's
+        # sweep_mode="scan") and on the supercell ring
         tet = dict(problem.LEGACY_TET, **{
             k: int(os.environ[f"PBTE_BENCH_{k.upper()}"])
             for k in ("order", "polar", "azimuth", "nspec")
@@ -319,6 +347,18 @@ def main(argv=None) -> int:
         except Exception as e:
             rows["tet_scan"] = {"error": f"{type(e).__name__}: {e}"[:300]}
             log(f"row tet_scan FAILED: {e}")
+            release(device)
+        # the same shape on the supercell ring (the solver's defaults)
+        try:
+            rows["tet_super"], tet_shape = run_row(
+                "tet_super", device, steps, tet,
+                solver_kw=dict(bc_temps=problem.WALL_BCS),
+                make=problem.tet_cube, converge=True)
+            rows["tet_super"]["shape"] = dict(tet_shape, n=tet["n"],
+                                              order=tet["order"])
+        except Exception as e:
+            rows["tet_super"] = {"error": f"{type(e).__name__}: {e}"[:300]}
+            log(f"row tet_super FAILED: {e}")
             release(device)
 
     primary = rows["f32"]

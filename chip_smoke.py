@@ -2,8 +2,8 @@
 plain PyTorch version at the shapes its path gives it, run the flagship
 source iteration (isothermal walls, diffuse walls, bf16 state, and in
 float64 through the BiCGStab-accelerated solve) and the copy probe through
-them, run the legacy production tet shape through the scan path, and check
-the results against the pbte_tpu goldens.
+them, run the legacy production tet shape through the scan path and the
+supercell ring, and check the results against the pbte_tpu goldens.
 
 Usage (from the root of a checkout, on a machine with one CUDA GPU):
 
@@ -53,7 +53,9 @@ Phases (a failing phase raises and the script exits non-zero):
    (tests/data/torch_port_golden_accel.npz) against the port's float64
    kernel path, and the golden of its f32 scan path on a 3^3 6-tet cube
    with diffuse walls (tests/data/torch_port_golden_scan.npz) against the
-   port's scan on the GPU;
+   port's scan on the GPU, and the golden of its f32 supercell ring on a
+   3x2x2 6-tet box at p=2 (tests/data/torch_port_golden_super.npz) against
+   the port's supercell ring on the GPU;
 8. the f64 flagship (the f32 solvers freed first, so the peak is its own):
    set-up, 2 + 30 timed steps and 3 steps kernel vs plain as phase 5; then
    solve(accelerate="bicgstab", tol=1e-8) with its K1 launches (2 per step
@@ -76,7 +78,18 @@ Phases (a failing phase raises and the script exits non-zero):
    and 3 f32 steps with the class streams (``scan.CLASS_OPS_BUDGET``, a
    memory fallback this shape does not reach) forced, against the f32
    steps. The scan path runs as torch ops (pbte_tpu's scan reaches no
-   Pallas kernel), so no kernel of the kernels line launches in it.
+   Pallas kernel), so no kernel of the kernels line launches in it;
+10. the same legacy tet shape with the solver's defaults (phase 9's scan
+   solver freed first, so the peak is the ring's own), asserted to resolve
+   to the supercell ring (G = 8, D' = 120, L = 13, W = 25): set-up with the
+   factor build's seconds on a line of their own, 2 warm-up + 10 timed
+   steps, ms/step, element-ordinate DOF/s, peak memory; launches per step,
+   busy share and top kernels and ops from torch.profiler over 2 more
+   steps; and 3 f32 steps from the zero state against phase 9's 3 f32 scan
+   steps (iterate-exact paths, held at 2e-6 of max), then 3 float64 steps
+   against phase 9's float64 scan steps (1e-11 of max). The ring is torch
+   products (pbte_tpu's supercell body reaches no Pallas kernel): no kernel
+   of the kernels line launches in it, and the phase fails if K1 does.
 
 The line before the last is the card's name and power limit, the one before
 it {"kernels": [...]}, the last line {"ok": true, "device": {...}}.
@@ -146,6 +159,13 @@ TET_F32_F64_RTOL = 2e-5
 # the class streams against the per-element streams, 3 f32 steps each:
 # the same products in another order (1e-13 of max in f64 on the CPU)
 TET_CLASS_STREAMS_RTOL = 2e-5
+# the supercell ring against the scan, 3 f32 steps each from the zero state
+# (iterate-exact paths: f32 roundoff; the scan's f32 against f64 gap at the
+# same shape was 2.59e-7 of max on an H100)
+TET_SUPER_RTOL = 2e-6
+# the same in float64: the paths sum in another order (1e-15 of max on the
+# CPU at 3 steps)
+TET_SUPER_F64_RTOL = 1e-11
 
 
 def log(*a):
@@ -607,6 +627,30 @@ def phase_scan_golden(SourceIterationSolver, tet_cube):
     return rel
 
 
+def phase_super_golden(SourceIterationSolver, tet_box):
+    """The port's f32 supercell ring on the GPU against pbte_tpu's
+    (tests/data/torch_port_golden_super.npz: a small 6-tet box with
+    ``supercell="on"``, pbte_tpu's XLA ring with f32 operands)."""
+    golden = pathlib.Path(__file__).resolve().parent / "tests" / "data"
+    with np.load(golden / "torch_port_golden_super.npz") as d:
+        params = {k: int(d[k]) for k in ("nx", "ny", "nz", "order", "polar",
+                                         "azimuth", "nspec")}
+        bcs = dict(zip(d["bc_attrs"].tolist(), d["bc_temps"].tolist()))
+        ref = torch.from_numpy(d["Tc"][-1]).cuda()
+        steps = int(d["steps"])
+    s = SourceIterationSolver(*tet_box(**params), bcs, device="cuda",
+                              supercell="on")
+    r = s.solve(tol=0, max_iter=steps, verbose=False)
+    rel, ab = rel_err(r.Tc, ref)
+    log(f"[smoke] golden torch_port_golden_super.npz {params} supercell "
+        f"G={s.G} D'={s.D} {steps} steps: Tc rel {rel:.3e} (abs {ab:.3e}), "
+        f"tolerance {GOLDEN_RTOL}")
+    if not (s._super is not None and rel <= GOLDEN_RTOL):
+        raise RuntimeError("the GPU's supercell ring disagrees with the "
+                           "pbte_tpu supercell golden")
+    return rel
+
+
 def profile_steps(solver, state, n):
     """torch.profiler over n steps from ``state``: per step, the device
     kernel launches, the copies and fills, and the device milliseconds,
@@ -653,10 +697,10 @@ def profile_steps(solver, state, n):
                  for k, v in ops[:10]])
 
 
-def phase_tet_scan(SourceIterationSolver, problem, lr, card):
-    """The legacy production tet shape through the scan path (phase 9);
-    returns its row."""
-    prob = problem.tet_cube(**problem.LEGACY_TET)
+def phase_tet_scan(SourceIterationSolver, problem, prob, lr, card):
+    """The legacy production tet shape ``prob`` through the scan path
+    (phase 9); returns its row and the Tc of its 3 f32 and 3 f64 steps (on
+    the host)."""
     t0 = time.perf_counter()
     s = SourceIterationSolver(*prob, problem.WALL_BCS, device="cuda",
                               **problem.LEGACY_TET_SOLVER)
@@ -752,6 +796,7 @@ def phase_tet_scan(SourceIterationSolver, problem, lr, card):
         del st
     rel, ab = rel_err(outs["f32"], outs["f64"])
     row["f32_vs_f64_rel"] = rel
+    tc_3 = {k: outs[k].cpu() for k in ("f32", "f64")}
     cs_rel, _ = rel_err(outs["f32_class_streams"], outs["f32"])
     row["class_streams_vs_f32_rel"] = cs_rel
     del s, outs
@@ -770,6 +815,119 @@ def phase_tet_scan(SourceIterationSolver, problem, lr, card):
         raise RuntimeError("legacy tet: f32 and f64 scans disagree")
     if not cs_rel <= TET_CLASS_STREAMS_RTOL:
         raise RuntimeError("legacy tet: the class streams disagree")
+    return row, tc_3
+
+
+def phase_tet_super(SourceIterationSolver, problem, prob, lr, card, tc_scan):
+    """The legacy production tet shape ``prob`` with the solver's defaults
+    (phase 10): it must resolve to the supercell ring (G = 8 octant groups
+    of the 5^3 macro lattice, D' = 6 x 20 = 120, L = 13, W = 25). Set-up
+    with the factor build on its own, 2 + 10 timed steps, DOF/s, peak
+    memory, the profiler's launches, busy share and top ops over 2 more
+    steps, and 3 steps from the zero state against the scan's 3 f32 steps
+    ``tc_scan["f32"]`` (the two paths are iterate-exact: f32 roundoff);
+    then the same 3 steps in float64 against the scan's float64 steps. The
+    ring is torch products, so no kernel of the kernels line launches here
+    (held: K1's count stays 0). Returns its row."""
+    lr.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    s = SourceIterationSolver(*prob, problem.WALL_BCS, device="cuda")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    sw = s._sweep
+    ne, D, K, BS = s.ne, s.D, s.K, s.BS
+    log(f"[smoke] legacy tet supercell {problem.LEGACY_TET} setup "
+        f"{setup_s:.1f} s: sweep_mode={s.sweep_mode} supercell="
+        f"{s._super is not None} G={s.G} Km={s.Km} L={s.L} W={s.W} D'={D} "
+        f"buckets={[(len(g), k) for g, k in s._ring_buckets]}")
+    log(f"[smoke] legacy tet supercell factor build {sw.factor_s:.2f} s "
+        f"(float64 block forward substitution on the card)")
+    if not (s._super is not None and s.sweep_mode == "ring"
+            and (s.G, D, s.L, s.W) == (8, 120, 13, 25)):
+        raise RuntimeError("the legacy tet shape did not resolve to the "
+                           "supercell ring with G=8, D'=120, L=13, W=25")
+    setup_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    u, Tc, Tv = s.initial_state()
+    res = []
+    for _ in range(WARMUP_STEPS):
+        u, Tc, Tv, r = s.step(u, Tc, Tv)
+        res.append(r)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(TET_TIMED_STEPS):
+        u, Tc, Tv, r = s.step(u, Tc, Tv)
+        res.append(r)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    res = [float(x) for x in res]
+    ms = wall / TET_TIMED_STEPS * 1e3
+    row = dict(
+        ne=ne, D=D, K=K, BS=BS, G=s.G, Km=s.Km, L=s.L, W=s.W,
+        setup_s=setup_s, factor_s=sw.factor_s, setup_max_memory_allocated=
+        setup_peak, ms_per_step=ms,
+        dof_per_s=TET_TIMED_STEPS * K * BS * ne * D / wall,
+        max_memory_allocated=torch.cuda.max_memory_allocated(),
+        residuals=res)
+    if Tc.shape != (ne, D) or not torch.isfinite(Tc).all():
+        raise RuntimeError("legacy tet supercell: Tc is not finite of shape "
+                           "(ne, D)")
+    if not (np.all(np.isfinite(res)) and res[-1] < res[0]):
+        raise RuntimeError(f"legacy tet supercell: residuals not finite and "
+                           f"falling: {res}")
+    prof = profile_steps(s, (u, Tc, Tv), TET_PROFILED_STEPS)
+    if prof["launches_per_step"] is None:
+        raise RuntimeError("legacy tet supercell: torch.profiler saw no "
+                           "device activity")
+    row.update(prof)
+    row["busy_share"] = (prof["device_ms_per_step"]
+                         / prof["profiled_ms_per_step"])
+    del u, Tc, Tv
+    st = s.initial_state()
+    for _ in range(TET_COMPARE_STEPS):
+        st = s.step(*st)[:3]
+    rel, ab = rel_err(s.Tc_fine(st[1]), tc_scan["f32"].cuda())
+    row["vs_scan_rel"] = rel
+    del s, st
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    s = SourceIterationSolver(*prob, problem.WALL_BCS, device="cuda",
+                              dtype=torch.float64)
+    torch.cuda.synchronize()
+    row["f64_setup_s"] = time.perf_counter() - t0
+    row["f64_factor_s"] = s._sweep.factor_s
+    st = s.initial_state()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(TET_COMPARE_STEPS):
+        st = s.step(*st)[:3]
+    torch.cuda.synchronize()
+    row["f64_ms_per_step"] = (time.perf_counter() - t0) / TET_COMPARE_STEPS * 1e3
+    row["f64_max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    rel64, _ = rel_err(s.Tc_fine(st[1]), tc_scan["f64"].cuda())
+    row["f64_vs_scan_rel"] = rel64
+    row["k1_launches"] = lr.lattice_ring_sweep.launches
+    del s, st
+    torch.cuda.empty_cache()
+    log(f"[smoke] legacy tet supercell " + json.dumps(row))
+    log(f"[smoke] legacy tet supercell: {ms:.3f} ms/step, "
+        f"{row['dof_per_s']:.4g} DOF/s, peak "
+        f"{row['max_memory_allocated'] / 1e9:.2f} GB, "
+        f"{prof['launches_per_step']} launches/step, busy share "
+        f"{row['busy_share']:.4f}; {TET_COMPARE_STEPS} steps Tc against the "
+        f"scan's rel {rel:.3e} (abs {ab:.3e}), tolerance {TET_SUPER_RTOL}; "
+        f"f64 {row['f64_ms_per_step']:.3f} ms/step, peak "
+        f"{row['f64_max_memory_allocated'] / 1e9:.2f} GB, Tc against the "
+        f"f64 scan's rel {rel64:.3e}, tolerance {TET_SUPER_F64_RTOL}; "
+        f"no kernel of the kernels line launched (K1 "
+        f"{row['k1_launches']}): the ring is torch products; on {card}")
+    if not (rel <= TET_SUPER_RTOL and rel64 <= TET_SUPER_F64_RTOL):
+        raise RuntimeError("legacy tet: the supercell ring and the scan "
+                           "disagree")
+    if row["k1_launches"]:
+        raise RuntimeError("legacy tet supercell: K1 launched")
     return row
 
 
@@ -1001,12 +1159,17 @@ def main() -> int:
                                "torch_port_golden_closures.npz")
     accel_rel = phase_accel_golden(SourceIterationSolver, unit_cube, lr)
     scan_rel = phase_scan_golden(SourceIterationSolver, problem_mod.tet_cube)
+    super_rel = phase_super_golden(SourceIterationSolver, problem_mod.tet_box)
 
     f64_launches, f64_row = phase_f64_flagship(
         SourceIterationSolver, problem, lr, dict(bc_temps=WALL_BCS))
     torch.cuda.empty_cache()
 
-    tet = phase_tet_scan(SourceIterationSolver, problem_mod, lr, card)
+    tet_prob = problem_mod.tet_cube(**problem_mod.LEGACY_TET)
+    tet, tc_scan = phase_tet_scan(SourceIterationSolver, problem_mod,
+                                  tet_prob, lr, card)
+    tet_super = phase_tet_super(SourceIterationSolver, problem_mod, tet_prob,
+                                lr, card, tc_scan)
 
     jax_mods = sorted(m for m in sys.modules
                       if m.split(".")[0] in ("jax", "jaxlib"))
@@ -1035,9 +1198,11 @@ def main() -> int:
         f"{f64_row['refined']['gain']:.1f}x; best copy {best['name']} "
         f"{best['gbs']:.1f} GB/s; golden rel {golden_rel:.3e}, closure "
         f"golden rel {closure_rel:.3e}, f64 bicgstab golden rel "
-        f"{accel_rel:.3e}, scan golden rel {scan_rel:.3e}; legacy tet scan "
-        f"{tet['ms_per_step']:.3f} ms/step, {tet['dof_per_s']:.4g} DOF/s; "
-        f"on {card}")
+        f"{accel_rel:.3e}, scan golden rel {scan_rel:.3e}, supercell golden "
+        f"rel {super_rel:.3e}; legacy tet scan {tet['ms_per_step']:.3f} "
+        f"ms/step, {tet['dof_per_s']:.4g} DOF/s; supercell ring "
+        f"{tet_super['ms_per_step']:.3f} ms/step, "
+        f"{tet_super['dof_per_s']:.4g} DOF/s; on {card}")
 
     def k1_entry(name, state, n):
         r = main_row(state)

@@ -7,8 +7,8 @@ held to pbte_tpu's by tests/test_torch_host_layers.py:
 - ``mesh``: tri, quad, tet, hex and mixed meshes (builtins, the gmsh and
   MFEM readers), face tables, periodic pairing;
 - ``fem``: quadrature and L2 nodal bases on every reference element,
-  assembly in both face modes, the geometry-class helpers and supercell
-  detection;
+  assembly in both face modes, the geometry-class helpers and the
+  supercell merge (its block factor in torch);
 - ``angular``: the discrete-ordinates quadrature;
 - ``material``: the non-gray SMRT silicon tables;
 - ``sweep``: upwind levelization, the sweep plan, lattice detection, the
@@ -28,14 +28,17 @@ and the modules that were JAX in pbte_tpu:
 - ``solver.source_iteration``: ``SourceIterationSolver`` on the
   single-class lattice ring, with periodic, diffuse and specular closures
   (``solver.lattice_tables`` holds its lattice host tables), resolving
-  ``sweep_mode`` as pbte_tpu does and dispatching every other mesh to
-  ``solver.scan``, the level-window scan (torch ops);
+  ``sweep_mode`` as pbte_tpu does and dispatching a merged 6-tet or
+  2-triangle lattice to ``solver.super_ring``, the supercell two-matmul
+  ring, and every other mesh to ``solver.scan``, the level-window scan
+  (both torch ops);
 - ``solver.accel``: BiCGStab over the state, correction solves, refinement;
 - ``io.checkpoint``: checkpoints with pbte_tpu's fields;
 - ``convert``: numpy consts/state from ``pbte_tpu`` into this package's
-  layouts, ring and scan (used by the parity tests);
-- ``problem``: the unit-cube problems, the flagship and the legacy
-  production tet shape among them.
+  layouts, ring and scan, and the supercell ring's state both ways (used
+  by the parity tests);
+- ``problem``: the unit-cube and 6-tet box problems, the flagship and the
+  legacy production tet shape among them.
 
 The entry points (``SourceIterationSolver``, ``consts_from_numpy``,
 ``state_from_numpy``) run on the GPU unless the caller passes

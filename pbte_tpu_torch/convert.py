@@ -5,8 +5,11 @@
 ``jax.tree.map(np.asarray, solver.consts)``) they become this package's
 consts dict, on the lattice ring (the Pallas kernel path, or the XLA ring
 ``_step_ring`` with its lagged closures) and on the scan, so both packages
-can step from the same operators and the same state. This module imports
-no JAX: it takes numpy arrays.
+can step from the same operators and the same state. pbte_tpu's supercell
+ring state carries over both ways (``state_from_numpy(..., supercell=True)``,
+``super_state_to_numpy``); its supercell consts do not (this package builds
+its own factors from the same operators). This module imports no JAX: it
+takes numpy arrays.
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ import numpy as np
 import torch
 
 from pbte_tpu_torch.solver.scan import level_tables, pick_level_segments
+from pbte_tpu_torch.solver.super_ring import from_pbte_layout, to_pbte_layout
 from pbte_tpu_torch.solver.source_iteration import (
     REFL_KEYS,
     checked_device,
@@ -59,6 +63,11 @@ def consts_from_numpy(np_consts: dict, device="cuda") -> dict:
     when some entry is valid. ``device`` defaults to the GPU and raises
     without one (``device="cpu"`` for the CPU)."""
     device = checked_device(device)
+    if "super_scat" in np_consts:
+        raise ValueError(
+            "pbte_tpu's supercell ring consts: build this package's solver "
+            "from the same ops (it forms its own factors) and carry the "
+            "state over with state_from_numpy(..., supercell=True)")
     if "ring_b" not in np_consts:
         return scan_consts_from_numpy(np_consts, device)
     mats = np_consts["mats"]
@@ -186,7 +195,8 @@ def scan_consts_from_numpy(c: dict, device="cuda") -> dict:
     return out
 
 
-def state_from_numpy(u, Tc, Tv, device="cuda", layout="bsd"):
+def state_from_numpy(u, Tc, Tv, device="cuda", layout="bsd",
+                     supercell=False):
     """pbte_tpu state (u, Tc, Tv) -> tensors.
 
     On the scan u is one array (G, Km, BS, D, ne) and ``layout`` is not
@@ -194,11 +204,18 @@ def state_from_numpy(u, Tc, Tv, device="cuda", layout="bsd"):
     names their trailing axes as pbte_tpu's checkpoints tag them: "bsd"
     for the Pallas path's ``(L, Gb, Km, BS, D, W)`` (this package's
     layout), "dbs" for the XLA ring's ``(L, Gb, Km, D, BS, W)``, whose BS
-    and D axes are swapped here. ``device`` defaults to the GPU and raises
-    without one (``device="cpu"`` for the CPU)."""
+    and D axes are swapped here. With ``supercell=True`` u is the
+    supercell ring's per-bucket ``(L, Gb, Km_b, D', BS, W)`` (pbte_tpu's
+    XLA ring; ``layout`` not read), carried into this package's ``(L, Gb,
+    Km_b, BS, W, D')``; Tc is then per super element and Tv per fine
+    element. ``device`` defaults to the GPU and raises without one
+    (``device="cpu"`` for the CPU)."""
     device = checked_device(device)
     if not isinstance(u, (tuple, list)):
         return _tensor(u, device), _tensor(Tc, device), _tensor(Tv, device)
+    if supercell:
+        return (tuple(from_pbte_layout(_tensor(ub, device)) for ub in u),
+                _tensor(Tc, device), _tensor(Tv, device))
     if layout not in ("bsd", "dbs"):
         raise ValueError(f"layout must be 'bsd' or 'dbs', got {layout!r}")
     if layout == "dbs":
@@ -208,3 +225,9 @@ def state_from_numpy(u, Tc, Tv, device="cuda", layout="bsd"):
         _tensor(Tc, device),
         _tensor(Tv, device),
     )
+
+
+def super_state_to_numpy(u):
+    """The supercell ring's per-bucket state -> pbte_tpu's XLA-ring layout
+    ``(L, Gb, Km_b, D', BS, W)`` as numpy arrays."""
+    return [to_pbte_layout(ub).detach().cpu().numpy() for ub in u]

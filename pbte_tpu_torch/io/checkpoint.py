@@ -11,7 +11,11 @@ problem:
   ``u_layout`` and ``fp_state_kind = 1``. This package's ring state is
   pbte_tpu's Pallas layout (L, Gb, Km_b, BS, D, W): it writes
   ``u_layout="bsd"`` and loads ``"bsd"`` and pbte_tpu's XLA-ring ``"dbs"``
-  (BS and D swapped).
+  (BS and D swapped);
+- supercell ring: the same bucket fields in pbte_tpu's XLA-ring layout
+  (L, Gb, Km_b, D', BS, W), tagged ``"dbs"`` (this package's ring holds
+  (L, Gb, Km_b, BS, W, D') and permutes on save and load; ``"bsd"`` files
+  load too), Tc per super element (ncell, D') and Tv per fine element.
 
 pbte_tpu's hull-windowed XLA-ring checkpoints (``fp_ring_windowed``, state
 ``u_{bucket}_{segment}`` in 128-lane windows) do not store the windows'
@@ -24,6 +28,8 @@ import os
 
 import numpy as np
 import torch
+
+from pbte_tpu_torch.solver.super_ring import from_pbte_layout, to_pbte_layout
 
 _POLICY = {"full": 0, "on-the-fly": 1, "eigen": 2}
 
@@ -44,6 +50,7 @@ def _fingerprint(solver) -> dict:
 
 def _expected_u_shape(solver):
     if solver.sweep_mode == "ring":
+        # the file's "bsd" layout (the "dbs" files swap BS and D)
         return [(solver.L, len(gs), km_b, solver.BS, solver.D, solver.W)
                 for gs, km_b in solver._ring_buckets]
     return (solver.G, solver.Km, solver.BS, solver.D, solver.ne_pad)
@@ -63,9 +70,11 @@ def save_checkpoint(path: str, solver, u, Tc, Tv, iteration: int,
     checkpoint."""
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     if isinstance(u, (tuple, list)):  # bucketed ring state
+        if solver._super is not None:
+            u = [to_pbte_layout(b) for b in u]
         u_fields = {f"u_{i}": _np(b) for i, b in enumerate(u)}
         u_fields["u_nbuckets"] = len(u)
-        u_fields["u_layout"] = "bsd"
+        u_fields["u_layout"] = "bsd" if solver._super is None else "dbs"
     else:
         u_fields = {"u": _np(u)}
     final = path if path.endswith(".npz") else path + ".npz"
@@ -140,7 +149,10 @@ def load_checkpoint(path: str, solver):
                 raise ValueError(
                     f"checkpoint u_{i} has shape {tuple(arr.shape)}, solver "
                     f"expects {w}")
-            bufs.append(torch.as_tensor(arr, **put).to(solver.state_dtype))
+            t = torch.as_tensor(arr, **put).to(solver.state_dtype)
+            if solver._super is not None:  # (L, Gb, Km_b, BS, D', W) ->
+                t = from_pbte_layout(t.transpose(3, 4))
+            bufs.append(t)
         u = tuple(bufs)
     else:
         if "u" not in data or tuple(data["u"].shape) != want:

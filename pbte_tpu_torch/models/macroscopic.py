@@ -24,6 +24,21 @@ def macro_weights(quad, tables) -> np.ndarray:
     return np.outer(quad.weights, inv_kn * dw) / tables.heat_cap_v
 
 
+def slot_weights(quad, tables, dirs_pad, dim: int):
+    """The macroscopic and heat-flux weights per direction slot of a
+    (G, Km) slot table ``dirs_pad`` (-1 = padded slot, zero weight):
+    ``(G, Km, BS)`` and ``(G, Km, BS, dim)``."""
+    G, Km = dirs_pad.shape
+    valid = dirs_pad >= 0
+    safe = np.where(valid, dirs_pad, 0)
+    mw = macro_weights(quad, tables)
+    fw = flux_weights(quad, tables, dim)
+    mw_slots = np.where(valid[..., None], mw[safe], 0.0)
+    fw_slots = np.where(valid[None, ..., None],
+                        fw[:, safe.reshape(-1)].reshape(dim, G, Km, -1), 0.0)
+    return mw_slots, np.moveaxis(fw_slots, 0, -1)
+
+
 def flux_weights(quad, tables, dim: int) -> np.ndarray:
     """(dim, K, BS) heat-flux accumulation weights."""
     base = macro_weights(quad, tables)  # (K, BS)

@@ -10,8 +10,10 @@ reflect diffusely.
 ``tet_cube(**LEGACY_TET)`` with ``WALL_BCS`` is the reference's legacy
 production shape (pbte_tpu's ``scripts/bench_tet.py``): the 5^3 cuboid
 split into 6 tets per cell (750 elements) at p=3 (D=20), 16 x 24 = 384
-directions and 2 x 20 bands, consistent faces; pbte_tpu scans it with the
-supercell merge off, and so does ``sweep_mode="scan"`` here.
+directions and 2 x 20 bands, consistent faces. With the solver's defaults
+both packages merge it into a 5^3 lattice of super elements (D' = 120) and
+take the supercell ring; ``LEGACY_TET_SOLVER`` (``sweep_mode="scan"``)
+scans the fine mesh instead.
 
 Boundary attributes of the cube: 1 and 6 are the z faces (bottom, top),
 2 and 4 the y faces, 3 and 5 the x faces.
@@ -52,7 +54,13 @@ def unit_cube(nx, ny, nz, order, polar, azimuth, nspec, periodic=()):
 def tet_cube(n, order, polar, azimuth, nspec):
     """(ops, quad, tables) of the n^3 unit cube split into 6 tets per cell,
     in microns, with consistent faces."""
-    m = pmesh.make_cartesian_3d(n, n, n, "tet").scaled(1.0e-6)
+    return tet_box(n, n, n, order, polar, azimuth, nspec)
+
+
+def tet_box(nx, ny, nz, order, polar, azimuth, nspec):
+    """(ops, quad, tables) of an nx x ny x nz box of unit extent split into
+    6 tets per cell, in microns, with consistent faces."""
+    m = pmesh.make_cartesian_3d(nx, ny, nz, "tet").scaled(1.0e-6)
     ops = assembly.assemble(pmesh.connect(m), order=order,
                             face_mode="consistent")
     quad = ang.build(ang.AngularOptions(

@@ -127,3 +127,81 @@ def mirror_direction_map(quad, dim: int, axes=None,
             )
         out[ax] = j
     return out
+
+
+def slab_layout(tables, sweep_nbr, act_f, shifts):
+    """The padded (L, W) slab layout of the lattice ring per group.
+
+    ``tables`` (G, L, W) from ``lattice_ring_tables``; ``sweep_nbr`` (ne,
+    nf) the sweep's neighbour table; ``act_f`` (G, dim) and ``shifts``
+    (dim,) the inflow face and slab offset of each axis. Returns ``perm``
+    (G, L W) the element at each slab position or -1, ``pos_valid``,
+    ``perm_safe`` (-1 as 0), ``pos_of_elem`` (G, ne) and ``nbr_pos`` (G, nf,
+    L W) the slab position of each face's neighbour or -1 (boundary,
+    padding). Raises where a valid interior upwind read does not hit the
+    previous level's slab at exactly its axis's static shift."""
+    G, L, W = tables.shape
+    ne, nf = sweep_nbr.shape
+    ne_pad = L * W
+    perm = tables.reshape(G, ne_pad).astype(np.int64)
+    pos_valid = perm >= 0
+    perm_safe = np.where(pos_valid, perm, 0)
+    pos_of_elem = np.zeros((G, ne), dtype=np.int64)
+    for g in range(G):
+        pos_of_elem[g, perm_safe[g][pos_valid[g]]] = np.flatnonzero(
+            pos_valid[g]
+        )
+    nbr_g = sweep_nbr[perm_safe]  # (G, ne_pad, nf)
+    nbr_pos = np.where(
+        (nbr_g >= 0) & pos_valid[..., None],
+        np.take_along_axis(
+            pos_of_elem, np.clip(nbr_g, 0, None).reshape(G, -1), axis=1
+        ).reshape(G, ne_pad, nf),
+        -1,
+    )
+    nbr_pos = np.swapaxes(nbr_pos, 1, 2)  # (G, nf, ne_pad)
+    for g in range(G):
+        for j, f in enumerate(act_f[g]):
+            psel = np.flatnonzero(pos_valid[g] & (nbr_pos[g, f] >= 0))
+            d = psel - nbr_pos[g, f, psel]
+            if psel.size and not np.all(d == W + int(shifts[j])):
+                raise RuntimeError(
+                    f"lattice shift mismatch g={g} axis={j}: offsets "
+                    f"{np.unique(d)} != {W + int(shifts[j])}"
+                )
+    return perm, pos_valid, perm_safe, pos_of_elem, nbr_pos
+
+
+def group_permuted(a, perm_safe, pos_valid, np_dtype):
+    """a (ne, ...) -> (G, ..., L W) in slab order, zero at padded slots."""
+    G, ne_pad = perm_safe.shape
+    t = a[perm_safe].astype(np_dtype, copy=False)
+    t = np.where(
+        pos_valid.reshape(G, ne_pad, *([1] * (t.ndim - 2))),
+        t, np.zeros((), dtype=np_dtype),
+    )
+    return np.moveaxis(t, 1, -1)
+
+
+def inflow_tables(ops, dirs_slots, perm_safe, nbr_pos, act_f, bc_T_g,
+                  face_int_g):
+    """Inflow coefficients and the constant wall source on the slab.
+
+    ``dirs_slots`` (G, Km, dim) the direction of each slot; ``perm_safe``
+    and ``nbr_pos`` from ``slab_layout``; ``act_f`` (G, nf_act) the inflow
+    face of each axis; ``bc_T_g`` (G, nf, L W) and ``face_int_g`` (G, nf,
+    D, L W) the wall temperatures and face integrals in slab order
+    (``group_permuted``). Returns ``fdot`` (G, Km, nf, L W) = s . n,
+    ``cin_bnd`` (G, Km, nf, L W) its inflow part on boundary faces and
+    padding, ``cin_act`` (G, nf_act, Km, L W) on the axes' interior faces,
+    and ``bsrc`` (G, Km, D, L W) = sum_f cin_bnd T_f int_F phi."""
+    G = perm_safe.shape[0]
+    fdot = np.einsum("gefd,gkd->gkfe", ops.normals[perm_safe], dirs_slots)
+    cin = np.minimum(fdot, 0.0)
+    isb = nbr_pos < 0  # (G, nf, ne_pad): boundary or padding
+    cin_bnd = np.where(isb[:, None], cin, 0.0)
+    cin_int = np.where(isb[:, None], 0.0, cin)
+    cin_act = cin_int[np.arange(G)[:, None], :, act_f]
+    bsrc = np.einsum("gkfE,gfE,gfiE->gkiE", cin_bnd, bc_T_g, face_int_g,
+                     optimize=True)
+    return fdot, cin_bnd, cin_act, bsrc

@@ -315,18 +315,14 @@ class ScanSweep:
         def iput(a):
             return put(a, torch.int64)
 
-        mw = macroscopic.macro_weights(quad, tables)  # (K, BS)
-        fw = macroscopic.flux_weights(quad, tables, dim)  # (dim, K, BS)
-        mw_slots = np.where(dir_valid[..., None], mw[dirs_safe], 0.0)
-        fw_slots = np.where(
-            dir_valid[None, ..., None],
-            fw[:, dirs_safe.reshape(-1)].reshape(dim, G, Km, BS), 0.0)
+        mw_slots, fw_slots = macroscopic.slot_weights(quad, tables, dirs_pad,
+                                                      dim)
         c = dict(
             perm=iput(perm),
             pos_of_elem=iput(pos_of_elem),
             basis_int_glob=put(ops.basis_int),
             macro_w=put(mw_slots),  # (G, Km, BS)
-            flux_w=put(np.moveaxis(fw_slots, 0, -1)),  # (G, Km, BS, dim)
+            flux_w=put(fw_slots),  # (G, Km, BS, dim)
             src_w=put(inv_kn * heat_cap / (omega * dt_inv)),
             relax_w=put(1.0 - inv_kn / dt_inv),
             vg=put(vg_s),

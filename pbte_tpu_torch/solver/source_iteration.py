@@ -1,7 +1,7 @@
 """Source-iteration PBTE solver (PyTorch + CUDA).
 
 Port of ``pbte_tpu/solver/source_iteration.py::SourceIterationSolver`` on
-one device, with two of its sweeps:
+one device, with three of its sweeps:
 
 - the shift-structured lattice ring on a single-class Cartesian box
   lattice (no supercell merge): the path of its Pallas kernel, plus the
@@ -11,16 +11,26 @@ one device, with two of its sweeps:
 - the compact level-window scan (``solver/scan.py``) for every other mesh
   pbte_tpu scans: tri, quad, tet, hex and mixed meshes, small meshes,
   meshes read from gmsh or MFEM files, under the ``full``, ``on-the-fly``
-  and ``eigen`` factor caches.
+  and ``eigen`` factor caches;
+- the supercell two-matmul ring (``solver/super_ring.py``) on a 6-tet
+  (3D) or 2-triangle (2D) split of a Cartesian lattice, merged into block
+  super elements (``fem/supercell.py``): the reference's legacy production
+  tet mesh takes it.
 
 ``sweep_mode="auto"`` resolves as pbte_tpu's structural gates do, less its
 TPU memory budgets: faces are canonicalised at ne >= 512; a detected
-simplex-lattice split goes to pbte_tpu's supercell ring, a single-class
-lattice to the lattice ring, a multi-class lattice or a general mesh of
-small upwind gap to pbte_tpu's other ring variants; the rest is scanned.
-The ring variants this package lacks (ROADMAP.md queue 1, items 6b, 6c and
-6d) raise ``NotImplementedError``; ``sweep_mode="scan"`` solves those
-problems. The rest of this docstring is the lattice ring's.
+simplex-lattice split goes to the supercell ring (``supercell="auto"``,
+without Dirichlet, reflective or periodic walls and axis-grazing
+directions), a single-class lattice to the lattice ring, a multi-class
+lattice or a general mesh of small upwind gap to pbte_tpu's other ring
+variants; the rest is scanned. The supercell ring has one memory fallback
+for the 80 GB card in place of pbte_tpu's 12 GB super-state budget: past
+``super_ring.SUPER_BUDGET`` bytes of its working set ``auto`` does not
+merge, and the fine mesh is scanned (``sweep_mode="ring"`` merges
+regardless, as pbte_tpu's forced ring does). The ring variants this
+package lacks (ROADMAP.md queue 1, items 6c and 6d) raise
+``NotImplementedError``; ``sweep_mode="scan"`` solves those problems. The
+rest of this docstring is the lattice ring's.
 
 Construction is numpy host math on this package's own host layers (FEM
 class helpers, sweep plan, lattice tables); the results become tensors on
@@ -78,23 +88,27 @@ import os
 import numpy as np
 import torch
 
-from pbte_tpu_torch.fem import assembly, supercell
+from pbte_tpu_torch.fem import assembly
+from pbte_tpu_torch.fem import supercell as supercell_mod
 from pbte_tpu_torch.models import macroscopic
 from pbte_tpu_torch.ops.lattice_ring import (
     ClosureSource,
     lattice_ring_sweep,
     windows_on_device,
 )
-from pbte_tpu_torch.solver import scan
+from pbte_tpu_torch.solver import scan, super_ring
 from pbte_tpu_torch.solver.lattice_tables import (
+    group_permuted,
+    inflow_tables,
     lattice_ring_tables,
     ring_windows,
+    slab_layout,
     window_slots,
 )
 from pbte_tpu_torch.sweep import planner
 
 _MULTI_CLASS = "ROADMAP.md queue 1, item 6d (multi-class lattices)"
-_SUPERCELL = "ROADMAP.md queue 1, item 6b (supercell two-matmul ring)"
+_SUPER_BF16 = "ROADMAP.md queue 1, item 6b.1 (bf16 state on the supercell ring)"
 _ONE_HOT_RING = "ROADMAP.md queue 1, item 6c (general one-hot ring)"
 _SCAN_SOLVES = "sweep_mode='scan' solves the same problem"
 # the reflective-wall consts, global (the gather crosses buckets)
@@ -158,6 +172,12 @@ class SourceIterationSolver:
         sweep_mode: str = "auto",  # "auto" | "scan" | "ring"
         cache_policy: str = "full",  # the scan path's factor cache: "full"
         # | "on-the-fly" (alias "per-iteration") | "eigen"
+        supercell: str = "auto",  # "auto" | "on" | "off": merge simplex
+        # lattice macro cells (6-tet / 2-tri splits) into block super
+        # elements and ring-sweep the macro lattice (solver/super_ring.py).
+        # "auto" engages for ne >= 512 when detection verifies the structure
+        # and the ring's working set fits super_ring.SUPER_BUDGET; "on"
+        # forces the attempt on any size; "off" keeps the fine-mesh paths
     ):
         if dtype not in (torch.float32, torch.float64):
             raise ValueError(f"dtype must be float32 or float64, got {dtype}")
@@ -167,6 +187,8 @@ class SourceIterationSolver:
             raise ValueError(f"unknown cache_policy: {cache_policy}")
         if sweep_mode not in ("auto", "scan", "ring"):
             raise ValueError(f"unknown sweep_mode: {sweep_mode}")
+        if supercell not in ("auto", "on", "off"):
+            raise ValueError(f"unknown supercell={supercell!r}")
         self.cache_policy = cache_policy
         # bf16 state (same opt-in as pbte_tpu): halves the state streams;
         # the product operands and the ring are then bf16 as well, and the
@@ -225,21 +247,38 @@ class SourceIterationSolver:
                 f"boundary attributes without isothermal BC: {sorted(missing)}"
             )
 
-        # ---- supercell gate: pbte_tpu merges detected simplex lattices
-        # (6-tet, 2-tri splits) into block super elements and ring-sweeps
-        # the macro lattice, a path this package does not have yet
-        if (sweep_mode in ("auto", "ring") and not dirichlet_bcs
+        # ---- supercell merge: a detected 6-tet (3D) or 2-triangle (2D) split
+        # of a Cartesian lattice becomes a box lattice of block super
+        # elements, ring-swept by solver/super_ring.py (pbte_tpu's gate,
+        # less its 16 GB-chip budget: this package's is SUPER_BUDGET)
+        if supercell == "on" and cls is None:
+            # forced on small meshes: canonicalise and classify here (the
+            # ne >= 512 gate above skipped it)
+            ops = assembly.permute_faces(
+                ops, assembly.canonical_face_perm(ops))
+            cls = assembly.element_classes(ops)
+        self._super = None
+        if (supercell != "off" and sweep_mode in ("auto", "ring")
+                and not dirichlet_bcs
                 and not (diffuse_bcs or specular_bcs)
                 and not ops.periodic.any()
-                and float(np.abs(quad.directions[:, :dim]).min()) > 1e-14
-                and cls is not None and 2 <= int(cls.max()) + 1 <= 8):
-            sc = supercell.detect(ops, cls)
-            if sc is not None and supercell.verify_acyclic(
+                and float(np.abs(quad.directions[:, :dim]).min()) > 1e-14):
+            sc = None
+            if cls is not None and 2 <= int(cls.max()) + 1 <= 8:
+                sc = supercell_mod.detect(ops, cls)
+            if sc is not None and supercell_mod.verify_acyclic(
                     sc, quad.directions):
-                raise NotImplementedError(
-                    f"a {sc.gsz}-element split of a Cartesian lattice, which "
-                    f"pbte_tpu runs as a supercell ring: {_SUPERCELL}; "
-                    f"{_SCAN_SOLVES}")
+                itemsize = np.dtype(np_dtype).itemsize
+                if sweep_mode == "ring" or super_ring.super_ring_bytes(
+                        sc, self.K, BS, itemsize) <= super_ring.SUPER_BUDGET:
+                    self._super = sc
+                    ops = sc.super_ops
+                    self.ne = ne = ops.num_elements
+                    self.D = D = ops.ndof
+                    cls = np.zeros(ne, dtype=np.int64)
+        # fine-element count of Tv and the residual (the reference's
+        # residual is over per-element cell averages)
+        self.ne_tv = self._super.ne_fine if self._super else ne
 
         # ---- sweep plan, slot-major (G, Km) layout, Km buckets -------------
         sweep_nbr = ops.sweep_neighbor
@@ -271,7 +310,34 @@ class SourceIterationSolver:
         # lattices and general meshes of small upwind gap through one-hot
         # selection; everything else is the scan.
         self.sweep_mode = "scan"
+        self._sweep = self._scan = None
         lt = None
+        if self._super is not None:
+            lat = planner.detect_lattice(sweep_nbr, ops.normals)
+            lt = (None if lat is None
+                  else lattice_ring_tables(lat, plan, dirs_np))
+            if lt is None:
+                raise ValueError(
+                    "supercell merge engaged but the ring sweep was rejected "
+                    "(axis-grazing quadrature direction or leveling "
+                    "mismatch); pass supercell='off' to use the fine-mesh "
+                    "scan path")
+            if os.environ.get("PBTE_RING_STATE_BF16", "") == "1":
+                raise NotImplementedError(
+                    f"PBTE_RING_STATE_BF16=1 on the supercell ring: "
+                    f"{_SUPER_BF16}; unset it for float32 state")
+            self.sweep_mode = "ring"
+            self._sweep = sw = super_ring.SuperRingSweep(
+                self._super, ops, quad, tables, plan, dirs_pad,
+                (inv_kn, vg, heat_cap, dt_inv), lt, bc_T=bc_T, dtype=dtype,
+                device=device)
+            self._ring_buckets = sw.buckets
+            self.W, self.ne_pad, self.consts = sw.W, sw.ne_pad, sw.consts
+            self.shifts, self._perm = sw.shifts, sw._perm
+            self.win = None  # the full (L, W) slab
+            self.has_periodic = self._dif_on = self._spc_on = False
+            self.state_dtype = dtype
+            return
         if sweep_mode in ("auto", "ring"):
             if cls is None:
                 cls = assembly.element_classes(ops)
@@ -294,7 +360,7 @@ class SourceIterationSolver:
             if ring:
                 self.sweep_mode = "ring"
         if self.sweep_mode == "scan":
-            self._scan = scan.ScanSweep(
+            self._sweep = self._scan = scan.ScanSweep(
                 ops, quad, tables, plan, dirs_pad,
                 (inv_kn, vg, heat_cap, dt_inv), bc_T=bc_T,
                 dvec=dvec if dirichlet_bcs else None,
@@ -310,7 +376,6 @@ class SourceIterationSolver:
             self._dif_on, self._spc_on = sv._dif_on, sv._spc_on
             self.state_dtype = dtype
             return
-        self._scan = None
         self.state_bf16 = os.environ.get("PBTE_RING_STATE_BF16", "") == "1"
         if self.state_bf16 and dtype == torch.float64:
             raise ValueError("PBTE_RING_STATE_BF16=1 rounds float32 state to "
@@ -349,66 +414,25 @@ class SourceIterationSolver:
             windows_on_device(self.win, L, W, device)
             if self.win is not None and device.type == "cuda" else None
         )
-        self.ne_pad = ne_pad = L * W
+        self.ne_pad = L * W
         nf_act = dim
 
         # ---- padded (L, W) slab layout per group ---------------------------
-        perm = lat_tabs.reshape(G, ne_pad).astype(np.int64)  # -1 padded
-        pos_valid = perm >= 0
-        perm_safe = np.where(pos_valid, perm, 0)
-        pos_of_elem = np.zeros((G, ne), dtype=np.int64)
-        for g in range(G):
-            pos_of_elem[g, perm_safe[g][pos_valid[g]]] = np.flatnonzero(
-                pos_valid[g]
-            )
+        perm, pos_valid, perm_safe, pos_of_elem, nbr_pos = slab_layout(
+            lat_tabs, sweep_nbr, act_f, self.shifts)
         self._perm = perm
-        nbr_g = sweep_nbr[perm_safe]  # (G, ne_pad, nf)
-        nbr_pos = np.where(
-            (nbr_g >= 0) & pos_valid[..., None],
-            np.take_along_axis(
-                pos_of_elem, np.clip(nbr_g, 0, None).reshape(G, -1), axis=1
-            ).reshape(G, ne_pad, nf),
-            -1,
-        )
-        nbr_pos = np.swapaxes(nbr_pos, 1, 2)  # (G, nf, ne_pad)
-        # every valid interior upwind read must hit the previous level's
-        # slab at exactly the static shift
-        for g in range(G):
-            for j, f in enumerate(act_f[g]):
-                psel = np.flatnonzero(pos_valid[g] & (nbr_pos[g, f] >= 0))
-                d = psel - nbr_pos[g, f, psel]
-                if psel.size and not np.all(d == W + self.shifts[j]):
-                    raise RuntimeError(
-                        f"lattice shift mismatch g={g} axis={j}: offsets "
-                        f"{np.unique(d)} != {W + self.shifts[j]}"
-                    )
 
         def gperm(a):
-            """a (ne, ...) -> (G, ..., ne_pad) in group order, zero padded."""
-            t = a[perm_safe].astype(np_dtype, copy=False)
-            t = np.where(
-                pos_valid.reshape(G, ne_pad, *([1] * (t.ndim - 2))),
-                t, np.zeros((), dtype=np_dtype),
-            )
-            return np.moveaxis(t, 1, -1)
+            return group_permuted(a, perm_safe, pos_valid, np_dtype)
 
         # ---- inflow coefficients and boundary sources ----------------------
         # (periodic faces have no upwind neighbour in the sweep and no
         # temperature: their inflow arrives lagged through xsrc)
-        fdot = np.einsum(
-            "gefd,gkd->gkfe", ops.normals[perm_safe], dirs_np[dirs_safe]
-        )  # (G, Km, nf, ne_pad)
-        cin_np = np.minimum(fdot, 0.0)
-        isb = nbr_pos < 0  # (G, nf, ne_pad)
-        cin_bnd = np.where(isb[:, None], cin_np, 0.0)
-        cin_int = np.where(isb[:, None], 0.0, cin_np)
-        cin_act = cin_int[np.arange(G)[:, None], :, act_f]  # (G,nf_act,Km,E)
+        fdot, cin_bnd, cin_act, bsrc0 = inflow_tables(
+            ops, dirs_np[dirs_safe], perm_safe, nbr_pos, act_f, gperm(bc_T),
+            gperm(ops.face_int))
         # kernel layout (L, G, Km, nf_act, W)
         ring_cin = cin_act.reshape(G, nf_act, Km, L, W).transpose(3, 0, 2, 1, 4)
-        bsrc0 = np.einsum(
-            "gkfE,gfE,gfiE->gkiE", cin_bnd, gperm(bc_T), gperm(ops.face_int),
-            optimize=True,
-        )
         ring_bsrc0 = bsrc0.reshape(G, Km, D, L, W).transpose(3, 0, 1, 2, 4)
         ring_dsrc0 = None
         if dirichlet_bcs:
@@ -458,13 +482,8 @@ class SourceIterationSolver:
         self._dif_on = refl is not None and "dif_fvec" in refl
         self._spc_on = refl is not None and "spc_fmv" in refl
 
-        mw = macroscopic.macro_weights(quad, tables)  # (K, BS)
-        mw_slots = np.where(dir_valid[..., None], mw[dirs_safe], 0.0)
-        fw = macroscopic.flux_weights(quad, tables, dim)  # (dim, K, BS)
-        fw_slots = np.where(
-            dir_valid[None, ..., None],
-            fw[:, dirs_safe.reshape(-1)].reshape(dim, G, Km, BS), 0.0,
-        )
+        mw_slots, fw_slots = macroscopic.slot_weights(quad, tables, dirs_pad,
+                                                      dim)
         wvec = np.stack([
             inv_kn * heat_cap / (omega * dt_inv),  # src_w
             1.0 - inv_kn / dt_inv,  # relax_w
@@ -507,7 +526,7 @@ class SourceIterationSolver:
             pos_of_elem=iput(pos_of_elem),  # (G, ne)
             ring_invMT=put(self._ring_invMT),  # (ne, D, D)
             basis_int_glob=put(ops.basis_int),  # (ne, D)
-            flux_w=put(np.moveaxis(fw_slots, 0, -1)),  # (G, Km, BS, dim)
+            flux_w=put(fw_slots),  # (G, Km, BS, dim)
             **{k: (iput(v) if k == "spc_gk" else put(v))
                for k, v in (refl or {}).items() if k in REFL_KEYS},
             buckets=tuple(
@@ -565,8 +584,8 @@ class SourceIterationSolver:
         """Zero state, Tc and Tv (ref: PBTESolver::CreateInitialCoefficients):
         per-bucket slabs on the ring, one (G, Km, BS, D, ne) tensor on the
         scan."""
-        if self._scan is not None:
-            return self._scan.initial_state()
+        if self._sweep is not None:
+            return self._sweep.initial_state()
         u = tuple(
             torch.zeros(
                 (self.L, len(gs), km_b, self.BS, self.D, self.W),
@@ -588,8 +607,8 @@ class SourceIterationSolver:
         float64 slabs exactly (so a solver built for bfloat16 state also
         steps a float32 copy of it exactly: the polish of ``solve``). The
         scan path leaves its input state as it was."""
-        if self._scan is not None:
-            return self._scan.step(u, Tc, Tv_prev)
+        if self._sweep is not None:
+            return self._sweep.step(u, Tc, Tv_prev)
         c = self.consts
         G, W, L, D = self.G, self.W, self.L, self.D
         tc_slab = (
@@ -817,7 +836,8 @@ class SourceIterationSolver:
 
             save_ckpt = accel_ckpt_saver(
                 checkpoint_path, self,
-                torch.zeros((self.ne,), dtype=self.dtype, device=self.device))
+                torch.zeros((self.ne_tv,), dtype=self.dtype,
+                            device=self.device))
         u_f, Tc_f, Tv_f, tv_res, nmv = accel.bicgstab_outer(
             self.step, self.initial_state(), state, tol, max_iter,
             verbose=verbose, callback=callback, check_every=check_every,
@@ -845,8 +865,8 @@ class SourceIterationSolver:
     def u_by_direction(self, u):
         """Map the state to direction-major physical coefficients
         (K, BS, ne, D) (numpy)."""
-        if self._scan is not None:
-            return self._scan.u_by_direction(u)
+        if self._sweep is not None:
+            return self._sweep.u_by_direction(u)
         us = self._ring_u_standard(u)
         out = np.zeros((self.K, self.BS, self.ne, self.D), dtype=us.dtype)
         for g in range(self.G):
@@ -862,17 +882,19 @@ class SourceIterationSolver:
         return np.einsum("eij,kbej->kbei", self._ring_invMT, out)
 
     def Tc_fine(self, Tc):
-        """Per-element temperature coefficients (ne, D): the identity here
-        (pbte_tpu de-blocks supercell problems, which this path never
-        builds)."""
-        return Tc
+        """Per-(fine-)element temperature coefficients (ne, D): the identity,
+        except on the supercell ring, where the (ncell, gsz D) blocks are
+        de-blocked to (ne_fine, D)."""
+        if self._super is None:
+            return Tc
+        return self._sweep.tc_fine(Tc)
 
     @exact_f32_products()
     def heat_flux(self, u):
         """Heat-flux coefficients Qc (dim, ne, D) and cell integrals Qv
         (dim, ne) of the state, on its device."""
-        if self._scan is not None:
-            return self._scan.heat_flux(u)
+        if self._sweep is not None:
+            return self._sweep.heat_flux(u)
         c = self.consts
         G, D, ne = self.G, self.D, self.ne
         parts = []

@@ -59,13 +59,15 @@ def test_no_device_number_from_a_cpu_run(cpu_result):
 
 
 def test_rows(cpu_result):
-    """The seven rows; each extra row ran under its own settings, the
+    """The eight rows; each extra row ran under its own settings, the
     float64 ones in float64 (the accelerated row to its tolerance); the
-    tet_scan row is held by test_tet_scan_row."""
+    tet rows are held by test_tet_scan_row and test_tet_super_row."""
     rows = dict(cpu_result["rows"])
     assert list(rows) == ["f32", "bf16_state", "diffuse_walls", "p3_f32",
-                          "f64_state", "f64_bicgstab", "tet_scan"]
+                          "f64_state", "f64_bicgstab", "tet_scan",
+                          "tet_super"]
     rows.pop("tet_scan")
+    rows.pop("tet_super")
     acc = rows.pop("f64_bicgstab")
     for name, row in rows.items():
         assert "error" not in row, (name, row)
@@ -96,6 +98,22 @@ def test_tet_scan_row(cpu_result):
     assert row["dof_per_s"] > 0 and row["ms_per_step"] > 0
     assert cpu_result["value"] == cpu_result["rows"]["f32"]["dof_per_s"]
     assert cpu_result["rows"]["f32"]["sweep_mode"] == "ring"
+
+
+def test_tet_super_row(cpu_result):
+    """The same tet shape with the solver's defaults: the supercell ring
+    (125 super elements of D' = 6 D), timed, then solved to a Tv residual
+    of 1e-7 with the residual read every 20 steps."""
+    row = cpu_result["rows"]["tet_super"]
+    assert "error" not in row, row
+    assert row["sweep_mode"] == "ring" and row["supercell"]
+    assert not row["windows"] and row["state"] == "torch.float32"
+    assert row["shape"] == {"ne": 125, "D": 24, "K": 8, "BS": 2, "n": 5,
+                            "order": 1}
+    assert row["dof_per_s"] > 0 and row["ms_per_step"] > 0
+    assert row["converge_residual"] < row["converge_tol"] == 1e-7
+    assert row["converge_steps"] % 20 == 0 and row["converge_wall_s"] > 0
+    assert not cpu_result["rows"]["tet_scan"]["supercell"]
 
 
 @pytest.mark.parametrize("arg,want", [

@@ -9,7 +9,9 @@ major axis), p = 1 and 2, azimuth 4 and 8 (one or two Km buckets), x faces
 periodic or not; and, for the scan path, the tri, quad, tet and mixed
 builders, the gmsh and MFEM readers on config/mesh/*, every quadrature
 rule and reference element, assembly in both face modes, the geometry
-classes of simplex meshes, supercell detection and the level segments.
+classes of simplex meshes, supercell detection and merge, and the level
+segments; the supercell block factor (torch) against pbte_tpu's numpy one
+at 1e-12 of max.
 """
 
 import functools
@@ -409,6 +411,78 @@ def test_supercell_detection(name):
     qj, qt = _quads(8)
     assert tsc.verify_acyclic(st, qt.directions) == jsc.verify_acyclic(
         sj, qj.directions)
+
+
+# the merge's fields beyond what the gate reads
+SUPER_KEYS = ("gsz", "ncell", "D", "Dp", "cell_of", "cls_of", "elem_at",
+              "int_normals", "int_fmass", "int_cpl", "int_dst", "int_src",
+              "basis_int_cells", "lat_dims", "ne_fine")
+
+
+def _supercells(name, order):
+    """pbte_tpu's and the port's detected supercell of a mesh in canonical
+    face order, with 2D (triangles) or 3D angles of each package."""
+    (cj_ops, cj), (ct_ops, ct) = (
+        _canonical(jasm, _geo_ops(name, order, "consistent")[0]),
+        _canonical(tasm, _geo_ops(name, order, "consistent")[1]))
+    sj, st = jsc.detect(cj_ops, cj), tsc.detect(ct_ops, ct)
+    assert sj is not None and st is not None
+    dim = cj_ops.dim
+    qj, qt = (m.build(m.AngularOptions(
+        dimension=dim, polar_points=1 if dim == 2 else 2, azimuth_points=8))
+        for m in (jang, tang))
+    return sj, st, qj, qt
+
+
+@pytest.mark.parametrize("name,order", [
+    ("tri_4x3", 1), ("tri_4x3", 2), ("tri_4x3", 3),
+    ("tet_2x3x2", 1), ("tet_2x3x2", 2), ("tet_2x3x2", 3),
+])
+def test_supercell_merge(name, order):
+    """detect's merged structure bit for bit: the SuperCell fields, the
+    merged ElementOps, scatter_fine, to_fine and gmat_internal."""
+    sj, st, qj, qt = _supercells(name, order)
+    for key in SUPER_KEYS:
+        np.testing.assert_array_equal(getattr(st, key), getattr(sj, key),
+                                      err_msg=key)
+    _equal_fields(sj.super_ops, st.super_ops, OPS_KEYS)
+    assert (st.super_ops.geom, st.super_ops.order, st.super_ops.dim) == (
+        sj.super_ops.geom, sj.super_ops.order, sj.super_ops.dim)
+    np.testing.assert_array_equal(st.scatter_fine(), sj.scatter_fine())
+    blocks = np.random.default_rng(order).standard_normal(
+        (sj.ncell, sj.Dp, 3))
+    np.testing.assert_array_equal(st.to_fine(blocks), sj.to_fine(blocks))
+    np.testing.assert_array_equal(st.gmat_internal(qt.directions),
+                                  sj.gmat_internal(qj.directions))
+
+
+@pytest.mark.parametrize("name,order", [("tri_4x3", 1), ("tri_4x3", 2),
+                                        ("tet_2x3x2", 1), ("tet_2x3x2", 2)])
+def test_block_triangular_factor(name, order):
+    """The port's block forward substitution (torch, float64) against
+    pbte_tpu's numpy one on the super transport operator of every
+    quadrature direction and 4 bands: 1e-12 of max."""
+    import torch
+
+    sj, st, qj, _ = _supercells(name, order)
+    ops = sj.super_ops
+    dk = qj.directions[:, :ops.dim]
+    fd = np.einsum("fd,kd->kf", ops.normals[0], dk)
+    G_k = (-np.einsum("kd,dij->kij", dk, ops.stiff[0])
+           + np.einsum("kf,fij->kij", np.maximum(fd, 0.0), ops.face_mass[0])
+           + sj.gmat_internal(dk))
+    vg = np.array([0.02, 0.3, 1.0, 4.0])
+    A = ops.mass[0] + vg[None, :, None, None] * G_k[:, None]
+    D = sj.D
+    massT = np.stack([ops.mass[0].T[c * D:(c + 1) * D, c * D:(c + 1) * D]
+                      for c in range(sj.gsz)])
+    want = jsc.block_triangular_factor(sj, A, dk, massT)
+    got = tsc.block_triangular_factor(st, torch.from_numpy(A), dk,
+                                      torch.from_numpy(massT)).numpy()
+    assert np.abs(got - want).max() <= 1e-12 * np.abs(want).max()
+    # and it is B = M^T A^-1 of the whole block operator
+    full = np.einsum("ij,kbjl->kbil", ops.mass[0].T, np.linalg.inv(A))
+    assert np.abs(got - full).max() <= 1e-9 * np.abs(full).max()
 
 
 @pytest.mark.parametrize("degree", [1, 2, 3, 5, 7])

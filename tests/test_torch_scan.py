@@ -385,8 +385,7 @@ RESOLUTION = {
     "unit-cube-mixed": (lambda p: _problem(p, "unit-cube-mixed", 1,
                                            "mfem-parity"), None, {}, "scan"),
     "tet_4x4x4": (lambda p: _tet_cube(p, 4), None, {}, "scan"),
-    "tet_5x5x5_supercell": (lambda p: _tet_cube(p, 5), None, {},
-                            "item 6b"),
+    "tet_5x5x5_supercell": (lambda p: _tet_cube(p, 5), None, {}, "ring"),
     "tet_5x5x5_scan_forced": (lambda p: _tet_cube(p, 5), None,
                               dict(sweep_mode="scan"), "scan"),
     "tet_8x8x8_dirichlet_one_hot": (lambda p: _tet_cube(p, 8), None,
@@ -404,24 +403,26 @@ RESOLUTION = {
 def test_resolved_sweep_mode_matches_pbte_tpu(name):
     """sweep_mode="auto" resolves as pbte_tpu's structural gates do (less
     its TPU memory budgets, which resolve none of these cases otherwise):
-    the scan where pbte_tpu scans; where pbte_tpu takes a ring this package
-    lacks (supercell, one-hot, multi-class lattice) a NotImplementedError
-    names the ROADMAP item and says the scan solves the problem."""
+    the scan where pbte_tpu scans, the supercell ring where pbte_tpu
+    merges a simplex lattice; where pbte_tpu takes a ring this package
+    lacks (one-hot, multi-class lattice) a NotImplementedError names the
+    ROADMAP item and says the scan solves the problem."""
     build, bcs, kw, want = RESOLUTION[name]
     jp, tp = build("jax"), build("torch")
     bcs = _walls(jp[0]) if bcs is None else bcs
     if "dirichlet_bcs" in kw:
         bcs = {a: t for a, t in bcs.items() if a not in kw["dirichlet_bcs"]}
     js = JaxSolver(*jp, bcs, dtype=jnp.float64, **kw)
-    if want == "scan":
-        assert js.sweep_mode == "scan" and js._super is None
+    if want in ("scan", "ring"):
+        assert js.sweep_mode == want
+        assert (js._super is not None) == (want == "ring")
         ts = SourceIterationSolver(*tp, bcs, dtype=torch.float64,
                                    device="cpu", **kw)
-        assert ts.sweep_mode == "scan"
+        assert ts.sweep_mode == want
+        assert (ts._super is not None) == (want == "ring")
         return
-    assert js.sweep_mode == "ring"
-    assert (js._super is not None) == (want == "item 6b")
-    assert js._ring_lattice == (want in ("item 6b", "item 6d"))
+    assert js.sweep_mode == "ring" and js._super is None
+    assert js._ring_lattice == (want == "item 6d")
     with pytest.raises(NotImplementedError, match=want) as e:
         SourceIterationSolver(*tp, bcs, dtype=torch.float64, device="cpu",
                               **kw)

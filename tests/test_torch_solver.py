@@ -669,8 +669,8 @@ def test_gate_reflective(kind):
 
 def test_gate_tet_mesh():
     """A 4^3 6-tet mesh (384 elements, faces not canonicalised) is scanned;
-    at 5^3 and above pbte_tpu merges the split into supercells, a ring
-    this package does not have yet: that raises, naming the item."""
+    at 5^3 and above the split merges into supercells, as in pbte_tpu, and
+    takes the supercell ring (G = 8 octants of the 5^3 macro lattice)."""
     _, quad, tables = _problem("9x8x8_p1")
     for n in (4, 5):
         m = pmesh.make_cartesian_3d(n, n, n, "tet").scaled(1e-6)
@@ -679,9 +679,10 @@ def test_gate_tet_mesh():
         if n == 4:
             _gate_scans((ops, quad, tables), WALL_BCS)
         else:
-            with pytest.raises(NotImplementedError, match="item 6b"):
-                SourceIterationSolver(ops, quad, tables, WALL_BCS,
-                                      device="cpu")
+            ts = SourceIterationSolver(ops, quad, tables, WALL_BCS,
+                                       device="cpu")
+            assert ts._super is not None and ts.sweep_mode == "ring"
+            assert (ts.G, ts.ne, ts.D, ts.ne_tv) == (8, 125, 24, 750)
 
 
 def test_gate_axis_grazing_directions():

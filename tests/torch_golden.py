@@ -25,9 +25,14 @@ class-batched ``full`` factor cache) on a 3^3 6-tet cube at p=2 with
 consistent faces, 8 directions and nspec=2: attribute 6 hot, 1, 3 and 5
 cold, the y faces (2 and 4) diffuse; 5 outer steps from the zero state.
 
-All four build their problems from pbte_tpu's own host layers
-(``jax_unit_cube``, ``jax_tet_cube``), the same problems
-``pbte_tpu_torch.problem.unit_cube`` and ``tet_cube`` build from the
+``build_super()`` runs its supercell ring (``supercell="on"``, the XLA
+two-matmul body, f32 with the bf16 operand staging off) on a 3x2x2 6-tet
+box at p=2 with consistent faces, 8 directions and nspec=2, the flagship
+walls; 5 outer steps from the zero state.
+
+All five build their problems from pbte_tpu's own host layers
+(``jax_unit_cube``, ``jax_tet_cube``, ``jax_tet_box``), the same problems
+``pbte_tpu_torch.problem.unit_cube``, ``tet_cube`` and ``tet_box`` build from the
 port's copy of them.
 
 ``python tests/torch_golden.py`` writes them to ``tests/data/``;
@@ -63,6 +68,9 @@ SCAN_PARAMS = dict(n=3, order=2, polar=2, azimuth=4, nspec=2)
 SCAN_BCS = {1: -0.5, 3: -0.5, 5: -0.5, 6: 0.5}
 SCAN_DIFFUSE = (2, 4)
 
+PATH_SUPER = DATA / "torch_port_golden_super.npz"
+SUPER_PARAMS = dict(nx=3, ny=2, nz=2, order=2, polar=2, azimuth=4, nspec=2)
+
 PATH_ACCEL = DATA / "torch_port_golden_accel.npz"
 ACCEL_PARAMS = dict(nx=8, ny=8, nz=8, order=1, polar=2, azimuth=4, nspec=2)
 ACCEL_MAX_ITER = 18
@@ -91,12 +99,19 @@ def jax_tet_cube(n, order, polar, azimuth, nspec):
     """(ops, quad, tables) of pbte_tpu_torch.problem.tet_cube from
     pbte_tpu's host layers: the n^3 6-tet unit cube in microns, consistent
     faces, silicon."""
+    return jax_tet_box(n, n, n, order, polar, azimuth, nspec)
+
+
+def jax_tet_box(nx, ny, nz, order, polar, azimuth, nspec):
+    """(ops, quad, tables) of pbte_tpu_torch.problem.tet_box from
+    pbte_tpu's host layers: the nx x ny x nz 6-tet box in microns,
+    consistent faces, silicon."""
     from pbte_tpu import mesh as pmesh
     from pbte_tpu.angular import quadrature as ang
     from pbte_tpu.fem import assembly
     from pbte_tpu.material import nongray_smrt as mat
 
-    m = pmesh.make_cartesian_3d(n, n, n, "tet").scaled(1.0e-6)
+    m = pmesh.make_cartesian_3d(nx, ny, nz, "tet").scaled(1.0e-6)
     ops = assembly.assemble(pmesh.connect(m), order=order,
                             face_mode="consistent")
     quad = ang.build(ang.AngularOptions(
@@ -216,6 +231,38 @@ def build_scan() -> dict:
     return dict(fields, Tc=tcs, residual=res)
 
 
+def build_super() -> dict:
+    import jax.numpy as jnp
+
+    from pbte_tpu.solver.source_iteration import SourceIterationSolver
+
+    old = os.environ.get("PBTE_RING_BF16")
+    os.environ["PBTE_RING_BF16"] = "0"
+    try:
+        s = SourceIterationSolver(*jax_tet_box(**SUPER_PARAMS), WALL_BCS,
+                                  dtype=jnp.float32, supercell="on")
+    finally:
+        if old is None:
+            del os.environ["PBTE_RING_BF16"]
+        else:
+            os.environ["PBTE_RING_BF16"] = old
+    if not (s._super is not None and s.sweep_mode == "ring"
+            and not s._ring_stage_bf16 and not s._ring_state_bf16
+            and not s._ring_windowed):
+        raise RuntimeError("the supercell golden must come from the f32 "
+                           "supercell ring with exact operands")
+    tcs, res = _steps(s)
+    attrs = sorted(WALL_BCS)
+    return dict(
+        **{k: np.int64(v) for k, v in SUPER_PARAMS.items()},
+        steps=np.int64(STEPS),
+        bc_attrs=np.array(attrs, dtype=np.int64),
+        bc_temps=np.array([WALL_BCS[a] for a in attrs]),
+        Tc=tcs,  # (steps, ncell, D') f32, the super blocks after each step
+        residual=res,
+    )
+
+
 def build_accel() -> dict:
     import jax.numpy as jnp
 
@@ -247,6 +294,8 @@ GOLDENS = {PATH: build, PATH_CLOSURES: build_closures}
 ACCEL_GOLDENS = {PATH_ACCEL: build_accel}
 # the scan golden (tests/test_torch_scan.py checks it is current)
 SCAN_GOLDENS = {PATH_SCAN: build_scan}
+# the supercell golden (tests/test_torch_supercell.py checks it is current)
+SUPER_GOLDENS = {PATH_SUPER: build_super}
 
 
 if __name__ == "__main__":
@@ -259,6 +308,7 @@ if __name__ == "__main__":
     jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_enable_x64", True)
     DATA.mkdir(parents=True, exist_ok=True)
-    for path, fn in {**GOLDENS, **ACCEL_GOLDENS, **SCAN_GOLDENS}.items():
+    for path, fn in {**GOLDENS, **ACCEL_GOLDENS, **SCAN_GOLDENS,
+                     **SUPER_GOLDENS}.items():
         np.savez_compressed(path, **fn())
         print(f"wrote {path}")
