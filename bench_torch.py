@@ -20,9 +20,13 @@ Rows (each rebuilds the solver under its environment):
 - ``bf16_state``: ``PBTE_RING_STATE_BF16=1``.
 - ``diffuse_walls``: ``problem.DIFFUSE_WALLS`` (x faces isothermal, the other
   four diffuse: the lagged closure sources).
-- ``p3_f32``: order 3, 4x4 = 16 directions, as ``bench.py``'s row. The CUDA
-  kernel is built for D in {8, 27}, so on the GPU this row records the error
-  it raises (ROADMAP.md queue 2, K1 item 5).
+- ``p3_f32``: order 3, 4x4 = 16 directions, as ``bench.py``'s row (D = 64:
+  K1's cluster kernel on the GPU).
+- ``wide_f32``: the flagship's order, angles and bands on a hex lattice 1.5
+  times as wide per axis (24^3 by default, ne = 13,824, a slab of W = 576
+  slots: K1's cluster kernel), with its ``k1_share_of_bound``.
+- ``graded_f32``: the flagship on ``problem.graded_cube`` (x spacing
+  alternating 1 : 2, two geometry classes): the multi-class torch ring.
 - ``f64_state``: ``dtype=torch.float64`` (the float64 kernel on the GPU),
   timed as the others, with its ``k1_share_of_bound``.
 - ``f64_bicgstab``: the float64 problem solved with
@@ -188,7 +192,8 @@ def run_row(name, device, steps, size, env=None, solver_kw=None, shares=False,
             make=None, converge=False):
     """Build the solver under ``env`` and time ``steps`` steps (and with
     ``converge`` solve from the zero state to ``CONVERGE_TOL``); returns
-    the row and the solver's shape."""
+    the row and the solver's shape. On the GPU the row counts the K1
+    launches of its timed steps by variant (``k1_launches``)."""
     solver, setup_s = build(device, size, env, solver_kw, make)
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
@@ -196,11 +201,13 @@ def run_row(name, device, steps, size, env=None, solver_kw=None, shares=False,
     for _ in range(WARMUP_STEPS):
         u, Tc, Tv, r = solver.step(u, Tc, Tv)
     sync(device)
+    lr.reset_launches()
     t0 = time.perf_counter()
     for _ in range(steps):
         u, Tc, Tv, r = solver.step(u, Tc, Tv)
     sync(device)
     dt = time.perf_counter() - t0
+    launches = dict(lr.lattice_ring_sweep.launches_by_variant)
     res = float(r)
     if not (torch.isfinite(Tc).all() and res == res):
         raise RuntimeError(f"row {name}: Tc or the residual is not finite")
@@ -214,6 +221,7 @@ def run_row(name, device, steps, size, env=None, solver_kw=None, shares=False,
     )
     if device.type == "cuda":
         row["max_memory_allocated"] = torch.cuda.max_memory_allocated(device)
+        row["k1_launches"] = launches
         if shares:
             row["k1_share_of_bound"] = k1_share_of_bound(solver, (u, Tc, Tv))
     if converge:
@@ -295,7 +303,7 @@ def main(argv=None) -> int:
 
         device_name = card_name_power()
         t0 = time.perf_counter()
-        _build.load("lattice_ring")
+        _build.load_all(["lattice_ring", "lattice_ring_tiled"])
         build_s = time.perf_counter() - t0
     else:
         torch.set_num_threads(1)
@@ -322,6 +330,24 @@ def main(argv=None) -> int:
                 rows[name], _ = run_row(name, device, steps, row_size, env,
                                         solver_kw, shares=shares)
             except Exception as e:  # an extra row never breaks the primary
+                rows[name] = {"error": f"{type(e).__name__}: {e}"[:300]}
+                log(f"row {name} FAILED: {e}")
+                release(device)
+        # a wider lattice (K1's cluster kernel) and a graded one (the
+        # multi-class torch ring), the flagship's order, angles and bands
+        wide = -(-3 * nx // 2)
+        graded = dict(n=nx, **{k: size[k] for k in ("order", "polar",
+                                                    "azimuth", "nspec")})
+        for name, row_size, make, shares in (
+                ("wide_f32", dict(size, nx=wide, ny=wide, nz=wide), None,
+                 True),
+                ("graded_f32", graded, problem.graded_cube, False)):
+            try:
+                rows[name], row_shape = run_row(name, device, steps,
+                                                row_size, make=make,
+                                                shares=shares)
+                rows[name]["shape"] = row_shape
+            except Exception as e:
                 rows[name] = {"error": f"{type(e).__name__}: {e}"[:300]}
                 log(f"row {name} FAILED: {e}")
                 release(device)

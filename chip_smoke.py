@@ -3,7 +3,9 @@ plain PyTorch version at the shapes its path gives it, run the flagship
 source iteration (isothermal walls, diffuse walls, bf16 state, and in
 float64 through the BiCGStab-accelerated solve) and the copy probe through
 them, run the legacy production tet shape through the scan path and the
-supercell ring, and check the results against the pbte_tpu goldens.
+supercell ring, run the lattices of K1's cluster kernel, a 2D quad lattice
+and a graded lattice, and check the results against the pbte_tpu
+goldens.
 
 Usage (from the root of a checkout, on a machine with one CUDA GPU):
 
@@ -12,10 +14,11 @@ Usage (from the root of a checkout, on a machine with one CUDA GPU):
 Phases (a failing phase raises and the script exits non-zero):
 
 1. versions, the device and its power limit (no GPU: exit 1);
-2. nvcc builds of pbte_tpu_torch/csrc/lattice_ring.cu (K1) and
+2. nvcc builds of pbte_tpu_torch/csrc/lattice_ring.cu (K1's one-CTA
+   kernels), csrc/lattice_ring_tiled.cu (K1's cluster kernels) and
    csrc/dma_copy.cu (K2, K3), concurrently, with the ptxas register /
    shared-memory reports of every kernel, and the registers and spill of
-   each float64 K1 instantiation on a line of their own;
+   each float64 one-CTA K1 instantiation on a line of their own;
 3. K1 vs plain version at the flagship's two Km-bucket shapes, with the
    solver's real operators and seeded random state, for f32 state, bf16
    state, f64 state (the float64 kernel, with the operators in float64), a
@@ -29,7 +32,14 @@ Phases (a failing phase raises and the script exits non-zero):
    to the full-slab kernel on the same inputs (ys bit for bit, ms to 1e-6
    of max: its atomics add in another order), timed in turns with it, and
    both bounds are printed (full slab; in-window slots only); the
-   wrapper's shared-memory sizes against the library's, in all three types;
+   wrapper's shared-memory sizes against the library's, in all three types.
+   Then the same kernel-vs-plain cases (each state type, full slab and
+   windowed, with the launch plan on the line) at three shapes no earlier
+   phase gives K1: hex 16^3 p=3 (D = 64, the p3_f32 row's lattice: the
+   cluster kernel; its factor and boundary source seeded random, its
+   inflow coefficients and windows the lattice's own), the wide hex 24^3
+   p=2 (W = 576, flagship angles and bands: the cluster kernel, the last
+   Km bucket) and quad 64^2 p=2 (D = 9, two faces: the one-CTA kernel);
 4. the copy probe (python -m pbte_tpu_torch.bench_dma): every K2 and K3
    configuration held bit-exact (torch.equal) to its input at small and
    ragged totals (one vector, a block less 16 bytes, a block plus 16 bytes,
@@ -89,7 +99,18 @@ Phases (a failing phase raises and the script exits non-zero):
    steps (iterate-exact paths, held at 2e-6 of max), then 3 float64 steps
    against phase 9's float64 scan steps (1e-11 of max). The ring is torch
    products (pbte_tpu's supercell body reaches no Pallas kernel): no kernel
-   of the kernels line launches in it, and the phase fails if K1 does.
+   of the kernels line launches in it, and the phase fails if K1 does;
+11. the lattices no earlier phase solves: the wide hex 24^3 p=2 with the
+   flagship's angles and bands (13,824 elements, W = 576) in f32
+   (``wide_f32``), bf16 and f64 state, and quad 64^2 p=2 (16 azimuths, 40
+   bands), each with set-up, 2 + 10 timed steps, ms/step, DOF/s, peak
+   memory and K1's launches by variant (the cluster kernel for the wide
+   lattice, the one-CTA kernel for the quads; a count of calls of K1's
+   plain version must stay 0); then the graded hex 16^3 p=2 (x spacing
+   alternating 1 : 2, two geometry classes) on the multi-class torch ring,
+   timed the same way (no K1 launch), and its 3 f32 and 3 f64 steps from
+   the zero state against the same problem's scan (2e-6 and 1e-11 of
+   max, as phase 10 against phase 9).
 
 The line before the last is the card's name and power limit, the one before
 it {"kernels": [...]}, the last line {"ok": true, "device": {...}}.
@@ -166,6 +187,19 @@ TET_SUPER_RTOL = 2e-6
 # the same in float64: the paths sum in another order (1e-15 of max on the
 # CPU at 3 steps)
 TET_SUPER_F64_RTOL = 1e-11
+# the lattices of the cluster kernel and the new one-CTA instantiations:
+# bench_torch.py's p3_f32 lattice (D = 64), the flagship 1.5 times as wide
+# per axis (W = 576), a 2D quad lattice at p = 2 (D = 9, two faces; 16
+# azimuths), and the graded flagship (the multi-class torch ring)
+P3_LATTICE = dict(nx=16, ny=16, nz=16, order=3, polar=4, azimuth=4, nspec=20)
+WIDE = dict(nx=24, ny=24, nz=24, order=2, polar=4, azimuth=16, nspec=20)
+QUAD = dict(nx=64, ny=64, order=2, azimuth=16, nspec=20)
+GRADED = dict(n=16, order=2, polar=4, azimuth=16, nspec=20)
+# phase 11's timed steps, and its graded ring against its scan (as phase
+# 10 against phase 9)
+NEW_TIMED_STEPS = 10
+GRADED_RTOL = 2e-6
+GRADED_F64_RTOL = 1e-11
 
 
 def log(*a):
@@ -218,26 +252,49 @@ K1_CASES = (
 )
 
 
-def phase_kernel_vs_plain(solver, lr):
-    """Kernel vs plain at the flagship bucket shapes, full slab and with the
-    solver's hull windows; returns the result rows."""
-    rng = np.random.default_rng(0)
+def k1_spec(solver):
+    """The shape, windows and per-bucket operators a lattice solver hands
+    K1: what a kernel-vs-plain case runs on."""
     c = solver.consts
-    L, D, W, BS = solver.L, solver.D, solver.W, solver.BS
-    nf = len(solver.shifts)
-    if solver.win is None:
-        raise RuntimeError("the flagship solver took no hull windows")
+    return dict(L=solver.L, D=solver.D, W=solver.W, BS=solver.BS,
+                shifts=solver.shifts, win=solver.win, win_dev=solver.win_dev,
+                wvec=c["wvec"],
+                buckets=[{k: cb[k] for k in ("bsrc0", "cin", "bcat",
+                                             "macro_w")}
+                         for cb in c["buckets"]])
+
+
+def run_k1_cases(lr, spec, cases, rng, shape_tag="", carried_ms=True):
+    """Kernel vs plain for each (bucket, state, Dirichlet source, closure
+    source, hull windows) case on ``spec`` (``k1_spec``): seeded random
+    state, the spec's operators; returns the result rows.
+
+    bf16 state is also held level by level: the plain version reads the
+    kernel's own ys as each level's ring (``ring_in``), so a bf16 rounding
+    that went the other way at one level is not carried on, and ys and ms
+    of every level are held at the bf16 tolerances. ``carried_ms=False``
+    reports the end-to-end bf16 ms error without holding it to
+    ``BF16_MS_RTOL``: a ring value that rounds the other way moves one band
+    of the next level by a bf16 ulp (2^-8 of it), which moves ms there by up
+    to that band's share of 2^-8, and over the ~1e9 rounded ring values of
+    the wide lattice one such flip lands near the largest ms (1.16e-3 and
+    1.19e-3 of max measured on an H100, with ys within 0.5 ulp of max and
+    f32 within 2.4e-6: the arithmetic agrees)."""
+    L, D, W, BS = spec["L"], spec["D"], spec["W"], spec["BS"]
+    nf = len(spec["shifts"])
     inside = np.zeros((L, W), dtype=bool)
-    for l, (lo, hi) in enumerate(solver.win):
-        inside[l, lo:hi] = True
+    if spec["win"] is not None:
+        for l, (lo, hi) in enumerate(spec["win"]):
+            inside[l, lo:hi] = True
     inside_t = torch.from_numpy(inside).cuda()
     rows = []
-    for bi, state, dirichlet, closure, windowed in K1_CASES:
-        cb = c["buckets"][bi]
+    for bi, state, dirichlet, closure, windowed in cases:
+        cb = spec["buckets"][bi]
         Gb, Km = cb["macro_w"].shape[:2]
         # host windows for the plain version and the bounds, the solver's
         # uploaded tensor for the kernel
-        win, win_k = (solver.win, solver.win_dev) if windowed else (None, None)
+        win, win_k = ((spec["win"], spec["win_dev"]) if windowed
+                      else (None, None))
         f64 = state == "f64"
         np_dt = np.float64 if f64 else np.float32
 
@@ -265,12 +322,16 @@ def phase_kernel_vs_plain(solver, lr):
         cast = state == "bf16"
         if cast:
             v = v.to(torch.bfloat16)
-        ops = [cb["bsrc0"], cb["cin"], cb["bcat"], cb["macro_w"], c["wvec"]]
+        ops = [cb["bsrc0"], cb["cin"], cb["bcat"], cb["macro_w"],
+               spec["wvec"]]
         if f64:  # the float64 kernel takes float64 operators
             ops = [t.double() for t in ops]
         args = (v, ttc, *ops)
-        kw = dict(shifts=solver.shifts, dsrc=dsrc, xsrc=xsrc, cast_bf16=cast)
-        tag = (f"bucket {bi} {state}{' dirichlet' if dirichlet else ''}"
+        kw = dict(shifts=spec["shifts"], dsrc=dsrc, xsrc=xsrc,
+                  cast_bf16=cast)
+        plan = lr.launch_plan(D, W, nf, v.dtype, L)
+        tag = (f"{shape_tag}bucket {bi} {state}"
+               f"{' dirichlet' if dirichlet else ''}"
                f"{' closure' if closure else ''}"
                f"{' windows' if windowed else ''}")
         ys, ms = lr.lattice_ring_sweep(*args, **kw, win=win_k)
@@ -281,10 +342,23 @@ def phase_kernel_vs_plain(solver, lr):
             raise RuntimeError(f"{tag}: non-finite kernel output")
         ys_rel, ys_abs = rel_err(ys, ys_r)
         ms_rel, ms_abs = rel_err(ms, ms_r)
+        level = {}
         if cast:
             ys_ulps = ys_abs / bf16_ulp_of_max(ys_r)
-            ok = ys_ulps <= BF16_ULPS and ms_rel <= BF16_MS_RTOL
-            tol = f"ys <= {BF16_ULPS} bf16 ulps of max, ms rel <= {BF16_MS_RTOL}"
+            ys_l, ms_l = lr.lattice_ring_sweep_ref(*args, **kw, win=win,
+                                                   ring_in=ys)
+            torch.cuda.synchronize()
+            level = dict(level_ys_ulps_of_max=rel_err(ys, ys_l)[1]
+                         / bf16_ulp_of_max(ys_l),
+                         level_ms_rel=rel_err(ms, ms_l)[0])
+            del ys_l, ms_l
+            ok = (ys_ulps <= BF16_ULPS
+                  and (ms_rel <= BF16_MS_RTOL or not carried_ms)
+                  and level["level_ys_ulps_of_max"] <= BF16_ULPS
+                  and level["level_ms_rel"] <= BF16_MS_RTOL)
+            tol = (f"ys <= {BF16_ULPS} bf16 ulps of max, ms rel <= "
+                   f"{BF16_MS_RTOL}{'' if carried_ms else ' level by level'}"
+                   f"; level by level the same")
         elif f64:
             ys_ulps = None
             ok = ys_rel <= F64_RTOL and ms_rel <= F64_RTOL
@@ -296,8 +370,9 @@ def phase_kernel_vs_plain(solver, lr):
         del ys_r, ms_r
         row = dict(bucket=bi, shape=list(v.shape), state=state,
                    dirichlet=dirichlet, xsrc=closure, windows=windowed,
+                   variant=plan.variant, Wt=plan.Wt, C=plan.C,
                    ys_rel=ys_rel, ys_abs=ys_abs, ys_ulps_of_max=ys_ulps,
-                   ms_rel=ms_rel, ms_abs=ms_abs, tolerance=tol)
+                   ms_rel=ms_rel, ms_abs=ms_abs, **level, tolerance=tol)
         if windowed:
             # the windowed kernel against the full-slab kernel
             outside = ~inside_t
@@ -324,14 +399,16 @@ def phase_kernel_vs_plain(solver, lr):
         nbytes, flop = lr.sweep_cost(v, nf, dsrc, xsrc, win)
         bound_ms, bound_by = lr.sweep_bound_ms(v, nf, dsrc, xsrc, win)
         full_bound_ms, full_bound_by = lr.sweep_bound_ms(v, nf, dsrc, xsrc)
-        win_bound_ms, _ = lr.sweep_bound_ms(v, nf, dsrc, xsrc, solver.win)
+        win_bound_ms = (lr.sweep_bound_ms(v, nf, dsrc, xsrc, spec["win"])[0]
+                        if spec["win"] is not None else full_bound_ms)
         row.update(kernel_ms=k_ms, plain_ms=p_ms, bytes=nbytes, flop=flop,
                    bound_ms=bound_ms, bound_by=bound_by,
                    share_of_bound=bound_ms / k_ms,
                    full_slab_bound_ms=full_bound_ms,
                    full_slab_bound_by=full_bound_by,
                    windows_bound_ms=win_bound_ms, ok=ok)
-        line = (f"[smoke] K1 {tag}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} "
+        line = (f"[smoke] K1 {tag} ({plan.variant}, Wt={plan.Wt}, "
+                f"C={plan.C}): kernel {k_ms:.4f} ms, plain {p_ms:.4f} "
                 f"ms, bound {bound_ms:.4f} ms ({bound_by}: "
                 f"{nbytes / 1e9:.3f} GB, {flop / 1e9:.1f} Gflop), "
                 f"{bound_ms / k_ms:.3f} of the bound (bounds: full slab "
@@ -356,6 +433,66 @@ def phase_kernel_vs_plain(solver, lr):
     return rows
 
 
+def phase_kernel_vs_plain(solver, lr):
+    """Kernel vs plain at the flagship bucket shapes, full slab and with the
+    solver's hull windows; returns the result rows."""
+    if solver.win is None:
+        raise RuntimeError("the flagship solver took no hull windows")
+    return run_k1_cases(lr, k1_spec(solver), K1_CASES,
+                        np.random.default_rng(0))
+
+
+# the new shapes' cases: each state type, full slab and with the windows
+K1_NEW_CASES = [(0, state, False, False, windowed)
+                for state in ("f32", "bf16", "f64")
+                for windowed in (False, True)]
+
+
+def p3_spec(SourceIterationSolver, problem):
+    """K1's operands at hex 16^3, p=3 (D = 64), the p3_f32 row's lattice
+    (16 directions, 2 x 20 bands): the lattice, its inflow coefficients and
+    hull windows from the solver at p=1 (they do not depend on the order;
+    the p=3 assembly of 4,096 elements takes about a minute of host
+    time), the D = 64 factor and boundary source seeded random (the factor
+    scaled by 1/J, so the recurrence contracts like the physical one; the
+    source zero outside the windows)."""
+    s = SourceIterationSolver(
+        *problem.unit_cube(**dict(P3_LATTICE, order=1)), problem.WALL_BCS,
+        device="cuda")
+    spec = k1_spec(s)
+    del s
+    D, L, W = 64, spec["L"], spec["W"]
+    J = (1 + len(spec["shifts"])) * D
+    rng = np.random.default_rng(3)
+    inside = np.zeros((L, W), dtype=np.float32)
+    for l, (lo, hi) in enumerate(spec["win"]):
+        inside[l, lo:hi] = 1.0
+    for cb in spec["buckets"]:
+        Gb, Km = cb["macro_w"].shape[:2]
+        cb["bcat"] = torch.from_numpy(rng.standard_normal(
+            (Gb, Km, spec["BS"], D, J), dtype=np.float32) / J).cuda()
+        cb["bsrc0"] = torch.from_numpy(rng.standard_normal(
+            (L, Gb, Km, D, W), dtype=np.float32)
+            * inside[:, None, None, None, :]).cuda()
+    spec["D"] = D
+    return spec
+
+
+def phase_k1_new_shapes(lr, specs):
+    """Kernel vs plain at the shapes K1 took in no earlier run: hex 16^3
+    p=3 (D = 64: the cluster kernel), the wide hex 24^3 p=2 (W = 576: the
+    cluster kernel) and the quad 64^2 p=2 (D = 9, two faces: the one-CTA
+    kernel), each in f32, bf16 and f64, full slab and windowed; returns
+    {shape name: rows}."""
+    out = {}
+    for i, (name, spec, bucket) in enumerate(specs):
+        cases = [(bucket,) + c[1:] for c in K1_NEW_CASES]
+        out[name] = run_k1_cases(lr, spec, cases,
+                                 np.random.default_rng(10 + i),
+                                 shape_tag=f"{name} ", carried_ms=False)
+    return out
+
+
 def check_k1_smem(solver, lr):
     """The wrapper's shared-memory check (lr.kernel_smem_bytes) against the
     kernels' own carve-ups, at the flagship's shapes in all three types."""
@@ -371,6 +508,19 @@ def check_k1_smem(solver, lr):
                                f"the wrapper checks {want} B ({state})")
     log(f"[smoke] K1 shared memory per CTA at D={D} W={W}: "
         + ", ".join(f"{str(k).split('.')[-1]} {v} B" for k, v in got.items()))
+    # the cluster kernel's carve-up at the tiles phase 3 and 11 launch
+    tiled = lr._lib("lattice_ring_tiled")
+    for Dt, Wt in ((64, 96), (64, 128), (64, 48), (27, 192), (8, 208)):
+        for mode, state in enumerate((torch.float32, torch.bfloat16,
+                                      torch.float64)):
+            n = tiled.pbte_lattice_ring_tiled_smem_bytes(mode, Dt, Wt, nf, L)
+            want = lr.tiled_smem_bytes(Dt, Wt, nf, state, L)
+            if n != want:
+                raise RuntimeError(f"K1 cluster kernel shared memory at "
+                                   f"D={Dt} Wt={Wt}: the kernel takes {n} B, "
+                                   f"the wrapper checks {want} B ({state})")
+    log("[smoke] K1 cluster kernel shared memory: the wrapper's sizes equal "
+        "the library's")
 
 
 def f64_ptxas(log):
@@ -545,27 +695,38 @@ def phase_flagship(solver, lr, setup_s, name):
 PARAM_KEYS = ("nx", "ny", "nz", "order", "polar", "azimuth", "nspec")
 
 
-def phase_golden(SourceIterationSolver, unit_cube, file):
+def phase_golden(SourceIterationSolver, unit_cube, file, keys=PARAM_KEYS,
+                 lr=None):
     """The port on the GPU against a pbte_tpu golden Tc (isothermal walls,
-    or periodic, diffuse and specular closures when the file names them)."""
+    or periodic, diffuse and specular closures when the file names them),
+    the problem built by ``unit_cube(**params)`` from the file's ``keys``.
+    With ``lr`` it returns the K1 launches by variant of the solve too."""
     golden = pathlib.Path(__file__).resolve().parent / "tests" / "data"
     with np.load(golden / file) as d:
-        params = {k: int(d[k]) for k in PARAM_KEYS}
+        params = {k: d[k].item() for k in keys}
         bcs = dict(zip(d["bc_attrs"].tolist(), d["bc_temps"].tolist()))
         ref = torch.from_numpy(d["Tc"][-1]).cuda()
         steps = int(d["steps"])
         periodic = tuple(d["periodic"].tolist()) if "periodic" in d else ()
         kw = {f"{k}_bcs": d[k].tolist() for k in ("diffuse", "specular")
               if k in d}
-    s = SourceIterationSolver(*unit_cube(**params, periodic=periodic), bcs,
-                              device="cuda", **kw)
+    if periodic:
+        params["periodic"] = periodic
+    s = SourceIterationSolver(*unit_cube(**params), bcs, device="cuda", **kw)
+    if lr is not None:
+        lr.reset_launches()
     r = s.solve(tol=0, max_iter=steps, verbose=False)
     rel, ab = rel_err(r.Tc, ref)
-    log(f"[smoke] golden {file} {params} periodic={periodic} {kw} {steps} "
-        f"steps: Tc rel {rel:.3e} (abs {ab:.3e}), tolerance {GOLDEN_RTOL}")
+    ring = ("multi-class ring" if getattr(s, "_multi", None) is not None
+            else f"K1 {lr.lattice_ring_sweep.launches_by_variant}"
+            if lr is not None else s.sweep_mode)
+    log(f"[smoke] golden {file} {params} {kw} {steps} steps ({ring}): Tc "
+        f"rel {rel:.3e} (abs {ab:.3e}), tolerance {GOLDEN_RTOL}")
     if not rel <= GOLDEN_RTOL:
         raise RuntimeError(f"GPU Tc disagrees with the pbte_tpu golden {file}")
-    return rel
+    if lr is None:
+        return rel
+    return rel, dict(lr.lattice_ring_sweep.launches_by_variant), s
 
 
 def phase_accel_golden(SourceIterationSolver, unit_cube, lr):
@@ -931,6 +1092,163 @@ def phase_tet_super(SourceIterationSolver, problem, prob, lr, card, tc_scan):
     return row
 
 
+def time_lattice(s, name, card, steps):
+    """2 warm-up + ``steps`` timed steps of solver ``s`` from the zero
+    state, with K1's launches by variant and state counted over all of them
+    and every call of K1's plain version counted (on the card it must never
+    run); returns the row."""
+    from pbte_tpu_torch.ops import lattice_ring as lr
+
+    plain_calls = []
+    plain = lr.lattice_ring_sweep_ref
+
+    def counted(*a, **kw):
+        plain_calls.append(1)
+        return plain(*a, **kw)
+
+    lr.lattice_ring_sweep_ref = counted
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        lr.reset_launches()
+        u, Tc, Tv = s.initial_state()
+        res = []
+        for _ in range(WARMUP_STEPS):
+            u, Tc, Tv, r = s.step(u, Tc, Tv)
+            res.append(r)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            u, Tc, Tv, r = s.step(u, Tc, Tv)
+            res.append(r)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        lr.lattice_ring_sweep_ref = plain
+    res = [float(x) for x in res]
+    ne, D, K, BS = s.ne, s.D, s.K, s.BS
+    row = dict(
+        ne=ne, D=D, K=K, BS=BS, G=s.G, L=s.L, W=s.W, state=str(u[0].dtype),
+        buckets=[[int(len(g)), km] for g, km in s._ring_buckets],
+        windows=s.win is not None, multi_class=s._multi is not None,
+        ms_per_step=wall / steps * 1e3,
+        dof_per_s=steps * K * BS * ne * D / wall,
+        max_memory_allocated=torch.cuda.max_memory_allocated(),
+        k1_launches_by_variant=dict(lr.lattice_ring_sweep.launches_by_variant),
+        k1_launches_by_state=dict(lr.lattice_ring_sweep.launches_by_state),
+        plain_calls=len(plain_calls), residuals=res)
+    log(f"[smoke] {name} " + json.dumps(row))
+    log(f"[smoke] {name}: {row['ms_per_step']:.3f} ms/step, "
+        f"{row['dof_per_s']:.4g} DOF/s, peak "
+        f"{row['max_memory_allocated'] / 1e9:.2f} GB, K1 launches "
+        f"{row['k1_launches_by_variant']}, plain sweeps {len(plain_calls)}; "
+        f"on {card}")
+    if plain_calls:
+        raise RuntimeError(f"{name}: K1's plain version ran on the card")
+    if Tc.shape != (ne, D) or not torch.isfinite(Tc).all():
+        raise RuntimeError(f"{name}: Tc is not finite of shape (ne, D)")
+    if not (np.all(np.isfinite(res)) and res[-1] < res[0]):
+        raise RuntimeError(f"{name}: residuals not finite and falling: {res}")
+    del u, Tc, Tv
+    return row
+
+
+def phase_new_lattices(SourceIterationSolver, problem, lr, card, wide_prob,
+                       quad_prob):
+    """Phase 11: the lattices the port took on the card in no earlier run.
+    The wide hex 24^3 p=2 (flagship angles and bands, W = 576) in f32 state
+    (``wide_f32``), bf16 and f64: 2 + 10 timed steps each through K1's
+    cluster kernel, every launch counted by variant and no plain sweep; the
+    quad 64^2 p=2 through the one-CTA kernel at D = 9; then the graded hex
+    16^3 p=2 (x spacing alternating 1 : 2) on the multi-class torch ring,
+    timed, and its 3 f32 and 3 f64 steps from the zero state held against
+    the same problem's scan (GRADED_RTOL, GRADED_F64_RTOL of max). Returns
+    {row name: row}."""
+    rows = {}
+    n_steps = WARMUP_STEPS + NEW_TIMED_STEPS
+    for name, prob, bcs, kw, env, variant in (
+            ("wide_f32", wide_prob, problem.WALL_BCS, {}, None, "tiled"),
+            ("wide_bf16", wide_prob, problem.WALL_BCS, {}, "1", "tiled"),
+            ("wide_f64", wide_prob, problem.WALL_BCS,
+             dict(dtype=torch.float64), None, "tiled"),
+            ("quad_f32", quad_prob, problem.SQUARE_BCS, {}, None,
+             "persistent")):
+        if env:
+            os.environ["PBTE_RING_STATE_BF16"] = env
+        try:
+            t0 = time.perf_counter()
+            s = SourceIterationSolver(*prob, bcs, device="cuda", **kw)
+            torch.cuda.synchronize()
+            setup_s = time.perf_counter() - t0
+        finally:
+            os.environ.pop("PBTE_RING_STATE_BF16", None)
+        row = time_lattice(s, name, card, NEW_TIMED_STEPS)
+        row["setup_s"] = setup_s
+        want = {variant: len(s._ring_buckets) * n_steps}
+        got = {k: v for k, v in row["k1_launches_by_variant"].items() if v}
+        if got != want:
+            raise RuntimeError(f"{name}: K1 launches {got}, want {want}")
+        rows[name] = row
+        del s
+        torch.cuda.empty_cache()
+
+    # the graded lattice: the multi-class ring against the scan
+    t0 = time.perf_counter()
+    graded = problem.graded_cube(**GRADED)
+    assembly_s = time.perf_counter() - t0
+    tc = {}
+    for dt in (torch.float32, torch.float64):
+        for mode in ("auto", "scan"):
+            t0 = time.perf_counter()
+            s = SourceIterationSolver(*graded, problem.WALL_BCS,
+                                      device="cuda", dtype=dt,
+                                      sweep_mode=mode)
+            torch.cuda.synchronize()
+            setup_s = time.perf_counter() - t0
+            if mode == "auto" and not (s.sweep_mode == "ring"
+                                       and s._multi is not None):
+                raise RuntimeError("the graded lattice did not take the "
+                                   "multi-class ring")
+            if (mode, dt) == ("auto", torch.float32):
+                row = time_lattice(s, "graded_f32", card, NEW_TIMED_STEPS)
+                row.update(setup_s=setup_s, assembly_s=assembly_s,
+                           ncls=int(s._multi[0].cls_oh.shape[0]),
+                           coupling_classes=[
+                               int(mb.cstack.shape[0]) // s.D
+                               for mb in s._multi])
+                if any(row["k1_launches_by_variant"].values()):
+                    raise RuntimeError("graded_f32: K1 launched on the "
+                                       "multi-class ring")
+                rows["graded_f32"] = row
+            st = s.initial_state()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(TET_COMPARE_STEPS):
+                st = s.step(*st)[:3]
+            torch.cuda.synchronize()
+            key = f"{mode}_{str(dt).split('.')[-1]}"
+            rows["graded_f32"][f"{key}_ms_per_step"] = (
+                (time.perf_counter() - t0) / TET_COMPARE_STEPS * 1e3)
+            tc[key] = st[1]
+            del s, st
+            torch.cuda.empty_cache()
+    rel, ab = rel_err(tc["auto_float32"], tc["scan_float32"])
+    rel64, _ = rel_err(tc["auto_float64"], tc["scan_float64"])
+    row = rows["graded_f32"]
+    row.update(vs_scan_rel=rel, f64_vs_scan_rel=rel64)
+    log(f"[smoke] graded lattice: {TET_COMPARE_STEPS} steps of the "
+        f"multi-class ring against the scan's: f32 Tc rel {rel:.3e} (abs "
+        f"{ab:.3e}), tolerance {GRADED_RTOL}; f64 rel {rel64:.3e}, tolerance "
+        f"{GRADED_F64_RTOL}; ms/step ring f32 "
+        f"{row['auto_float32_ms_per_step']:.2f}, scan f32 "
+        f"{row['scan_float32_ms_per_step']:.2f}, ring f64 "
+        f"{row['auto_float64_ms_per_step']:.2f}, scan f64 "
+        f"{row['scan_float64_ms_per_step']:.2f}; on {card}")
+    if not (rel <= GRADED_RTOL and rel64 <= GRADED_F64_RTOL):
+        raise RuntimeError("the graded lattice: the multi-class ring and the "
+                           "scan disagree")
+    return rows
+
+
 def tree_norm(tree):
     """sqrt of the sum of squares over the leaves of a state tree."""
     from pbte_tpu_torch.solver.accel import tree_dot
@@ -1089,9 +1407,10 @@ def main() -> int:
     from pbte_tpu_torch.ops import lattice_ring as lr
     from pbte_tpu_torch import problem as problem_mod
     from pbte_tpu_torch.problem import (DIFFUSE_WALLS, FLAGSHIP, WALL_BCS,
-                                        unit_cube)
+                                        graded_cube, unit_cube, unit_square)
     from pbte_tpu_torch.solver.source_iteration import SourceIterationSolver
 
+    t_start = time.perf_counter()
     kind = torch.cuda.get_device_name(0)
     log(f"[smoke] python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda} device {kind} "
@@ -1100,7 +1419,8 @@ def main() -> int:
     log(f"[smoke] nvidia-smi: {card}")
 
     t0 = time.perf_counter()
-    built = _build.load_all(["lattice_ring", "dma_copy"])
+    built = _build.load_all(["lattice_ring", "lattice_ring_tiled",
+                             "dma_copy"])
     log(f"[smoke] built {[b.path.name for b in built.values()]} in "
         f"{time.perf_counter() - t0:.1f} s (nvcc "
         f"{ {k: round(b.seconds, 1) for k, b in built.items()} } s)")
@@ -1108,10 +1428,11 @@ def main() -> int:
         log(b.log.strip())
     f64_regs = f64_ptxas(built["lattice_ring"].log)
     log("[smoke] K1 f64 ptxas " + json.dumps(f64_regs))
-    if len(f64_regs) != 4:
-        raise RuntimeError(f"want the ptxas report of 4 float64 K1 "
-                           f"instantiations (D 8, 27; with and without "
-                           f"dsrc), got {sorted(f64_regs)}")
+    if len(f64_regs) != 2 * len(lr.KERNEL_D):
+        raise RuntimeError(f"want the ptxas report of {2 * len(lr.KERNEL_D)}"
+                           f" float64 K1 instantiations (D in "
+                           f"{lr.KERNEL_D}; with and without dsrc), got "
+                           f"{sorted(f64_regs)}")
 
     problem = unit_cube(**FLAGSHIP)
     solver, setup_s = build_flagship(SourceIterationSolver, problem,
@@ -1131,6 +1452,31 @@ def main() -> int:
 
     launches, flag = phase_flagship(solver, lr, setup_s, "flagship")
     del solver
+    torch.cuda.empty_cache()
+
+    # phase 3 at the new shapes: the cluster kernel (D = 64; W = 576) and
+    # the one-CTA kernel at D = 9, each on its lattice's own windows
+    t0 = time.perf_counter()
+    wide_prob = unit_cube(**WIDE)
+    quad_prob = unit_square(**QUAD)
+    specs = []
+    for name, prob, bcs in (("wide 24^3 p=2", wide_prob, WALL_BCS),
+                            ("quad 64^2 p=2", quad_prob,
+                             problem_mod.SQUARE_BCS)):
+        s = SourceIterationSolver(*prob, bcs, device="cuda")
+        spec = k1_spec(s)
+        # the wide lattice's last bucket (Km = 6): three f64 state-sized
+        # buffers of bucket 0 would take 42 GB
+        specs.append((name, spec, len(spec["buckets"]) - 1
+                      if name.startswith("wide") else 0))
+        del s
+    specs.insert(0, ("p3 16^3 p=3", p3_spec(SourceIterationSolver,
+                                             problem_mod), 0))
+    log(f"[smoke] new K1 shapes set up in {time.perf_counter() - t0:.1f} s: "
+        + ", ".join(f"{n} L={sp['L']} D={sp['D']} W={sp['W']} shifts="
+                    f"{sp['shifts']}" for n, sp, _ in specs))
+    new_rows = phase_k1_new_shapes(lr, specs)
+    del specs
     torch.cuda.empty_cache()
 
     film, film_setup_s = build_flagship(SourceIterationSolver, problem,
@@ -1160,6 +1506,19 @@ def main() -> int:
     accel_rel = phase_accel_golden(SourceIterationSolver, unit_cube, lr)
     scan_rel = phase_scan_golden(SourceIterationSolver, problem_mod.tet_cube)
     super_rel = phase_super_golden(SourceIterationSolver, problem_mod.tet_box)
+    p3_rel, p3_launches, _ = phase_golden(
+        SourceIterationSolver, unit_cube, "torch_port_golden_p3.npz",
+        keys=PARAM_KEYS + ("length",), lr=lr)
+    if p3_launches["tiled"] == 0 or p3_launches["persistent"]:
+        raise RuntimeError(f"the p=3 golden ran K1 {p3_launches}, want the "
+                           f"cluster kernel")
+    graded_rel, graded_launches, s = phase_golden(
+        SourceIterationSolver, graded_cube, "torch_port_golden_graded.npz",
+        keys=("n", "order", "polar", "azimuth", "nspec"), lr=lr)
+    if s._multi is None or any(graded_launches.values()):
+        raise RuntimeError("the graded golden did not run the multi-class "
+                           "ring alone")
+    del s
 
     f64_launches, f64_row = phase_f64_flagship(
         SourceIterationSolver, problem, lr, dict(bc_temps=WALL_BCS))
@@ -1170,6 +1529,11 @@ def main() -> int:
                                   tet_prob, lr, card)
     tet_super = phase_tet_super(SourceIterationSolver, problem_mod, tet_prob,
                                 lr, card, tc_scan)
+    del tet_prob
+    torch.cuda.empty_cache()
+
+    new = phase_new_lattices(SourceIterationSolver, problem_mod, lr, card,
+                             wide_prob, quad_prob)
 
     jax_mods = sorted(m for m in sys.modules
                       if m.split(".")[0] in ("jax", "jaxlib"))
@@ -1202,24 +1566,47 @@ def main() -> int:
         f"rel {super_rel:.3e}; legacy tet scan {tet['ms_per_step']:.3f} "
         f"ms/step, {tet['dof_per_s']:.4g} DOF/s; supercell ring "
         f"{tet_super['ms_per_step']:.3f} ms/step, "
-        f"{tet_super['dof_per_s']:.4g} DOF/s; on {card}")
+        f"{tet_super['dof_per_s']:.4g} DOF/s; p=3 golden rel {p3_rel:.3e}, "
+        f"graded golden rel {graded_rel:.3e}; "
+        + "; ".join(f"{k} {r['ms_per_step']:.3f} ms/step, "
+                    f"{r['dof_per_s']:.4g} DOF/s"
+                    for k, r in new.items())
+        + f"; on {card}")
 
-    def k1_entry(name, state, n):
-        r = main_row(state)
+    def k1_entry(name, state, n, shape=None,
+                 source="pbte_tpu_torch/csrc/lattice_ring.cu"):
+        """A K1 kernel's entry: its times and bound from phase 3 (the
+        flagship's bucket-0 windowed launch, or the windowed case of a new
+        ``shape``), its largest error over phase 3's cases of the same
+        state type (the flagship's, or the new shapes' of the same
+        variant), its launches ``n`` on the main path."""
+        if shape is None:
+            r, same = main_row(state), [x for x in rows
+                                        if x["state"] == state]
+        else:
+            r = next(x for x in new_rows[shape]
+                     if x["state"] == state and x["windows"])
+            same = [x for x in sum(new_rows.values(), [])
+                    if x["state"] == state and x["variant"] == r["variant"]]
         return {
             "name": name,
             "route": "cuda",
-            "source": "pbte_tpu_torch/csrc/lattice_ring.cu",
+            "source": source,
             "replaces": "pbte_tpu/ops/lattice_ring.py:234",
             "launches": n,
-            "max_abs_err": max(max(x["ys_abs"], x["ms_abs"])
-                               for x in rows if x["state"] == state),
+            "max_abs_err": max(max(x["ys_abs"], x["ms_abs"]) for x in same),
             "ms": r["kernel_ms"],
             "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"],
             "library_ms": None,
         }
+
+    def tiled_entry(name, state, row):
+        return k1_entry(name, state,
+                        new[row]["k1_launches_by_variant"]["tiled"],
+                        shape="wide 24^3 p=2",
+                        source="pbte_tpu_torch/csrc/lattice_ring_tiled.cu")
 
     def best_row(prefix):
         """The fastest row of a kernel: its paired median ms and the plain
@@ -1233,10 +1620,17 @@ def main() -> int:
     # a copy moves each input byte once in and once out: 2 x the array
     copy_bound_ms = dma_res["bytes_per_call"] / lr.H100_BYTES_PER_S * 1e3
 
+    log(f"[smoke] done in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": [
         k1_entry("lattice_ring_sweep", "f32", launches + film_launches),
         k1_entry("lattice_ring_sweep_bf16", "bf16", bf16_launches),
         k1_entry("lattice_ring_sweep_f64", "f64", f64_launches),
+        k1_entry("lattice_ring_sweep_d9", "f32",
+                 new["quad_f32"]["k1_launches_by_variant"]["persistent"],
+                 shape="quad 64^2 p=2"),
+        tiled_entry("lattice_ring_sweep_tiled", "f32", "wide_f32"),
+        tiled_entry("lattice_ring_sweep_tiled_bf16", "bf16", "wide_bf16"),
+        tiled_entry("lattice_ring_sweep_tiled_f64", "f64", "wide_f64"),
         {
             "name": "dma_auto_copy",
             "route": "cuda",

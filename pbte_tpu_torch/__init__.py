@@ -20,14 +20,17 @@ and the modules that were JAX in pbte_tpu:
 - ``models.macroscopic``: the macroscopic weights, Tc / Tv reductions and
   the scale-invariant residual;
 - ``ops.lattice_ring``: the lattice ring sweep, a plain PyTorch version and
-  the hand-written CUDA kernel (``csrc/lattice_ring.cu``) it dispatches to
-  for CUDA tensors;
+  the hand-written CUDA kernels it dispatches to for CUDA tensors: one CTA
+  a level (``csrc/lattice_ring.cu``) or a thread-block cluster a level
+  (``csrc/lattice_ring_tiled.cu``), chosen from the shape;
 - ``ops.dma_copy``: the streaming copies of pbte_tpu's DMA probe, a plain
   version and two CUDA kernels (``csrc/dma_copy.cu``), driven by
   ``bench_dma`` (``python -m pbte_tpu_torch.bench_dma``);
-- ``solver.source_iteration``: ``SourceIterationSolver`` on the
-  single-class lattice ring, with periodic, diffuse and specular closures
-  (``solver.lattice_tables`` holds its lattice host tables), resolving
+- ``solver.source_iteration``: ``SourceIterationSolver`` on the lattice
+  ring, with periodic, diffuse and specular closures
+  (``solver.lattice_tables`` holds its lattice host tables;
+  ``solver.lattice_multi`` the multi-class ring of graded lattices, torch
+  ops), resolving
   ``sweep_mode`` as pbte_tpu does and dispatching a merged 6-tet or
   2-triangle lattice to ``solver.super_ring``, the supercell two-matmul
   ring, and every other mesh to ``solver.scan``, the level-window scan
@@ -37,8 +40,8 @@ and the modules that were JAX in pbte_tpu:
 - ``convert``: numpy consts/state from ``pbte_tpu`` into this package's
   layouts, ring and scan, and the supercell ring's state both ways (used
   by the parity tests);
-- ``problem``: the unit-cube and 6-tet box problems, the flagship and the
-  legacy production tet shape among them.
+- ``problem``: the unit-cube, graded-cube, unit-square and 6-tet box
+  problems, the flagship and the legacy production tet shape among them.
 
 The entry points (``SourceIterationSolver``, ``consts_from_numpy``,
 ``state_from_numpy``) run on the GPU unless the caller passes

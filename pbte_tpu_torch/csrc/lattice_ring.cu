@@ -40,6 +40,12 @@
 // hold, in the TF32 split as in bf16. So the windowed results equal the
 // full-slab results (ys bit for bit, ms up to the order of its atomics).
 //
+// Shapes. Instantiated for D in {4, 9, 16} (quad p = 1-3, two faces) and
+// {8, 27} (hex p = 1, 2, three faces), W <= 256; hex p = 3 (D = 64) and
+// levels wider than 256 slots take the cluster kernel of
+// lattice_ring_tiled.cu (the wrapper's launch_plan chooses). Helpers shared
+// with it: lattice_ring_common.cuh.
+//
 // Design. One CTA runs one (g, k, b) over all L levels (the level axis is a
 // dependence chain; the band sum of ms is the only coupling between CTAs,
 // done with f32 atomics). Per level the product is a (W x J) @ (J x D)
@@ -94,11 +100,7 @@
 // taken; with a run-time condition on each row it was 1.9x slower: loads
 // behind a condition do not stay in flight together.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-#include <cstddef>
-#include <cstdint>
+#include "lattice_ring_common.cuh"
 
 // Measurement variants (bench_k1.py builds them with -D; the default build
 // defines none; each gives wrong results and only times what is left):
@@ -109,8 +111,11 @@
 
 namespace {
 
-constexpr int kMaxFaces = 3;
 constexpr int kMaxW = 256;
+// element DOF counts the kernels are instantiated for: quad p = 1, 2, 3
+// (4, 9, 16) and hex p = 1, 2 (8, 27); hex p = 3 (64) and every level
+// wider than kMaxW take the cluster kernel of lattice_ring_tiled.cu
+#define PBTE_K1_ONE_CTA_D(X) X(4) X(8) X(9) X(16) X(27)
 constexpr int kConsumerWarps = 8;
 constexpr int kProducerWarps = 8;
 constexpr int kConsumerThreads = 32 * kConsumerWarps;
@@ -119,82 +124,6 @@ constexpr int kThreads = kConsumerThreads + kProducerThreads;
 // 16-row m-tiles of W per consumer warp
 constexpr int kMTilesPerWarp = kMaxW / 16 / kConsumerWarps;
 
-struct Shifts {
-  int s[kMaxFaces];
-};
-
-template <typename T>
-__device__ __forceinline__ float to_f32(T x);
-template <>
-__device__ __forceinline__ float to_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even
-}
-
-// product-operand rounding: identity in exact mode, bf16 in cast mode
-template <bool CAST>
-__device__ __forceinline__ float op_round(float x) {
-  if constexpr (CAST) {
-    return __bfloat162float(__float2bfloat16(x));
-  } else {
-    return x;
-  }
-}
-
-__device__ __forceinline__ uint32_t to_tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
-  return r;
-}
-
-// x = hi + lo with hi, lo TF32, both truncated by masking the low 13 bits:
-// |lo| < 2^-10 |x| and the truncation of lo costs < 2^-20 |x|. (cvt.rna
-// costs ~7 issue cycles on the H100: rounding both parts made the f32
-// kernel 25% slower, measured.) The factor block, split once per CTA,
-// rounds both parts (split_tf32_rna).
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
-                                           uint32_t& lo) {
-  hi = __float_as_uint(x) & 0xffffe000u;
-  lo = __float_as_uint(x - __uint_as_float(hi)) & 0xffffe000u;
-}
-__device__ __forceinline__ void split_tf32_rna(float x, uint32_t& hi,
-                                               uint32_t& lo) {
-  hi = to_tf32(x);
-  lo = to_tf32(x - __uint_as_float(hi));
-}
-
-// two floats -> bf16x2, the first in the low half (the lower k index)
-__device__ __forceinline__ uint32_t pack_bf16(float lo_k, float hi_k) {
-  __nv_bfloat162 p = __floats2bfloat162_rn(lo_k, hi_k);
-  return *reinterpret_cast<uint32_t*>(&p);
-}
-
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // Named barriers between the two warp roles (barrier 0 is __syncthreads).
 // bar.arrive signals without waiting; bar.sync waits for `count` threads.
 __device__ __forceinline__ void bar_sync(int id, int count) {
@@ -202,32 +131,6 @@ __device__ __forceinline__ void bar_sync(int id, int count) {
 }
 __device__ __forceinline__ void bar_arrive(int id, int count) {
   asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
-}
-
-__host__ __device__ constexpr size_t align16(size_t n) {
-  return (n + 15) / 16 * 16;
-}
-
-// Tile geometry of one (D, mode)
-template <int D, bool CAST>
-struct Geo {
-  static constexpr int KSTEP = CAST ? 16 : 8;  // mma depth
-  static constexpr int KP = (D + KSTEP - 1) / KSTEP * KSTEP;  // face depth
-  static constexpr int KT_FACE = KP / KSTEP;  // k-steps per face block
-  static constexpr int NT = (D + 7) / 8;      // 8-column n-tiles of D
-  // one lane's B fragment of one (k-step, n-tile): hi and lo of b0, b1
-  // (TF32) or b0, b1 (bf16x2)
-  static constexpr int BFRAG_BYTES = CAST ? 8 : 16;
-};
-
-// row stride of the tiles: a multiple of 32 words plus 8, so the 8 rows x
-// 4 columns of a fragment read fall in 32 distinct banks
-__host__ __device__ constexpr int tile_stride(int W) {
-  return (W + 31) / 32 * 32 + 8;
-}
-// row stride of the shifted inflow coefficients: W rounded to m-tiles
-__host__ __device__ constexpr int cin_stride(int W) {
-  return (W + 15) / 16 * 16;
 }
 
 // Shared-memory carve-up (byte offsets), the same on host and device: the
@@ -714,14 +617,13 @@ cudaError_t dispatch_d(int D, const void* v, const float* ttc,
                        int Gb, int Km, int BS, int W, int nf, Shifts sh,
                        cudaStream_t stream) {
   switch (D) {
-    case 8:
-      return launch<8, State, CAST>(v, ttc, bsrc, cin, bcat, macro_w, wvec,
-                                    dsrc, xmap, xval, n_u, win, ys, ms, L, Gb,
-                                    Km, BS, W, nf, sh, stream);
-    case 27:
-      return launch<27, State, CAST>(v, ttc, bsrc, cin, bcat, macro_w, wvec,
-                                     dsrc, xmap, xval, n_u, win, ys, ms, L,
-                                     Gb, Km, BS, W, nf, sh, stream);
+#define PBTE_K1_CASE(d)                                                     \
+  case d:                                                                   \
+    return launch<d, State, CAST>(v, ttc, bsrc, cin, bcat, macro_w, wvec,   \
+                                  dsrc, xmap, xval, n_u, win, ys, ms, L, Gb, \
+                                  Km, BS, W, nf, sh, stream);
+    PBTE_K1_ONE_CTA_D(PBTE_K1_CASE)
+#undef PBTE_K1_CASE
     default:
       return cudaErrorInvalidValue;
   }
@@ -804,19 +706,6 @@ cudaError_t dispatch_d(int D, const void* v, const float* ttc,
 // Measurement variants: PBTE_K1_NO_MS, PBTE_K1_NO_YS, PBTE_K1_NO_PRODUCT and
 // PBTE_K1_NO_LOADS as above.
 
-// Tile geometry of one D
-template <int D>
-struct GeoF64 {
-  static constexpr int KP = (D + 3) / 4 * 4;  // face depth in 4-deep k-steps
-  static constexpr int KT_FACE = KP / 4;      // k-steps per face block
-  static constexpr int NT = (D + 7) / 8;      // 8-column n-tiles of D
-};
-
-// row stride of the float64 tiles: W rounded to m-tiles plus 4 doubles
-__host__ __device__ constexpr int f64_tile_stride(int W) {
-  return (W + 15) / 16 * 16 + 4;
-}
-
 // Shared-memory carve-up of the float64 kernel (byte offsets), the same on
 // host and device: the factor in fragment order, one solution tile, two rhs
 // tiles and two shifted-cin tiles (level parity), and the L windows
@@ -835,18 +724,6 @@ struct SmemF64 {
     total = wins + align16(sizeof(int2) * L);
   }
 };
-
-// d += A B on the FP64 tensor cores, one m16n8k4 product. A (16 x 4, row):
-// a0, a1 are rows gq, gq + 8 of k column tq; B (4 x 8, col): b is k row tq
-// of column gq; d[q] is row gq + 8 (q >> 1), column 2 tq + (q & 1) (gq =
-// lane / 4, tq = lane % 4).
-__device__ __forceinline__ void mma_f64(double (&d)[4], double a0, double a1,
-                                        double b) {
-  asm("mma.sync.aligned.m16n8k4.row.col.f64.f64.f64.f64 "
-      "{%0,%1,%2,%3}, {%4,%5}, {%6}, {%0,%1,%2,%3};\n"
-      : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
-      : "d"(a0), "d"(a1), "d"(b));
-}
 
 template <int D, bool DIR>
 __global__ void __launch_bounds__(kThreads, 1)
@@ -1241,17 +1118,17 @@ int pbte_lattice_ring_sweep(int cast_bf16, int D, const void* v,
 // Dynamic shared memory one launch takes (the wrapper's check).
 long long pbte_lattice_ring_smem_bytes(int cast_bf16, int D, int W, int nf,
                                        int L) {
-  if (D == 8) {
-    return static_cast<long long>(
-        cast_bf16 ? smem_bytes<8, __nv_bfloat16, true>(W, nf, L)
-                  : smem_bytes<8, float, false>(W, nf, L));
+  switch (D) {
+#define PBTE_K1_CASE(d)                                            \
+  case d:                                                          \
+    return static_cast<long long>(                                 \
+        cast_bf16 ? smem_bytes<d, __nv_bfloat16, true>(W, nf, L)   \
+                  : smem_bytes<d, float, false>(W, nf, L));
+    PBTE_K1_ONE_CTA_D(PBTE_K1_CASE)
+#undef PBTE_K1_CASE
+    default:
+      return -1;
   }
-  if (D == 27) {
-    return static_cast<long long>(
-        cast_bf16 ? smem_bytes<27, __nv_bfloat16, true>(W, nf, L)
-                  : smem_bytes<27, float, false>(W, nf, L));
-  }
-  return -1;
 }
 
 // float64 state, float64 operands and accumulation (ms in float64); the
@@ -1272,16 +1149,14 @@ int pbte_lattice_ring_sweep_f64(int D, const double* v, const double* ttc,
   auto st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (D) {
-    case 8:
-      err = launch_f64_d<8>(v, ttc, bsrc, cin, bcat, macro_w, wvec, dsrc,
-                            xmap, xval, n_u, win, ys, ms, L, Gb, Km, BS, W,
-                            nf, sh, st);
-      break;
-    case 27:
-      err = launch_f64_d<27>(v, ttc, bsrc, cin, bcat, macro_w, wvec, dsrc,
-                             xmap, xval, n_u, win, ys, ms, L, Gb, Km, BS, W,
-                             nf, sh, st);
-      break;
+#define PBTE_K1_CASE(d)                                                      \
+  case d:                                                                    \
+    err = launch_f64_d<d>(v, ttc, bsrc, cin, bcat, macro_w, wvec, dsrc, xmap, \
+                          xval, n_u, win, ys, ms, L, Gb, Km, BS, W, nf, sh,  \
+                          st);                                               \
+    break;
+    PBTE_K1_ONE_CTA_D(PBTE_K1_CASE)
+#undef PBTE_K1_CASE
     default:
       err = cudaErrorInvalidValue;
   }
@@ -1289,9 +1164,15 @@ int pbte_lattice_ring_sweep_f64(int D, const double* v, const double* ttc,
 }
 
 long long pbte_lattice_ring_smem_bytes_f64(int D, int W, int nf, int L) {
-  if (D == 8) return static_cast<long long>(SmemF64<8>(W, nf, L).total);
-  if (D == 27) return static_cast<long long>(SmemF64<27>(W, nf, L).total);
-  return -1;
+  switch (D) {
+#define PBTE_K1_CASE(d) \
+  case d:               \
+    return static_cast<long long>(SmemF64<d>(W, nf, L).total);
+    PBTE_K1_ONE_CTA_D(PBTE_K1_CASE)
+#undef PBTE_K1_CASE
+    default:
+      return -1;
+  }
 }
 
 const char* pbte_cuda_error_string(int err) {

@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface. It is compiled at first
 use into a shared library under ``build/pbte_tpu_torch/`` at the root of the
-checkout, keyed by a hash of the source and the flags, and loaded with
+checkout, keyed by a hash of the source, the headers of ``csrc/`` (which it
+may include) and the flags, and loaded with
 ``ctypes``. Nothing is built when a module is imported; ``load_all`` runs
 one nvcc per source, all at once.
 """
@@ -72,8 +73,11 @@ def load(name: str, src: Path | None = None, defines=()) -> Built:
             return _loaded[name]
         src = CSRC_DIR / f"{name}.cu" if src is None else Path(src)
         flags = NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
+        # the shared headers of csrc/ are part of every build's key
+        headers = b"".join(h.read_bytes()
+                           for h in sorted(CSRC_DIR.glob("*.cuh")))
         key = hashlib.sha256(
-            src.read_bytes() + " ".join(flags).encode()
+            src.read_bytes() + headers + " ".join(flags).encode()
         ).hexdigest()[:16]
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         so = BUILD_DIR / f"{name}_{key}.so"
@@ -81,7 +85,8 @@ def load(name: str, src: Path | None = None, defines=()) -> Built:
         seconds = 0.0
         if not so.is_file():
             tmp = BUILD_DIR / f"{so.name}.{os.getpid()}.tmp"
-            cmd = [nvcc_path(), *flags, "-o", str(tmp), str(src)]
+            cmd = [nvcc_path(), *flags, "-I", str(CSRC_DIR), "-o", str(tmp),
+                   str(src)]
             t0 = time.perf_counter()
             proc = subprocess.run(cmd, capture_output=True, text=True)
             seconds = time.perf_counter() - t0

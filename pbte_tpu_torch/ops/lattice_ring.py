@@ -8,10 +8,14 @@ the previous level's solution slab (the "ring") shifted by the static
 lattice offsets. Arguments and results keep the JAX wrapper's layouts.
 
 ``lattice_ring_sweep`` takes the plain version for CPU tensors and launches
-the hand-written kernel (``csrc/lattice_ring.cu``) for CUDA tensors; it
-never falls back from one to the other. The kernel comes in three state
-types: float32 (exact operands), bfloat16 (bf16 operands and ring, f32
-sums) and float64 (float64 operands and sums, a kernel of its own).
+a hand-written kernel for CUDA tensors; it never falls back from one to the
+other. ``launch_plan`` picks the kernel from the shape alone: the one-CTA
+kernel (``csrc/lattice_ring.cu``, a CTA holds a whole level, D in
+``KERNEL_D`` and W <= 256) or the cluster kernel
+(``csrc/lattice_ring_tiled.cu``, C CTAs of Wt slab columns hold a level,
+for D = 64 and for W > 256). Each comes in three state types: float32
+(exact operands), bfloat16 (bf16 operands and ring, f32 sums) and float64
+(float64 operands and sums).
 
 Hull windows. The slab pads every level to the full plane of W slots, but a
 level's elements lie in a narrower hull. With ``win``, an ``(L, 2)`` integer
@@ -37,12 +41,20 @@ import torch
 
 from pbte_tpu_torch.ops import _build
 
-# element DOF counts the CUDA kernel is instantiated for (hex p = 1, 2)
-KERNEL_D = (8, 27)
-# W is the product's M dimension: 16-row tiles over 8 consumer warps
+# element DOF counts of the one-CTA kernels (csrc/lattice_ring.cu: quad
+# p = 1-3, hex p = 1, 2) and of the cluster kernels
+# (csrc/lattice_ring_tiled.cu: also hex p = 3)
+KERNEL_D = (4, 8, 9, 16, 27)
+TILED_D = (4, 8, 9, 16, 27, 64)
+# the one-CTA kernels hold a level of W <= 256 slots (16-row tiles over 8
+# consumer warps); a cluster kernel's CTA holds at most as many
 KERNEL_MAX_W = 256
 KERNEL_MAX_FACES = 3
+# CTAs of one cluster: 8 portable, 16 with the non-portable attribute
+MAX_CLUSTER = 16
 _SMEM_LIMIT = 232448  # bytes of shared memory one CTA may use on Hopper
+_WIDE = ("ROADMAP.md queue 2, K1 item 10 (levels wider than 16 CTAs of a "
+         "cluster)")
 
 
 def f64_tile_stride(W):
@@ -83,6 +95,72 @@ def kernel_smem_bytes(D, W, nf, state, L):
     wc = -(-W // 16) * 16
     return (a16((1 + nf) * kt_face * nt * 32 * (8 if cast_bf16 else 16))
             + 4 * a16(4 * D * wp) + 2 * a16(4 * nf * wc) + a16(8 * L))
+
+
+def tiled_smem_bytes(D, Wt, nf, state, L):
+    """Dynamic shared memory of one CTA of the cluster kernel
+    (csrc/lattice_ring_tiled.cu, ``SmemTiled``) holding Wt slab columns:
+    the factor block in mma fragment order as ``kernel_smem_bytes`` lays it
+    out, two solution tiles, one rhs tile (row stride 32k + 8 words in f32
+    and bf16, 16k + 4 doubles in f64), one tile of shifted inflow
+    coefficients and the L windows."""
+    def a16(n):
+        return -(-n // 16) * 16
+
+    if state == torch.float64:
+        esize, kstep, bfrag, wp = 8, 4, 8, f64_tile_stride(Wt)
+    elif state in (torch.float32, torch.bfloat16):
+        cast = state == torch.bfloat16
+        esize, kstep, bfrag = 4, 16 if cast else 8, 8 if cast else 16
+        wp = -(-Wt // 32) * 32 + 8
+    else:
+        raise ValueError(f"no kernel for {state} state")
+    kt_face = -(-D // kstep)
+    nt = -(-D // 8)
+    return (a16((1 + nf) * kt_face * nt * 32 * bfrag) + 3 * a16(esize * D * wp)
+            + a16(esize * nf * -(-Wt // 16) * 16) + a16(8 * L))
+
+
+class LaunchPlan(NamedTuple):
+    """How K1 runs a bucket: ``variant`` "persistent" (one CTA of
+    csrc/lattice_ring.cu per (group, slot, band), holding the whole level)
+    or "tiled" (a cluster of ``C`` CTAs of csrc/lattice_ring_tiled.cu per
+    (group, slot, band), ``Wt`` slab columns each); ``smem`` bytes of
+    shared memory per CTA."""
+
+    variant: str
+    Wt: int
+    C: int
+    smem: int
+
+
+def launch_plan(D, W, nf, state, L):
+    """The launch plan of a sweep from its shape alone: the one-CTA kernel
+    where it is built for D and the level fits one CTA, else the cluster
+    kernel with the widest Wt (a multiple of 16, at most 256) whose tiles
+    fit one CTA, C = ceil(W / Wt) CTAs, and Wt then evened out over them.
+    Raises ValueError where neither takes the shape."""
+    if D in KERNEL_D and W <= KERNEL_MAX_W:
+        smem = kernel_smem_bytes(D, W, nf, state, L)
+        if smem <= _SMEM_LIMIT:
+            return LaunchPlan("persistent", W, 1, smem)
+    if D not in TILED_D:
+        raise ValueError(
+            f"the CUDA kernels are built for D in {TILED_D}, got {D}")
+    wt_max = next((wt for wt in range(KERNEL_MAX_W, 0, -16)
+                   if tiled_smem_bytes(D, wt, nf, state, L) <= _SMEM_LIMIT),
+                  None)
+    if wt_max is None:
+        raise ValueError(f"no column tile of D={D} fits one CTA")
+    C = -(-W // wt_max)
+    if C > MAX_CLUSTER:
+        raise ValueError(
+            f"W={W} needs {C} CTAs of {wt_max} columns at D={D} ({state}); "
+            f"a cluster holds at most {MAX_CLUSTER}, so W <= "
+            f"{MAX_CLUSTER * wt_max}: {_WIDE}")
+    per_cta = -(-W // C)
+    Wt = -(-per_cta // 16) * 16
+    return LaunchPlan("tiled", Wt, C, tiled_smem_bytes(D, Wt, nf, state, L))
 
 
 class ClosureSource(NamedTuple):
@@ -200,7 +278,7 @@ def sweep_bound_ms(v, nf, dsrc=None, xsrc=None, win=None):
 
 def lattice_ring_sweep_ref(v, ttc, bsrc, cin, bcat, macro_w, wvec, *,
                            shifts, dsrc=None, xsrc=None, cast_bf16=True,
-                           win=None):
+                           win=None, ring_in=None):
     """Plain PyTorch lattice ring sweep (a loop over levels).
 
     Args:
@@ -226,6 +304,11 @@ def lattice_ring_sweep_ref(v, ttc, bsrc, cin, bcat, macro_w, wvec, *,
         ring of level l - 1 reads zero outside that level's window, and
         ``ys`` and ``ms`` are exact zeros outside the windows. See the
         module docstring for the contract; None runs the full slab.
+      ring_in: optional ``(L, Gb, Km, BS, D, W)`` solutions (another run's
+        ``ys``) that level l reads as its ring in place of this run's level
+        l - 1: each level then starts from the same ring as that run, so a
+        rounding that went the other way at one level is not carried into
+        the next (a per-level comparison of the kernel in bf16).
 
     Returns:
       ``(ys, ms)``: the new state, shaped and typed like ``v``, and the
@@ -257,6 +340,8 @@ def lattice_ring_sweep_ref(v, ttc, bsrc, cin, bcat, macro_w, wvec, *,
         ys = torch.zeros_like(v)
         ms = torch.zeros((Gb, Km, L, D, W), dtype=acc, device=v.device)
     for l in range(L):
+        if ring_in is not None and l > 0:
+            ring = ring_in[l - 1].to(op)
         lo, hi = (0, W) if win is None else (int(win[l, 0]), int(win[l, 1]))
         if lo == hi:
             ring = torch.zeros_like(ring)
@@ -310,7 +395,7 @@ def _kernel_args_ok(v, tensors, cast_bf16, shifts):
     """Raise on anything the CUDA kernels do not take (``tensors`` may
     hold ``win``, the windows on the device as (L, 2) int32): float32 or
     bfloat16 state with float32 operands, or float64 state with float64
-    operands; no mix."""
+    operands, no mix; a shape ``launch_plan`` takes. Returns its plan."""
     L, Gb, Km, BS, D, W = v.shape
     ok = ((torch.bfloat16,) if cast_bf16
           else (torch.float32, torch.float64))
@@ -332,20 +417,9 @@ def _kernel_args_ok(v, tensors, cast_bf16, shifts):
                              f"got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if D not in KERNEL_D:
-        raise ValueError(
-            f"the CUDA kernel is built for D in {KERNEL_D}, got {D} (p = 3 "
-            f"has D = 64: ROADMAP.md queue 2, K1 item 5)")
     if not 1 <= len(shifts) <= KERNEL_MAX_FACES:
         raise ValueError(f"the CUDA kernel takes 1-3 faces, got {len(shifts)}")
-    if W > KERNEL_MAX_W:
-        raise ValueError(
-            f"the CUDA kernel tiles W over one CTA's 8 warps, W <= "
-            f"{KERNEL_MAX_W}; got W={W}"
-        )
-    smem = kernel_smem_bytes(D, W, len(shifts), v.dtype, L)
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"the kernel would need {smem} B of shared memory")
+    return launch_plan(D, W, len(shifts), v.dtype, L)
 
 
 def windows_on_device(win, L, W, device):
@@ -371,14 +445,15 @@ def _launch(v, ttc, bsrc, cin, bcat, macro_w, wvec, shifts, dsrc, xsrc,
             raise ValueError(f"win has shape {tuple(win.shape)}, want "
                              f"{(L, 2)}")
         tensors["win"] = win
-    _kernel_args_ok(v, tensors, cast_bf16, shifts)
+    plan = _kernel_args_ok(v, tensors, cast_bf16, shifts)
     f64 = v.dtype == torch.float64
     # the kernel writes every slot of ys (zeros outside the windows)
     ys = torch.empty_like(v)
     ms = torch.zeros((Gb, Km, L, D, W),
                      dtype=torch.float64 if f64 else torch.float32,
                      device=v.device)
-    lib = lib or _lib()
+    lib = lib or _lib("lattice_ring_tiled" if plan.variant == "tiled"
+                      else "lattice_ring")
     s = [int(x) for x in shifts] + [0] * (KERNEL_MAX_FACES - len(shifts))
     with torch.cuda.device(v.device):
         stream = torch.cuda.current_stream(v.device).cuda_stream
@@ -396,28 +471,47 @@ def _launch(v, ttc, bsrc, cin, bcat, macro_w, wvec, shifts, dsrc, xsrc,
             xsrc.xmap.data_ptr() if xsrc is not None else None,
             xsrc.xval.data_ptr() if xsrc is not None else None,
             xsrc.xval.shape[1] if xsrc is not None else 0,
-            *ptrs, L, Gb, Km, BS, W, len(shifts), *s, stream,
+            *ptrs, L, Gb, Km, BS, W, len(shifts), *s,
         )
-        if f64:
-            err = lib.pbte_lattice_ring_sweep_f64(*args)
+        if plan.variant == "tiled":
+            mode = 2 if f64 else int(cast_bf16)
+            err = lib.pbte_lattice_ring_sweep_tiled(mode, *args, plan.Wt,
+                                                    plan.C, stream)
+        elif f64:
+            err = lib.pbte_lattice_ring_sweep_f64(*args, stream)
         else:
-            err = lib.pbte_lattice_ring_sweep(int(cast_bf16), *args)
+            err = lib.pbte_lattice_ring_sweep(int(cast_bf16), *args, stream)
     if err != 0:
         msg = lib.pbte_cuda_error_string(err).decode()
-        raise RuntimeError(f"lattice_ring kernel launch failed: {msg} ({err})")
+        raise RuntimeError(f"lattice_ring kernel launch failed "
+                           f"({plan.variant}): {msg} ({err})")
     lattice_ring_sweep.launches += 1
     lattice_ring_sweep.launches_by_state[_STATE_NAMES[v.dtype]] += 1
+    lattice_ring_sweep.launches_by_variant[plan.variant] += 1
     return ys, ms
 
 
 def _lib(name="lattice_ring", takes_win=True):
     """The kernel library built as ``name`` (see _build.load), its entry
-    points typed. ``takes_win=False`` types the entry points of a source
-    from before the window argument (bench_k1 times such a design against
-    the full slab): no ``win`` pointer, and no L in the shared-memory size."""
+    points typed: the one-CTA kernels (``csrc/lattice_ring.cu``, or an
+    earlier design of it) or the cluster kernels (``lattice_ring_tiled``).
+    ``takes_win=False`` types the entry points of a source from before the
+    window argument (bench_k1 times such a design against the full slab):
+    no ``win`` pointer, and no L in the shared-memory size."""
     lib = _build.load(name).lib
     lib.takes_win = takes_win
     p, i = ctypes.c_void_p, ctypes.c_int
+    lib.pbte_cuda_error_string.argtypes = [i]
+    lib.pbte_cuda_error_string.restype = ctypes.c_char_p
+    if hasattr(lib, "pbte_lattice_ring_sweep_tiled"):
+        # mode, D, 10 input pointers, U, the win, ys and ms pointers, then
+        # L, Gb, Km, BS, W, nf, three shifts, Wt and C, then the stream
+        lib.pbte_lattice_ring_sweep_tiled.argtypes = (
+            [i, i] + [p] * 10 + [i] + [p] * 3 + [i] * 11 + [p])
+        lib.pbte_lattice_ring_sweep_tiled.restype = i
+        lib.pbte_lattice_ring_tiled_smem_bytes.argtypes = [i] * 5
+        lib.pbte_lattice_ring_tiled_smem_bytes.restype = ctypes.c_longlong
+        return lib
     # 10 input pointers (through xmap, xval), U, the win, ys and ms
     # pointers, then L, Gb, Km, BS, W, nf and three shifts, then the stream
     lib.pbte_lattice_ring_sweep.argtypes = (
@@ -431,8 +525,6 @@ def _lib(name="lattice_ring", takes_win=True):
         lib.pbte_lattice_ring_sweep_f64.restype = i
         lib.pbte_lattice_ring_smem_bytes_f64.argtypes = [i] * 4
         lib.pbte_lattice_ring_smem_bytes_f64.restype = ctypes.c_longlong
-    lib.pbte_cuda_error_string.argtypes = [i]
-    lib.pbte_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 
@@ -441,11 +533,15 @@ def lattice_ring_sweep(v, ttc, bsrc, cin, bcat, macro_w, wvec, *, shifts,
     """One lattice ring sweep of one Km bucket (see lattice_ring_sweep_ref
     for arguments and results).
 
-    CPU tensors run the plain PyTorch version. CUDA tensors launch the CUDA
-    kernel on the current stream (float64 state: the float64 kernel), or
-    raise if it cannot take them; each launch adds one to
-    ``lattice_ring_sweep.launches`` and to its state type's count in
-    ``lattice_ring_sweep.launches_by_state`` ("f32", "bf16", "f64")."""
+    CPU tensors run the plain PyTorch version. CUDA tensors launch a CUDA
+    kernel on the current stream, or raise if none takes them: the one-CTA
+    kernel where the level fits one CTA, else the cluster kernel
+    (``launch_plan`` decides from the shape alone; float64 state: the
+    float64 instantiations). Each launch adds one to
+    ``lattice_ring_sweep.launches``, to its state type's count in
+    ``lattice_ring_sweep.launches_by_state`` ("f32", "bf16", "f64") and to
+    its variant's in ``lattice_ring_sweep.launches_by_variant``
+    ("persistent", "tiled")."""
     _check_shapes(v, ttc, bsrc, cin, bcat, macro_w, wvec, shifts, dsrc, xsrc)
     if v.device.type == "cpu":
         return lattice_ring_sweep_ref(
@@ -462,11 +558,15 @@ _STATE_NAMES = {torch.float32: "f32", torch.bfloat16: "bf16",
                 torch.float64: "f64"}
 
 
+VARIANTS = ("persistent", "tiled")
+
+
 def reset_launches():
     """Set every launch count of the sweep kernels to 0."""
     lattice_ring_sweep.launches = 0
     lattice_ring_sweep.launches_by_state = dict.fromkeys(
         _STATE_NAMES.values(), 0)
+    lattice_ring_sweep.launches_by_variant = dict.fromkeys(VARIANTS, 0)
 
 
 reset_launches()

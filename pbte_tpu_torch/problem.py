@@ -15,11 +15,21 @@ both packages merge it into a 5^3 lattice of super elements (D' = 120) and
 take the supercell ring; ``LEGACY_TET_SOLVER`` (``sweep_mode="scan"``)
 scans the fine mesh instead.
 
+``graded_cube`` is the same cube with its x spacing alternating 1 : 2, a
+lattice of two geometry classes (from 512 elements, where faces are put in
+canonical order): both packages sweep it on the multi-class lattice ring.
+``unit_square`` is the 2D quad lattice of the same kind.
+
 Boundary attributes of the cube: 1 and 6 are the z faces (bottom, top),
-2 and 4 the y faces, 3 and 5 the x faces.
+2 and 4 the y faces, 3 and 5 the x faces. Of the square: 1 and 3 the y
+faces (bottom, top), 2 and 4 the x faces.
 """
 
 from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
 
 from pbte_tpu_torch import mesh as pmesh
 from pbte_tpu_torch.angular import quadrature as ang
@@ -28,6 +38,8 @@ from pbte_tpu_torch.material import nongray_smrt as mat
 
 # isothermal walls: attr 6 hot, the rest cold
 WALL_BCS = {1: -0.5, 2: -0.5, 3: -0.5, 4: -0.5, 5: -0.5, 6: 0.5}
+# the square's: attr 3 (top) hot, the rest cold
+SQUARE_BCS = {1: -0.5, 2: -0.5, 3: 0.5, 4: -0.5}
 FLAGSHIP = dict(nx=16, ny=16, nz=16, order=2, polar=4, azimuth=16, nspec=20)
 LEGACY_TET = dict(n=5, order=3, polar=16, azimuth=24, nspec=20)
 # the scan path's solver keywords for it: the class-batched full cache
@@ -37,16 +49,47 @@ LEGACY_TET_SOLVER = dict(sweep_mode="scan", cache_policy="full")
 DIFFUSE_WALLS = dict(bc_temps={3: 0.5, 5: -0.5}, diffuse_bcs=[1, 2, 4, 6])
 
 
-def unit_cube(nx, ny, nz, order, polar, azimuth, nspec, periodic=()):
-    """(ops, quad, tables) of an nx x ny x nz hex unit-cube lattice, its
-    faces normal to the ``periodic`` axes (0 = x, 1 = y, 2 = z) paired."""
-    m = pmesh.make_cartesian_3d(nx, ny, nz, "hex").scaled(1.0e-6)
+def unit_cube(nx, ny, nz, order, polar, azimuth, nspec, periodic=(),
+              length=1.0e-6):
+    """(ops, quad, tables) of an nx x ny x nz hex unit-cube lattice of edge
+    ``length`` metres (a micron by default), its faces normal to the
+    ``periodic`` axes (0 = x, 1 = y, 2 = z) paired."""
+    m = pmesh.make_cartesian_3d(nx, ny, nz, "hex").scaled(length)
     if len(periodic):
         m = pmesh.make_periodic(m, [int(a) for a in periodic])
     ops = assembly.assemble(pmesh.connect(m), order=order,
                             face_mode="consistent")
     quad = ang.build(ang.AngularOptions(
         dimension=3, polar_points=polar, azimuth_points=azimuth))
+    tables = mat.build_tables(mat.SILICON, num_spectral=nspec)
+    return ops, quad, tables
+
+
+def graded_cube(n, order, polar, azimuth, nspec):
+    """(ops, quad, tables) of ``unit_cube(n, n, n, ...)`` with the x
+    spacing alternating 1 : 2 (x faces at the cumulative sums of 1, 2, 1,
+    2, ..., scaled to unit length)."""
+    md = pmesh.make_cartesian_3d(n, n, n, "hex")
+    xs = np.concatenate([[0.0], np.cumsum(np.tile([1.0, 2.0], n)[:n])])
+    v = md.vertices.copy()
+    v[:, 0] = xs[np.rint(v[:, 0] * n).astype(int)] / xs[-1]
+    md = dataclasses.replace(md, vertices=v).scaled(1.0e-6)
+    ops = assembly.assemble(pmesh.connect(md), order=order,
+                            face_mode="consistent")
+    quad = ang.build(ang.AngularOptions(
+        dimension=3, polar_points=polar, azimuth_points=azimuth))
+    tables = mat.build_tables(mat.SILICON, num_spectral=nspec)
+    return ops, quad, tables
+
+
+def unit_square(nx, ny, order, azimuth, nspec, length=1.0e-6):
+    """(ops, quad, tables) of an nx x ny quad unit-square lattice of edge
+    ``length`` metres (a micron by default), consistent faces, 2D
+    angles."""
+    m = pmesh.make_cartesian_2d(nx, ny, "quad").scaled(length)
+    ops = assembly.assemble(pmesh.connect(m), order=order,
+                            face_mode="consistent")
+    quad = ang.build(ang.AngularOptions(dimension=2, azimuth_points=azimuth))
     tables = mat.build_tables(mat.SILICON, num_spectral=nspec)
     return ops, quad, tables
 

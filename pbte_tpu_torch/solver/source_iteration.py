@@ -3,11 +3,14 @@
 Port of ``pbte_tpu/solver/source_iteration.py::SourceIterationSolver`` on
 one device, with three of its sweeps:
 
-- the shift-structured lattice ring on a single-class Cartesian box
-  lattice (no supercell merge): the path of its Pallas kernel, plus the
-  lagged closures its XLA ring ``_step_ring`` runs on the same lattice
-  (periodic wraps, diffuse and specular walls). The flagship (hex 16^3,
-  p=2, 64 directions x 40 bands, f32) takes this path;
+- the shift-structured lattice ring on a Cartesian box lattice (no
+  supercell merge): on a single-class lattice the path of its Pallas
+  kernel, K1, plus the lagged closures its XLA ring ``_step_ring`` runs on
+  the same lattice (periodic wraps, diffuse and specular walls; the
+  flagship, hex 16^3, p=2, 64 directions x 40 bands, f32, takes it); on a
+  lattice of several geometry classes, or of per-element couplings, its
+  XLA ring's multi-class branch as torch products
+  (``solver/lattice_multi.py``);
 - the compact level-window scan (``solver/scan.py``) for every other mesh
   pbte_tpu scans: tri, quad, tet, hex and mixed meshes, small meshes,
   meshes read from gmsh or MFEM files, under the ``full``, ``on-the-fly``
@@ -21,16 +24,24 @@ one device, with three of its sweeps:
 TPU memory budgets: faces are canonicalised at ne >= 512; a detected
 simplex-lattice split goes to the supercell ring (``supercell="auto"``,
 without Dirichlet, reflective or periodic walls and axis-grazing
-directions), a single-class lattice to the lattice ring, a multi-class
-lattice or a general mesh of small upwind gap to pbte_tpu's other ring
-variants; the rest is scanned. The supercell ring has one memory fallback
-for the 80 GB card in place of pbte_tpu's 12 GB super-state budget: past
+directions), a lattice of at most 8 geometry classes to the lattice ring,
+a general mesh of small upwind gap to pbte_tpu's one-hot ring; the rest is
+scanned. The supercell ring has one memory fallback for the 80 GB card in
+place of pbte_tpu's 12 GB super-state budget: past
 ``super_ring.SUPER_BUDGET`` bytes of its working set ``auto`` does not
 merge, and the fine mesh is scanned (``sweep_mode="ring"`` merges
-regardless, as pbte_tpu's forced ring does). The ring variants this
-package lacks (ROADMAP.md queue 1, items 6c and 6d) raise
+regardless, as pbte_tpu's forced ring does). The one-hot ring is not
+ported yet (ROADMAP.md queue 1, item 6c) and raises
 ``NotImplementedError``; ``sweep_mode="scan"`` solves those problems. The
 rest of this docstring is the lattice ring's.
+
+``matmul_precision`` (constructor) and ``polish_precision`` (``solve``)
+are pbte_tpu's tiers of the TPU's matrix unit, whose default truncates f32
+operands to bf16; there a value other than None or "default" also turns
+its Pallas kernel off. Here every float32 product is exact already (K1 as
+3xTF32, every torch product with TF32 off: ``exact_f32_products``), so
+each value runs the same path, K1 included, and gives the same result; an
+unknown value raises ValueError.
 
 Construction is numpy host math on this package's own host layers (FEM
 class helpers, sweep plan, lattice tables); the results become tensors on
@@ -45,7 +56,8 @@ outer step:
    closure contributions per closure element (the sweep's sparse
    ``ClosureSource``);
 3. runs ``ops.lattice_ring.lattice_ring_sweep`` once per Km bucket (the
-   CUDA kernel for CUDA tensors, the plain version for CPU tensors);
+   CUDA kernel for CUDA tensors, the plain version for CPU tensors), or on
+   a multi-class lattice ``lattice_multi.multi_class_sweep``;
 4. regroups the per-level macroscopic partials into Tc through the
    ``pos_of_elem`` gather and ``M^-T``, then Tv;
 5. computes the scale-invariant residual.
@@ -66,13 +78,13 @@ computes each level's hull ``[lo_l, hi_l)`` of valid slots once
 (``lattice_tables.ring_windows``) and every sweep runs each level on its
 window alone. The gate is pbte_tpu's: windows are taken when, rounded out
 to the kernel's 16-slot tiles, they keep under 95% of the L W slots
-(``WINDOW_MAX_SHARE``). pbte_tpu re-lays its windowed state
-out in segments and therefore windows only problems without lagged
-closures; here the state keeps the full-slab layout, and the closures'
-``(level, slot)`` gathers and ``xmap`` address valid elements, which lie
-inside the windows, so the same windows serve closure problems too. Slots
-outside a window are padding (exact-zero fixed points), so the results
-with and without windows are equal bit for bit.
+(``WINDOW_MAX_SHARE``); the multi-class ring runs the full slab. pbte_tpu
+re-lays its windowed state out in segments and therefore windows only
+problems without lagged closures; here the state keeps the full-slab
+layout, and the closures' ``(level, slot)`` gathers and ``xmap`` address
+valid elements, which lie inside the windows, so the same windows serve
+closure problems too. Slots outside a window are padding (exact-zero fixed
+points), so the results with and without windows are equal bit for bit.
 
 The solver's own float32 products (the einsums of ``step``, of the closure
 sources and of ``heat_flux``) run with TF32 off; the two process-wide flags
@@ -96,7 +108,7 @@ from pbte_tpu_torch.ops.lattice_ring import (
     lattice_ring_sweep,
     windows_on_device,
 )
-from pbte_tpu_torch.solver import scan, super_ring
+from pbte_tpu_torch.solver import lattice_multi, scan, super_ring
 from pbte_tpu_torch.solver.lattice_tables import (
     group_permuted,
     inflow_tables,
@@ -107,7 +119,6 @@ from pbte_tpu_torch.solver.lattice_tables import (
 )
 from pbte_tpu_torch.sweep import planner
 
-_MULTI_CLASS = "ROADMAP.md queue 1, item 6d (multi-class lattices)"
 _SUPER_BF16 = "ROADMAP.md queue 1, item 6b.1 (bf16 state on the supercell ring)"
 _ONE_HOT_RING = "ROADMAP.md queue 1, item 6c (general one-hot ring)"
 _SCAN_SOLVES = "sweep_mode='scan' solves the same problem"
@@ -120,6 +131,10 @@ _COMPENSATED = ('ROADMAP.md "Not to port": accel.compensated_outer reaches '
 # taken when they keep under this share of the slab (pbte_tpu's gate)
 WINDOW_TILE = 16
 WINDOW_MAX_SHARE = 0.95
+# pbte_tpu's matmul precision tiers (its TPU MXU passes); "selective" is
+# for matmul_precision only
+POLISH_PRECISIONS = (None, "default", "high", "highest")
+MATMUL_PRECISIONS = POLISH_PRECISIONS + ("selective",)
 
 
 @contextlib.contextmanager
@@ -178,6 +193,9 @@ class SourceIterationSolver:
         # "auto" engages for ne >= 512 when detection verifies the structure
         # and the ring's working set fits super_ring.SUPER_BUDGET; "on"
         # forces the attempt on any size; "off" keeps the fine-mesh paths
+        matmul_precision: str | None = None,  # pbte_tpu's MXU tiers: None,
+        # "default", "high", "highest" or "selective"; every one runs the
+        # exact float32 products below (see the module docstring)
     ):
         if dtype not in (torch.float32, torch.float64):
             raise ValueError(f"dtype must be float32 or float64, got {dtype}")
@@ -189,6 +207,10 @@ class SourceIterationSolver:
             raise ValueError(f"unknown sweep_mode: {sweep_mode}")
         if supercell not in ("auto", "on", "off"):
             raise ValueError(f"unknown supercell={supercell!r}")
+        if matmul_precision not in MATMUL_PRECISIONS:
+            raise ValueError(f"unknown matmul_precision={matmul_precision!r}"
+                             f"; one of {MATMUL_PRECISIONS}")
+        self.matmul_precision = matmul_precision
         self.cache_policy = cache_policy
         # bf16 state (same opt-in as pbte_tpu): halves the state streams;
         # the product operands and the ring are then bf16 as well, and the
@@ -389,25 +411,19 @@ class SourceIterationSolver:
             for kv in sorted({int(x) for x in km_req}, reverse=True)
         ]
 
-        # ---- the kernel's gate: single-class lattice with class coupling --
-        if int(cls.max()) + 1 != 1:
-            raise NotImplementedError(
-                f"{int(cls.max()) + 1} geometry classes on a lattice, which "
-                f"pbte_tpu rings with per-element couplings: "
-                f"{_MULTI_CLASS}; {_SCAN_SOLVES}"
-            )
+        # ---- K1 takes a single-class lattice with a class coupling; other
+        # lattices (several geometry classes, or couplings that differ
+        # within the class) take the multi-class torch ring
         lat_tabs, act_f, lat_shifts = lt
-        ccpl = assembly.class_coupling(ops, cls)
-        if ccpl is None:
-            raise NotImplementedError(
-                f"per-element neighbour coupling on a lattice: "
-                f"{_MULTI_CLASS}; {_SCAN_SOLVES}"
-            )
+        ncls = int(cls.max()) + 1
+        ccpl = assembly.class_coupling(ops, cls) if ncls == 1 else None
+        self._multi = None  # the multi-class ring's per-bucket operands
         self.shifts = tuple(int(s) for s in lat_shifts)
         self.W = W = lat_tabs.shape[2]
         # per-level hull windows (L, 2), or None where they save too little
+        # (the multi-class ring runs the full slab)
         win = ring_windows(lat_tabs)
-        self.win = (win if window_slots(win, WINDOW_TILE)
+        self.win = (win if ccpl is not None and window_slots(win, WINDOW_TILE)
                     < WINDOW_MAX_SHARE * L * W else None)
         # on a GPU the sweeps take the windows as a tensor, uploaded once
         self.win_dev = (
@@ -445,31 +461,23 @@ class SourceIterationSolver:
         # the ring carries v = M^T u: the apply factor is B = M^T A^-1 and
         # M^-T folds into the neighbour couplings
         vg_s = vg / dt_inv  # non-dimensionalized group velocity
-        rep = int(np.flatnonzero(cls == 0)[0])
-        mass_r = ops.mass[rep]
-        massT_r = mass_r.T
-        invMT_r = np.linalg.inv(massT_r)
-        a_cls = np.empty((G, Km, BS, D, D), dtype=np_dtype)
-        for g in range(G):
-            dk = dirs_np[dirs_safe[g]]  # (Km, dim)
-            fd = np.einsum("fd,kd->kf", ops.normals[rep], dk)
-            G_k = -np.einsum("kd,dij->kij", dk, ops.stiff[rep]) + np.einsum(
-                "kf,fij->kij", np.maximum(fd, 0.0), ops.face_mass[rep]
-            )
-            A = mass_r + vg_s[None, :, None, None] * G_k[:, None]
-            a_cls[g] = np.matmul(massT_r, np.linalg.inv(A)).astype(np_dtype)
-        ccpl_G = np.einsum("fij,jk->fik", ccpl[0], invMT_r).astype(
-            np_dtype
-        )[act_f]  # (G, nf_act, D, D)
-        # folded + concatenated factor: sol = [B | -vg B C_0 | ...] @ xcat
-        a64 = a_cls.astype(np.float64)
-        bcv = np.einsum(
-            "gkbij,gfjl,b->gfkbil", a64, ccpl_G.astype(np.float64), vg_s
-        )  # (G, nf_act, Km, BS, D, D)
-        bcat = np.concatenate([a64[:, None], -bcv], axis=1)
-        bcat = np.moveaxis(bcat, 1, -2).reshape(G, Km, BS, D, -1)
+        a_cls, massT_r, invMT_r = lattice_multi.class_factors(
+            ops, cls, dirs_np, dirs_safe, vg_s, np_dtype)
         # per-element M^-T for the closure and the u views
-        self._ring_invMT = invMT_r[None].repeat(ne, axis=0)  # (ne, D, D) f64
+        self._ring_invMT = invMT_r[cls]  # (ne, D, D) f64
+        if ccpl is not None:
+            ccpl_G = np.einsum("fij,jk->fik", ccpl[0], invMT_r[0]).astype(
+                np_dtype
+            )[act_f]  # (G, nf_act, D, D)
+            # folded + concatenated factor: sol = [B | -vg B C_0 | ...] @ xcat
+            a64 = a_cls[:, 0].astype(np.float64)
+            bcv = np.einsum(
+                "gkbij,gfjl,b->gfkbil", a64, ccpl_G.astype(np.float64), vg_s
+            )  # (G, nf_act, Km, BS, D, D)
+            bcat = np.concatenate([a64[:, None], -bcv], axis=1)
+            bcat = np.moveaxis(bcat, 1, -2).reshape(G, Km, BS, D, -1)
+        else:
+            cpl, q_of = lattice_multi.coupling_classes(ops, cls, invMT_r)
 
         # ---- lagged closures (periodic wraps, diffuse/specular walls) -----
         per = _periodic_tables(ops, perm_safe, pos_valid, pos_of_elem, fdot,
@@ -521,7 +529,8 @@ class SourceIterationSolver:
             valid_slab=put(
                 pos_valid.reshape(G, L, W).transpose(1, 0, 2)
             ),  # (L, G, W): zeroes the lagged source on padded slots
-            massT=put(massT_r),  # (D, D): the single geometry class
+            # (D, D) the single geometry class's M^T, or (ncls, D, D)
+            massT=put(massT_r[0] if ccpl is not None else massT_r),
             wvec=put(wvec),
             pos_of_elem=iput(pos_of_elem),  # (G, ne)
             ring_invMT=put(self._ring_invMT),  # (ne, D, D)
@@ -531,8 +540,11 @@ class SourceIterationSolver:
                for k, v in (refl or {}).items() if k in REFL_KEYS},
             buckets=tuple(
                 dict(
-                    bcat=put(bcat[gs][:, :km_b]),
-                    cin=put(ring_cin[:, gs][:, :, :km_b]),
+                    **(
+                        dict(bcat=put(bcat[gs][:, :km_b]),
+                             cin=put(ring_cin[:, gs][:, :, :km_b]))
+                        if ccpl is not None else {}
+                    ),
                     bsrc0=put(ring_bsrc0[:, gs, :km_b]),
                     macro_w=put(mw_slots[gs, :km_b]),
                     **(
@@ -561,6 +573,12 @@ class SourceIterationSolver:
                 for (gs, km_b), sc in zip(self._ring_buckets, scat)
             ),
         )
+        if ccpl is None:
+            self._multi = tuple(
+                lattice_multi.bucket_tables(
+                    gs, km_b, a_cls, cls, cpl, q_of, perm_safe, pos_valid,
+                    act_f, ring_cin, L, W, np_dtype, put, iput)
+                for gs, km_b in self._ring_buckets)
         order = np.concatenate([gs for gs, _ in self._ring_buckets])
         inv_order = np.empty(G, dtype=np.int64)
         inv_order[order] = np.arange(G)
@@ -573,9 +591,10 @@ class SourceIterationSolver:
             for gs, _ in self._ring_buckets
         )
         self.state_dtype = torch.bfloat16 if self.state_bf16 else dtype
-        # the sweep the step calls; the wrapper launches the CUDA kernel for
-        # CUDA tensors (assign lattice_ring_sweep_ref to compare with the
-        # plain version on the same device)
+        # the sweep the step calls on a single-class lattice; the wrapper
+        # launches the CUDA kernel for CUDA tensors (assign
+        # lattice_ring_sweep_ref to compare with the plain version on the
+        # same device)
         self.ring_sweep = lattice_ring_sweep
 
     # -- state -------------------------------------------------------------
@@ -615,19 +634,29 @@ class SourceIterationSolver:
             Tc.T[:, c["perm"]].reshape(D, G, L, W).permute(2, 1, 0, 3)
             * c["valid_slab"][:, :, None, :]
         )  # (L, G, D, W), padded slots zeroed (exact-zero fixed points)
-        ttc_all = torch.einsum("ij,lgjw->lgiw", c["massT"], tc_slab)
+        if self._multi is None:
+            ttc_all = torch.einsum("ij,lgjw->lgiw", c["massT"], tc_slab)
         xsrc = self._closure_sources(u)
 
         m_parts = []
         v_new = []
         for bi, cb in enumerate(c["buckets"]):
-            ys, ms = self.ring_sweep(
-                u[bi], ttc_all[:, self._bucket_groups[bi]].contiguous(),
-                cb["bsrc0"], cb["cin"], cb["bcat"], cb["macro_w"], c["wvec"],
-                shifts=self.shifts, dsrc=cb.get("dsrc0"), xsrc=xsrc[bi],
-                cast_bf16=u[bi].dtype == torch.bfloat16,
-                win=self.win if self.win_dev is None else self.win_dev,
-            )
+            groups = self._bucket_groups[bi]
+            if self._multi is not None:
+                mb = self._multi[bi]
+                ys, ms = lattice_multi.multi_class_sweep(
+                    u[bi], lattice_multi.class_ttc(c["massT"], mb.cls_oh,
+                                                   tc_slab[:, groups]),
+                    cb["bsrc0"], mb, cb["macro_w"], c["wvec"],
+                    shifts=self.shifts, dsrc=cb.get("dsrc0"), xsrc=xsrc[bi])
+            else:
+                ys, ms = self.ring_sweep(
+                    u[bi], ttc_all[:, groups].contiguous(), cb["bsrc0"],
+                    cb["cin"], cb["bcat"], cb["macro_w"], c["wvec"],
+                    shifts=self.shifts, dsrc=cb.get("dsrc0"), xsrc=xsrc[bi],
+                    cast_bf16=u[bi].dtype == torch.bfloat16,
+                    win=self.win if self.win_dev is None else self.win_dev,
+                )
             v_new.append(ys)
             m_parts.append(ms.sum(dim=1))  # (Gb, L, D, W)
 
@@ -727,6 +756,7 @@ class SourceIterationSolver:
               checkpoint_path: str | None = None, checkpoint_every: int = 25,
               accelerate: str | None = None, cycle_hook=None,
               cycle_every: int = 0, polish_iters: int = 0,
+              polish_precision: str | None = "highest",
               polish_extrapolate: bool = False):
         """Outer source iteration (ref: src/PBTESolver.cpp:208-332). The
         residual is fetched to the host every ``check_every`` iterations.
@@ -738,7 +768,10 @@ class SourceIterationSolver:
         cast to the solver dtype (float32 after a bfloat16-state solve) and
         stepped without operand rounding, which contracts the bias of the
         rounded fixed point by the iteration's rate per step; the result
-        then carries exact-dtype slabs. ``polish_extrapolate`` adds two
+        then carries exact-dtype slabs. ``polish_precision`` is pbte_tpu's
+        matmul tier of those steps (None, "default", "high" or "highest";
+        another value raises): every tier runs the same exact steps here
+        (see the module docstring). ``polish_extrapolate`` adds two
         exact steps, estimates the slowest mode's ratio r from their
         successive Tc differences d1, d2 and jumps to the limit of its
         geometric tail, x2 + d2 r / (1 - r) (Aitken), as pbte_tpu does.
@@ -758,6 +791,9 @@ class SourceIterationSolver:
         ``state`` to resume from."""
         if accelerate not in (None, "none", "bicgstab", "compensated"):
             raise ValueError(f"unknown accelerate={accelerate!r}")
+        if polish_precision not in POLISH_PRECISIONS:
+            raise ValueError(f"unknown polish_precision={polish_precision!r}"
+                             f"; one of {POLISH_PRECISIONS}")
         if accelerate == "compensated":
             raise NotImplementedError(
                 f"solve(accelerate='compensated'): {_COMPENSATED}")

@@ -59,20 +59,22 @@ def test_no_device_number_from_a_cpu_run(cpu_result):
 
 
 def test_rows(cpu_result):
-    """The eight rows; each extra row ran under its own settings, the
+    """The ten rows; each extra row ran under its own settings, the
     float64 ones in float64 (the accelerated row to its tolerance); the
-    tet rows are held by test_tet_scan_row and test_tet_super_row."""
+    tet rows are held by test_tet_scan_row and test_tet_super_row, the
+    wide and graded lattices by test_wide_and_graded_rows."""
     rows = dict(cpu_result["rows"])
     assert list(rows) == ["f32", "bf16_state", "diffuse_walls", "p3_f32",
-                          "f64_state", "f64_bicgstab", "tet_scan",
-                          "tet_super"]
+                          "f64_state", "wide_f32", "graded_f32",
+                          "f64_bicgstab", "tet_scan", "tet_super"]
     rows.pop("tet_scan")
     rows.pop("tet_super")
     acc = rows.pop("f64_bicgstab")
     for name, row in rows.items():
         assert "error" not in row, (name, row)
         assert row["dof_per_s"] > 0 and row["ms_per_step"] > 0
-        assert row["windows"]
+        # the multi-class ring runs the full slab
+        assert row["windows"] == (name != "graded_f32")
         assert row["state"] == {"bf16_state": "torch.bfloat16",
                                 "f64_state": "torch.float64"}.get(
                                     name, "torch.float32")
@@ -83,6 +85,23 @@ def test_rows(cpu_result):
     assert 3 <= acc["step_applications"] < 1500
     assert acc["wall_s"] > 0 and acc["ms_per_step_application"] > 0
     assert "max_memory_allocated" not in acc
+
+
+def test_wide_and_graded_rows(cpu_result):
+    """The wide lattice is 1.5 times the run's per axis (12^3 here) on the
+    lattice ring; the graded one is the run's lattice with its x spacing
+    alternating 1 : 2, on the multi-class ring; both keep the run's order,
+    angles and bands."""
+    rows = cpu_result["rows"]
+    assert rows["wide_f32"]["shape"] == {"ne": 1728, "D": 8, "K": 8,
+                                         "BS": 2}
+    assert rows["graded_f32"]["shape"] == {"ne": 512, "D": 8, "K": 8,
+                                           "BS": 2}
+    for name in ("wide_f32", "graded_f32"):
+        assert rows[name]["sweep_mode"] == "ring"
+        assert not rows[name]["supercell"]
+        assert "k1_launches" not in rows[name]  # counted on the GPU only
+    assert rows["graded_f32"]["residual"] != rows["f32"]["residual"]
 
 
 def test_tet_scan_row(cpu_result):
@@ -175,16 +194,17 @@ def test_default_device_is_the_gpu_and_never_falls_back():
 
 def test_an_extra_row_records_its_error_and_the_primary_raises(monkeypatch,
                                                                capsys):
-    """A failing extra row becomes {"error": ...} (as the p3_f32 row does on
-    the GPU, where the kernel has no D = 64: its message names the ROADMAP
-    item); a failing primary row ends the run."""
+    """A failing extra row becomes {"error": ...} (as a row would on the
+    GPU where no K1 kernel takes its shape, e.g. D = 64 past 16 CTAs of a
+    cluster: the message names the ROADMAP item); a failing primary row
+    ends the run."""
     import torch
 
     import bench_torch
     from pbte_tpu_torch.ops import lattice_ring as tlr
 
-    v = torch.zeros((2, 1, 1, 2, 64, 16))
-    with pytest.raises(ValueError, match="queue 2, K1 item 5"):
+    v = torch.zeros((2, 1, 1, 2, 64, 1537), device="meta")
+    with pytest.raises(ValueError, match="queue 2, K1 item 10"):
         tlr._kernel_args_ok(v, dict(v=v), False, (0, 4, 1))
 
     for k, val in TINY.items():
@@ -193,15 +213,14 @@ def test_an_extra_row_records_its_error_and_the_primary_raises(monkeypatch,
 
     def failing(name, *a, **kw):
         if name in ("p3_f32", "bf16_state"):
-            raise ValueError(f"{name}: the CUDA kernel is built for D in "
-                             f"(8, 27)")
+            raise ValueError(f"{name}: W=1537 needs 17 CTAs")
         return real(name, *a, **kw)
 
     monkeypatch.setattr(bench_torch, "run_row", failing)
     assert bench_torch.main(["--device", "cpu"]) == 0
     rows = json.loads(capsys.readouterr().out.strip().splitlines()[-1])["rows"]
-    assert rows["p3_f32"] == {"error": "ValueError: p3_f32: the CUDA kernel "
-                                       "is built for D in (8, 27)"}
+    assert rows["p3_f32"] == {"error": "ValueError: p3_f32: W=1537 needs "
+                                       "17 CTAs"}
     assert "error" in rows["bf16_state"] and "dof_per_s" in rows["f32"]
     assert "dof_per_s" in rows["diffuse_walls"]
 

@@ -187,11 +187,15 @@ def test_kernel_argument_checks(case):
     elif case == "d_not_built":
         v = torch.zeros((L, Gb, Km, BS, 5, W))
     elif case == "too_wide":
-        v = torch.zeros((L, Gb, Km, BS, D, 512))
+        # f32 at D = 64 holds 96 columns a CTA: 17 CTAs, one past a cluster
+        v = torch.zeros((L, Gb, Km, BS, 64, 1537), device="meta")
     elif case == "four_faces":
         shifts = (0, 1, 2, 3)
-    with pytest.raises(ValueError):
-        tlr._kernel_args_ok(v, dict(v=v, ttc=ttc), cast, shifts)
+    with pytest.raises(ValueError) as e:
+        tlr._kernel_args_ok(v, dict(v=v) if case == "too_wide"
+                            else dict(v=v, ttc=ttc), cast, shifts)
+    if case == "too_wide":
+        assert "queue 2, K1 item 10" in str(e.value)
 
 
 def test_kernel_arguments_of_the_flagship_pass():
@@ -311,7 +315,7 @@ def _f64_smem_of_c_struct(D, W, nf, L):
     return offs[-1] + a16(8 * L)
 
 
-@pytest.mark.parametrize("D", [8, 27])
+@pytest.mark.parametrize("D", [4, 8, 9, 16, 27])
 @pytest.mark.parametrize("W", [64, 256])
 @pytest.mark.parametrize("nf", [1, 3])
 def test_f64_kernel_shared_memory(D, W, nf):
@@ -584,3 +588,133 @@ def test_sweep_cost_counts_operands_by_element_size():
         assert tlr.sweep_cost(v, 3, dsrc=dsrc)[0] == base + dsrc.numel() * op
         assert tlr.sweep_cost(v, 3, xsrc=xsrc)[0] == (
             base + L * Gb * W * 4 + xsrc.xval.numel() * op)
+
+
+# ---- launch plans: which K1 kernel takes a lattice -------------------------
+
+def _lattice(case):
+    """(solver on the CPU, element DOF count) of a lattice the ring takes,
+    from the port's constructor. The slab (L, groups, Km buckets, W, shifts)
+    does not depend on the order, so the p >= 2 hex lattices of 4,096 and
+    more elements are built at p = 1 (their assembly at p = 3 takes about a
+    minute) and given D = (p + 1)^3."""
+    from pbte_tpu_torch.problem import WALL_BCS, SQUARE_BCS, unit_cube, \
+        unit_square
+    from pbte_tpu_torch.solver.source_iteration import SourceIterationSolver
+
+    kind, dims, order = LATTICES[case]
+    build_order = order if np.prod(dims) < 4000 else 1
+    if kind == "quad":
+        prob, bcs = unit_square(*dims, order=order, azimuth=8, nspec=1), \
+            SQUARE_BCS
+    else:
+        prob, bcs = unit_cube(*dims, order=build_order, polar=2, azimuth=4,
+                              nspec=1), WALL_BCS
+    s = SourceIterationSolver(*prob, bcs, device="cpu")
+    assert s.sweep_mode == "ring" and s._multi is None
+    D = (order + 1) ** (2 if kind == "quad" else 3)
+    assert build_order != order or s.D == D
+    return s, D
+
+
+# name: (kind, dims, order), W in the comment. The first five are the
+# ring lattices of ROADMAP.md section 3's fault record (of them the CUDA
+# kernel took hex 8^3 p=2 alone before its cluster kernel); then hex
+# 17x17x4 (W = 17 x 4, the product of its two shorter axes), W > 256 and
+# p = 3 at the flagship's width
+LATTICES = {
+    "quad_32x32_p2": ("quad", (32, 32), 2),  # D 9, W 32
+    "quad_64x64_p1": ("quad", (64, 64), 1),  # D 4, W 64
+    "hex_8x8x8_p3": ("hex", (8, 8, 8), 3),  # D 64, W 64
+    "hex_20x20x20_p1": ("hex", (20, 20, 20), 1),  # D 8, W 400
+    "hex_8x8x8_p2": ("hex", (8, 8, 8), 2),  # D 27, W 64
+    "hex_17x17x4_p2": ("hex", (17, 17, 4), 2),  # D 27, W 68
+    "hex_17x17x17_p2": ("hex", (17, 17, 17), 2),  # D 27, W 289
+    "hex_24x24x24_p1": ("hex", (24, 24, 24), 1),  # D 8, W 576
+    "hex_16x16x16_p3": ("hex", (16, 16, 16), 3),  # D 64, W 256
+}
+
+
+@pytest.mark.parametrize("case", list(LATTICES))
+def test_every_ring_lattice_gets_a_launch_plan(case):
+    """Every Km bucket of a lattice the ring takes passes the kernels'
+    argument checks in all three state types and gets a launch plan: the
+    one-CTA kernel where it is built for D and the level fits one CTA
+    (the flagship's shapes), else the cluster kernel, with Wt a multiple
+    of 16, C = ceil(W / Wt) <= 16 CTAs and at most 232,448 B of shared
+    memory a CTA."""
+    s, D = _lattice(case)
+    for gs, km in s._ring_buckets:
+        for dt, cast in ((torch.float32, False), (torch.bfloat16, True),
+                         (torch.float64, False)):
+            v = torch.zeros((s.L, len(gs), km, s.BS, D, s.W), dtype=dt,
+                            device="meta")
+            plan = tlr._kernel_args_ok(v, dict(v=v), cast, s.shifts)
+            assert plan == tlr.launch_plan(D, s.W, len(s.shifts), dt, s.L)
+            assert plan.smem <= tlr._SMEM_LIMIT
+            if D in tlr.KERNEL_D and s.W <= tlr.KERNEL_MAX_W:
+                assert plan == (
+                    "persistent", s.W, 1,
+                    tlr.kernel_smem_bytes(D, s.W, len(s.shifts), dt, s.L))
+            else:
+                assert plan.variant == "tiled" and plan.Wt % 16 == 0
+                assert 1 <= plan.C <= tlr.MAX_CLUSTER
+                assert (plan.C - 1) * plan.Wt < s.W <= plan.C * plan.Wt
+                assert plan.smem == tlr.tiled_smem_bytes(
+                    D, plan.Wt, len(s.shifts), dt, s.L)
+
+
+def _tiled_smem_of_c_struct(D, Wt, nf, L, state):
+    """SmemTiled of csrc/lattice_ring_tiled.cu written out: the factor
+    (1 + nf) faces x KT_FACE k-steps x NT n-tiles x 32 lanes x the fragment
+    bytes, two solution tiles and one rhs tile (D rows of the padded
+    stride), the inflow tile (nf rows of Wt rounded to 16) and L int2
+    windows, each block rounded up to 16 bytes."""
+    def a16(n):
+        return (n + 15) // 16 * 16
+
+    esize, kstep, frag = {torch.float32: (4, 8, 16),
+                          torch.bfloat16: (4, 16, 8),
+                          torch.float64: (8, 4, 8)}[state]
+    wp = ((Wt + 15) // 16 * 16 + 4 if state == torch.float64
+          else (Wt + 31) // 32 * 32 + 8)
+    kt_face, nt = -(-D // kstep), -(-D // 8)
+    sol = a16((1 + nf) * kt_face * nt * 32 * frag)
+    rhs = sol + 2 * a16(esize * D * wp)
+    cinc = rhs + a16(esize * D * wp)
+    wins = cinc + a16(esize * nf * ((Wt + 15) // 16 * 16))
+    return wins + a16(8 * L)
+
+
+@pytest.mark.parametrize("state", [torch.float32, torch.bfloat16,
+                                   torch.float64])
+@pytest.mark.parametrize("D", [4, 8, 9, 16, 27, 64])
+def test_tiled_kernel_shared_memory(state, D):
+    """The wrapper's carve-up of the cluster kernel equals the C struct's at
+    every width it may pick, and the widest tile the plan picks fits one
+    CTA: f32 at D = 64 holds 96 columns (the factor alone is 131,072 B)."""
+    for Wt in (16, 48, 96, 128, 256):
+        for nf in (2, 3):
+            assert (tlr.tiled_smem_bytes(D, Wt, nf, state, 46)
+                    == _tiled_smem_of_c_struct(D, Wt, nf, 46, state))
+    plan = tlr.launch_plan(D, 700, 3, state, 46)
+    assert plan.variant == "tiled" and plan.smem <= tlr._SMEM_LIMIT
+    if (D, state) == (64, torch.float32):
+        assert tlr.launch_plan(D, 256, 3, state, 46)[:3] == ("tiled", 96, 3)
+        assert tlr.tiled_smem_bytes(D, 112, 3, state, 46) > tlr._SMEM_LIMIT
+
+
+def test_launch_plan_bounds():
+    """The flagship keeps the one-CTA kernel in every state type; D = 64
+    takes the cluster kernel at any W; past 16 CTAs the plan raises with
+    the ROADMAP item and the bound on W; an unbuilt D raises."""
+    for dt in (torch.float32, torch.bfloat16, torch.float64):
+        assert tlr.launch_plan(27, 256, 3, dt, 46).variant == "persistent"
+        assert tlr.launch_plan(64, 16, 3, dt, 10).variant == "tiled"
+        assert tlr.launch_plan(27, 257, 3, dt, 46).variant == "tiled"
+    with pytest.raises(ValueError, match=r"W <= 768: ROADMAP.md queue 2, "
+                                         r"K1 item 10"):
+        tlr.launch_plan(64, 769, 3, torch.float64, 46)
+    assert tlr.launch_plan(64, 768, 3, torch.float64, 46).C == 16
+    with pytest.raises(ValueError, match="built for D"):
+        tlr.launch_plan(125, 64, 3, torch.float32, 10)

@@ -391,7 +391,7 @@ RESOLUTION = {
     "tet_8x8x8_dirichlet_one_hot": (lambda p: _tet_cube(p, 8), None,
                                     dict(dirichlet_bcs={6: 0.1}), "item 6c"),
     "hex_8x8x8_graded_multi_class": (lambda p: _graded_hex(p, 8), None, {},
-                                     "item 6d"),
+                                     "ring"),
     "hex_4x4x4_periodic_x": (lambda p: _problem(p, "hex_4x4x4_periodic_x", 1,
                                              "consistent"), {1: -0.5, 2: -0.5,
                                                              4: -0.5, 6: 0.5},
@@ -404,9 +404,10 @@ def test_resolved_sweep_mode_matches_pbte_tpu(name):
     """sweep_mode="auto" resolves as pbte_tpu's structural gates do (less
     its TPU memory budgets, which resolve none of these cases otherwise):
     the scan where pbte_tpu scans, the supercell ring where pbte_tpu
-    merges a simplex lattice; where pbte_tpu takes a ring this package
-    lacks (one-hot, multi-class lattice) a NotImplementedError names the
-    ROADMAP item and says the scan solves the problem."""
+    merges a simplex lattice, the lattice ring on a multi-class lattice;
+    where pbte_tpu takes a ring this package lacks (one-hot) a
+    NotImplementedError names the ROADMAP item and says the scan solves
+    the problem."""
     build, bcs, kw, want = RESOLUTION[name]
     jp, tp = build("jax"), build("torch")
     bcs = _walls(jp[0]) if bcs is None else bcs
@@ -415,14 +416,16 @@ def test_resolved_sweep_mode_matches_pbte_tpu(name):
     js = JaxSolver(*jp, bcs, dtype=jnp.float64, **kw)
     if want in ("scan", "ring"):
         assert js.sweep_mode == want
-        assert (js._super is not None) == (want == "ring")
         ts = SourceIterationSolver(*tp, bcs, dtype=torch.float64,
                                    device="cpu", **kw)
         assert ts.sweep_mode == want
-        assert (ts._super is not None) == (want == "ring")
+        # the supercell ring where pbte_tpu merges, else the lattice ring
+        assert (ts._super is not None) == (js._super is not None)
+        if want == "ring" and js._super is None:
+            assert js._ring_lattice and ts._multi is not None
         return
     assert js.sweep_mode == "ring" and js._super is None
-    assert js._ring_lattice == (want == "item 6d")
+    assert not js._ring_lattice
     with pytest.raises(NotImplementedError, match=want) as e:
         SourceIterationSolver(*tp, bcs, dtype=torch.float64, device="cpu",
                               **kw)

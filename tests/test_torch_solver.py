@@ -2,6 +2,7 @@
 lattice-ring path: constructor, one step through the consts bridge, the
 whole slice, the committed golden, the gate, and the no-JAX import."""
 
+import functools
 import inspect
 import os
 import pathlib
@@ -22,7 +23,8 @@ from pbte_tpu.fem import assembly
 from pbte_tpu.solver.source_iteration import SourceIterationSolver as JaxSolver
 from pbte_tpu_torch.convert import consts_from_numpy, state_from_numpy
 from pbte_tpu_torch.ops import lattice_ring as tlr
-from pbte_tpu_torch.problem import WALL_BCS, unit_cube
+from pbte_tpu_torch.problem import SQUARE_BCS, WALL_BCS, unit_cube, \
+    unit_square
 from pbte_tpu_torch.solver.source_iteration import SourceIterationSolver
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
@@ -820,3 +822,120 @@ def test_no_jax_import():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "no-jax ok" in proc.stdout
+
+
+# ---- the lattices K1 takes since its cluster kernel ------------------------
+
+# name: (builder of both packages' problem, walls); small angle and band
+# counts: 8 directions (2D: 8 azimuths), 2 bands
+NEW_SHAPES = {
+    "quad_24x22_p2": (lambda pkg, length: (
+        torch_golden.jax_unit_square if pkg == "jax" else unit_square)(
+        24, 22, order=2, azimuth=8, nspec=2, length=length), SQUARE_BCS),
+    "hex_8x8x8_p3": (lambda pkg, length: (
+        torch_golden.jax_unit_cube if pkg == "jax" else unit_cube)(
+        8, 8, 8, order=3, polar=2, azimuth=4, nspec=2, length=length),
+        WALL_BCS),
+    "hex_17x17x17_p1": (lambda pkg, length: (
+        torch_golden.jax_unit_cube if pkg == "jax" else unit_cube)(
+        17, 17, 17, order=1, polar=2, azimuth=4, nspec=2, length=length),
+        WALL_BCS),
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _new_shape(name, pkg, length=1.0e-6):
+    return NEW_SHAPES[name][0](pkg, length)
+
+
+def _new_shape_pair(name, f32, length=1.0e-6, jax_f32=None):
+    """pbte_tpu's XLA ring (f32 with its bf16 staging off) and the port's
+    ring on one of NEW_SHAPES, 3 steps each: (pbte_tpu's Tc, port's Tc)."""
+    bcs = NEW_SHAPES[name][1]
+    jax_f32 = f32 if jax_f32 is None else jax_f32
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("PBTE_RING_BF16", "0")
+        js = JaxSolver(*_new_shape(name, "jax", length), bcs,
+                       dtype=jnp.float32 if jax_f32 else jnp.float64,
+                       use_pallas="off")
+    ts = SourceIterationSolver(*_new_shape(name, "torch", length), bcs,
+                               dtype=torch.float32 if f32 else torch.float64,
+                               device="cpu")
+    assert js.sweep_mode == ts.sweep_mode == "ring" and js._ring_lattice
+    assert (ts.D, ts.W) == (js.D, js.W) and ts._multi is None
+    rj = js.solve(tol=0, max_iter=3, verbose=False)
+    rt = ts.solve(tol=0, max_iter=3, verbose=False)
+    return np.asarray(rj.Tc, dtype=np.float64), rt.Tc.double().numpy()
+
+
+@pytest.mark.parametrize("check", ["f64", "f32_mm", "f32_vs_f64"])
+@pytest.mark.parametrize("name", list(NEW_SHAPES))
+def test_ring_parity_at_new_shapes(name, check):
+    """The port's plain ring against pbte_tpu's XLA ring on a 2D quad
+    lattice at p=2 (D=9, two faces), a hex lattice at p=3 (D=64) and one of
+    W = 289 > 256 slots (the shapes K1's new instantiations and cluster
+    kernel take on the card), 3 steps:
+
+    - ``f64``: Tc to roundoff, 1e-12 of max;
+    - ``f32_mm``: both in float32 at rtol=2e-5, atol=5e-7 of max, on the
+      same lattices of millimetre edge. At a micron edge the f32 state
+      v = M^T u of these lattices peaks at 3e-32 to 5e-32, and with f32
+      subnormals flushed (XLA's CPU backend; the fixture here, for
+      pbte_tpu's sake) each package lands 8e-6 to 1.6e-5 of max from the
+      float64 answer, so the two differ by more than their rounding order
+      (measured: the port 2.5e-7 to 3.6e-7 with subnormals kept);
+    - ``f32_vs_f64``: at a micron edge, the port's float32 with subnormals
+      kept (as on the card) against pbte_tpu's float64 at rtol=2e-5,
+      atol=5e-7 of max."""
+    if check == "f64":
+        want, got = _new_shape_pair(name, f32=False)
+        assert np.abs(got - want).max() <= 1e-12 * np.abs(want).max()
+        return
+    if check == "f32_mm":
+        want, got = _new_shape_pair(name, f32=True, length=1.0e-3)
+    else:
+        torch.set_flush_denormal(False)
+        want, got = _new_shape_pair(name, f32=True, jax_f32=False)
+    scale = np.abs(want).max()
+    np.testing.assert_allclose(got / scale, want / scale, rtol=2e-5,
+                               atol=5e-7)
+
+
+@pytest.mark.parametrize("value", [None, "default", "high", "highest",
+                                   "selective"])
+def test_matmul_precision_changes_nothing(value):
+    """Every matmul_precision tier of pbte_tpu runs the same exact float32
+    path here (K1 and TF32-free products): the same Tc, bit for bit, as the
+    default."""
+    prob = _problem("8x8x8_p1")
+    ref = SourceIterationSolver(*prob, WALL_BCS, device="cpu").solve(
+        tol=0, max_iter=2, verbose=False)
+    ts = SourceIterationSolver(*prob, WALL_BCS, device="cpu",
+                               matmul_precision=value)
+    assert ts.matmul_precision == value and ts.sweep_mode == "ring"
+    r = ts.solve(tol=0, max_iter=2, verbose=False)
+    assert torch.equal(r.Tc, ref.Tc) and r.residual == ref.residual
+
+
+@pytest.mark.parametrize("value", [None, "default", "high", "highest"])
+def test_polish_precision_changes_nothing(value, monkeypatch):
+    """So does solve's polish_precision on the exact steps after a
+    bfloat16-state solve."""
+    monkeypatch.setenv("PBTE_RING_STATE_BF16", "1")
+    ts = SourceIterationSolver(*_problem("8x8x8_p1"), WALL_BCS, device="cpu")
+    ref = ts.solve(tol=0, max_iter=2, verbose=False, polish_iters=2)
+    r = ts.solve(tol=0, max_iter=2, verbose=False, polish_iters=2,
+                 polish_precision=value)
+    assert torch.equal(r.Tc, ref.Tc) and r.residual == ref.residual
+
+
+def test_unknown_precision_raises():
+    """An unknown tier raises, as pbte_tpu's does."""
+    prob = _problem("8x8x8_p1")
+    with pytest.raises(ValueError, match="matmul_precision"):
+        SourceIterationSolver(*prob, WALL_BCS, device="cpu",
+                              matmul_precision="bf16x9")
+    ts = SourceIterationSolver(*prob, WALL_BCS, device="cpu")
+    with pytest.raises(ValueError, match="polish_precision"):
+        ts.solve(tol=0, max_iter=1, verbose=False, polish_iters=1,
+                 polish_precision="selective")

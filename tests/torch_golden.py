@@ -30,12 +30,27 @@ two-matmul body, f32 with the bf16 operand staging off) on a 3x2x2 6-tet
 box at p=2 with consistent faces, 8 directions and nspec=2, the flagship
 walls; 5 outer steps from the zero state.
 
-All five build their problems from pbte_tpu's own host layers
-(``jax_unit_cube``, ``jax_tet_cube``, ``jax_tet_box``), the same problems
-``pbte_tpu_torch.problem.unit_cube``, ``tet_cube`` and ``tet_box`` build from the
-port's copy of them.
+``build_p3()`` runs its f32 XLA lattice ring (``sweep_mode="ring"``, bf16
+operand staging off) on a hex 17x17x4 lattice at p=3 (D = 64, a slab of
+W = 68 slots) of millimetre edge, 8 directions and nspec=2, the flagship
+walls; 5 outer steps from the zero state. On a GPU the port sweeps it with
+K1's cluster kernel. (At a micron edge the f32 state v = M^T u of this
+lattice reaches the f32 subnormals, which XLA's CPU backend flushes: there
+pbte_tpu's f32 lands 1.6e-5 of max from its float64 answer, and the
+card, which keeps them, 4.4e-5 from that golden.)
 
-``python tests/torch_golden.py`` writes them to ``tests/data/``;
+``build_graded()`` runs the same ring on a graded hex 8^3 at p=2 (x spacing
+alternating 1 : 2, two geometry classes: its multi-class branch with
+per-element couplings), 8 directions, nspec=2, the flagship walls; 5 outer
+steps from the zero state.
+
+All seven build their problems from pbte_tpu's own host layers
+(``jax_unit_cube``, ``jax_graded_cube``, ``jax_tet_cube``, ``jax_tet_box``),
+the same problems ``pbte_tpu_torch.problem.unit_cube``, ``graded_cube``,
+``tet_cube`` and ``tet_box`` build from the port's copy of them.
+
+``python tests/torch_golden.py [file name ...]`` writes them (or the
+named ones) to ``tests/data/``;
 tests/test_torch_solver.py and tests/test_torch_accel.py regenerate them
 and check them against the committed files, and chip_smoke.py holds
 pbte_tpu_torch's CUDA kernel path on a GPU to them.
@@ -71,12 +86,19 @@ SCAN_DIFFUSE = (2, 4)
 PATH_SUPER = DATA / "torch_port_golden_super.npz"
 SUPER_PARAMS = dict(nx=3, ny=2, nz=2, order=2, polar=2, azimuth=4, nspec=2)
 
+PATH_P3 = DATA / "torch_port_golden_p3.npz"
+P3_PARAMS = dict(nx=17, ny=17, nz=4, order=3, polar=2, azimuth=4, nspec=2)
+P3_LENGTH = 1.0e-3  # metres: the lattice's edge
+PATH_GRADED = DATA / "torch_port_golden_graded.npz"
+GRADED_PARAMS = dict(n=8, order=2, polar=2, azimuth=4, nspec=2)
+
 PATH_ACCEL = DATA / "torch_port_golden_accel.npz"
 ACCEL_PARAMS = dict(nx=8, ny=8, nz=8, order=1, polar=2, azimuth=4, nspec=2)
 ACCEL_MAX_ITER = 18
 
 
-def jax_unit_cube(nx, ny, nz, order, polar, azimuth, nspec, periodic=()):
+def jax_unit_cube(nx, ny, nz, order, polar, azimuth, nspec, periodic=(),
+                  length=1.0e-6):
     """(ops, quad, tables) of pbte_tpu_torch.problem.unit_cube, built from
     pbte_tpu's mesh, assembly, quadrature and material modules."""
     from pbte_tpu import mesh as pmesh
@@ -84,13 +106,53 @@ def jax_unit_cube(nx, ny, nz, order, polar, azimuth, nspec, periodic=()):
     from pbte_tpu.fem import assembly
     from pbte_tpu.material import nongray_smrt as mat
 
-    m = pmesh.make_cartesian_3d(nx, ny, nz, "hex").scaled(1.0e-6)
+    m = pmesh.make_cartesian_3d(nx, ny, nz, "hex").scaled(length)
     if len(periodic):
         m = pmesh.make_periodic(m, [int(a) for a in periodic])
     ops = assembly.assemble(pmesh.connect(m), order=order,
                             face_mode="consistent")
     quad = ang.build(ang.AngularOptions(
         dimension=3, polar_points=polar, azimuth_points=azimuth))
+    tables = mat.build_tables(mat.SILICON, num_spectral=nspec)
+    return ops, quad, tables
+
+
+def jax_graded_cube(n, order, polar, azimuth, nspec):
+    """(ops, quad, tables) of pbte_tpu_torch.problem.graded_cube from
+    pbte_tpu's host layers: the n^3 hex unit cube with its x spacing
+    alternating 1 : 2, in microns, consistent faces, silicon."""
+    import dataclasses
+
+    from pbte_tpu import mesh as pmesh
+    from pbte_tpu.angular import quadrature as ang
+    from pbte_tpu.fem import assembly
+    from pbte_tpu.material import nongray_smrt as mat
+
+    md = pmesh.make_cartesian_3d(n, n, n, "hex")
+    xs = np.concatenate([[0.0], np.cumsum(np.tile([1.0, 2.0], n)[:n])])
+    v = md.vertices.copy()
+    v[:, 0] = xs[np.rint(v[:, 0] * n).astype(int)] / xs[-1]
+    md = dataclasses.replace(md, vertices=v).scaled(1.0e-6)
+    ops = assembly.assemble(pmesh.connect(md), order=order,
+                            face_mode="consistent")
+    quad = ang.build(ang.AngularOptions(
+        dimension=3, polar_points=polar, azimuth_points=azimuth))
+    tables = mat.build_tables(mat.SILICON, num_spectral=nspec)
+    return ops, quad, tables
+
+
+def jax_unit_square(nx, ny, order, azimuth, nspec, length=1.0e-6):
+    """(ops, quad, tables) of pbte_tpu_torch.problem.unit_square from
+    pbte_tpu's host layers."""
+    from pbte_tpu import mesh as pmesh
+    from pbte_tpu.angular import quadrature as ang
+    from pbte_tpu.fem import assembly
+    from pbte_tpu.material import nongray_smrt as mat
+
+    m = pmesh.make_cartesian_2d(nx, ny, "quad").scaled(length)
+    ops = assembly.assemble(pmesh.connect(m), order=order,
+                            face_mode="consistent")
+    quad = ang.build(ang.AngularOptions(dimension=2, azimuth_points=azimuth))
     tables = mat.build_tables(mat.SILICON, num_spectral=nspec)
     return ops, quad, tables
 
@@ -263,6 +325,61 @@ def build_super() -> dict:
     )
 
 
+def _xla_ring_f32(prob):
+    """pbte_tpu's f32 XLA lattice ring on ``prob`` with the flagship walls,
+    bf16 operand staging off (exact f32 operands, as on the CPU)."""
+    import jax.numpy as jnp
+
+    from pbte_tpu.solver.source_iteration import SourceIterationSolver
+
+    old = os.environ.get("PBTE_RING_BF16")
+    os.environ["PBTE_RING_BF16"] = "0"
+    try:
+        s = SourceIterationSolver(*prob, WALL_BCS, dtype=jnp.float32,
+                                  sweep_mode="ring", use_pallas="off")
+    finally:
+        if old is None:
+            del os.environ["PBTE_RING_BF16"]
+        else:
+            os.environ["PBTE_RING_BF16"] = old
+    if not (s.sweep_mode == "ring" and s._ring_lattice
+            and not s._ring_stage_bf16 and not s._use_pallas_ring):
+        raise RuntimeError("the golden must come from the f32 XLA lattice "
+                           "ring with exact operands")
+    return s
+
+
+def _ring_golden(params, s) -> dict:
+    tcs, res = _steps(s)
+    attrs = sorted(WALL_BCS)
+    return dict(
+        **{k: np.int64(v) if isinstance(v, int) else np.float64(v)
+           for k, v in params.items()},
+        steps=np.int64(STEPS),
+        bc_attrs=np.array(attrs, dtype=np.int64),
+        bc_temps=np.array([WALL_BCS[a] for a in attrs]),
+        Tc=tcs,  # (steps, ne, D) f32, Tc after each step
+        residual=res,
+    )
+
+
+def build_p3() -> dict:
+    params = dict(P3_PARAMS, length=P3_LENGTH)
+    s = _xla_ring_f32(jax_unit_cube(**params))
+    if not (s.ncls_ring == 1 and s._ring_ccpl and s.D == 64):
+        raise RuntimeError("the p=3 golden must come from the single-class "
+                           "ring at D = 64")
+    return _ring_golden(params, s)
+
+
+def build_graded() -> dict:
+    s = _xla_ring_f32(jax_graded_cube(**GRADED_PARAMS))
+    if not (s.ncls_ring == 2 and not s._ring_ccpl):
+        raise RuntimeError("the graded golden must come from the "
+                           "multi-class ring with per-element couplings")
+    return _ring_golden(GRADED_PARAMS, s)
+
+
 def build_accel() -> dict:
     import jax.numpy as jnp
 
@@ -296,6 +413,9 @@ ACCEL_GOLDENS = {PATH_ACCEL: build_accel}
 SCAN_GOLDENS = {PATH_SCAN: build_scan}
 # the supercell golden (tests/test_torch_supercell.py checks it is current)
 SUPER_GOLDENS = {PATH_SUPER: build_super}
+# the p = 3 and the graded lattice goldens (tests/test_torch_lattice_multi.py
+# checks they are current)
+LATTICE_GOLDENS = {PATH_P3: build_p3, PATH_GRADED: build_graded}
 
 
 if __name__ == "__main__":
@@ -308,7 +428,10 @@ if __name__ == "__main__":
     jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_enable_x64", True)
     DATA.mkdir(parents=True, exist_ok=True)
+    only = set(sys.argv[1:])  # file names to regenerate (default: all)
     for path, fn in {**GOLDENS, **ACCEL_GOLDENS, **SCAN_GOLDENS,
-                     **SUPER_GOLDENS}.items():
+                     **SUPER_GOLDENS, **LATTICE_GOLDENS}.items():
+        if only and path.name not in only:
+            continue
         np.savez_compressed(path, **fn())
         print(f"wrote {path}")
