@@ -21,10 +21,22 @@ Rows (each rebuilds the solver under its environment):
 - ``diffuse_walls``: ``problem.DIFFUSE_WALLS`` (x faces isothermal, the other
   four diffuse: the lagged closure sources).
 - ``p3_f32``: order 3, 4x4 = 16 directions, as ``bench.py``'s row (D = 64:
-  K1's cluster kernel on the GPU).
+  K1's tiled kernel on the GPU).
 - ``wide_f32``: the flagship's order, angles and bands on a hex lattice 1.5
   times as wide per axis (24^3 by default, ne = 13,824, a slab of W = 576
-  slots: K1's cluster kernel), with its ``k1_share_of_bound``.
+  slots: K1's tiled kernel), with its ``k1_share_of_bound``.
+- ``p3_wide_f64``: hex 28^3 (7/4 of the run's lattice per axis) at order 3
+  (D = 64), 2 x 8 = 16 directions, 2 x 4 bands, float64 state: W = 784
+  slots, a level past the 16 CTAs of the earlier cluster kernel, which raised
+  there; with its ``k1_share_of_bound``. Its host set-up is long and
+  large, so it runs in a child process of its own (``--row
+  p3_wide_f64``): the row records ``setup_s`` and the host's peak resident
+  memory (``host_peak_rss_gb``). The parent stops the child where its
+  host memory passes ``P3_WIDE_HOST_LIMIT_GB`` (before the host's own
+  limit would end the whole run) or it runs past ``P3_WIDE_TIMEOUT_S``,
+  and the row then records the last stage the child reached and its host
+  memory. Its order, angles and bands take the PBTE_BENCH_* overrides
+  where they are set.
 - ``graded_f32``: the flagship on ``problem.graded_cube`` (x spacing
   alternating 1 : 2, two geometry classes): the multi-class torch ring.
 - ``f64_state``: ``dtype=torch.float64`` (the float64 kernel on the GPU),
@@ -79,7 +91,10 @@ import argparse
 import gc
 import json
 import os
+import resource
+import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -107,6 +122,14 @@ ACCEL_CHECK_EVERY = 20
 CONVERGE_TOL = 1e-7
 CONVERGE_MAX_ITER = 3000
 CONVERGE_CHECK_EVERY = 20
+# the p3_wide_f64 row: hex 28^3 p=3, 2 x 8 directions, 2 x 4 bands (order,
+# polar, azimuth, nspec; PBTE_BENCH_* overrides them), and its child's time
+P3_WIDE = dict(order=3, polar=2, azimuth=8, nspec=4)
+P3_WIDE_TIMEOUT_S = 2400
+# the child's host memory the parent allows, below the 96 GiB of host
+# memory an H100 node of one card may give the whole run, where the
+# parent and the card's driver hold the rest
+P3_WIDE_HOST_LIMIT_GB = 72.0
 BASELINE_NOTE = (
     "bench.py measures its baseline with pbte_tpu's C++ mirror solver "
     "(pbte_tpu/native/); pbte_tpu_torch has no copy of it yet and imports "
@@ -180,6 +203,99 @@ def build(device, size, env=None, solver_kw=None, make=None):
             else:
                 os.environ[k] = v
     return solver, setup_s
+
+
+def host_peak_rss_gb():
+    """This process's peak resident host memory (GB)."""
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6
+
+
+def p3_wide_size(nx):
+    """The p3_wide_f64 row's lattice: 7/4 of the run's per axis (28^3 by
+    default), P3_WIDE's order, angles and bands unless PBTE_BENCH_* set
+    them."""
+    n = -(-7 * nx // 4)
+    return dict(nx=n, ny=n, nz=n, **{
+        k: int(os.environ.get(f"PBTE_BENCH_{k.upper()}", v))
+        for k, v in P3_WIDE.items()})
+
+
+def p3_wide_child(device, steps, size):
+    """The p3_wide_f64 row in this (child) process: each stage it reaches is
+    logged with the seconds and the host's peak memory so far; returns the
+    row."""
+    t0 = time.perf_counter()
+
+    def stage(name):
+        log(f"p3_wide_f64 stage {name} at {time.perf_counter() - t0:.1f} s, "
+            f"host peak {host_peak_rss_gb():.2f} GB")
+
+    def assemble(**kw):
+        out = problem.unit_cube(**kw)
+        stage("assembled")
+        return out
+
+    stage("start")
+    row, shape = run_row("p3_wide_f64", device, steps, size,
+                         solver_kw=dict(bc_temps=problem.WALL_BCS,
+                                        dtype=torch.float64),
+                         shares=device.type == "cuda", make=assemble)
+    stage("done")
+    row.update(shape=dict(shape, W=size["ny"] * size["nz"],
+                          nx=size["nx"], order=size["order"]),
+               host_peak_rss_gb=host_peak_rss_gb())
+    return row
+
+
+def rss_gb(pid):
+    """Resident host memory of process ``pid`` (GB; 0 once it is gone)."""
+    try:
+        with open(f"/proc/{pid}/status") as f:
+            for line in f:
+                if line.startswith("VmRSS:"):
+                    return int(line.split()[1]) / 1e6
+    except OSError:
+        pass
+    return 0.0
+
+
+def p3_wide_row(device, steps, size):
+    """Run the p3_wide_f64 row in a child process and return its row; stop
+    the child past P3_WIDE_HOST_LIMIT_GB of host memory or
+    P3_WIDE_TIMEOUT_S, and then return where it failed: why, its exit
+    code, the last stage it logged, its host memory and the tail of its
+    errors."""
+    cmd = [sys.executable, os.path.abspath(__file__), "--device",
+           device.type, "--row", "p3_wide_f64"]
+    with tempfile.TemporaryFile("w+") as out, \
+            tempfile.TemporaryFile("w+") as err:
+        proc = subprocess.Popen(cmd, stdout=out, stderr=err, text=True)
+        t0, peak, stopped = time.perf_counter(), 0.0, None
+        while proc.poll() is None:
+            rss = rss_gb(proc.pid)
+            peak = max(peak, rss)
+            if rss > P3_WIDE_HOST_LIMIT_GB:
+                stopped = (f"host memory {rss:.1f} GB past the "
+                           f"{P3_WIDE_HOST_LIMIT_GB} GB allowed")
+            elif time.perf_counter() - t0 > P3_WIDE_TIMEOUT_S:
+                stopped = f"past {P3_WIDE_TIMEOUT_S} s"
+            if stopped:
+                proc.kill()
+                break
+            time.sleep(0.2)
+        rc = proc.wait()
+        out.seek(0)
+        err.seek(0)
+        lines, errs = out.read().strip().splitlines(), err.read()
+    sys.stderr.write(errs)
+    if rc == 0 and lines:
+        return json.loads(lines[-1])
+    stages = [x for x in errs.splitlines() if "p3_wide_f64 stage" in x]
+    return {"error": stopped or f"child exit {rc}", "exit": rc,
+            "size": size, "last_stage": stages[-1] if stages else None,
+            "host_peak_gb": peak,
+            "seconds": time.perf_counter() - t0,
+            "stderr_tail": errs[-600:]}
 
 
 def release(device):
@@ -283,6 +399,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a GPU) or cpu")
+    ap.add_argument("--row", choices=["p3_wide_f64"], default=None,
+                    help="run this one row in this process and print it "
+                         "(the main run starts it as a child process)")
     a = ap.parse_args(argv)
     device = checked_device(a.device)
 
@@ -295,6 +414,11 @@ def main(argv=None) -> int:
         nspec=int(os.environ.get("PBTE_BENCH_NSPEC", 20)),
     )
     steps = int(os.environ.get("PBTE_BENCH_STEPS", 30))
+    if a.row is not None:
+        if device.type == "cpu":
+            torch.set_num_threads(1)
+        print(json.dumps(p3_wide_child(device, steps, p3_wide_size(nx))))
+        return 0
 
     build_s = 0.0
     if device.type == "cuda":
@@ -333,7 +457,7 @@ def main(argv=None) -> int:
                 rows[name] = {"error": f"{type(e).__name__}: {e}"[:300]}
                 log(f"row {name} FAILED: {e}")
                 release(device)
-        # a wider lattice (K1's cluster kernel) and a graded one (the
+        # a wider lattice (K1's tiled kernel) and a graded one (the
         # multi-class torch ring), the flagship's order, angles and bands
         wide = -(-3 * nx // 2)
         graded = dict(n=nx, **{k: size[k] for k in ("order", "polar",
@@ -351,6 +475,11 @@ def main(argv=None) -> int:
                 rows[name] = {"error": f"{type(e).__name__}: {e}"[:300]}
                 log(f"row {name} FAILED: {e}")
                 release(device)
+        # past the earlier 16-CTA ceiling, in a child process (see the module
+        # docstring)
+        rows["p3_wide_f64"] = p3_wide_row(device, steps, p3_wide_size(nx))
+        if "error" in rows["p3_wide_f64"]:
+            log(f"row p3_wide_f64 FAILED: {rows['p3_wide_f64']}")
         try:
             rows["f64_bicgstab"] = run_bicgstab_row(device, size)
         except Exception as e:

@@ -21,8 +21,8 @@ and the modules that were JAX in pbte_tpu:
   the scale-invariant residual;
 - ``ops.lattice_ring``: the lattice ring sweep, a plain PyTorch version and
   the hand-written CUDA kernels it dispatches to for CUDA tensors: one CTA
-  a level (``csrc/lattice_ring.cu``) or a thread-block cluster a level
-  (``csrc/lattice_ring_tiled.cu``), chosen from the shape;
+  a level (``csrc/lattice_ring.cu``) or a level in column tiles, one CTA
+  a tile (``csrc/lattice_ring_tiled.cu``), chosen from the shape;
 - ``ops.dma_copy``: the streaming copies of pbte_tpu's DMA probe, a plain
   version and two CUDA kernels (``csrc/dma_copy.cu``), driven by
   ``bench_dma`` (``python -m pbte_tpu_torch.bench_dma``);

@@ -11,9 +11,10 @@ lattice offsets. Arguments and results keep the JAX wrapper's layouts.
 a hand-written kernel for CUDA tensors; it never falls back from one to the
 other. ``launch_plan`` picks the kernel from the shape alone: the one-CTA
 kernel (``csrc/lattice_ring.cu``, a CTA holds a whole level, D in
-``KERNEL_D`` and W <= 256) or the cluster kernel
-(``csrc/lattice_ring_tiled.cu``, C CTAs of Wt slab columns hold a level,
-for D = 64 and for W > 256). Each comes in three state types: float32
+``KERNEL_D`` and W <= 256) or the tiled kernel
+(``csrc/lattice_ring_tiled.cu``, a level in C tiles of Wt slab columns, one
+CTA a tile, for D = 64 and for W > 256, any W). Each comes in three state
+types: float32
 (exact operands), bfloat16 (bf16 operands and ring, f32 sums) and float64
 (float64 operands and sums).
 
@@ -42,19 +43,23 @@ import torch
 from pbte_tpu_torch.ops import _build
 
 # element DOF counts of the one-CTA kernels (csrc/lattice_ring.cu: quad
-# p = 1-3, hex p = 1, 2) and of the cluster kernels
+# p = 1-3, hex p = 1, 2) and of the tiled kernels
 # (csrc/lattice_ring_tiled.cu: also hex p = 3)
 KERNEL_D = (4, 8, 9, 16, 27)
 TILED_D = (4, 8, 9, 16, 27, 64)
 # the one-CTA kernels hold a level of W <= 256 slots (16-row tiles over 8
-# consumer warps); a cluster kernel's CTA holds at most as many
+# consumer warps)
 KERNEL_MAX_W = 256
 KERNEL_MAX_FACES = 3
-# CTAs of one cluster: 8 portable, 16 with the non-portable attribute
-MAX_CLUSTER = 16
 _SMEM_LIMIT = 232448  # bytes of shared memory one CTA may use on Hopper
-_WIDE = ("ROADMAP.md queue 2, K1 item 10 (levels wider than 16 CTAs of a "
-         "cluster)")
+# the widest tile of the tiled kernel (TGeo::WT_MAX of
+# csrc/lattice_ring_tiled.cu): its 8 consumer warps own 16-row m-tiles (2 a
+# warp; 1 at D = 64 and at D = 27 in float64, where the factor or the
+# float64 tiles fill shared memory), D = 64 splitting its 8 n-tiles over 2
+# warps (float32) or 4 (float64)
+TILED_WT_MAX = 256
+_TILED_WT_MAX = {(64, torch.float32): 64, (64, torch.bfloat16): 128,
+                 (64, torch.float64): 32, (27, torch.float64): 128}
 
 
 def f64_tile_stride(W):
@@ -97,36 +102,82 @@ def kernel_smem_bytes(D, W, nf, state, L):
             + 4 * a16(4 * D * wp) + 2 * a16(4 * nf * wc) + a16(8 * L))
 
 
-def tiled_smem_bytes(D, Wt, nf, state, L):
-    """Dynamic shared memory of one CTA of the cluster kernel
+def tiled_wt_max(D, state):
+    """The widest tile of the tiled kernel for D and the state type."""
+    return _TILED_WT_MAX.get((D, state), TILED_WT_MAX)
+
+
+def tiled_row_stride(Wt, state):
+    """Row stride of the tiled kernel's tiles: 32k + 8 words in float32 and
+    bfloat16 state (the tiles are float32), 16k + 4 doubles in float64."""
+    if state == torch.float64:
+        return f64_tile_stride(Wt)
+    return -(-Wt // 32) * 32 + 8
+
+
+def tiled_halo_blocks(shifts, Wt, C, row_stride):
+    """Tiles of shared memory one set of the tiled kernel's halo takes
+    (``halo_layout`` of csrc/lattice_ring_tiled.cu): face f reads min(s_f,
+    Wt) columns of the lower tiles; the faces sit side by side in rows of
+    ``row_stride``, each at a column that is a multiple of 4, a new block of
+    D rows where the next does not fit; a launch of one tile needs none."""
+    blocks, col, placed = 0, 0, False
+    for s in shifts:
+        hw = min(int(s), Wt) if C > 1 else 0
+        if hw <= 0:
+            continue
+        if col + hw > row_stride:
+            blocks, col = blocks + 1, 0
+        col = -(-(col + hw) // 4) * 4
+        placed = True
+    return blocks + 1 if placed else 0
+
+
+def tiled_smem_bytes(D, Wt, nf, state, halo_blocks):
+    """Dynamic shared memory of one CTA of the tiled kernel
     (csrc/lattice_ring_tiled.cu, ``SmemTiled``) holding Wt slab columns:
-    the factor block in mma fragment order as ``kernel_smem_bytes`` lays it
-    out, two solution tiles, one rhs tile (row stride 32k + 8 words in f32
-    and bf16, 16k + 4 doubles in f64), one tile of shifted inflow
-    coefficients and the L windows."""
+    the factor block in mma fragment order (8 bytes a lane and fragment in
+    every state type: float32 keeps b0, b1 unsplit), two solution tiles,
+    two rhs tiles, ``tiled_halo_buffers`` sets of ``halo_blocks`` halo
+    tiles (``tiled_row_stride``), two tiles of shifted inflow coefficients
+    and 16 bytes for the CTA's ticket."""
+    return _tiled_layout(D, Wt, nf, state, halo_blocks)[0]
+
+
+def tiled_halo_buffers(D, Wt, nf, state, halo_blocks):
+    """Sets of halo tiles the tiled kernel keeps: two (by level parity, so
+    level l's halo loads while level l multiplies) where they fit one CTA's
+    shared memory, else one."""
+    return _tiled_layout(D, Wt, nf, state, halo_blocks)[1]
+
+
+def _tiled_layout(D, Wt, nf, state, halo_blocks):
+    """(bytes, halo buffers) of ``SmemTiled``."""
     def a16(n):
         return -(-n // 16) * 16
 
     if state == torch.float64:
-        esize, kstep, bfrag, wp = 8, 4, 8, f64_tile_stride(Wt)
+        esize, kstep = 8, 4
     elif state in (torch.float32, torch.bfloat16):
-        cast = state == torch.bfloat16
-        esize, kstep, bfrag = 4, 16 if cast else 8, 8 if cast else 16
-        wp = -(-Wt // 32) * 32 + 8
+        esize, kstep = 4, 16 if state == torch.bfloat16 else 8
     else:
         raise ValueError(f"no kernel for {state} state")
     kt_face = -(-D // kstep)
     nt = -(-D // 8)
-    return (a16((1 + nf) * kt_face * nt * 32 * bfrag) + 3 * a16(esize * D * wp)
-            + a16(esize * nf * -(-Wt // 16) * 16) + a16(8 * L))
+    tile = a16(esize * D * tiled_row_stride(Wt, state))
+    halo = a16((1 + nf) * kt_face * nt * 32 * 8) + 4 * tile
+    rest = 2 * a16(esize * nf * -(-Wt // 16) * 16) + 16
+    hb = (2 if halo_blocks and halo + 2 * halo_blocks * tile + rest
+          <= _SMEM_LIMIT else 1)
+    return halo + hb * halo_blocks * tile + rest, hb
 
 
 class LaunchPlan(NamedTuple):
     """How K1 runs a bucket: ``variant`` "persistent" (one CTA of
     csrc/lattice_ring.cu per (group, slot, band), holding the whole level)
-    or "tiled" (a cluster of ``C`` CTAs of csrc/lattice_ring_tiled.cu per
-    (group, slot, band), ``Wt`` slab columns each); ``smem`` bytes of
-    shared memory per CTA."""
+    or "tiled" (``C`` tiles of ``Wt`` slab columns per (group, slot, band),
+    one CTA of csrc/lattice_ring_tiled.cu each); ``smem`` bytes of shared
+    memory per CTA."""
 
     variant: str
     Wt: int
@@ -134,12 +185,15 @@ class LaunchPlan(NamedTuple):
     smem: int
 
 
-def launch_plan(D, W, nf, state, L):
+def launch_plan(D, W, nf, state, L, shifts=None):
     """The launch plan of a sweep from its shape alone: the one-CTA kernel
-    where it is built for D and the level fits one CTA, else the cluster
-    kernel with the widest Wt (a multiple of 16, at most 256) whose tiles
-    fit one CTA, C = ceil(W / Wt) CTAs, and Wt then evened out over them.
-    Raises ValueError where neither takes the shape."""
+    where it is built for D and the level fits one CTA, else the tiled
+    kernel with the widest tile ``tiled_wt_max`` allows, C = ceil(W / Wt)
+    tiles and Wt then evened out over them (a multiple of 16). Where the
+    halo of the lattice ``shifts`` (None: the most any shifts can need,
+    W - 1 on every face) does not fit one CTA beside the tiles, the tile
+    narrows by 16 columns until it does; at 16 columns every shape fits.
+    Raises ValueError for a D no kernel is built for."""
     if D in KERNEL_D and W <= KERNEL_MAX_W:
         smem = kernel_smem_bytes(D, W, nf, state, L)
         if smem <= _SMEM_LIMIT:
@@ -147,20 +201,36 @@ def launch_plan(D, W, nf, state, L):
     if D not in TILED_D:
         raise ValueError(
             f"the CUDA kernels are built for D in {TILED_D}, got {D}")
-    wt_max = next((wt for wt in range(KERNEL_MAX_W, 0, -16)
-                   if tiled_smem_bytes(D, wt, nf, state, L) <= _SMEM_LIMIT),
-                  None)
-    if wt_max is None:
-        raise ValueError(f"no column tile of D={D} fits one CTA")
-    C = -(-W // wt_max)
-    if C > MAX_CLUSTER:
+    if shifts is None:
+        shifts = (W - 1,) * nf
+    elif len(shifts) != nf:
+        raise ValueError(f"{len(shifts)} shifts for {nf} faces")
+    for wt_max in range(tiled_wt_max(D, state), 0, -16):
+        C = -(-W // wt_max)
+        Wt = -(-(-(-W // C)) // 16) * 16
+        nh = tiled_halo_blocks(shifts, Wt, C, tiled_row_stride(Wt, state))
+        smem = tiled_smem_bytes(D, Wt, nf, state, nh)
+        if smem <= _SMEM_LIMIT:
+            return LaunchPlan("tiled", Wt, C, smem)
+    raise ValueError(f"no column tile of D={D} fits one CTA ({state})")
+
+
+def tiled_scratch_numel(Gb, Km, BS, C):
+    """int32 entries of the tiled kernel's scratch: the ticket counter, then
+    one level flag per (group, slot, band, tile)."""
+    return 1 + Gb * Km * BS * C
+
+
+def _check_scratch(scratch, Gb, Km, BS, C, device):
+    """Raise unless ``scratch`` is the zeroed int32 tensor the tiled kernel
+    takes: contiguous, on ``device``, at least ``tiled_scratch_numel``
+    entries (the kernel also refuses a shorter one)."""
+    want = tiled_scratch_numel(Gb, Km, BS, C)
+    if (scratch.dtype != torch.int32 or scratch.device != device
+            or not scratch.is_contiguous() or scratch.numel() < want):
         raise ValueError(
-            f"W={W} needs {C} CTAs of {wt_max} columns at D={D} ({state}); "
-            f"a cluster holds at most {MAX_CLUSTER}, so W <= "
-            f"{MAX_CLUSTER * wt_max}: {_WIDE}")
-    per_cta = -(-W // C)
-    Wt = -(-per_cta // 16) * 16
-    return LaunchPlan("tiled", Wt, C, tiled_smem_bytes(D, Wt, nf, state, L))
+            f"scratch must be {want} contiguous int32 on {device}, got "
+            f"{scratch.numel()} {scratch.dtype} on {scratch.device}")
 
 
 class ClosureSource(NamedTuple):
@@ -419,7 +489,7 @@ def _kernel_args_ok(v, tensors, cast_bf16, shifts):
             raise ValueError(f"{name} must be contiguous")
     if not 1 <= len(shifts) <= KERNEL_MAX_FACES:
         raise ValueError(f"the CUDA kernel takes 1-3 faces, got {len(shifts)}")
-    return launch_plan(D, W, len(shifts), v.dtype, L)
+    return launch_plan(D, W, len(shifts), v.dtype, L, shifts=shifts)
 
 
 def windows_on_device(win, L, W, device):
@@ -455,6 +525,11 @@ def _launch(v, ttc, bsrc, cin, bcat, macro_w, wvec, shifts, dsrc, xsrc,
     lib = lib or _lib("lattice_ring_tiled" if plan.variant == "tiled"
                       else "lattice_ring")
     s = [int(x) for x in shifts] + [0] * (KERNEL_MAX_FACES - len(shifts))
+    if plan.variant == "tiled":
+        # the ticket counter and the tiles' level flags, zero at the launch
+        scratch = torch.zeros(tiled_scratch_numel(Gb, Km, BS, plan.C),
+                              dtype=torch.int32, device=v.device)
+        _check_scratch(scratch, Gb, Km, BS, plan.C, v.device)
     with torch.cuda.device(v.device):
         stream = torch.cuda.current_stream(v.device).cuda_stream
         ptrs = [win.data_ptr() if win is not None else None, ys.data_ptr(),
@@ -475,8 +550,9 @@ def _launch(v, ttc, bsrc, cin, bcat, macro_w, wvec, shifts, dsrc, xsrc,
         )
         if plan.variant == "tiled":
             mode = 2 if f64 else int(cast_bf16)
-            err = lib.pbte_lattice_ring_sweep_tiled(mode, *args, plan.Wt,
-                                                    plan.C, stream)
+            err = lib.pbte_lattice_ring_sweep_tiled(
+                mode, *args[:15], scratch.data_ptr(), scratch.numel(),
+                *args[15:], plan.Wt, plan.C, stream)
         elif f64:
             err = lib.pbte_lattice_ring_sweep_f64(*args, stream)
         else:
@@ -494,7 +570,7 @@ def _launch(v, ttc, bsrc, cin, bcat, macro_w, wvec, shifts, dsrc, xsrc,
 def _lib(name="lattice_ring", takes_win=True):
     """The kernel library built as ``name`` (see _build.load), its entry
     points typed: the one-CTA kernels (``csrc/lattice_ring.cu``, or an
-    earlier design of it) or the cluster kernels (``lattice_ring_tiled``).
+    earlier design of it) or the tiled kernels (``lattice_ring_tiled``).
     ``takes_win=False`` types the entry points of a source from before the
     window argument (bench_k1 times such a design against the full slab):
     no ``win`` pointer, and no L in the shared-memory size."""
@@ -504,13 +580,18 @@ def _lib(name="lattice_ring", takes_win=True):
     lib.pbte_cuda_error_string.argtypes = [i]
     lib.pbte_cuda_error_string.restype = ctypes.c_char_p
     if hasattr(lib, "pbte_lattice_ring_sweep_tiled"):
-        # mode, D, 10 input pointers, U, the win, ys and ms pointers, then
-        # L, Gb, Km, BS, W, nf, three shifts, Wt and C, then the stream
+        # mode, D, 10 input pointers, U, the win, ys, ms and scratch
+        # pointers, the scratch's length, then L, Gb, Km, BS, W, nf, three
+        # shifts, Wt and C, then the stream
         lib.pbte_lattice_ring_sweep_tiled.argtypes = (
-            [i, i] + [p] * 10 + [i] + [p] * 3 + [i] * 11 + [p])
+            [i, i] + [p] * 10 + [i] + [p] * 4 + [ctypes.c_longlong]
+            + [i] * 11 + [p])
         lib.pbte_lattice_ring_sweep_tiled.restype = i
-        lib.pbte_lattice_ring_tiled_smem_bytes.argtypes = [i] * 5
+        # mode, D, Wt, C, nf and three shifts
+        lib.pbte_lattice_ring_tiled_smem_bytes.argtypes = [i] * 8
         lib.pbte_lattice_ring_tiled_smem_bytes.restype = ctypes.c_longlong
+        lib.pbte_lattice_ring_tiled_wt_max.argtypes = [i, i]
+        lib.pbte_lattice_ring_tiled_wt_max.restype = i
         return lib
     # 10 input pointers (through xmap, xval), U, the win, ys and ms
     # pointers, then L, Gb, Km, BS, W, nf and three shifts, then the stream
@@ -535,7 +616,7 @@ def lattice_ring_sweep(v, ttc, bsrc, cin, bcat, macro_w, wvec, *, shifts,
 
     CPU tensors run the plain PyTorch version. CUDA tensors launch a CUDA
     kernel on the current stream, or raise if none takes them: the one-CTA
-    kernel where the level fits one CTA, else the cluster kernel
+    kernel where the level fits one CTA, else the tiled kernel
     (``launch_plan`` decides from the shape alone; float64 state: the
     float64 instantiations). Each launch adds one to
     ``lattice_ring_sweep.launches``, to its state type's count in

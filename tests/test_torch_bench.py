@@ -59,16 +59,19 @@ def test_no_device_number_from_a_cpu_run(cpu_result):
 
 
 def test_rows(cpu_result):
-    """The ten rows; each extra row ran under its own settings, the
+    """The eleven rows; each extra row ran under its own settings, the
     float64 ones in float64 (the accelerated row to its tolerance); the
     tet rows are held by test_tet_scan_row and test_tet_super_row, the
-    wide and graded lattices by test_wide_and_graded_rows."""
+    wide and graded lattices by test_wide_and_graded_rows, the p3_wide_f64
+    row by test_p3_wide_row."""
     rows = dict(cpu_result["rows"])
     assert list(rows) == ["f32", "bf16_state", "diffuse_walls", "p3_f32",
                           "f64_state", "wide_f32", "graded_f32",
-                          "f64_bicgstab", "tet_scan", "tet_super"]
+                          "p3_wide_f64", "f64_bicgstab", "tet_scan",
+                          "tet_super"]
     rows.pop("tet_scan")
     rows.pop("tet_super")
+    rows.pop("p3_wide_f64")
     acc = rows.pop("f64_bicgstab")
     for name, row in rows.items():
         assert "error" not in row, (name, row)
@@ -85,6 +88,21 @@ def test_rows(cpu_result):
     assert 3 <= acc["step_applications"] < 1500
     assert acc["wall_s"] > 0 and acc["ms_per_step_application"] > 0
     assert "max_memory_allocated" not in acc
+
+
+def test_p3_wide_row(cpu_result):
+    """The p3_wide_f64 row ran in its child process: hex 14^3 here (7/4 of
+    the run's 8 per axis, W = 196) with the run's order, angles and bands,
+    float64 state on the lattice ring, its set-up and the host's peak
+    memory recorded."""
+    row = cpu_result["rows"]["p3_wide_f64"]
+    assert "error" not in row, row
+    assert row["state"] == "torch.float64" and row["sweep_mode"] == "ring"
+    assert row["shape"] == {"ne": 2744, "D": 8, "K": 8, "BS": 2, "W": 196,
+                            "nx": 14, "order": 1}
+    assert row["dof_per_s"] > 0 and row["setup_s"] > 0
+    assert row["host_peak_rss_gb"] > 0
+    assert "k1_share_of_bound" not in row  # a device number: GPU only
 
 
 def test_wide_and_graded_rows(cpu_result):
@@ -194,18 +212,19 @@ def test_default_device_is_the_gpu_and_never_falls_back():
 
 def test_an_extra_row_records_its_error_and_the_primary_raises(monkeypatch,
                                                                capsys):
-    """A failing extra row becomes {"error": ...} (as a row would on the
-    GPU where no K1 kernel takes its shape, e.g. D = 64 past 16 CTAs of a
-    cluster: the message names the ROADMAP item); a failing primary row
-    ends the run."""
+    """A failing extra row becomes {"error": ...}; a failing primary row
+    ends the run. The shape the GPU once refused for such a row (D = 64
+    at W = 1537, past the 16 CTAs of the earlier cluster kernel) now gets a tiled plan
+    within one CTA's shared memory."""
     import torch
 
     import bench_torch
     from pbte_tpu_torch.ops import lattice_ring as tlr
 
     v = torch.zeros((2, 1, 1, 2, 64, 1537), device="meta")
-    with pytest.raises(ValueError, match="queue 2, K1 item 10"):
-        tlr._kernel_args_ok(v, dict(v=v), False, (0, 4, 1))
+    plan = tlr._kernel_args_ok(v, dict(v=v), False, (0, 4, 1))
+    assert plan.variant == "tiled" and plan.smem <= 232448
+    assert (plan.C - 1) * plan.Wt < 1537 <= plan.C * plan.Wt
 
     for k, val in TINY.items():
         monkeypatch.setenv(k, val)
@@ -213,14 +232,14 @@ def test_an_extra_row_records_its_error_and_the_primary_raises(monkeypatch,
 
     def failing(name, *a, **kw):
         if name in ("p3_f32", "bf16_state"):
-            raise ValueError(f"{name}: W=1537 needs 17 CTAs")
+            raise ValueError(f"{name}: an injected failure")
         return real(name, *a, **kw)
 
     monkeypatch.setattr(bench_torch, "run_row", failing)
     assert bench_torch.main(["--device", "cpu"]) == 0
     rows = json.loads(capsys.readouterr().out.strip().splitlines()[-1])["rows"]
-    assert rows["p3_f32"] == {"error": "ValueError: p3_f32: W=1537 needs "
-                                       "17 CTAs"}
+    assert rows["p3_f32"] == {"error": "ValueError: p3_f32: an injected "
+                                       "failure"}
     assert "error" in rows["bf16_state"] and "dof_per_s" in rows["f32"]
     assert "dof_per_s" in rows["diffuse_walls"]
 
@@ -230,3 +249,24 @@ def test_an_extra_row_records_its_error_and_the_primary_raises(monkeypatch,
     monkeypatch.setattr(bench_torch, "run_row", primary_fails)
     with pytest.raises(ValueError, match="primary"):
         bench_torch.main(["--device", "cpu"])
+
+
+def test_p3_wide_child_stopped_past_its_host_memory(monkeypatch):
+    """The p3_wide_f64 row's child is stopped once its host memory passes
+    the limit the parent allows, and the row then says so, with the last
+    stage the child logged."""
+    import torch
+
+    import bench_torch
+
+    for k, val in TINY.items():
+        monkeypatch.setenv(k, val)
+    monkeypatch.setenv("PYTHONPATH", str(REPO))
+    monkeypatch.setattr(bench_torch, "P3_WIDE_HOST_LIMIT_GB", 0.02)
+    row = bench_torch.p3_wide_row(torch.device("cpu"), 2,
+                                  bench_torch.p3_wide_size(8))
+    assert "past the 0.02 GB allowed" in row["error"], row
+    assert row["exit"] != 0 and row["host_peak_gb"] > 0.02
+    assert row["size"]["nx"] == 14
+    assert row["last_stage"] is None or "p3_wide_f64 stage" in \
+        row["last_stage"]

@@ -3,6 +3,9 @@ against pbte_tpu's Pallas kernel run by the Pallas interpreter on the CPU,
 on the same random inputs. The CUDA kernel itself runs only on a GPU and is
 held against the plain version there by chip_smoke.py."""
 
+import functools
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -169,7 +172,9 @@ def test_wrapper_rejects_bad_shapes():
 ])
 def test_kernel_argument_checks(case):
     """What the CUDA kernel does not take raises before any launch (the
-    checks are host code, so they run here on CPU tensors)."""
+    checks are host code, so they run here on CPU tensors); a level past
+    the 16 CTAs of the earlier cluster kernel (too_wide) now gets a plan
+    within one CTA's shared memory."""
     L, Gb, Km, BS, D, W = 2, 1, 1, 2, 8, 16
     v = torch.zeros((L, Gb, Km, BS, D, W))
     ttc = torch.zeros((L, Gb, D, W))
@@ -187,15 +192,17 @@ def test_kernel_argument_checks(case):
     elif case == "d_not_built":
         v = torch.zeros((L, Gb, Km, BS, 5, W))
     elif case == "too_wide":
-        # f32 at D = 64 holds 96 columns a CTA: 17 CTAs, one past a cluster
+        # f32 at D = 64, W = 1537: 17 of the cluster kernel's 96-column
+        # CTAs, one past its ceiling
         v = torch.zeros((L, Gb, Km, BS, 64, 1537), device="meta")
+        plan = tlr._kernel_args_ok(v, dict(v=v), cast, shifts)
+        assert plan.variant == "tiled" and plan.smem <= 232448
+        assert (plan.C - 1) * plan.Wt < 1537 <= plan.C * plan.Wt
+        return
     elif case == "four_faces":
         shifts = (0, 1, 2, 3)
-    with pytest.raises(ValueError) as e:
-        tlr._kernel_args_ok(v, dict(v=v) if case == "too_wide"
-                            else dict(v=v, ttc=ttc), cast, shifts)
-    if case == "too_wide":
-        assert "queue 2, K1 item 10" in str(e.value)
+    with pytest.raises(ValueError):
+        tlr._kernel_args_ok(v, dict(v=v, ttc=ttc), cast, shifts)
 
 
 def test_kernel_arguments_of_the_flagship_pass():
@@ -635,86 +642,206 @@ LATTICES = {
 }
 
 
+@functools.lru_cache(maxsize=None)
+def _slab(case):
+    """(L, W, shifts, BS, D, [(groups, Km) per bucket]) of ``_lattice``'s
+    solver: what the launch plans read (cached, one build per lattice)."""
+    s, D = _lattice(case)
+    return (s.L, s.W, tuple(int(x) for x in s.shifts), s.BS, D,
+            tuple((len(gs), km) for gs, km in s._ring_buckets))
+
+
 @pytest.mark.parametrize("case", list(LATTICES))
 def test_every_ring_lattice_gets_a_launch_plan(case):
     """Every Km bucket of a lattice the ring takes passes the kernels'
     argument checks in all three state types and gets a launch plan: the
     one-CTA kernel where it is built for D and the level fits one CTA
-    (the flagship's shapes), else the cluster kernel, with Wt a multiple
-    of 16, C = ceil(W / Wt) <= 16 CTAs and at most 232,448 B of shared
-    memory a CTA."""
-    s, D = _lattice(case)
-    for gs, km in s._ring_buckets:
+    (the flagship's shapes), else the tiled kernel, with Wt a multiple of
+    16 no wider than the kernel's widest tile, C = ceil(W / Wt) tiles and
+    at most 232,448 B of shared memory a CTA."""
+    L, W, shifts, BS, D, buckets = _slab(case)
+    for gb, km in buckets:
         for dt, cast in ((torch.float32, False), (torch.bfloat16, True),
                          (torch.float64, False)):
-            v = torch.zeros((s.L, len(gs), km, s.BS, D, s.W), dtype=dt,
-                            device="meta")
-            plan = tlr._kernel_args_ok(v, dict(v=v), cast, s.shifts)
-            assert plan == tlr.launch_plan(D, s.W, len(s.shifts), dt, s.L)
+            v = torch.zeros((L, gb, km, BS, D, W), dtype=dt, device="meta")
+            plan = tlr._kernel_args_ok(v, dict(v=v), cast, shifts)
+            assert plan == tlr.launch_plan(D, W, len(shifts), dt, L,
+                                           shifts=shifts)
             assert plan.smem <= tlr._SMEM_LIMIT
-            if D in tlr.KERNEL_D and s.W <= tlr.KERNEL_MAX_W:
+            if D in tlr.KERNEL_D and W <= tlr.KERNEL_MAX_W:
                 assert plan == (
-                    "persistent", s.W, 1,
-                    tlr.kernel_smem_bytes(D, s.W, len(s.shifts), dt, s.L))
+                    "persistent", W, 1,
+                    tlr.kernel_smem_bytes(D, W, len(shifts), dt, L))
             else:
                 assert plan.variant == "tiled" and plan.Wt % 16 == 0
-                assert 1 <= plan.C <= tlr.MAX_CLUSTER
-                assert (plan.C - 1) * plan.Wt < s.W <= plan.C * plan.Wt
+                assert plan.Wt <= tlr.tiled_wt_max(D, dt)
+                assert (plan.C - 1) * plan.Wt < W <= plan.C * plan.Wt
+                nh = tlr.tiled_halo_blocks(shifts, plan.Wt, plan.C,
+                                           tlr.tiled_row_stride(plan.Wt, dt))
                 assert plan.smem == tlr.tiled_smem_bytes(
-                    D, plan.Wt, len(s.shifts), dt, s.L)
+                    D, plan.Wt, len(shifts), dt, nh)
 
 
-def _tiled_smem_of_c_struct(D, Wt, nf, L, state):
+def _tiled_smem_of_c_struct(D, Wt, nf, state, nh):
     """SmemTiled of csrc/lattice_ring_tiled.cu written out: the factor
-    (1 + nf) faces x KT_FACE k-steps x NT n-tiles x 32 lanes x the fragment
-    bytes, two solution tiles and one rhs tile (D rows of the padded
-    stride), the inflow tile (nf rows of Wt rounded to 16) and L int2
-    windows, each block rounded up to 16 bytes."""
+    (1 + nf) faces x KT_FACE k-steps x NT n-tiles x 32 lanes x 8 bytes, two
+    solution and two rhs tiles (D rows of the padded stride), two sets of
+    nh halo tiles where they fit 232,448 B (else one), two inflow tiles (nf
+    rows of Wt rounded to 16) and a 16-byte ticket, each block rounded up
+    to 16 bytes."""
     def a16(n):
         return (n + 15) // 16 * 16
 
-    esize, kstep, frag = {torch.float32: (4, 8, 16),
-                          torch.bfloat16: (4, 16, 8),
-                          torch.float64: (8, 4, 8)}[state]
+    esize, kstep = {torch.float32: (4, 8), torch.bfloat16: (4, 16),
+                    torch.float64: (8, 4)}[state]
     wp = ((Wt + 15) // 16 * 16 + 4 if state == torch.float64
           else (Wt + 31) // 32 * 32 + 8)
     kt_face, nt = -(-D // kstep), -(-D // 8)
-    sol = a16((1 + nf) * kt_face * nt * 32 * frag)
-    rhs = sol + 2 * a16(esize * D * wp)
-    cinc = rhs + a16(esize * D * wp)
-    wins = cinc + a16(esize * nf * ((Wt + 15) // 16 * 16))
-    return wins + a16(8 * L)
+    tile = a16(esize * D * wp)
+    halo = a16((1 + nf) * kt_face * nt * 32 * 8) + 4 * tile
+    rest = 2 * a16(esize * nf * ((Wt + 15) // 16 * 16)) + 16
+    hb = 2 if nh and halo + 2 * nh * tile + rest <= 232448 else 1
+    return halo + hb * nh * tile + rest
 
 
 @pytest.mark.parametrize("state", [torch.float32, torch.bfloat16,
                                    torch.float64])
 @pytest.mark.parametrize("D", [4, 8, 9, 16, 27, 64])
 def test_tiled_kernel_shared_memory(state, D):
-    """The wrapper's carve-up of the cluster kernel equals the C struct's at
-    every width it may pick, and the widest tile the plan picks fits one
-    CTA: f32 at D = 64 holds 96 columns (the factor alone is 131,072 B)."""
+    """The wrapper's carve-up of the tiled kernel equals the C struct's at
+    every width it may pick and halo size, and the widest tile the plan
+    picks fits one CTA: f32 at D = 64 holds 64 columns (its widest tile)
+    with the halo of the lattice's shifts in two buffers."""
     for Wt in (16, 48, 96, 128, 256):
         for nf in (2, 3):
-            assert (tlr.tiled_smem_bytes(D, Wt, nf, state, 46)
-                    == _tiled_smem_of_c_struct(D, Wt, nf, 46, state))
+            for nh in (0, 1, 2):
+                assert (tlr.tiled_smem_bytes(D, Wt, nf, state, nh)
+                        == _tiled_smem_of_c_struct(D, Wt, nf, state, nh))
     plan = tlr.launch_plan(D, 700, 3, state, 46)
     assert plan.variant == "tiled" and plan.smem <= tlr._SMEM_LIMIT
     if (D, state) == (64, torch.float32):
-        assert tlr.launch_plan(D, 256, 3, state, 46)[:3] == ("tiled", 96, 3)
-        assert tlr.tiled_smem_bytes(D, 112, 3, state, 46) > tlr._SMEM_LIMIT
+        assert tlr.launch_plan(D, 256, 3, state, 46, shifts=(0, 16, 1))[
+            :3] == ("tiled", 64, 4)
+        assert tlr.tiled_halo_buffers(D, 64, 3, state, 1) == 2
 
 
 def test_launch_plan_bounds():
     """The flagship keeps the one-CTA kernel in every state type; D = 64
-    takes the cluster kernel at any W; past 16 CTAs the plan raises with
-    the ROADMAP item and the bound on W; an unbuilt D raises."""
+    takes the tiled kernel at any W; W = 769 at D = 64 in f64, past the 16
+    CTAs of 48 columns of the cluster kernel this replaces, gets a plan
+    within 232,448 B of shared memory; an unbuilt D raises."""
     for dt in (torch.float32, torch.bfloat16, torch.float64):
         assert tlr.launch_plan(27, 256, 3, dt, 46).variant == "persistent"
         assert tlr.launch_plan(64, 16, 3, dt, 10).variant == "tiled"
         assert tlr.launch_plan(27, 257, 3, dt, 46).variant == "tiled"
-    with pytest.raises(ValueError, match=r"W <= 768: ROADMAP.md queue 2, "
-                                         r"K1 item 10"):
-        tlr.launch_plan(64, 769, 3, torch.float64, 46)
-    assert tlr.launch_plan(64, 768, 3, torch.float64, 46).C == 16
+    for W in (768, 769):
+        plan = tlr.launch_plan(64, W, 3, torch.float64, 46)
+        assert plan.variant == "tiled" and plan.smem <= 232448
+        assert (plan.C - 1) * plan.Wt < W <= plan.C * plan.Wt
     with pytest.raises(ValueError, match="built for D"):
         tlr.launch_plan(125, 64, 3, torch.float32, 10)
+
+
+@pytest.mark.parametrize("state", [torch.float32, torch.bfloat16,
+                                   torch.float64])
+@pytest.mark.parametrize("D", list(tlr.TILED_D))
+def test_launch_plan_takes_every_width(state, D):
+    """launch_plan never raises for W up to 20,000 at any D the tiled kernel
+    is built for, in every state type, with no shifts given (the most halo
+    any shifts need), a quad lattice's (0, 1) or a square hex slab's (0,
+    1, sqrt W): the tiles cover W exactly, Wt a multiple of 16 no wider
+    than the kernel takes, within one CTA's shared memory."""
+    for W in range(1, 20001):
+        n = max(math.isqrt(W), 1) % W
+        for nf, shifts in ((3, None), (2, (0, min(1, W - 1))),
+                           (3, (0, min(1, W - 1), n))):
+            plan = tlr.launch_plan(D, W, nf, state, 10, shifts=shifts)
+            assert plan.smem <= tlr._SMEM_LIMIT
+            if plan.variant == "tiled":
+                assert plan.Wt % 16 == 0
+                assert plan.Wt <= tlr.tiled_wt_max(D, state)
+                assert (plan.C - 1) * plan.Wt < W <= plan.C * plan.Wt
+
+
+def _check_tile_dependences(D, W, shifts, state):
+    """Plain-Python mirror of the tiled kernel's ring reads: tile t (slab
+    columns c0 = t Wt ... c0 + Wl) at level l reads level l - 1 at column
+    q = c0 + c - s_f for each face f, where q >= 0 (left of the slab the
+    inflow coefficient is zero). The kernel takes c >= s_f from its own
+    solution tile and c < s_f from halo column c of face f (min(s_f, Wt)
+    of them), and waits on tiles max(c0 - s_max, 0) // Wt ... t - 1. No
+    read lands above the tile's own columns or below tile t -
+    ceil(s_max / Wt); every halo read is of a tile it waited on; the halo
+    fits its blocks. Returns the plan."""
+    plan = tlr.launch_plan(D, W, len(shifts), state, 10, shifts=shifts)
+    assert plan.smem <= tlr._SMEM_LIMIT
+    if plan.variant != "tiled":
+        return plan
+    Wt, C = plan.Wt, plan.C
+    s_max = max(shifts)
+    reach = -(-s_max // Wt)
+    wp = tlr.tiled_row_stride(Wt, state)
+    nh = tlr.tiled_halo_blocks(shifts, Wt, C, wp)
+    assert (nh > 0) == (C > 1 and s_max > 0)
+    for t in range(C):
+        c0 = t * Wt
+        Wl = min(Wt, W - c0)
+        t_lo = max(c0 - s_max, 0) // Wt
+        assert t - t_lo <= reach
+        c = np.arange(Wl)
+        for sf in shifts:
+            q = c0 + c - sf
+            on = q >= 0
+            tq = q[on] // Wt
+            assert ((t - reach <= tq) & (tq <= t)).all()
+            own = c[on] >= sf
+            assert (tq[own] == t).all() and (c[on][own] - sf < Wl).all()
+            halo = ~own
+            assert (c[on][halo] < min(sf, Wt)).all()
+            assert ((t_lo <= tq[halo]) & (tq[halo] < t)).all()
+    return plan
+
+
+@pytest.mark.parametrize("case", list(LATTICES))
+def test_tile_dependences_of_every_ring_lattice(case):
+    """The tile dependences (``_check_tile_dependences``) of every lattice
+    of test_every_ring_lattice_gets_a_launch_plan, in all three types."""
+    L, W, shifts, BS, D, buckets = _slab(case)
+    for dt in (torch.float32, torch.bfloat16, torch.float64):
+        _check_tile_dependences(D, W, shifts, dt)
+
+
+# ROADMAP.md section 3's fault record: lattices pbte_tpu solves on its
+# ring that the earlier cluster kernel refused (hex n^3: W = n^2, shifts
+# (0, 1, n))
+PAST_THE_CEILING = {
+    "hex_28_p3_f64": (64, 784, (0, 1, 28), torch.float64),
+    "hex_40_p3_f32": (64, 1600, (0, 1, 40), torch.float32),
+    "hex_65_p1_f32": (8, 4225, (0, 1, 65), torch.float32),
+    "hex_60_p3_bf16": (64, 3600, (0, 1, 60), torch.bfloat16),
+}
+
+
+@pytest.mark.parametrize("case", list(PAST_THE_CEILING))
+def test_fault_table_shapes_get_tiled_plans(case):
+    """The four shapes of the fault record get a tiled plan of more than 16
+    tiles within one CTA's shared memory, and their tile dependences hold
+    (``_check_tile_dependences``)."""
+    D, W, shifts, state = PAST_THE_CEILING[case]
+    plan = _check_tile_dependences(D, W, shifts, state)
+    assert plan.variant == "tiled" and plan.C > 16
+
+
+def test_tiled_scratch_size_check():
+    """The tiled kernel's scratch holds a ticket counter and one level flag
+    per (group, slot, band, tile); the wrapper's check refuses one that is
+    short, of another type, on another device or not contiguous."""
+    assert tlr.tiled_scratch_numel(2, 3, 4, 5) == 1 + 2 * 3 * 4 * 5
+    cpu = torch.device("cpu")
+    tlr._check_scratch(torch.zeros(121, dtype=torch.int32), 2, 3, 4, 5, cpu)
+    for bad in (torch.zeros(120, dtype=torch.int32),
+                torch.zeros(121, dtype=torch.int64),
+                torch.zeros(242, dtype=torch.int32)[::2],
+                torch.zeros(121, dtype=torch.int32, device="meta")):
+        with pytest.raises(ValueError, match="scratch"):
+            tlr._check_scratch(bad, 2, 3, 4, 5, cpu)
