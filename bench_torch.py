@@ -25,18 +25,21 @@ Rows (each rebuilds the solver under its environment):
 - ``wide_f32``: the flagship's order, angles and bands on a hex lattice 1.5
   times as wide per axis (24^3 by default, ne = 13,824, a slab of W = 576
   slots: K1's tiled kernel), with its ``k1_share_of_bound``.
-- ``p3_wide_f64``: hex 28^3 (7/4 of the run's lattice per axis) at order 3
-  (D = 64), 2 x 8 = 16 directions, 2 x 4 bands, float64 state: W = 784
-  slots, a level past the 16 CTAs of the earlier cluster kernel, which raised
-  there; with its ``k1_share_of_bound``. Its host set-up is long and
-  large, so it runs in a child process of its own (``--row
-  p3_wide_f64``): the row records ``setup_s`` and the host's peak resident
-  memory (``host_peak_rss_gb``). The parent stops the child where its
-  host memory passes ``P3_WIDE_HOST_LIMIT_GB`` (before the host's own
-  limit would end the whole run) or it runs past ``P3_WIDE_TIMEOUT_S``,
-  and the row then records the last stage the child reached and its host
-  memory. Its order, angles and bands take the PBTE_BENCH_* overrides
-  where they are set.
+- ``p3_wide_f64``, only with ``--p3-wide``: hex 28^3 (7/4 of the run's
+  lattice per axis) at order 3 (D = 64), 2 x 8 = 16 directions, 2 x 4
+  bands, float64 state: W = 784 slots, a level past the 16 CTAs of the
+  earlier cluster kernel, which raised there; with its
+  ``k1_share_of_bound``. Its host set-up is long and large (at 28^3 the
+  solver's constructor passes 72 GB of host memory, so on a card machine
+  of 96 GiB the row records where it stopped, not a step), so it runs in a
+  child process of its own (``--row p3_wide_f64``): the row records
+  ``setup_s`` and the host's peak resident memory (``host_peak_rss_gb``).
+  The parent stops the child where its host memory passes
+  ``P3_WIDE_HOST_LIMIT_GB`` (before the host's own limit would end the
+  whole run) or it runs past ``P3_WIDE_TIMEOUT_S``, and the row then
+  records the last stage the child reached and its host memory. Its
+  order, angles and bands take the PBTE_BENCH_* overrides where they are
+  set.
 - ``graded_f32``: the flagship on ``problem.graded_cube`` (x spacing
   alternating 1 : 2, two geometry classes): the multi-class torch ring.
 - ``f64_state``: ``dtype=torch.float64`` (the float64 kernel on the GPU),
@@ -79,7 +82,7 @@ pbte_tpu's C++ mirror solver, which this package has no copy of yet.
 Usage (from the root of a checkout; the GPU unless asked otherwise, and no
 fall-back: without a GPU the default raises)::
 
-    python3 bench_torch.py [--device cuda|cpu]
+    python3 bench_torch.py [--device cuda|cpu] [--p3-wide]
 
 Environment overrides: PBTE_BENCH_NX, PBTE_BENCH_ORDER, PBTE_BENCH_POLAR,
 PBTE_BENCH_AZIMUTH, PBTE_BENCH_NSPEC, PBTE_BENCH_STEPS, PBTE_BENCH_ROWS.
@@ -402,6 +405,9 @@ def main(argv=None) -> int:
     ap.add_argument("--row", choices=["p3_wide_f64"], default=None,
                     help="run this one row in this process and print it "
                          "(the main run starts it as a child process)")
+    ap.add_argument("--p3-wide", action="store_true",
+                    help="also run the p3_wide_f64 row (minutes of host "
+                         "set-up and tens of GB of host memory)")
     a = ap.parse_args(argv)
     device = checked_device(a.device)
 
@@ -477,9 +483,11 @@ def main(argv=None) -> int:
                 release(device)
         # past the earlier 16-CTA ceiling, in a child process (see the module
         # docstring)
-        rows["p3_wide_f64"] = p3_wide_row(device, steps, p3_wide_size(nx))
-        if "error" in rows["p3_wide_f64"]:
-            log(f"row p3_wide_f64 FAILED: {rows['p3_wide_f64']}")
+        if a.p3_wide:
+            rows["p3_wide_f64"] = p3_wide_row(device, steps,
+                                              p3_wide_size(nx))
+            if "error" in rows["p3_wide_f64"]:
+                log(f"row p3_wide_f64 FAILED: {rows['p3_wide_f64']}")
         try:
             rows["f64_bicgstab"] = run_bicgstab_row(device, size)
         except Exception as e:

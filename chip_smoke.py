@@ -441,6 +441,13 @@ def phase_kernel_vs_plain(solver, lr):
 K1_NEW_CASES = [(0, state, False, False, windowed)
                 for state in ("f32", "bf16", "f64")
                 for windowed in (False, True)]
+# the tiled kernel's Dirichlet source (dsrc) and closure source (xmap,
+# xval) branches, windowed, in each state type, as K1_CASES holds them at
+# the flagship's one-CTA shapes: at hex 16^3 p=3 and at the first shape
+# past the ceiling
+K1_SOURCE_CASES = [(0, state, dirichlet, not dirichlet, True)
+                   for state in ("f32", "bf16", "f64")
+                   for dirichlet in (True, False)]
 
 
 # shapes past the earlier cluster kernel's ceiling of 16 CTAs (D, W, state,
@@ -454,7 +461,8 @@ SYNTH_DIMS = dict(L=6, Gb=2, Km=2, BS=4)
 def phase_k1_beyond_ceiling(lr):
     """Kernel vs plain at BEYOND_CEILING's shapes (``bench_k1.
     synthetic_spec``'s operands and windows), each in its state type, full
-    slab and windowed; returns {shape name: rows}."""
+    slab and windowed, the first also with K1_SOURCE_CASES; returns {shape
+    name: rows}."""
     from pbte_tpu_torch.bench_k1 import synthetic_spec
 
     out = {}
@@ -463,6 +471,8 @@ def phase_k1_beyond_ceiling(lr):
         spec = synthetic_spec(D, W, shifts, seed=20 + i, **SYNTH_DIMS)
         cases = [(0, state, False, False, windowed)
                  for windowed in (False, True)]
+        if i == 0:
+            cases += K1_SOURCE_CASES
         out[name] = run_k1_cases(lr, spec, cases,
                                  np.random.default_rng(30 + i),
                                  shape_tag=f"{name} ")
@@ -476,10 +486,12 @@ def phase_k1_new_shapes(lr, specs):
     16^3 p=3 and the p=3 golden's lattice (D = 64: the tiled kernel), the
     wide hex 24^3 p=2 (W = 576: the tiled kernel) and the quad 64^2 p=2
     (D = 9, two faces: the one-CTA kernel), each in f32, bf16 and f64, full
-    slab and windowed; returns {shape name: rows}."""
+    slab and windowed, and with K1_SOURCE_CASES where ``sources`` says so;
+    returns {shape name: rows}."""
     out = {}
-    for i, (name, spec, bucket) in enumerate(specs):
-        cases = [(bucket,) + c[1:] for c in K1_NEW_CASES]
+    for i, (name, spec, bucket, sources) in enumerate(specs):
+        cases = [(bucket,) + c[1:] for c in
+                 K1_NEW_CASES + (K1_SOURCE_CASES if sources else [])]
         out[name] = run_k1_cases(lr, spec, cases,
                                  np.random.default_rng(10 + i),
                                  shape_tag=f"{name} ", carried_ms=False)
@@ -1504,16 +1516,16 @@ def main() -> int:
         # the wide lattice's last bucket (Km = 6): three f64 state-sized
         # buffers of bucket 0 would take 42 GB
         specs.append((name, spec, len(spec["buckets"]) - 1
-                      if name.startswith("wide") else 0))
+                      if name.startswith("wide") else 0, False))
         del s
     golden = pathlib.Path(__file__).resolve().parent / "tests" / "data"
     with np.load(golden / "torch_port_golden_p3.npz") as d:
         golden_p3 = {k: d[k].item() for k in PARAM_KEYS + ("length",)}
-    specs[:0] = [("p3 16^3 p=3", p3_spec(P3_LATTICE), 0),
-                 ("p3 golden 17x17x4", p3_spec(golden_p3), 0)]
+    specs[:0] = [("p3 16^3 p=3", p3_spec(P3_LATTICE), 0, True),
+                 ("p3 golden 17x17x4", p3_spec(golden_p3), 0, False)]
     log(f"[smoke] new K1 shapes set up in {time.perf_counter() - t0:.1f} s: "
         + ", ".join(f"{n} L={sp['L']} D={sp['D']} W={sp['W']} shifts="
-                    f"{sp['shifts']}" for n, sp, _ in specs))
+                    f"{sp['shifts']}" for n, sp, *_ in specs))
     new_rows = phase_k1_new_shapes(lr, specs)
     del specs
     torch.cuda.empty_cache()

@@ -20,7 +20,8 @@ seeded random state zeroed outside the solver's hull windows (f32 state;
 bf16 state; bucket 1 with a Dirichlet source; f64 state with a Dirichlet
 source in both buckets, the operators of a float64 solver), every design
 that has an entry point for the case's state is launched
-with the windows, held to the current one (max |diff| over max) and timed
+with the windows, held to the current one and to the plain version
+(``rel_err_ys_ms``, ``rel_err_vs_plain``: max |diff| over max) and timed
 in turns with it and with ``full_slab``, the current build launched
 without windows on the same inputs: ``--rounds`` rounds, each a CUDA-event
 window of ``--reps`` launches per design, one untimed launch ahead of each
@@ -351,6 +352,18 @@ def run(designs, reps, rounds, states=None, shape="flagship"):
                            for a, b in zip(got, ref)]
                 del got
             del ref
+        # and against the plain version on the same inputs (the windows'
+        # contract: the full-slab result is the windowed one)
+        plain = lr.lattice_ring_sweep_ref(*args, **kw, win=spec["win"])
+        plain_errs = {}
+        for n, fn in runs.items():
+            got = fn()
+            torch.cuda.synchronize()
+            plain_errs[n] = [((a.to(dt) - b.to(dt)).abs().max()
+                              / b.to(dt).abs().max()).item()
+                             for a, b in zip(got, plain)]
+            del got
+        del plain
         ms = time_designs(runs, reps, rounds)
         nf = len(kw["shifts"])
         bound, by = lr.sweep_bound_ms(args[0], nf, kw["dsrc"],
@@ -365,7 +378,8 @@ def run(designs, reps, rounds, states=None, shape="flagship"):
             row["designs"][n] = dict(
                 ms=med, windows=n not in full,
                 share_of_bound=(full_bound if n in full else bound) / med,
-                rel_err_ys_ms=errs.get(n))
+                rel_err_ys_ms=errs.get(n),
+                rel_err_vs_plain=plain_errs[n])
             for key, base in (("vs_current", cur), ("vs_full_slab", fs)):
                 ratio = [a / b for a, b in zip(ms[n], base)]
                 row["designs"][n][key] = dict(

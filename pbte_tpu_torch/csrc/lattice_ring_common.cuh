@@ -57,8 +57,9 @@ __device__ __forceinline__ uint32_t to_tf32(float x) {
 // x = hi + lo with hi, lo TF32, both truncated by masking the low 13 bits:
 // |lo| < 2^-10 |x| and the truncation of lo costs < 2^-20 |x|. (cvt.rna
 // costs ~7 issue cycles on the H100: rounding both parts made the f32
-// kernel 25% slower, measured.) The factor block, split once per CTA,
-// rounds both parts (split_tf32_rna).
+// kernel 25% slower, measured.) lattice_ring.cu splits its factor block
+// once per CTA and rounds both parts (split_tf32_rna); lattice_ring_tiled.cu
+// keeps the factor unsplit and truncates it at each use, as the A operand.
 __device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
                                            uint32_t& lo) {
   hi = __float_as_uint(x) & 0xffffe000u;

@@ -40,8 +40,8 @@
 //     warp has work at every shape). Face 0, B rhs, does not read the ring
 //     and runs before the wait for the halo; the nf ring faces after it.
 //     f32 keeps the factor's b0, b1 unsplit in shared memory and splits them
-//     into TF32 hi and lo at each use (the split factor is 131 KB at D = 64,
-//     which the halo's second buffer needs).
+//     into TF32 hi and lo by truncation at each use (the split factor is
+//     131 KB at D = 64, which the halo's second buffer needs).
 //   - 3 "in" warps (4 in f64) load level l + 2's operands (v, ttc, bsrc,
 //     dsrc, cin, the closure rows) into the rhs and inflow tiles of its
 //     parity while the consumers multiply level l + 1: 16-byte loads of 4
@@ -92,14 +92,12 @@
 #include "lattice_ring_common.cuh"
 
 // float4 atomicAdd on global memory (sm_90, CUDA 12.1 and later) adds the
-// ms band sum 16 bytes at a time; PBTE_K1_VEC_ATOMICS=0 turns it off
-#ifndef PBTE_K1_VEC_ATOMICS
+// ms band sum 16 bytes at a time
 #if defined(__CUDACC_VER_MAJOR__) && \
     (__CUDACC_VER_MAJOR__ * 100 + __CUDACC_VER_MINOR__ >= 1201)
-#define PBTE_K1_VEC_ATOMICS 1
+#define PBTE_K1_F4_ATOMICS 1
 #else
-#define PBTE_K1_VEC_ATOMICS 0
-#endif
+#define PBTE_K1_F4_ATOMICS 0
 #endif
 
 // Measurement variants (bench_k1.py builds them with -D; the default build
@@ -112,28 +110,15 @@ namespace {
 
 // The producer side's 8 warps: the in warps load the operands (3 in f32
 // and bf16 state, 4 in f64, whose operands are twice the bytes), 2 halo
-// warps load the halo, the rest store the solution. PBTE_K1_IN_WARPS=n and
-// PBTE_K1_HALO_WARPS=n override them (measurement knobs).
-#ifndef PBTE_K1_IN_WARPS
-#define PBTE_K1_IN_WARPS 0
-#endif
-#ifndef PBTE_K1_HALO_WARPS
-#define PBTE_K1_HALO_WARPS 2
-#endif
-// rows of a column group a load thread keeps in flight (vector loads)
-#ifndef PBTE_K1_PREP_UNROLL
-#define PBTE_K1_PREP_UNROLL 2
-#endif
+// warps load the halo, the rest store the solution
 constexpr int kConsumerWarps = 8;
 constexpr int kNC = 32 * kConsumerWarps;
 constexpr int kThreads = 512;
 template <int MODE>
 struct Roles {
-  static constexpr int IN =
-      PBTE_K1_IN_WARPS > 0 ? PBTE_K1_IN_WARPS : (MODE == 2 ? 4 : 3);
-  static constexpr int HALO = PBTE_K1_HALO_WARPS;
+  static constexpr int IN = MODE == 2 ? 4 : 3;
+  static constexpr int HALO = 2;
   static constexpr int OUT = 8 - IN - HALO;
-  static_assert(IN >= 1 && HALO >= 1 && OUT >= 1, "every role has a warp");
   static constexpr int NIN = 32 * IN, NHALO = 32 * HALO, NOUT = 32 * OUT;
 };
 
@@ -630,7 +615,7 @@ lattice_ring_tiled_kernel(
       }
 #ifndef PBTE_K1_NO_MS
       Op* ms_l = ms + (static_cast<size_t>(gk) * L + l) * DW + c0;
-#if PBTE_K1_VEC_ATOMICS
+#if PBTE_K1_F4_ATOMICS
       if (MODE != 2 && vec && e > a) {
         // 16-byte atomics over the window's groups of 4 columns, zeros
         // added for the group's columns outside it
@@ -684,7 +669,7 @@ lattice_ring_tiled_kernel(
     auto prep_cols = [&](auto width, int l, int a, int e, int ta, int hi) {
       constexpr int V = decltype(width)::value;
       // rows in flight a thread: 3 loads of V values each
-      constexpr int UNROLL = V == 1 ? 4 : PBTE_K1_PREP_UNROLL;
+      constexpr int UNROLL = V == 1 ? 4 : 2;
       Op* rhs = S + rhs_o + (l & 1) * tile_n;
       Op* cinc = S + cinc_o + (l & 1) * cin_n;
       const size_t lg = static_cast<size_t>(l) * Gb + g;
@@ -934,9 +919,13 @@ lattice_ring_tiled_kernel(
           }
 #pragma unroll
           for (int n = 0; n < NCH; ++n) {
-            // the factor's b0, b1 split into TF32 hi and lo here: the
-            // split factor would take twice the shared memory (131 KB at
-            // D = 64), which the halo's second buffer needs
+            // the factor's b0, b1 split into TF32 hi and lo here, by
+            // truncation as the A operand is: the split factor would take
+            // twice the shared memory (131 KB at D = 64), which the halo's
+            // second buffer needs, and rounding both parts to nearest here
+            // made the p = 3 f32 launch 1.35x slower on an H100 for no
+            // measurable gain in its error against the plain version
+            // (PERF.md)
             const float2 bq = reinterpret_cast<const float2*>(
                 smem + lay.bfrag)[(kt_all * NT + n0 + n) * 32 + lane];
             uint32_t bh0, bl0, bh1, bl1;

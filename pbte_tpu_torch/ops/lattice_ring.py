@@ -185,15 +185,15 @@ class LaunchPlan(NamedTuple):
     smem: int
 
 
-def launch_plan(D, W, nf, state, L, shifts=None):
+def launch_plan(D, W, nf, state, L, shifts):
     """The launch plan of a sweep from its shape alone: the one-CTA kernel
     where it is built for D and the level fits one CTA, else the tiled
     kernel with the widest tile ``tiled_wt_max`` allows, C = ceil(W / Wt)
     tiles and Wt then evened out over them (a multiple of 16). Where the
-    halo of the lattice ``shifts`` (None: the most any shifts can need,
-    W - 1 on every face) does not fit one CTA beside the tiles, the tile
-    narrows by 16 columns until it does; at 16 columns every shape fits.
-    Raises ValueError for a D no kernel is built for."""
+    halo of the lattice ``shifts`` (one per face) does not fit one CTA
+    beside the tiles, the tile narrows by 16 columns until it does; at 16
+    columns every shape fits. Raises ValueError for a D no kernel is built
+    for."""
     if D in KERNEL_D and W <= KERNEL_MAX_W:
         smem = kernel_smem_bytes(D, W, nf, state, L)
         if smem <= _SMEM_LIMIT:
@@ -201,9 +201,7 @@ def launch_plan(D, W, nf, state, L, shifts=None):
     if D not in TILED_D:
         raise ValueError(
             f"the CUDA kernels are built for D in {TILED_D}, got {D}")
-    if shifts is None:
-        shifts = (W - 1,) * nf
-    elif len(shifts) != nf:
+    if len(shifts) != nf:
         raise ValueError(f"{len(shifts)} shifts for {nf} faces")
     for wt_max in range(tiled_wt_max(D, state), 0, -16):
         C = -(-W // wt_max)
@@ -219,18 +217,6 @@ def tiled_scratch_numel(Gb, Km, BS, C):
     """int32 entries of the tiled kernel's scratch: the ticket counter, then
     one level flag per (group, slot, band, tile)."""
     return 1 + Gb * Km * BS * C
-
-
-def _check_scratch(scratch, Gb, Km, BS, C, device):
-    """Raise unless ``scratch`` is the zeroed int32 tensor the tiled kernel
-    takes: contiguous, on ``device``, at least ``tiled_scratch_numel``
-    entries (the kernel also refuses a shorter one)."""
-    want = tiled_scratch_numel(Gb, Km, BS, C)
-    if (scratch.dtype != torch.int32 or scratch.device != device
-            or not scratch.is_contiguous() or scratch.numel() < want):
-        raise ValueError(
-            f"scratch must be {want} contiguous int32 on {device}, got "
-            f"{scratch.numel()} {scratch.dtype} on {scratch.device}")
 
 
 class ClosureSource(NamedTuple):
@@ -489,7 +475,7 @@ def _kernel_args_ok(v, tensors, cast_bf16, shifts):
             raise ValueError(f"{name} must be contiguous")
     if not 1 <= len(shifts) <= KERNEL_MAX_FACES:
         raise ValueError(f"the CUDA kernel takes 1-3 faces, got {len(shifts)}")
-    return launch_plan(D, W, len(shifts), v.dtype, L, shifts=shifts)
+    return launch_plan(D, W, len(shifts), v.dtype, L, shifts)
 
 
 def windows_on_device(win, L, W, device):
@@ -529,7 +515,6 @@ def _launch(v, ttc, bsrc, cin, bcat, macro_w, wvec, shifts, dsrc, xsrc,
         # the ticket counter and the tiles' level flags, zero at the launch
         scratch = torch.zeros(tiled_scratch_numel(Gb, Km, BS, plan.C),
                               dtype=torch.int32, device=v.device)
-        _check_scratch(scratch, Gb, Km, BS, plan.C, v.device)
     with torch.cuda.device(v.device):
         stream = torch.cuda.current_stream(v.device).cuda_stream
         ptrs = [win.data_ptr() if win is not None else None, ys.data_ptr(),

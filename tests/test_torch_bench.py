@@ -30,7 +30,7 @@ def _run(args, env_extra, timeout=600):
 
 @pytest.fixture(scope="module")
 def cpu_result():
-    proc = _run(["--device", "cpu"], {})
+    proc = _run(["--device", "cpu", "--p3-wide"], {})
     assert proc.returncode == 0, proc.stderr[-3000:]
     return json.loads(proc.stdout.strip().splitlines()[-1])
 
@@ -59,11 +59,11 @@ def test_no_device_number_from_a_cpu_run(cpu_result):
 
 
 def test_rows(cpu_result):
-    """The eleven rows; each extra row ran under its own settings, the
-    float64 ones in float64 (the accelerated row to its tolerance); the
-    tet rows are held by test_tet_scan_row and test_tet_super_row, the
-    wide and graded lattices by test_wide_and_graded_rows, the p3_wide_f64
-    row by test_p3_wide_row."""
+    """The eleven rows with --p3-wide; each extra row ran under its own
+    settings, the float64 ones in float64 (the accelerated row to its
+    tolerance); the tet rows are held by test_tet_scan_row and
+    test_tet_super_row, the wide and graded lattices by
+    test_wide_and_graded_rows, the p3_wide_f64 row by test_p3_wide_row."""
     rows = dict(cpu_result["rows"])
     assert list(rows) == ["f32", "bf16_state", "diffuse_walls", "p3_f32",
                           "f64_state", "wide_f32", "graded_f32",
@@ -240,6 +240,8 @@ def test_an_extra_row_records_its_error_and_the_primary_raises(monkeypatch,
     rows = json.loads(capsys.readouterr().out.strip().splitlines()[-1])["rows"]
     assert rows["p3_f32"] == {"error": "ValueError: p3_f32: an injected "
                                        "failure"}
+    # the p3_wide_f64 row runs only when asked for (--p3-wide)
+    assert "p3_wide_f64" not in rows and "f64_bicgstab" in rows
     assert "error" in rows["bf16_state"] and "dof_per_s" in rows["f32"]
     assert "dof_per_s" in rows["diffuse_walls"]
 

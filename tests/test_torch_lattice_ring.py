@@ -5,6 +5,7 @@ held against the plain version there by chip_smoke.py."""
 
 import functools
 import math
+import pathlib
 
 import numpy as np
 import pytest
@@ -665,8 +666,7 @@ def test_every_ring_lattice_gets_a_launch_plan(case):
                          (torch.float64, False)):
             v = torch.zeros((L, gb, km, BS, D, W), dtype=dt, device="meta")
             plan = tlr._kernel_args_ok(v, dict(v=v), cast, shifts)
-            assert plan == tlr.launch_plan(D, W, len(shifts), dt, L,
-                                           shifts=shifts)
+            assert plan == tlr.launch_plan(D, W, len(shifts), dt, L, shifts)
             assert plan.smem <= tlr._SMEM_LIMIT
             if D in tlr.KERNEL_D and W <= tlr.KERNEL_MAX_W:
                 assert plan == (
@@ -717,10 +717,10 @@ def test_tiled_kernel_shared_memory(state, D):
             for nh in (0, 1, 2):
                 assert (tlr.tiled_smem_bytes(D, Wt, nf, state, nh)
                         == _tiled_smem_of_c_struct(D, Wt, nf, state, nh))
-    plan = tlr.launch_plan(D, 700, 3, state, 46)
+    plan = tlr.launch_plan(D, 700, 3, state, 46, (699, 699, 699))
     assert plan.variant == "tiled" and plan.smem <= tlr._SMEM_LIMIT
     if (D, state) == (64, torch.float32):
-        assert tlr.launch_plan(D, 256, 3, state, 46, shifts=(0, 16, 1))[
+        assert tlr.launch_plan(D, 256, 3, state, 46, (0, 16, 1))[
             :3] == ("tiled", 64, 4)
         assert tlr.tiled_halo_buffers(D, 64, 3, state, 1) == 2
 
@@ -731,15 +731,18 @@ def test_launch_plan_bounds():
     CTAs of 48 columns of the cluster kernel this replaces, gets a plan
     within 232,448 B of shared memory; an unbuilt D raises."""
     for dt in (torch.float32, torch.bfloat16, torch.float64):
-        assert tlr.launch_plan(27, 256, 3, dt, 46).variant == "persistent"
-        assert tlr.launch_plan(64, 16, 3, dt, 10).variant == "tiled"
-        assert tlr.launch_plan(27, 257, 3, dt, 46).variant == "tiled"
+        assert tlr.launch_plan(27, 256, 3, dt, 46,
+                               (0, 16, 1)).variant == "persistent"
+        assert tlr.launch_plan(64, 16, 3, dt, 10, (0, 4, 1)).variant == \
+            "tiled"
+        assert tlr.launch_plan(27, 257, 3, dt, 46,
+                               (0, 16, 1)).variant == "tiled"
     for W in (768, 769):
-        plan = tlr.launch_plan(64, W, 3, torch.float64, 46)
+        plan = tlr.launch_plan(64, W, 3, torch.float64, 46, (W - 1,) * 3)
         assert plan.variant == "tiled" and plan.smem <= 232448
         assert (plan.C - 1) * plan.Wt < W <= plan.C * plan.Wt
     with pytest.raises(ValueError, match="built for D"):
-        tlr.launch_plan(125, 64, 3, torch.float32, 10)
+        tlr.launch_plan(125, 64, 3, torch.float32, 10, (0, 8, 1))
 
 
 @pytest.mark.parametrize("state", [torch.float32, torch.bfloat16,
@@ -747,15 +750,15 @@ def test_launch_plan_bounds():
 @pytest.mark.parametrize("D", list(tlr.TILED_D))
 def test_launch_plan_takes_every_width(state, D):
     """launch_plan never raises for W up to 20,000 at any D the tiled kernel
-    is built for, in every state type, with no shifts given (the most halo
-    any shifts need), a quad lattice's (0, 1) or a square hex slab's (0,
-    1, sqrt W): the tiles cover W exactly, Wt a multiple of 16 no wider
+    is built for, in every state type, with the most halo any shifts need
+    (W - 1 on every face), a quad lattice's (0, 1) or a square hex slab's
+    (0, 1, sqrt W): the tiles cover W exactly, Wt a multiple of 16 no wider
     than the kernel takes, within one CTA's shared memory."""
     for W in range(1, 20001):
         n = max(math.isqrt(W), 1) % W
-        for nf, shifts in ((3, None), (2, (0, min(1, W - 1))),
+        for nf, shifts in ((3, (W - 1,) * 3), (2, (0, min(1, W - 1))),
                            (3, (0, min(1, W - 1), n))):
-            plan = tlr.launch_plan(D, W, nf, state, 10, shifts=shifts)
+            plan = tlr.launch_plan(D, W, nf, state, 10, shifts)
             assert plan.smem <= tlr._SMEM_LIMIT
             if plan.variant == "tiled":
                 assert plan.Wt % 16 == 0
@@ -773,7 +776,7 @@ def _check_tile_dependences(D, W, shifts, state):
     read lands above the tile's own columns or below tile t -
     ceil(s_max / Wt); every halo read is of a tile it waited on; the halo
     fits its blocks. Returns the plan."""
-    plan = tlr.launch_plan(D, W, len(shifts), state, 10, shifts=shifts)
+    plan = tlr.launch_plan(D, W, len(shifts), state, 10, shifts)
     assert plan.smem <= tlr._SMEM_LIMIT
     if plan.variant != "tiled":
         return plan
@@ -832,16 +835,33 @@ def test_fault_table_shapes_get_tiled_plans(case):
     assert plan.variant == "tiled" and plan.C > 16
 
 
-def test_tiled_scratch_size_check():
-    """The tiled kernel's scratch holds a ticket counter and one level flag
-    per (group, slot, band, tile); the wrapper's check refuses one that is
-    short, of another type, on another device or not contiguous."""
-    assert tlr.tiled_scratch_numel(2, 3, 4, 5) == 1 + 2 * 3 * 4 * 5
-    cpu = torch.device("cpu")
-    tlr._check_scratch(torch.zeros(121, dtype=torch.int32), 2, 3, 4, 5, cpu)
-    for bad in (torch.zeros(120, dtype=torch.int32),
-                torch.zeros(121, dtype=torch.int64),
-                torch.zeros(242, dtype=torch.int32)[::2],
-                torch.zeros(121, dtype=torch.int32, device="meta")):
-        with pytest.raises(ValueError, match="scratch"):
-            tlr._check_scratch(bad, 2, 3, 4, 5, cpu)
+
+def test_tiled_factor_split_error_bound():
+    """The tiled kernel splits the float32 factor (and every A operand) into
+    TF32 hi and lo at each use by truncation (``split_tf32`` of
+    csrc/lattice_ring_common.cuh: mask the low 13 bits of x, then of x -
+    hi); mirrored here on the bits, hi + lo is within 2^-20 of x, relative,
+    the bound the source states, on random values from 2^-100 up (some
+    with the mantissa's top bits set, some with every dropped bit set),
+    and x - hi is exact in float32."""
+    src = (pathlib.Path(tlr.__file__).resolve().parents[1] / "csrc"
+           / "lattice_ring_common.cuh").read_text()
+    body = src[src.index("void split_tf32("):]
+    body = body[:body.index("}")]
+    assert body.count("& 0xffffe000u") == 2 and "0x1000" not in body
+    assert "2^-20 |x|" in src
+
+    rng = np.random.default_rng(7)
+    bits = rng.integers(0x0d800000, 0x7f000000, 200_000, dtype=np.uint32)
+    bits[:1000] |= np.uint32(0x007fe000)  # mantissa's top 10 bits set
+    bits[1000:2000] |= np.uint32(0x00001fff)  # every dropped bit set
+    x = bits.view(np.float32) * np.where(rng.random(bits.size) < 0.5, -1,
+                                         1).astype(np.float32)
+    mask = np.uint32(0xffffe000)
+    hi = (x.view(np.uint32) & mask).view(np.float32)
+    r = x - hi
+    lo = (r.view(np.uint32) & mask).view(np.float32)
+    x64 = x.astype(np.float64)
+    assert np.array_equal(r.astype(np.float64), x64 - hi.astype(np.float64))
+    err = np.abs(x64 - hi.astype(np.float64) - lo.astype(np.float64))
+    assert (err <= np.abs(x64) * 2.0 ** -20).all()
