@@ -4,8 +4,8 @@ source iteration (isothermal walls, diffuse walls, bf16 state, and in
 float64 through the BiCGStab-accelerated solve) and the copy probe through
 them, run the legacy production tet shape through the scan path and the
 supercell ring, run the lattices of K1's tiled kernel, a 2D quad lattice
-and a graded lattice, and check the results against the pbte_tpu
-goldens.
+and a graded lattice, check the results against the pbte_tpu goldens, and
+run the command-line interface at the flagship's width and as a subprocess.
 
 Usage (from the root of a checkout, on a machine with one CUDA GPU):
 
@@ -118,7 +118,23 @@ Phases (a failing phase raises and the script exits non-zero):
    alternating 1 : 2, two geometry classes) on the multi-class torch ring,
    timed the same way (no K1 launch), and its 3 f32 and 3 f64 steps from
    the zero state against the same problem's scan (2e-6 and 1e-11 of
-   max, as phase 10 against phase 9).
+   max, as phase 10 against phase 9);
+12. the command-line interface (``pbte_tpu_torch.cli``): its ``main()`` in
+   this process with a YAML config of the flagship's walls, angles and
+   bands, ``-m unit-cube-hex -r 2 -o 2 --face-mode consistent --no-dumps``
+   (the builtin 4^3 refined to 16^3), 200 steps, the residual every 10, in
+   f32 and in f64 (the CLI's default): K1's launches by variant around
+   each run (the one-CTA kernel once a Km bucket a step, twice at the
+   flagship; a count of calls of its plain version must stay 0), the solver line (G = 8, L = 46, W = 256),
+   the set-up seconds by stage, the CLI's DOF/s beside phase 5's, and the
+   residual history against the library's solve of the same problem
+   (``problem.unit_cube(**FLAGSHIP)``, elements in lattice order: 2e-5 of
+   max in f32, 1e-12 in f64); then ``python -m pbte_tpu_torch.cli`` as a
+   subprocess at hex 8^3 p=1 (``-r 1``) from scratch directories: with
+   dumps, slices and VTU on the card against ``--platform cpu`` (host logs
+   byte-equal, fields within 1e-12 of max), checkpoint and resume (6 + 4
+   against 10 steps, 1e-12 of max), ``--accelerate bicgstab`` to 1e-9,
+   ``--profile`` (its trace must name a K1 kernel) and ``-p`` (refused).
 
 The line before the last is the card's name and power limit, the one before
 it {"kernels": [...]}, the last line {"ok": true, "device": {...}}.
@@ -129,6 +145,8 @@ from __future__ import annotations
 import json
 import os
 import pathlib
+import re
+import subprocess
 import sys
 import time
 
@@ -163,12 +181,10 @@ F64_RTOL = 1e-12
 ACCEL_GOLDEN_RTOL = 1e-9
 ACCEL_TOL = 1e-8  # linear relative residual of the f64 flagship solve
 ACCEL_MAX_ITER = 1500
-# the residual is read every 10 BiCGStab iterations: the stagnation guard
-# then stops only after 120 step applications without a 10% gain. At the
-# flagship the f64 relres plateaus near 1e-3 for 30-60 of them, and where a
-# run crosses such a plateau depends on the order of the ms atomics: a run
-# reading every iteration (check_every=2) stopped there at 1.06e-3
-# (measured on an H100), two others went on to 1e-8
+# the residual is read every 10 BiCGStab iterations. At the flagship the
+# f64 relres can plateau near 1e-3 for 40 to over 120 step applications,
+# by the order of the ms atomics (measured on an H100): the guard restarts
+# the recurrence there (accel.stall_action), where pbte_tpu's stopped it
 ACCEL_CHECK_EVERY = 20
 # the plain f64 solve to the accelerated solve's Tv residual: it contracts
 # by ~0.9925 a step at the flagship, so ~2100 steps (1500 reached 6.2e-8 of
@@ -205,6 +221,30 @@ GRADED = dict(n=16, order=2, polar=4, azimuth=16, nspec=20)
 NEW_TIMED_STEPS = 10
 GRADED_RTOL = 2e-6
 GRADED_F64_RTOL = 1e-11
+# phase 12, the CLI: the flagship through python -m pbte_tpu_torch.cli's
+# main() (config file, -m unit-cube-hex -r 2, --no-dumps) for CLI_ITERS
+# steps, its residual read every CLI_CHECK_EVERY, against the library's
+# solve of problem.unit_cube(**FLAGSHIP). The two lattices hold the same
+# elements in another order (refinement order against lattice order): the
+# ring's slabs are the same, the Tc gathers and the residual's sums add in
+# another order. f32: pbte_tpu's f32 kernel tolerance (relative to the
+# history's largest value; 1.6e-7 measured on the CPU at hex 8^3 p=2);
+# f64: 1e-12 (1.7e-15 measured there)
+CLI_ITERS = 200
+CLI_CHECK_EVERY = 10
+CLI_F32_RTOL = 2e-5
+CLI_F64_RTOL = 1e-12
+# the entry point as a subprocess at hex 8^3 p=1, f64 (the CLI's default):
+# on the card against --platform cpu (K1 against its plain version, whose
+# f64 sums differ in order, ms by atomics: 5.8e-16 of max in phase 3), and
+# a resumed run against a straight one on the card (the same, run to run)
+CLI_BASE = ["-m", "unit-cube-hex", "-r", "1", "-o", "1", "--face-mode",
+            "consistent", "-ad", "3", "-ap", "2", "-az", "4", "--tol", "0"]
+CLI_SMALL = CLI_BASE + ["--slice-z", "0.4", "--line-slice", "2", "0.5",
+                        "0.5", "--vtu"]
+CLI_CARD_RTOL = 1e-12
+CLI_RESUME_RTOL = 1e-12
+CLI_SUBPROCESS_TIMEOUT = 300
 
 
 def log(*a):
@@ -1129,6 +1169,23 @@ def phase_tet_super(SourceIterationSolver, problem, prob, lr, card, tc_scan):
     return row
 
 
+def count_plain_sweeps(lr):
+    """Wrap K1's plain version so every call of it is counted; returns
+    (calls list, restore function)."""
+    calls = []
+    plain = lr.lattice_ring_sweep_ref
+
+    def counted(*a, **kw):
+        calls.append(1)
+        return plain(*a, **kw)
+
+    lr.lattice_ring_sweep_ref = counted
+
+    def restore():
+        lr.lattice_ring_sweep_ref = plain
+    return calls, restore
+
+
 def time_lattice(s, name, card, steps):
     """2 warm-up + ``steps`` timed steps of solver ``s`` from the zero
     state, with K1's launches by variant and state counted over all of them
@@ -1136,14 +1193,7 @@ def time_lattice(s, name, card, steps):
     run); returns the row."""
     from pbte_tpu_torch.ops import lattice_ring as lr
 
-    plain_calls = []
-    plain = lr.lattice_ring_sweep_ref
-
-    def counted(*a, **kw):
-        plain_calls.append(1)
-        return plain(*a, **kw)
-
-    lr.lattice_ring_sweep_ref = counted
+    plain_calls, restore = count_plain_sweeps(lr)
     try:
         torch.cuda.reset_peak_memory_stats()
         lr.reset_launches()
@@ -1160,7 +1210,7 @@ def time_lattice(s, name, card, steps):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     finally:
-        lr.lattice_ring_sweep_ref = plain
+        restore()
     res = [float(x) for x in res]
     ne, D, K, BS = s.ne, s.D, s.K, s.BS
     row = dict(
@@ -1283,6 +1333,279 @@ def phase_new_lattices(SourceIterationSolver, problem, lr, card, wide_prob,
     if not (rel <= GRADED_RTOL and rel64 <= GRADED_F64_RTOL):
         raise RuntimeError("the graded lattice: the multi-class ring and the "
                            "scan disagree")
+    return rows
+
+
+def cli_config(path):
+    """Phase 12's YAML config: the flagship's walls, angles and bands (the
+    subset form config/config.yaml has, which the port reads without
+    PyYAML)."""
+    from pbte_tpu_torch.problem import FLAGSHIP, WALL_BCS
+
+    lines = ["mesh:", "  path: unit-cube-hex", "boundary_conditions:"]
+    for attr, temp in WALL_BCS.items():
+        lines += [f"  - attr: {attr}", f"    temperature: {temp}"]
+    lines += ["angles:", "  dimension: 3",
+              f"  polar_points: {FLAGSHIP['polar']}",
+              f"  azimuth_points: {FLAGSHIP['azimuth']}",
+              "  polar_scheme: gauss", "  azimuth_scheme: gauss",
+              "numerical:", f"  n_spectral: {FLAGSHIP['nspec']}"]
+    pathlib.Path(path).write_text("\n".join(lines) + "\n")
+
+
+def cli_line(out, key):
+    """The CLI's printed line that holds ``key``."""
+    return next(line for line in out.splitlines() if key in line)
+
+
+def cli_seconds(line):
+    """The cumulative seconds a CLI set-up line ends with, '(12.3s)'."""
+    return float(line.rsplit("(", 1)[1].rstrip("s)"))
+
+
+def phase_cli_flagship(lr, card, tmp, state, flag_dof):
+    """Phase 12's in-process CLI run at the flagship's width in ``state``
+    ("f32" or "f64"): K1's launches by variant and the plain version's
+    calls around it, the solver line, the set-up seconds by stage, the
+    done line, and the residual history against the library's solve of
+    ``problem.unit_cube(**FLAGSHIP)``. Returns the row."""
+    import contextlib
+    import gc
+    import io
+
+    from pbte_tpu_torch import cli
+    from pbte_tpu_torch.problem import FLAGSHIP, WALL_BCS, unit_cube
+    from pbte_tpu_torch.solver.source_iteration import SourceIterationSolver
+
+    out_dir = tmp / f"flagship_{state}"
+    n = FLAGSHIP["nx"]  # the builtin's 4^3 refined to n^3
+    argv = ["-c", str(tmp / "flagship.yaml"), "-m", "unit-cube-hex", "-r",
+            str(int(np.log2(n // 4))), "-o", str(FLAGSHIP["order"]), "--face-mode", "consistent",
+            "--dtype", state, "--tol", "0", "--max-iter", str(CLI_ITERS),
+            "--check-every", str(CLI_CHECK_EVERY), "--no-dumps", "--out",
+            str(out_dir)]
+    calls, restore = count_plain_sweeps(lr)
+    buf = io.StringIO()
+    try:
+        lr.reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(argv)
+        wall = time.perf_counter() - t0
+        by_variant = dict(lr.lattice_ring_sweep.launches_by_variant)
+        by_state = dict(lr.lattice_ring_sweep.launches_by_state)
+    finally:
+        restore()
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = buf.getvalue()
+    lines = {k: cli_line(out, k) for k in ("mesh:", "assembled", "angles:",
+                                          "solver[", "done:")}
+    for line in lines.values():
+        log(f"[smoke] cli {state}: {line}")
+    m = re.search(r"solver\[(\w+)\]: groups=(\d+) levels<=(\d+) .*"
+                  r"slab=(\d+)x(\d+)", lines["solver["])
+    mode, G, L, L2, W = m.group(1), *map(int, m.groups()[1:])
+    done = re.search(r"done: (\d+) iters, residual (\S+), (\S+)s, (\S+) "
+                     r"element-ordinate DOF/s", lines["done:"])
+    secs = [cli_seconds(lines[k]) for k in ("mesh:", "assembled", "angles:",
+                                            "solver[")]
+    hist = np.loadtxt(out_dir / "3D/log/PBTE_NonGraySMRT_step_resisual.txt")
+
+    # the library's solve of the same problem (elements in lattice order)
+    dt = torch.float32 if state == "f32" else torch.float64
+    t0 = time.perf_counter()
+    s = SourceIterationSolver(*unit_cube(**FLAGSHIP), WALL_BCS,
+                              device="cuda", dtype=dt)
+    lib_setup = time.perf_counter() - t0
+    want = len(s._ring_buckets) * CLI_ITERS  # one launch a bucket a step
+    ref = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s.solve(tol=0, max_iter=CLI_ITERS, check_every=CLI_CHECK_EVERY,
+            verbose=False, callback=lambda it, r: ref.append((it, r)))
+    torch.cuda.synchronize()
+    lib_solve = time.perf_counter() - t0
+    del s
+    gc.collect()
+    torch.cuda.empty_cache()
+    ref = np.array(ref)
+    rel = float(np.abs(hist[:, 1] - ref[:, 1]).max()
+                / np.abs(ref[:, 1]).max())
+    tol = CLI_F32_RTOL if state == "f32" else CLI_F64_RTOL
+    row = dict(
+        rc=rc, sweep_mode=mode, G=G, L=L, W=W,
+        k1_launches_by_variant=by_variant, k1_launches_by_state=by_state,
+        plain_calls=len(calls), iterations=int(done.group(1)),
+        residual=float(done.group(2)), solve_s=float(done.group(3)),
+        dof_per_s=float(done.group(4)), phase5_dof_per_s=flag_dof,
+        setup_s=dict(mesh=secs[0], assembly=round(secs[1] - secs[0], 1),
+                     tables=round(secs[2] - secs[1], 1),
+                     solver=round(secs[3] - secs[2], 1)),
+        wall_s=wall, lib_setup_s=lib_setup, lib_solve_s=lib_solve,
+        lib_dof_per_s=CLI_ITERS * FLAGSHIP["polar"] * FLAGSHIP["azimuth"]
+        * 2 * FLAGSHIP["nspec"] * n ** 3 * (FLAGSHIP["order"] + 1) ** 3
+        / lib_solve,
+        history_rows=len(hist), history_vs_library_rel=rel,
+        history_tolerance=tol)
+    log(f"[smoke] cli {state} " + json.dumps(row))
+    log(f"[smoke] cli {state}: {row['dof_per_s']:.4g} DOF/s over the CLI's "
+        f"solve against phase 5's {flag_dof:.4g} (the library's solve "
+        f"{row['lib_dof_per_s']:.4g}); set-up {secs[3]:.1f} s (mesh "
+        f"{secs[0]:.1f}, assembly {secs[1] - secs[0]:.1f}, tables "
+        f"{secs[2] - secs[1]:.1f}, solver {secs[3] - secs[2]:.1f}); K1 "
+        f"{by_variant}, plain sweeps {len(calls)}; residual history against "
+        f"the library's {rel:.3e} of max (tolerance {tol}); on {card}")
+    if rc != 0 or calls:
+        raise RuntimeError(f"cli {state}: rc {rc}, {len(calls)} plain sweeps")
+    if (mode, G, L, L2, W) != ("ring", 8, 3 * n - 2, 3 * n - 2, n * n):
+        raise RuntimeError(f"cli {state}: solver line {lines['solver[']}, "
+                           f"want ring G=8 L={3 * n - 2} W={n * n}")
+    got = {k: v for k, v in by_variant.items() if v}
+    if got != {"persistent": want} or by_state.get(state) != want:
+        raise RuntimeError(f"cli {state}: K1 launches {by_variant} "
+                           f"{by_state}, want {want} one-CTA {state}")
+    if hist.shape != ref.shape or not np.array_equal(hist[:, 0], ref[:, 0]):
+        raise RuntimeError(f"cli {state}: history rows {hist[:, 0]} against "
+                           f"{ref[:, 0]}")
+    if not (np.isfinite(hist).all() and rel <= tol):
+        raise RuntimeError(f"cli {state}: residual history disagrees with "
+                           "the library's solve")
+    return row
+
+
+def run_cli(args, cwd):
+    """``python -m pbte_tpu_torch.cli`` of this checkout in ``cwd``."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = (str(pathlib.Path(__file__).resolve().parent)
+                         + os.pathsep + env.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "pbte_tpu_torch.cli", *args],
+                          cwd=cwd, env=env, capture_output=True, text=True,
+                          timeout=CLI_SUBPROCESS_TIMEOUT)
+    log(f"[smoke] cli subprocess {' '.join(args)}: rc {proc.returncode} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return proc
+
+
+def checked(proc, what):
+    if proc.returncode != 0:
+        raise RuntimeError(f"cli {what}: rc {proc.returncode}\n"
+                           f"{proc.stdout[-1500:]}\n{proc.stderr[-3000:]}")
+    return proc
+
+
+def cli_card_vs_cpu(tmp):
+    """The entry point on the card and with ``--platform cpu`` on the same
+    machine, from scratch working directories, with dumps: host logs
+    byte-equal, fields within CLI_CARD_RTOL of max."""
+    from pbte_tpu_torch.io.outputs import compare_outputs
+
+    runs = {}
+    for name, extra in (("card", []), ("cpu", ["--platform", "cpu"])):
+        cwd = tmp / f"sub_{name}"
+        cwd.mkdir()
+        proc = checked(run_cli(CLI_SMALL + ["--max-iter", "20"] + extra,
+                               cwd), name)
+        runs[name] = (proc, cwd / "output")
+        log(f"[smoke] cli {name}: " + cli_line(proc.stdout, "solver[")
+            + " | " + cli_line(proc.stdout, "done:"))
+    if "cuda" not in cli_line(runs["card"][0].stdout, "solver["):
+        raise RuntimeError("cli: the default platform did not solve on the "
+                           "card")
+    errs = compare_outputs(runs["card"][1], runs["cpu"][1], CLI_CARD_RTOL)
+    log("[smoke] cli card against cpu: host logs byte-equal, fields "
+        + json.dumps(errs) + f" of max (tolerance {CLI_CARD_RTOL})")
+    return errs
+
+
+def cli_resume(cwd):
+    """6 iterations with a checkpoint and 4 resumed against 10 straight:
+    Tc, the coefficients and the residual history within CLI_RESUME_RTOL
+    of max."""
+    from pbte_tpu_torch.io.outputs import field_err
+
+    checked(run_cli(CLI_BASE + ["--max-iter", "10", "--out", "full"], cwd),
+            "full")
+    checked(run_cli(CLI_BASE + ["--max-iter", "6", "--out", "p1",
+                                "--checkpoint", "ck.npz",
+                                "--checkpoint-every", "6"], cwd), "first")
+    second = checked(run_cli(CLI_BASE + ["--max-iter", "4", "--out", "p2",
+                                         "--checkpoint", "ck.npz",
+                                         "--resume"], cwd), "resume")
+    if "resumed from" not in second.stdout:
+        raise RuntimeError("cli: --resume did not resume")
+    errs = {f: field_err(cwd / "p2" / f, cwd / "full" / f)
+            for f in ("log/Tc_all.txt", "log/coeff_all.txt")}
+    hist = "3D/log/PBTE_NonGraySMRT_step_resisual.txt"
+    h_full, h_res = np.loadtxt(cwd / "full" / hist), np.loadtxt(
+        cwd / "p2" / hist)
+    errs["history"] = float(np.abs(h_res[:, 1] - h_full[6:, 1]).max()
+                            / np.abs(h_full[:, 1]).max())
+    log(f"[smoke] cli resume (6 + 4 against 10): {json.dumps(errs)} of max "
+        f"(tolerance {CLI_RESUME_RTOL})")
+    if not max(errs.values()) <= CLI_RESUME_RTOL:
+        raise RuntimeError("cli: the resumed run disagrees")
+    return errs
+
+
+def cli_bicgstab(cwd):
+    """--accelerate bicgstab to a linear relres of 1e-9."""
+    proc = checked(run_cli(CLI_BASE + ["--accelerate", "bicgstab", "--tol",
+                                       "1e-9", "--max-iter", "600",
+                                       "--check-every", "10", "--no-dumps",
+                                       "--out", "acc"], cwd), "bicgstab")
+    acc = cli_line(proc.stdout, "bicgstab done")
+    log(f"[smoke] cli {acc}")
+    relres = float(re.search(r"linear relres (\S+),", acc).group(1))
+    if not relres <= 1e-9:
+        raise RuntimeError(f"cli: bicgstab stopped at relres {relres}")
+    return acc
+
+
+def cli_profile(cwd):
+    """--profile writes a Chrome trace; returns the K1 kernels it names."""
+    checked(run_cli(CLI_BASE + ["--max-iter", "3", "--no-dumps", "--profile",
+                                "prof", "--out", "pr"], cwd), "profile")
+    traces = list((cwd / "prof").glob("*.json"))
+    names = {e.get("name", "") for t in traces
+             for e in json.loads(t.read_text())["traceEvents"]
+             if e.get("cat") == "kernel"}
+    k1 = sorted(n for n in names if "lattice_ring" in n)
+    log(f"[smoke] cli --profile: {len(traces)} trace, K1 kernels {k1}")
+    if len(traces) != 1 or not k1:
+        raise RuntimeError("cli: the profile trace names no K1 kernel")
+    return k1
+
+
+def cli_parallel(cwd):
+    """-p is refused, naming the distributed solvers' ROADMAP item."""
+    proc = run_cli(CLI_BASE + ["-p", "2x2"], cwd)
+    log(f"[smoke] cli -p 2x2: rc {proc.returncode}: {proc.stderr.strip()}")
+    if proc.returncode == 0 or "item 11" not in proc.stderr:
+        raise RuntimeError("cli: -p was not refused naming item 11")
+    return proc.returncode
+
+
+def phase_cli(lr, card, flag_dof):
+    """Phase 12: the command-line interface. Returns {name: row}."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    rows = {}
+    with tempfile.TemporaryDirectory() as d:
+        tmp = pathlib.Path(d)
+        cli_config(tmp / "flagship.yaml")
+        for state in ("f32", "f64"):
+            rows[state] = phase_cli_flagship(lr, card, tmp, state, flag_dof)
+        cwd = tmp / "sub"
+        cwd.mkdir()
+        rows["subprocess"] = dict(
+            card_vs_cpu=cli_card_vs_cpu(tmp), resume=cli_resume(cwd),
+            bicgstab=cli_bicgstab(cwd), profile_k1=cli_profile(cwd),
+            parallel_rc=cli_parallel(cwd))
+    log(f"[smoke] phase 12 (the CLI) took {time.perf_counter() - t_phase:.1f}"
+        f" s")
     return rows
 
 
@@ -1586,6 +1909,10 @@ def main() -> int:
 
     new = phase_new_lattices(SourceIterationSolver, problem_mod, lr, card,
                              wide_prob, quad_prob)
+    del wide_prob, quad_prob
+    torch.cuda.empty_cache()
+
+    cli_rows = phase_cli(lr, card, flag["dof_per_s"])
 
     jax_mods = sorted(m for m in sys.modules
                       if m.split(".")[0] in ("jax", "jaxlib"))
@@ -1624,6 +1951,10 @@ def main() -> int:
         + "; ".join(f"{k} {r['ms_per_step']:.3f} ms/step, "
                     f"{r['dof_per_s']:.4g} DOF/s"
                     for k, r in new.items())
+        + "; the CLI at the flagship's width: "
+        + ", ".join(f"{k} {cli_rows[k]['dof_per_s']:.4g} DOF/s, set-up "
+                    f"{sum(cli_rows[k]['setup_s'].values()):.1f} s"
+                    for k in ("f32", "f64"))
         + f"; on {card}")
 
     def k1_entry(name, state, n, shape=None,
@@ -1676,9 +2007,11 @@ def main() -> int:
 
     log(f"[smoke] done in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": [
-        k1_entry("lattice_ring_sweep", "f32", launches + film_launches),
+        k1_entry("lattice_ring_sweep", "f32", launches + film_launches
+                 + cli_rows["f32"]["k1_launches_by_state"]["f32"]),
         k1_entry("lattice_ring_sweep_bf16", "bf16", bf16_launches),
-        k1_entry("lattice_ring_sweep_f64", "f64", f64_launches),
+        k1_entry("lattice_ring_sweep_f64", "f64", f64_launches
+                 + cli_rows["f64"]["k1_launches_by_state"]["f64"]),
         k1_entry("lattice_ring_sweep_d9", "f32",
                  new["quad_f32"]["k1_launches_by_variant"]["persistent"],
                  shape="quad 64^2 p=2"),

@@ -5,14 +5,22 @@ keeps its own copy of the numpy host layers, trimmed to what it calls and
 held to pbte_tpu's by tests/test_torch_host_layers.py:
 
 - ``mesh``: tri, quad, tet, hex and mixed meshes (builtins, the gmsh and
-  MFEM readers), face tables, periodic pairing;
+  MFEM readers, the MFEM writer), uniform refinement, face tables,
+  periodic pairing, the golden-format summary;
 - ``fem``: quadrature and L2 nodal bases on every reference element,
-  assembly in both face modes, the geometry-class helpers and the
-  supercell merge (its block factor in torch);
-- ``angular``: the discrete-ordinates quadrature;
+  assembly in both face modes (and the closed-form volume operators of
+  ``fem.exact``), the geometry-class helpers and the supercell merge (its
+  block factor in torch);
+- ``angular``: the discrete-ordinates quadrature and the legacy
+  Control.yaml patterns;
 - ``material``: the non-gray SMRT silicon tables;
 - ``sweep``: upwind levelization, the sweep plan, lattice detection, the
-  reference's greedy orders;
+  reference's greedy orders and their log;
+- ``config`` and ``io.yamlish``: the run configuration from config.yaml /
+  si.yaml or a legacy Control.yaml;
+- ``io.writers``, ``io.slice``, ``io.vtu``: the golden-format dumps, the
+  sampled slices and the ParaView output; ``io.outputs`` compares two
+  runs' output directories;
 - ``validation.oracle``: the sequential numpy oracle (a test reference);
 
 and the modules that were JAX in pbte_tpu:
@@ -41,9 +49,12 @@ and the modules that were JAX in pbte_tpu:
   layouts, ring and scan, and the supercell ring's state both ways (used
   by the parity tests);
 - ``problem``: the unit-cube, graded-cube, unit-square and 6-tet box
-  problems, the flagship and the legacy production tet shape among them.
+  problems, the flagship and the legacy production tet shape among them;
+- ``cli``: the command-line interface, ``python -m pbte_tpu_torch.cli``
+  (pbte_tpu's flags and files; ``--platform cpu`` for the CPU).
 
 The entry points (``SourceIterationSolver``, ``consts_from_numpy``,
-``state_from_numpy``) run on the GPU unless the caller passes
-``device="cpu"``; without a GPU the default raises.
+``state_from_numpy``, the CLI) run on the GPU unless the caller asks for
+the CPU (``device="cpu"``, ``--platform cpu``); without a GPU the default
+raises.
 """

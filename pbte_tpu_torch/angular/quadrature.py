@@ -1,7 +1,7 @@
 """Solid-angle (discrete ordinates) quadrature.
 
-This package's own copy of ``pbte_tpu/angular/quadrature.py`` (options and
-``build``). 3D polar nodes discretize mu = cos(theta) on [-1, 1] and
+This package's own copy of ``pbte_tpu/angular/quadrature.py``: options,
+``build``, the config reader and the golden-format writer. 3D polar nodes discretize mu = cos(theta) on [-1, 1] and
 azimuth nodes phi on [0, 2 pi] (Gauss-Legendre or uniform midpoint); 2D
 has the one in-plane polar node theta = pi / 2. Directions are the tensor
 product, polar-major, and the weights are renormalized to total exactly
@@ -73,6 +73,15 @@ def _rule(scheme: Scheme, points: int, a: float, b: float):
     raise ValueError(f"unknown discretization scheme: {scheme}")
 
 
+def parse_scheme(name: str) -> Scheme:
+    key = name.strip().lower()
+    if key == "uniform":
+        return "uniform"
+    if key in ("gauss", "gauss-legendre", "legendre"):
+        return "gauss"
+    raise ValueError(f"unknown discretization scheme: {name}")
+
+
 def build(opts: AngularOptions) -> AngularQuad:
     """Build the product quadrature."""
     if opts.dimension not in (2, 3):
@@ -121,3 +130,36 @@ def build(opts: AngularOptions) -> AngularQuad:
         azimuth_nodes=phi,
         azimuth_weights=w_phi,
     )
+
+
+def options_from_config(cfg: dict) -> AngularOptions:
+    """Options from a parsed config.yaml's ``angles:`` block."""
+    a = cfg.get("angles", {}) or {}
+    return AngularOptions(
+        dimension=int(a.get("dimension", 3)),
+        polar_points=int(a.get("polar_points", 8)),
+        azimuth_points=int(a.get("azimuth_points", 16)),
+        polar_scheme=parse_scheme(str(a.get("polar_scheme", "gauss"))),
+        azimuth_scheme=parse_scheme(str(a.get("azimuth_scheme", "gauss"))),
+    )
+
+
+def write_quadrature(quad: AngularQuad, path: str) -> None:
+    """The reference's golden-format angles dump (``angles_*.txt``)."""
+    import os
+
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "w") as f:
+        f.write("Angular quadrature summary\n")
+        f.write(f"  dimension        : {quad.dimension}\n")
+        f.write(f"  polar points     : {len(quad.polar_nodes)}\n")
+        f.write(f"  azimuth points   : {len(quad.azimuth_nodes)}\n")
+        f.write(f"  directions       : {quad.num_directions}\n")
+        f.write(f"  total weight     : {quad.total_weight:g}\n\n")
+        f.write("Directions (idx, theta, phi, weight, dir_x, dir_y, dir_z)\n")
+        for i in range(quad.num_directions):
+            f.write(
+                f"{i} {quad.polar[i]:g} {quad.azimuth[i]:g} {quad.weights[i]:g} "
+                f"{quad.directions[i, 0]:g} {quad.directions[i, 1]:g} "
+                f"{quad.directions[i, 2]:g}\n"
+            )

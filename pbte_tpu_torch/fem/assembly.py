@@ -1,11 +1,10 @@
 """Batched DG element assembly: volume + face integral tensors.
 
-This package's own copy of ``pbte_tpu/fem/assembly.py`` (less its
-closed-form ``volume_mode="exact"``): one ``ElementOps`` of batched float64
-tensors shaped (ne, ...) per mesh, for every geometry and mixed meshes,
-and the geometry-class helpers the solver collapses translation-invariant
-meshes with. tests/test_torch_host_layers.py holds every tensor to
-pbte_tpu's.
+This package's own copy of ``pbte_tpu/fem/assembly.py``: one
+``ElementOps`` of batched float64 tensors shaped (ne, ...) per mesh, for
+every geometry and mixed meshes, and the geometry-class helpers the solver
+collapses translation-invariant meshes with.
+tests/test_torch_host_layers.py holds every tensor to pbte_tpu's.
 
 Tensors (D = DOFs per element, nf = faces per element):
 
@@ -191,13 +190,22 @@ def assemble(
     face_degree: int | None = None,
     chunk: int = 4096,
     face_mode: str = "mfem-parity",
+    volume_mode: str = "quadrature",
 ) -> ElementOps:
     """Element operators of any single-geometry or mixed mesh, volume
-    operators by 2p+1 quadrature (pbte_tpu's ``volume_mode="exact"``, a
-    closed-form cross-check for affine simplices, is not copied)."""
+    operators by 2p+1 quadrature; ``volume_mode="exact"`` computes them
+    from closed-form monomial integrals instead (affine simplices only,
+    ``fem.exact``: the same values to machine precision, a cross-check)."""
     if face_mode not in ("mfem-parity", "consistent"):
         raise ValueError(f"unknown face_mode: {face_mode}")
+    if volume_mode not in ("quadrature", "exact"):
+        raise ValueError(f"unknown volume_mode: {volume_mode}")
     if topo.mesh.geom == mesh_core.GEOM_MIXED:
+        if volume_mode == "exact":
+            raise ValueError(
+                "volume_mode='exact' is affine-simplex only; mixed meshes "
+                "contain quads"
+            )
         return _assemble_mixed(
             topo, order, volume_degree, face_degree, chunk, face_mode
         )
@@ -288,6 +296,13 @@ def assemble(
             S_nbr = b.eval(r_nbr)  # (E, nf, Qf, D)
             cpl = np.einsum("efq,efqi,efqj->efij", wf, S_self, S_nbr)
             coupling[sl] = np.where(has_nbr[..., None, None], cpl, 0.0)
+
+    if volume_mode == "exact":
+        from pbte_tpu_torch.fem import exact
+
+        basis_int, mass, stiff = exact.volume_operators(
+            geom, order, verts[ev]
+        )
 
     return ElementOps(
         geom=geom,

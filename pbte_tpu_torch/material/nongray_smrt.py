@@ -1,8 +1,9 @@
 """Non-gray SMRT phonon spectral tables for silicon-like materials.
 
 This package's own copy of ``pbte_tpu/material/nongray_smrt.py``
-(``PhononMaterial``, ``PhononTables``, ``build_tables``, ``SILICON``):
-small (branches, bands) float64 tables built once on the host.
+(``PhononMaterial``, ``PhononTables``, ``build_tables``, ``SILICON``,
+``load_material`` and the golden-format ``write_tables``): small
+(branches, bands) float64 tables built once on the host.
 
 - midpoint k-bands:       k_j = (2j-1)/(2S) * k_max,  k_max = 2*pi/a
 - quadratic dispersion:   w = c0*k + c1*k^2,  vg = c0 + 2*c1*k
@@ -74,6 +75,26 @@ class PhononTables:
         return getattr(self, name).reshape(-1)
 
 
+def load_material(path: str) -> PhononMaterial:
+    """A material YAML file of the reference's schema (config/si.yaml)."""
+    from pbte_tpu_torch.io.yamlish import load_yaml_file
+
+    cfg = load_yaml_file(path)
+    return PhononMaterial(
+        C_LA=tuple(float(x) for x in cfg["C_LA"]),
+        C_TA=tuple(float(x) for x in cfg["C_TA"]),
+        lattice_dist=float(cfg["lattice_dist"]),
+        Ai=float(cfg["Ai"]),
+        BL=float(cfg["BL"]),
+        BT=float(cfg["BT"]),
+        BU=float(cfg["BU"]),
+        num_branches=int(cfg.get("num_branches", 2)),
+        num_spectral=int(cfg.get("num_spectral", 20)),
+        ref_temp=float(cfg.get("reference_temperature", 300.0)),
+        ref_len=float(cfg.get("reference_length", 1.0e-6)),
+    )
+
+
 def build_tables(mat: PhononMaterial,
                  num_spectral: int | None = None) -> PhononTables:
     """Build the spectral tables; ``num_spectral`` overrides the
@@ -138,3 +159,28 @@ SILICON = PhononMaterial(
     BT=8.708e-13,
     BU=2.890e-18,
 )
+
+
+def write_tables(tables: PhononTables, path: str) -> None:
+    """The reference's golden-format table dump
+    (``phonon_properties.txt``)."""
+    import os
+
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "w") as f:
+        f.write("Phonon properties\n")
+        f.write(f"num_branches: {tables.num_branches}\n")
+        f.write(f"num_spectral: {tables.num_spectral}\n")
+        f.write(f"k_max: {tables.k_max:g}\n")
+        f.write(f"reference_temperature: {tables.ref_temp:g}\n")
+        f.write(f"reference_length: {tables.ref_len:g}\n")
+        f.write(f"HeatCapV: {tables.heat_cap_v:g}\n\n")
+        f.write("branch idx k w dw vg invKn density heatCap\n")
+        for p in range(tables.num_branches):
+            for s in range(tables.num_spectral):
+                f.write(
+                    f"{p} {s} {tables.k[p, s]:g} {tables.omega[p, s]:g} "
+                    f"{tables.dw[p, s]:g} {tables.vg[p, s]:g} "
+                    f"{tables.inv_kn[p, s]:g} {tables.density[p, s]:g} "
+                    f"{tables.heat_cap[p, s]:g}\n"
+                )

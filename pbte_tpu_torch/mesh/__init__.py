@@ -1,6 +1,6 @@
-"""Meshes: this package's own copy of ``pbte_tpu.mesh`` (less uniform
-refinement and the MFEM writer): builtins, the gmsh and MFEM readers and
-the face tables."""
+"""Meshes: this package's own copy of ``pbte_tpu.mesh``: builtins, the
+gmsh and MFEM readers, the MFEM writer, uniform refinement, the face
+tables and the golden-format summary (``mesh.summary``)."""
 
 from pbte_tpu_torch.mesh.builtins import (  # noqa: F401
     load_builtin,
@@ -24,7 +24,9 @@ from pbte_tpu_torch.mesh.gmsh_io import load_gmsh_mesh  # noqa: F401
 from pbte_tpu_torch.mesh.mfem_io import (  # noqa: F401
     load_mfem_mesh,
     parse_mfem_mesh,
+    write_mfem_mesh,
 )
+from pbte_tpu_torch.mesh.refine import uniform_refine  # noqa: F401
 
 
 def load_mesh(spec: str) -> MeshData:

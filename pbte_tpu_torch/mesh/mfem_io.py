@@ -1,6 +1,6 @@
-"""Parser for the "MFEM mesh v1.0" ASCII format.
+"""Parser and writer for the "MFEM mesh v1.0" ASCII format.
 
-This package's own copy of the reader of ``pbte_tpu/mesh/mfem_io.py`` (for
+This package's own copy of ``pbte_tpu/mesh/mfem_io.py`` (for
 files like config/mesh/unit-square-iso.mesh). Uniform-face geometries
 (tri/quad/tet/hex) load directly; mixed meshes — 2D triangle+quad, 3D any
 mix of tet/hex/prism/pyramid — and pure prism/pyramid meshes load as
@@ -103,3 +103,34 @@ def parse_mfem_mesh(text: str, source: str = "") -> core.MeshData:
 def load_mfem_mesh(path: str) -> core.MeshData:
     with open(path) as f:
         return parse_mfem_mesh(f.read(), source=path)
+
+
+def write_mfem_mesh(mesh: core.MeshData, path: str) -> None:
+    import os
+
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    if mesh.geom == core.GEOM_MIXED:
+        codes = mesh.elem_geom
+    else:
+        codes = np.full(
+            mesh.num_elements, core.MFEM_CODE_OF_GEOM[mesh.geom]
+        )
+    # boundary geometry per row by vertex count (3D mixed meshes can have
+    # both triangle and quad boundary faces)
+    bcode_of_nv = {2: 1, 3: 2, 4: 3}
+    with open(path, "w") as f:
+        f.write("MFEM mesh v1.0\n\ndimension\n%d\n\n" % mesh.dim)
+        f.write("elements\n%d\n" % mesh.num_elements)
+        for attr, code, verts in zip(mesh.elem_attr, codes, mesh.elem_verts):
+            vs = [int(v) for v in verts if v >= 0]
+            f.write(f"{attr} {int(code)} " + " ".join(map(str, vs)) + "\n")
+        f.write("\nboundary\n%d\n" % len(mesh.bdry_verts))
+        for attr, verts in zip(mesh.bdry_attr, mesh.bdry_verts):
+            vs = [int(v) for v in verts if v >= 0]
+            f.write(
+                f"{attr} {bcode_of_nv[len(vs)]} "
+                + " ".join(map(str, vs)) + "\n"
+            )
+        f.write("\nvertices\n%d\n%d\n" % (mesh.num_vertices, mesh.dim))
+        for v in mesh.vertices:
+            f.write(" ".join(repr(float(x)) for x in v) + "\n")

@@ -304,7 +304,8 @@ class SourceIterationSolver:
 
         # ---- sweep plan, slot-major (G, Km) layout, Km buckets -------------
         sweep_nbr = ops.sweep_neighbor
-        plan = planner.build_plan(sweep_nbr, ops.normals, quad.directions)
+        self.plan = plan = planner.build_plan(sweep_nbr, ops.normals,
+                                              quad.directions)
         self.G = G = plan.num_groups
         sizes = np.array([len(d) for d in plan.dirs_of_group])
         self.Km = Km = int(sizes.max())

@@ -74,6 +74,12 @@ class SweepPlan:
     def max_width(self) -> int:
         return self.levels.shape[2]
 
+    def padding_ratio(self) -> float:
+        """Fraction of padded slots in the level tables (diagnostic)."""
+        total = self.levels.size
+        real = int((self.levels >= 0).sum())
+        return 1.0 - real / total
+
 
 def dir_slot_maps(dirs_pad: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     """Inverse of the padded (group, slot) -> global-direction table: per
@@ -216,29 +222,60 @@ def greedy_orders(neighbor: np.ndarray, normals: np.ndarray,
     order; an element is ready when every interior-face neighbour with
     outward_normal . dir < 0 is already processed; processing within a pass
     makes later elements ready in the same pass; a pass with no progress
-    raises. pbte_tpu runs the same passes natively where built."""
+    raises. pbte_tpu runs the same passes natively where built; here all
+    directions take their passes in lockstep, each element tested for every
+    unfinished direction at once (the same orders)."""
     K = directions.shape[0]
     ne, nf = neighbor.shape
     dim = normals.shape[-1]
-    orders = []
-    for k in range(K):
-        dots = normals @ directions[k, :dim]  # (ne, nf)
-        upwind = (dots < 0.0) & (neighbor >= 0)
-        processed = np.zeros(ne, dtype=bool)
-        order = []
-        while len(order) < ne:
-            progressed = False
-            for e in range(ne):
-                if processed[e]:
-                    continue
-                deps = neighbor[e][upwind[e]]
-                if np.all(processed[deps]):
-                    order.append(e)
-                    processed[e] = True
-                    progressed = True
-            if not progressed:
-                raise SweepCycleError(
-                    "angular sweep ordering stalled; check mesh connectivity"
-                )
-        orders.append(np.asarray(order, dtype=np.int32))
-    return orders
+    # upwind[e, f, k]: face f of e receives from its neighbour for dir k
+    dots = np.stack([normals @ directions[k, :dim] for k in range(K)], -1)
+    upwind = (dots < 0.0) & (neighbor >= 0)[..., None]
+    nbr_safe = np.where(neighbor >= 0, neighbor, 0)
+    processed = np.zeros((ne, K), dtype=bool)
+    orders = np.zeros((K, ne), dtype=np.int32)
+    count = np.zeros(K, dtype=np.int64)
+    active = count < ne
+    while active.any():
+        progressed = np.zeros(K, dtype=bool)
+        for e in range(ne):
+            ready = active & ~processed[e]
+            if not ready.any():
+                continue
+            ready &= np.all(~upwind[e] | processed[nbr_safe[e]], axis=0)
+            if ready.any():
+                ks = np.flatnonzero(ready)
+                orders[ks, count[ks]] = e
+                count[ks] += 1
+                processed[e, ks] = True
+                progressed[ks] = True
+        if (active & ~progressed).any():
+            raise SweepCycleError(
+                "angular sweep ordering stalled; check mesh connectivity"
+            )
+        active = count < ne
+    return [orders[k] for k in range(K)]
+
+
+def write_sweep_orders(quad, topo, path: str) -> None:
+    """The reference's golden-format sweep order dump (``sweep_*.txt``)."""
+    import os
+
+    # periodic pairs are lagged couplings, not sweep dependencies: masked
+    # exactly as the solver masks them (ElementOps.sweep_neighbor)
+    nbr = np.where(topo.elem_face_periodic, -1, topo.elem_neighbor)
+    orders = greedy_orders(nbr, topo.normals, quad.directions)
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "w") as f:
+        f.write("Sweep order per direction\n")
+        f.write(f"dimension: {topo.mesh.dim}\n")
+        f.write(f"elements: {topo.mesh.num_elements}\n")
+        f.write(f"directions: {quad.num_directions}\n\n")
+        for k, order in enumerate(orders):
+            f.write(
+                f"dir {k} theta={quad.polar[k]:g} phi={quad.azimuth[k]:g} "
+                f"w={quad.weights[k]:g} order:"
+            )
+            for e in order:
+                f.write(f" {e}")
+            f.write("\n")

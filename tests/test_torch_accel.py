@@ -188,6 +188,61 @@ def test_bicgstab_outer_follows_jax(case):
         assert seen_t[-1][1] < tol
 
 
+# (stale reads, nmv, last gain or restart, last gain) -> the guard's action:
+# the synthetic floor above (pbte_tpu stops there too); the float64
+# flagship's plateau near relres 1e-3 (the last gain at matvec 201, read
+# every 20 matvecs), where pbte_tpu stopped; three reads after the restart;
+# six (a second restart); six after that, now as long as the solve before
+# it; the same without a restart; too few reads; too short a span
+STALL_CASES = {
+    "floor": ((6, 75, 15, 15), "stop"),
+    "flagship_plateau": ((6, 321, 201, 201), "plateau"),
+    "after_restart": ((3, 381, 321, 201), None),
+    "plateau_again": ((6, 381, 321, 201), "plateau"),
+    "restarted_plateau": ((6, 442, 381, 201), "stop"),
+    "long_plateau": ((6, 402, 201, 201), "stop"),
+    "few_reads": ((5, 1000, 11, 11), None),
+    "short_span": ((6, 70, 11, 11), None),
+}
+
+
+@pytest.mark.parametrize("case", list(STALL_CASES))
+def test_stall_action(case):
+    args, want = STALL_CASES[case]
+    assert accel.stall_action(*args) == want
+
+
+# seeded maps on which a stop at every stall (pbte_tpu's guard) ends the
+# solve on a plateau far above tol, and the port's restarts reach tol
+# (measured: seed 7 stops at relres 0.51 after 125 step applications and
+# the port reaches 1e-10 in 306; seed 8 0.075 after 179, the port 358)
+PLATEAU_SEEDS = (7, 8)
+
+
+@pytest.mark.parametrize("seed", PLATEAU_SEEDS)
+def test_bicgstab_restarts_a_plateau(seed, monkeypatch, capsys):
+    """The port's guard restarts the recurrence where pbte_tpu's stops, and
+    the solve goes on to tol; both read the same residuals until then."""
+    fmap = _affine_map(seed=seed, rho=0.99, nonnormal=1.0)
+
+    def run():
+        seen = []
+        r = accel.bicgstab_outer(
+            _torch_step(fmap), _torch_zero(), None, 1e-10, 1500,
+            callback=lambda n, x: seen.append((n, x)), check_every=2)
+        return r, seen, capsys.readouterr().out
+
+    r_port, seen_port, out = run()
+    own = accel.stall_action
+    monkeypatch.setattr(accel, "stall_action",
+                        lambda *a: "stop" if own(*a) else None)
+    r_stop, seen_stop, _ = run()
+    assert seen_stop[-1][1] > 1e-2 and r_stop[4] < 200
+    assert "bicgstab restart (plateau)" in out
+    assert seen_port[-1][1] < 1e-10 and r_port[4] < 400
+    assert seen_port[:len(seen_stop)] == seen_stop
+
+
 def _defect(fmap, seed=5):
     """A seeded right-hand side d shaped like the state, as both packages'
     trees."""

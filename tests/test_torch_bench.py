@@ -272,3 +272,35 @@ def test_p3_wide_child_stopped_past_its_host_memory(monkeypatch):
     assert row["size"]["nx"] == 14
     assert row["last_stage"] is None or "p3_wide_f64 stage" in \
         row["last_stage"]
+
+
+# (reads every 2 matvecs, cadence) -> where pbte_tpu's guard stops: a
+# plateau of 60 matvecs after a gain at matvec 21, read at both cadences; a
+# steady fall; the plateau read every 20 matvecs ends before its 6th read
+def _plateau_reads(length):
+    falls = [(n, 0.5 ** ((n - 1) // 2)) for n in range(3, 22, 2)]
+    flat = [(n, falls[-1][1]) for n in range(23, 22 + length, 2)]
+    return falls + flat + [(22 + length, 1e-9)]
+
+
+REPLAY_CASES = {
+    "plateau_every_read": (_plateau_reads(60), 2, 81),
+    "steady_fall": ([(n, 0.5 ** n) for n in range(3, 60, 2)], 2, None),
+    "plateau_cadence_20": (_plateau_reads(60), 20, None),
+    "long_plateau_cadence_20": (_plateau_reads(160), 20, 141),
+}
+
+
+@pytest.mark.parametrize("case", list(REPLAY_CASES))
+def test_bench_accel_replay(case):
+    from pbte_tpu_torch import bench_accel
+
+    reads, every, want = REPLAY_CASES[case]
+    assert bench_accel.replay(reads, every) == want
+
+
+def test_bench_accel_plateaus():
+    from pbte_tpu_torch import bench_accel
+
+    assert bench_accel.plateaus(_plateau_reads(60)) == [(21, 61)]
+    assert bench_accel.plateaus(_plateau_reads(20)) == []
