@@ -64,6 +64,18 @@ Rows (each rebuilds the solver under its environment):
   ``CONVERGE_CHECK_EVERY`` (20) steps, as pbte_tpu's
   ``scripts/converge_tet.py`` measures it: ``converge_steps``,
   ``converge_wall_s`` (ending in a synchronise) and ``converge_residual``.
+- ``general_ring``: the repository's default config on the general ring
+  (pbte_tpu's one-hot ring, off the box lattice), f32:
+  ``problem.config_problem(7)``, the unit-square-iso triangles refined 7
+  times (32,768 elements), p = 1, 24 in-plane directions, 2 x 20 bands,
+  with consistent faces (the config's mfem-parity faces make the refined
+  iteration diverge in both packages, ROADMAP.md section 3; the step's
+  shapes and work are the same). ``PBTE_BENCH_GENERAL_REFINE`` sets the
+  refinement, ``PBTE_BENCH_NSPEC`` the bands where it is set. The ring
+  (``sweep_mode="ring"``, which ``auto`` resolves to at this size) timed
+  as the others, then the same problem on the scan (``scan_ms_per_step``,
+  ``scan_dof_per_s``, its peak memory) and the C++ mirror's baseline on
+  an 8-direction subset (``cpp_baseline_dof_per_s``, ``vs_baseline``).
 
 An extra row that fails records ``{"error": ...}``; ``PBTE_BENCH_ROWS=0``
 skips the extra rows.
@@ -76,8 +88,16 @@ share of the bound it reaches. It stands where ``bench.py`` reports a
 fraction of a TPU's matmul peak; on the CPU it is null (no device metric
 comes from a CPU run).
 
-``vs_baseline`` and ``cpp_baseline_dof_per_s`` are null: ``bench.py`` times
-pbte_tpu's C++ mirror solver, which this package has no copy of yet.
+``vs_baseline`` and ``cpp_baseline_dof_per_s``: as ``bench.py`` measures
+them (``bench.py:113-157``), the C++ mirror of the reference's solver
+(``pbte_tpu_torch.native``, built with g++ at first use; a failed build
+fails the run) solves the same problem on an 8-direction subset (polar 1 x
+azimuth 8) for ``PBTE_BENCH_CPP_ITERS`` iterations (default 1) with the
+on-the-fly LU: its DOF/s counts those 8 directions (the C++ sweep does no
+work across directions, so its rate a direction is that of the full set),
+and ``vs_baseline`` is the primary row's DOF/s over it. ``cpp_threads`` is
+its OpenMP thread count (the cores the process may run on unless
+OMP_NUM_THREADS says otherwise).
 
 Usage (from the root of a checkout; the GPU unless asked otherwise, and no
 fall-back: without a GPU the default raises)::
@@ -85,7 +105,8 @@ fall-back: without a GPU the default raises)::
     python3 bench_torch.py [--device cuda|cpu] [--p3-wide]
 
 Environment overrides: PBTE_BENCH_NX, PBTE_BENCH_ORDER, PBTE_BENCH_POLAR,
-PBTE_BENCH_AZIMUTH, PBTE_BENCH_NSPEC, PBTE_BENCH_STEPS, PBTE_BENCH_ROWS.
+PBTE_BENCH_AZIMUTH, PBTE_BENCH_NSPEC, PBTE_BENCH_STEPS, PBTE_BENCH_ROWS,
+PBTE_BENCH_CPP_ITERS, PBTE_BENCH_GENERAL_REFINE.
 """
 
 from __future__ import annotations
@@ -133,11 +154,11 @@ P3_WIDE_TIMEOUT_S = 2400
 # memory an H100 node of one card may give the whole run, where the
 # parent and the card's driver hold the rest
 P3_WIDE_HOST_LIMIT_GB = 72.0
-BASELINE_NOTE = (
-    "bench.py measures its baseline with pbte_tpu's C++ mirror solver "
-    "(pbte_tpu/native/); pbte_tpu_torch has no copy of it yet and imports "
-    "nothing of pbte_tpu, so no baseline is measured"
-)
+# the general_ring row: the default config refined this many times
+GENERAL_REFINE = 7
+# the C++ baseline's direction subset (bench.py's: polar 1 x azimuth 8 in
+# 3D, 8 azimuths in 2D)
+CPP_AZIMUTH = 8
 
 
 def log(msg):
@@ -364,6 +385,75 @@ def run_row(name, device, steps, size, env=None, solver_kw=None, shares=False,
     return row, shape
 
 
+def cpp_baseline(ops, quad, tables, bcs, iters, label):
+    """The C++ mirror's DOF/s on ``ops`` with ``quad``'s directions (a
+    subset of the row's), ``iters`` iterations with the on-the-fly LU:
+    (DOF/s, seconds, OpenMP threads). Raises where it cannot be built."""
+    from pbte_tpu_torch import native
+
+    t0 = time.perf_counter()
+    *_, secs = native.cpp_source_iteration(ops, quad, tables, bcs, iters,
+                                           use_full_lu=False)
+    cpp_dt = float(secs.sum())
+    dofs = (iters * quad.num_directions * tables.num_branches
+            * tables.num_spectral * ops.num_elements * ops.ndof / cpp_dt)
+    # OpenMP's default: the cores this process may run on
+    threads = (int(os.environ.get("OMP_NUM_THREADS", 0))
+               or len(os.sched_getaffinity(0)))
+    log(f"C++ baseline {label} ({quad.num_directions}-direction subset, "
+        f"{threads} threads): {iters} iteration(s) in {cpp_dt:.2f} s "
+        f"(+{time.perf_counter() - t0 - cpp_dt:.1f} s set-up) -> "
+        f"{dofs:.4g} DOF/s")
+    return dofs, cpp_dt, threads
+
+
+def flagship_baseline(size, iters):
+    """bench.py's baseline of the primary row: its hex lattice, order and
+    bands on the 8-direction subset."""
+    from pbte_tpu_torch.angular import quadrature as ang
+
+    ops, _, tables = problem.unit_cube(**size)
+    quad = ang.build(ang.AngularOptions(dimension=3, polar_points=1,
+                                        azimuth_points=CPP_AZIMUTH))
+    return cpp_baseline(ops, quad, tables, problem.WALL_BCS, iters,
+                        "flagship")
+
+
+def run_general_row(device, steps, refine, nspec, iters):
+    """The general_ring row: the default config refined ``refine`` times
+    on the general ring, then on the scan, then the C++ baseline."""
+    def make(**_):
+        return problem.config_problem(refine, face_mode="consistent",
+                                      nspec=nspec)[0]
+
+    bcs = problem.config_problem(0)[1]
+    row, shape = run_row("general_ring", device, steps, {}, make=make,
+                         solver_kw=dict(bc_temps=bcs, sweep_mode="ring"))
+    scan, _ = run_row("general_ring scan", device, steps, {}, make=make,
+                      solver_kw=dict(bc_temps=bcs, sweep_mode="scan"))
+    row.update(shape=dict(shape, refine=refine),
+               scan_ms_per_step=scan["ms_per_step"],
+               scan_dof_per_s=scan["dof_per_s"],
+               scan_setup_s=scan["setup_s"],
+               scan_residual=scan["residual"],
+               ring_over_scan=row["ms_per_step"] / scan["ms_per_step"])
+    if "max_memory_allocated" in scan:
+        row["scan_max_memory_allocated"] = scan["max_memory_allocated"]
+    ops, _, tables = make()
+    from pbte_tpu_torch.angular import quadrature as ang
+
+    sub = ang.build(ang.AngularOptions(dimension=2,
+                                       azimuth_points=CPP_AZIMUTH))
+    cpp, cpp_s, threads = cpp_baseline(ops, sub, tables, bcs, iters,
+                                       "general_ring")
+    row.update(cpp_baseline_dof_per_s=cpp, cpp_seconds=cpp_s,
+               cpp_threads=threads, vs_baseline=row["dof_per_s"] / cpp)
+    log(f"row general_ring: ring {row['ms_per_step']:.3f} ms/step, scan "
+        f"{scan['ms_per_step']:.3f} ms/step, {row['vs_baseline']:.4g}x the "
+        f"C++ baseline")
+    return row
+
+
 def run_bicgstab_row(device, size):
     """The float64 problem solved by BiCGStab to ACCEL_TOL from the zero
     state; returns the row."""
@@ -444,6 +534,11 @@ def main(argv=None) -> int:
     rows = {}
     # the primary row: an error here ends the run
     rows["f32"], shape = run_row("f32", device, steps, size, shares=True)
+    # its measured baseline (a failed build ends the run too)
+    cpp_iters = int(os.environ.get("PBTE_BENCH_CPP_ITERS", 1))
+    cpp_dofs, cpp_s, cpp_threads = flagship_baseline(size, cpp_iters)
+    vs_baseline = rows["f32"]["dof_per_s"] / cpp_dofs
+    log(f"the primary row is {vs_baseline:.4g}x the C++ baseline")
 
     if os.environ.get("PBTE_BENCH_ROWS", "1") != "0":
         f64 = dict(bc_temps=problem.WALL_BCS, dtype=torch.float64)
@@ -523,6 +618,18 @@ def main(argv=None) -> int:
             rows["tet_super"] = {"error": f"{type(e).__name__}: {e}"[:300]}
             log(f"row tet_super FAILED: {e}")
             release(device)
+        # the default config off the box lattice: the general ring, its
+        # scan and its C++ baseline
+        nspec_env = os.environ.get("PBTE_BENCH_NSPEC")
+        try:
+            rows["general_ring"] = run_general_row(
+                device, steps, int(os.environ.get(
+                    "PBTE_BENCH_GENERAL_REFINE", GENERAL_REFINE)),
+                None if nspec_env is None else int(nspec_env), cpp_iters)
+        except Exception as e:
+            rows["general_ring"] = {"error": f"{type(e).__name__}: {e}"[:300]}
+            log(f"row general_ring FAILED: {e}")
+            release(device)
 
     primary = rows["f32"]
     shares = primary.pop("k1_share_of_bound", None)
@@ -530,9 +637,11 @@ def main(argv=None) -> int:
         "metric": "element_ordinate_dof_per_s",
         "value": primary["dof_per_s"],
         "unit": "dof/s",
-        "vs_baseline": None,
-        "cpp_baseline_dof_per_s": None,
-        "baseline_note": BASELINE_NOTE,
+        "vs_baseline": vs_baseline,
+        "cpp_baseline_dof_per_s": cpp_dofs,
+        "cpp_baseline": dict(iters=cpp_iters, seconds=cpp_s,
+                             threads=cpp_threads,
+                             directions=CPP_AZIMUTH),
         "k1_share_of_bound": shares,
         "shape": shape,
         "rows": rows,

@@ -134,7 +134,22 @@ Phases (a failing phase raises and the script exits non-zero):
    dumps, slices and VTU on the card against ``--platform cpu`` (host logs
    byte-equal, fields within 1e-12 of max), checkpoint and resume (6 + 4
    against 10 steps, 1e-12 of max), ``--accelerate bicgstab`` to 1e-9,
-   ``--profile`` (its trace must name a K1 kernel) and ``-p`` (refused).
+   ``--profile`` (its trace must name a K1 kernel) and ``-p`` (refused);
+13. the general ring (pbte_tpu's one-hot ring, off the box lattice; torch
+   products, no kernel of the kernels line: K1's count must stay 0): (a)
+   ``python -m pbte_tpu_torch.cli -c config/config.yaml -r 7 --no-dumps``
+   (its ``main()`` in this process; 32,768 triangles, 24 directions, 2 x
+   20 bands) with ``--face-mode consistent`` (the config's mfem-parity
+   faces make the refined iteration diverge, in pbte_tpu too), 20 steps in
+   f32 and f64: the solver line must say ``solver[ring]``, its Tc (taken
+   from the solve's result) is held against the port's scan of the same
+   problem and steps (2e-6 of max in f32, 1e-11 in f64), and both ms/step
+   are printed; (b) the 6-tet cube 8^3 at p = 1 (upwind level gap H = 2)
+   with a Dirichlet wall and with a diffuse wall, f64, ``auto`` asserted to
+   take the general ring, against the scan at 1e-11 of max; (c) the 6-tet
+   cube 12^3 with a diffuse wall, where pbte_tpu's one-hot budget scans and
+   the port rings: the ring against the scan in f32 and f64 (2e-6, 1e-11)
+   with both ms/step.
 
 The line before the last is the card's name and power limit, the one before
 it {"kernels": [...]}, the last line {"ok": true, "device": {...}}.
@@ -245,10 +260,27 @@ CLI_SMALL = CLI_BASE + ["--slice-z", "0.4", "--line-slice", "2", "0.5",
 CLI_CARD_RTOL = 1e-12
 CLI_RESUME_RTOL = 1e-12
 CLI_SUBPROCESS_TIMEOUT = 300
+# phase 13, the general ring: the default config at -r 7 through the CLI,
+# GENERAL_STEPS steps against the port's scan of the same problem (as
+# phases 10 and 11 against their scans), and 6-tet cubes of GENERAL_TET's
+# angles and bands for GENERAL_TET_STEPS steps
+GENERAL_REFINE = 7
+GENERAL_STEPS = 20
+GENERAL_RTOL = {"f32": 2e-6, "f64": 1e-11}
+GENERAL_TET = dict(order=1, polar=2, azimuth=4, nspec=20)
+GENERAL_TET_STEPS = 5
+
+
+_T0 = time.perf_counter()
 
 
 def log(*a):
     print(*a, flush=True)
+
+
+def mark(what):
+    """A line with the seconds since the script started, at each phase."""
+    log(f"[smoke] t={time.perf_counter() - _T0:.1f} s: {what}")
 
 
 def rel_err(got, ref):
@@ -320,6 +352,11 @@ def run_k1_cases(lr, spec, cases, rng, shape_tag="", carried_ms=True):
         for l, (lo, hi) in enumerate(spec["win"]):
             inside[l, lo:hi] = True
     inside_t = torch.from_numpy(inside).cuda()
+    # the slab-sized operands are drawn on the card (on the host, numpy's
+    # generator took several seconds a case at these sizes), from a seed
+    # that ``rng`` gives
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(int(rng.integers(2 ** 62)))
     rows = []
     for bi, state, dirichlet, closure, windowed in cases:
         cb = spec["buckets"][bi]
@@ -329,13 +366,12 @@ def run_k1_cases(lr, spec, cases, rng, shape_tag="", carried_ms=True):
         win, win_k = ((spec["win"], spec["win_dev"]) if windowed
                       else (None, None))
         f64 = state == "f64"
-        np_dt = np.float64 if f64 else np.float32
 
         def rnd(*shape):
             """Seeded normal values of a slab-shaped operand (L first, W
             last), zero outside the windows in a windowed case."""
-            t = torch.from_numpy(
-                rng.standard_normal(shape, dtype=np_dt)).cuda()
+            t = torch.randn(shape, generator=gen, device="cuda",
+                            dtype=torch.float64 if f64 else torch.float32)
             if windowed and shape[0] == L:
                 t *= inside_t.view((L,) + (1,) * (len(shape) - 2) + (W,))
             return t
@@ -1609,6 +1645,152 @@ def phase_cli(lr, card, flag_dof):
     return rows
 
 
+def general_cli(lr, tmp, state):
+    """Phase 13 (a) in ``state``: the CLI at -r 7 in this process, its
+    solve's result taken by wrapping ``SourceIterationSolver.solve``;
+    returns (the solver line's sweep mode, the CLI's ms/step over its
+    solve, Tc on the host, the solver line)."""
+    import contextlib
+    import io
+
+    from pbte_tpu_torch import cli
+    from pbte_tpu_torch.problem import DEFAULT_CONFIG
+    from pbte_tpu_torch.solver import source_iteration as si
+
+    got = {}
+    solve = si.SourceIterationSolver.solve
+
+    def keep(self, *a, **kw):
+        got["res"] = res = solve(self, *a, **kw)
+        return res
+
+    argv = ["-c", str(DEFAULT_CONFIG), "-r", str(GENERAL_REFINE),
+            "--face-mode", "consistent", "--dtype", state, "--tol", "0",
+            "--max-iter", str(GENERAL_STEPS), "--check-every",
+            str(GENERAL_STEPS), "--no-dumps", "--out",
+            str(tmp / f"general_{state}")]
+    buf = io.StringIO()
+    si.SourceIterationSolver.solve = keep
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(argv)
+    finally:
+        si.SourceIterationSolver.solve = solve
+    out = buf.getvalue()
+    line = cli_line(out, "solver[")
+    done = re.search(r"done: (\d+) iters, residual (\S+), (\S+)s",
+                     cli_line(out, "done:"))
+    if rc != 0 or "NotImplementedError" in out:
+        raise RuntimeError(f"general ring cli {state}: rc {rc}\n{out[-2000:]}")
+    mode = re.search(r"solver\[(\w+)\]", line).group(1)
+    ms = float(done.group(3)) / int(done.group(1)) * 1e3
+    tc = got["res"].Tc.detach().cpu()
+    del got
+    return mode, ms, tc, line
+
+
+def time_solve(s, steps):
+    """``steps`` plain steps of ``s`` from the zero state, the residual read
+    at the end: (ms/step, Tc on the host)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r = s.solve(tol=0, max_iter=steps, check_every=steps, verbose=False)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / steps * 1e3, r.Tc.detach().cpu()
+
+
+def phase_general(SourceIterationSolver, problem, lr, card):
+    """Phase 13: the general ring against the scan (see the module
+    docstring). Returns {case: row}."""
+    import gc
+    import tempfile
+
+    t_phase = time.perf_counter()
+    rows = {}
+    lr.reset_launches()
+    calls, restore = count_plain_sweeps(lr)
+    try:
+        with tempfile.TemporaryDirectory() as d:
+            tmp = pathlib.Path(d)
+            prob, bcs = problem.config_problem(GENERAL_REFINE,
+                                               face_mode="consistent")
+            for state in ("f32", "f64"):
+                mode, ring_ms, tc_ring, line = general_cli(lr, tmp, state)
+                dt = torch.float32 if state == "f32" else torch.float64
+                s = SourceIterationSolver(*prob, bcs, device="cuda", dtype=dt,
+                                          sweep_mode="scan")
+                scan_ms, tc_scan = time_solve(s, GENERAL_STEPS)
+                del s
+                gc.collect()
+                torch.cuda.empty_cache()
+                rel, _ = rel_err(tc_ring, tc_scan)
+                rows[f"cli_r{GENERAL_REFINE}_{state}"] = row = dict(
+                    sweep_mode=mode, ring_ms_per_step=ring_ms,
+                    scan_ms_per_step=scan_ms, tc_rel=rel,
+                    tolerance=GENERAL_RTOL[state])
+                log(f"[smoke] general ring cli -r {GENERAL_REFINE} {state}: "
+                    f"{line.strip()}")
+                log(f"[smoke] general ring cli -r {GENERAL_REFINE} {state}: "
+                    f"ring {ring_ms:.3f} ms/step (the CLI's solve), scan "
+                    f"{scan_ms:.3f} ms/step, {GENERAL_STEPS} steps; Tc "
+                    f"against the scan {rel:.3e} of max (tolerance "
+                    f"{GENERAL_RTOL[state]}); on {card}")
+                if mode != "ring" or not rel <= GENERAL_RTOL[state]:
+                    raise RuntimeError(f"general ring cli {state}: {row}")
+            del prob
+        tet_bcs = {
+            "dirichlet": dict(bc_temps={a: t for a, t in
+                                        problem.WALL_BCS.items() if a != 6},
+                              dirichlet_bcs={6: 0.1}),
+            "diffuse": dict(bc_temps={a: t for a, t in
+                                      problem.WALL_BCS.items()
+                                      if a not in (2, 4)},
+                            diffuse_bcs=[2, 4]),
+        }
+        for n, walls, states in ((8, "dirichlet", ("f64",)),
+                                 (8, "diffuse", ("f64",)),
+                                 (12, "diffuse", ("f32", "f64"))):
+            prob = problem.tet_cube(n, **GENERAL_TET)
+            for state in states:
+                dt = torch.float32 if state == "f32" else torch.float64
+                ring = SourceIterationSolver(*prob, device="cuda", dtype=dt,
+                                             **tet_bcs[walls])
+                if ring.sweep_mode != "ring" or not ring._general:
+                    raise RuntimeError(f"tet {n}^3 {walls}: auto resolved "
+                                       f"to {ring.sweep_mode}, want the "
+                                       "general ring")
+                ring_ms, tc_ring = time_solve(ring, GENERAL_TET_STEPS)
+                shape = dict(G=ring.G, L=ring.L, W=ring.W)
+                del ring
+                scan = SourceIterationSolver(*prob, device="cuda", dtype=dt,
+                                             sweep_mode="scan",
+                                             **tet_bcs[walls])
+                scan_ms, tc_scan = time_solve(scan, GENERAL_TET_STEPS)
+                del scan
+                gc.collect()
+                torch.cuda.empty_cache()
+                rel, _ = rel_err(tc_ring, tc_scan)
+                rows[f"tet{n}_{walls}_{state}"] = row = dict(
+                    shape, ring_ms_per_step=ring_ms,
+                    scan_ms_per_step=scan_ms, tc_rel=rel,
+                    tolerance=GENERAL_RTOL[state])
+                log(f"[smoke] general ring tet {n}^3 {walls} {state}: "
+                    + json.dumps(row) + f" ({GENERAL_TET_STEPS} steps; on "
+                    f"{card})")
+                if not rel <= GENERAL_RTOL[state]:
+                    raise RuntimeError(f"tet {n}^3 {walls} {state}: ring "
+                                       f"against scan {rel:.3e}")
+    finally:
+        restore()
+    k1 = sum(lr.lattice_ring_sweep.launches_by_variant.values())
+    if k1 or calls:
+        raise RuntimeError(f"the general ring ran K1 ({k1} launches, "
+                           f"{len(calls)} plain sweeps)")
+    log(f"[smoke] phase 13 (the general ring) took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return rows
+
+
 def tree_norm(tree):
     """sqrt of the sum of squares over the leaves of a state tree."""
     from pbte_tpu_torch.solver.accel import tree_dot
@@ -1778,6 +1960,7 @@ def main() -> int:
     card = bench_dma.card_name_power()
     log(f"[smoke] nvidia-smi: {card}")
 
+    mark("phase 2 (the builds)")
     t0 = time.perf_counter()
     built = _build.load_all(["lattice_ring", "lattice_ring_tiled",
                              "dma_copy"])
@@ -1803,11 +1986,13 @@ def main() -> int:
                            f"three state types) and no spill, got "
                            f"{sorted(tiled_regs)}, spilled {spilled}")
 
+    mark("phase 3 (K1 against its plain version)")
     problem = unit_cube(**FLAGSHIP)
     solver, setup_s = build_flagship(SourceIterationSolver, problem,
                                      "flagship", bc_temps=WALL_BCS)
     check_k1_smem(solver, lr)
     rows = phase_kernel_vs_plain(solver, lr)
+    mark("phase 4 (the copy probe)")
     dma_res, dma_launches, dma_errs = phase_dma(dma, bench_dma)
     best = dma_res["best"]
     all_b = rows[0]["bytes"]
@@ -1819,12 +2004,14 @@ def main() -> int:
         f"{rows[0]['share_of_bound']:.3f} of the {rows[0]['bound_ms']:.3f} ms "
         f"bound, on {card}")
 
+    mark("phase 5 (the flagship)")
     launches, flag = phase_flagship(solver, lr, setup_s, "flagship")
     del solver
     torch.cuda.empty_cache()
 
     # phase 3 at the new shapes: the tiled kernel (D = 64; W = 576) and
     # the one-CTA kernel at D = 9, each on its lattice's own windows
+    mark("phase 3 at the new shapes")
     from pbte_tpu_torch.bench_k1 import P3_LATTICE, WIDE, k1_spec, p3_spec
 
     t0 = time.perf_counter()
@@ -1852,8 +2039,10 @@ def main() -> int:
     new_rows = phase_k1_new_shapes(lr, specs)
     del specs
     torch.cuda.empty_cache()
+    mark("phase 3 past the ceiling")
     beyond_rows = phase_k1_beyond_ceiling(lr)
 
+    mark("phase 6 (diffuse walls, bf16 state)")
     film, film_setup_s = build_flagship(SourceIterationSolver, problem,
                                         "diffuse-wall flagship",
                                         **DIFFUSE_WALLS)
@@ -1874,6 +2063,7 @@ def main() -> int:
     del bf16
     torch.cuda.empty_cache()
 
+    mark("phase 7 (the goldens)")
     golden_rel = phase_golden(SourceIterationSolver, unit_cube,
                               "torch_port_golden.npz")
     closure_rel = phase_golden(SourceIterationSolver, unit_cube,
@@ -1895,10 +2085,12 @@ def main() -> int:
                            "ring alone")
     del s
 
+    mark("phase 8 (the f64 flagship)")
     f64_launches, f64_row = phase_f64_flagship(
         SourceIterationSolver, problem, lr, dict(bc_temps=WALL_BCS))
     torch.cuda.empty_cache()
 
+    mark("phases 9, 10 (the legacy tet)")
     tet_prob = problem_mod.tet_cube(**problem_mod.LEGACY_TET)
     tet, tc_scan = phase_tet_scan(SourceIterationSolver, problem_mod,
                                   tet_prob, lr, card)
@@ -1907,13 +2099,18 @@ def main() -> int:
     del tet_prob
     torch.cuda.empty_cache()
 
+    mark("phase 11 (the new lattices)")
     new = phase_new_lattices(SourceIterationSolver, problem_mod, lr, card,
                              wide_prob, quad_prob)
     del wide_prob, quad_prob
     torch.cuda.empty_cache()
 
+    mark("phase 12 (the CLI)")
     cli_rows = phase_cli(lr, card, flag["dof_per_s"])
+    mark("phase 13 (the general ring)")
+    general = phase_general(SourceIterationSolver, problem_mod, lr, card)
 
+    mark("the kernels line")
     jax_mods = sorted(m for m in sys.modules
                       if m.split(".")[0] in ("jax", "jaxlib"))
     if jax_mods:
@@ -1955,6 +2152,10 @@ def main() -> int:
         + ", ".join(f"{k} {cli_rows[k]['dof_per_s']:.4g} DOF/s, set-up "
                     f"{sum(cli_rows[k]['setup_s'].values()):.1f} s"
                     for k in ("f32", "f64"))
+        + "; the general ring against its scan: "
+        + ", ".join(f"{k} {r['ring_ms_per_step']:.3f} against "
+                    f"{r['scan_ms_per_step']:.3f} ms/step"
+                    for k, r in general.items())
         + f"; on {card}")
 
     def k1_entry(name, state, n, shape=None,

@@ -41,15 +41,21 @@ and the modules that were JAX in pbte_tpu:
   ops), resolving
   ``sweep_mode`` as pbte_tpu does and dispatching a merged 6-tet or
   2-triangle lattice to ``solver.super_ring``, the supercell two-matmul
-  ring, and every other mesh to ``solver.scan``, the level-window scan
-  (both torch ops);
+  ring, a mesh off the box lattice with wide levels to
+  ``solver.one_hot_ring``, the general ring (pbte_tpu's one-hot ring; its
+  upwind reads are ``ops.ring_plan``'s integer tables), and every other
+  mesh to ``solver.scan``, the level-window scan (all torch ops);
 - ``solver.accel``: BiCGStab over the state, correction solves, refinement;
 - ``io.checkpoint``: checkpoints with pbte_tpu's fields;
 - ``convert``: numpy consts/state from ``pbte_tpu`` into this package's
   layouts, ring and scan, and the supercell ring's state both ways (used
   by the parity tests);
+- ``native``: the C++ mirror of the reference's solver (a verbatim copy
+  of pbte_tpu's, built with g++ at first use), the CPU baseline of
+  ``bench_torch.py``;
 - ``problem``: the unit-cube, graded-cube, unit-square and 6-tet box
-  problems, the flagship and the legacy production tet shape among them;
+  problems, the flagship and the legacy production tet shape among them,
+  and the default config's problem at a refinement;
 - ``cli``: the command-line interface, ``python -m pbte_tpu_torch.cli``
   (pbte_tpu's flags and files; ``--platform cpu`` for the CPU).
 

@@ -68,9 +68,13 @@ def _parser() -> argparse.ArgumentParser:
                     default="full")
     ap.add_argument("--sweep-mode", choices=["auto", "scan", "ring"],
                     default="auto",
-                    help="'ring' = the lattice ring sweep (auto-selected on "
-                         "Cartesian lattices from 512 elements); 'scan' = "
-                         "the compact level-window scan")
+                    help="'ring' = the ring sweep: the lattice ring on "
+                         "Cartesian box lattices, and off the lattice the "
+                         "general ring, which reads each upwind neighbour "
+                         "from the levels already solved (auto takes it on "
+                         "meshes of at most 8 element classes, upwind level "
+                         "gaps of at most 4 and levels of at least 64 "
+                         "elements); 'scan' = the compact level-window scan")
     ap.add_argument("--polish-extrapolate", action="store_true",
                     help="after --polish, Aitken-extrapolate the slow "
                          "mode's geometric tail (2 extra exact steps)")

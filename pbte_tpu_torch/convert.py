@@ -4,7 +4,8 @@
 ``consts`` pytree; mapped to numpy (for example with
 ``jax.tree.map(np.asarray, solver.consts)``) they become this package's
 consts dict, on the lattice ring (the Pallas kernel path, or the XLA ring
-``_step_ring`` with its lagged closures) and on the scan, so both packages
+``_step_ring`` with its lagged closures), on its one-hot ring off the box
+lattice (this package's general ring) and on the scan, so both packages
 can step from the same operators and the same state. pbte_tpu's supercell
 ring state carries over both ways (``state_from_numpy(..., supercell=True)``,
 ``super_state_to_numpy``); its supercell consts do not (this package builds
@@ -17,6 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from pbte_tpu_torch.ops.ring_plan import slots_from_onehot
 from pbte_tpu_torch.solver.scan import level_tables, pick_level_segments
 from pbte_tpu_torch.solver.super_ring import from_pbte_layout, to_pbte_layout
 from pbte_tpu_torch.solver.source_iteration import (
@@ -52,7 +54,8 @@ _PER_KEYS = ("per_cpl", "per_cin", "per_sl", "per_sw")
 def consts_from_numpy(np_consts: dict, device="cuda") -> dict:
     """pbte_tpu consts (numpy leaves) -> this package's consts: the scan
     path's (``scan_consts_from_numpy``) where they hold no ring buckets,
-    else the lattice ring's.
+    the general ring's where the buckets hold one-hot selections
+    (``general_bucket``), else the lattice ring's.
 
     Takes the Pallas path's consts and the XLA ring's (``sweep_mode="ring"``
     with ``use_pallas="off"``; not hull-windowed, which no closure problem
@@ -72,11 +75,14 @@ def consts_from_numpy(np_consts: dict, device="cuda") -> dict:
         return scan_consts_from_numpy(np_consts, device)
     mats = np_consts["mats"]
     periodic = bool(np.asarray(np_consts["per_valid"]).any())
+    general = "oh" in np_consts["ring_b"][0]
     buckets = []
     for bi, cb in enumerate(np_consts["ring_b"]):
         b = dict(
-            bcat=_tensor(mats[bi][4], device),
-            cin=_tensor(np.transpose(cb["cin"], (0, 1, 3, 2, 4)), device),
+            **(general_bucket(cb, mats[bi], device) if general else dict(
+                bcat=_tensor(mats[bi][4], device),
+                cin=_tensor(np.transpose(cb["cin"], (0, 1, 3, 2, 4)),
+                            device))),
             bsrc0=_tensor(cb["bsrc0"], device),
             macro_w=_tensor(cb["macro_w"], device),
         )
@@ -101,7 +107,9 @@ def consts_from_numpy(np_consts: dict, device="cuda") -> dict:
     return dict(
         perm=_tensor(np_consts["perm"], device),
         valid_slab=_tensor(np_consts["valid_slab"], device),
-        massT=_tensor(np.asarray(mats[0][2])[0, 0], device),
+        # the class M^T: (ncls, D, D) on the general ring, else (D, D)
+        massT=_tensor(np.asarray(mats[0][2])[0, :] if general
+                      else np.asarray(mats[0][2])[0, 0], device),
         wvec=_tensor(np_consts["wvec"], device),
         pos_of_elem=_tensor(np_consts["pos_of_elem"], device),
         ring_invMT=_tensor(np_consts["ring_invMT"], device),
@@ -111,6 +119,48 @@ def consts_from_numpy(np_consts: dict, device="cuda") -> dict:
            if k in np_consts},
         buckets=tuple(buckets),
     )
+
+
+def general_bucket(cb, mats_b, device):
+    """One bucket of pbte_tpu's one-hot ring -> the general ring's
+    ``one_hot_ring.bucket_tables`` keys: the one-hot ``oh`` (L, Gb,
+    nf_act, H W, W) becomes each read's (level, slot)
+    (``ring_plan.slots_from_onehot``) and masks the inflow coefficients
+    ``cin`` (L, Gb, nf_act, Km, W); the class factors ``mats_b[0]`` (Gb,
+    ncls, Km, BS, D, D) are stacked by rows and the class one-hots
+    ``mats_b[1]`` (L, Gb, ncls, W) made class-major; the couplings are the
+    class coupling ``mats_b[3]`` (Gb, nf_act, D, D), a class per (group,
+    face), or the per-element ``cpl`` (L, Gb, nf_act, D, D, W)."""
+    oh = np.asarray(cb["oh"])
+    a_cls, cls_oh = np.asarray(mats_b[0]), np.asarray(mats_b[1])
+    L, Gb, nf, _, W = oh.shape
+    _, ncls, Km, BS, D, _ = a_cls.shape
+    lev, slot, use = (np.stack(t, axis=1) for t in zip(
+        *(slots_from_onehot(oh[:, g], W) for g in range(Gb))))  # (nf, Gb..)
+    # (nf, Gb, L, W) -> (L, Gb, W, nf)
+    lev, slot, use = (t.transpose(2, 1, 3, 0) for t in (lev, slot, use))
+    cin = np.transpose(np.asarray(cb["cin"]), (0, 1, 4, 3, 2))  # L,Gb,W,Km,f
+    cin = np.where(use[:, :, :, None, :], cin, 0.0).astype(cin.dtype)
+    out = dict(
+        bstack=_tensor(np.moveaxis(a_cls, 1, 3).reshape(
+            Gb, Km, BS, ncls * D, D), device),
+        cls_oh=_tensor(np.transpose(cls_oh, (2, 0, 1, 3)), device),
+        nb_lev=_tensor(lev[:, :, :, None, None], device),
+        nb_slot=_tensor(slot[:, :, :, None, None], device),
+        nb_cin=_tensor(cin[:, :, :, :, None, :, None], device),
+    )
+    if len(mats_b) > 3:  # the class coupling: one class a (group, face)
+        ccpl = np.asarray(mats_b[3])
+        out["cpl_cls"] = _tensor(np.swapaxes(ccpl, -1, -2).reshape(
+            Gb * nf, D, D), device)
+        q = np.arange(Gb)[:, None] * nf + np.arange(nf)[None, :]
+        out["nb_q"] = _tensor(np.broadcast_to(
+            q[None, :, None, :], (L, Gb, W, nf)), device)
+    else:
+        cpl = np.asarray(cb["cpl"])  # (L, Gb, nf, D_i, D_j, W)
+        out["cpl_slab"] = _tensor(np.transpose(cpl, (0, 1, 5, 2, 4, 3))
+                                  .reshape(L, Gb * W, nf * D, D), device)
+    return out
 
 
 # pbte_tpu's scan consts this package reads as they are (mass_t and

@@ -20,6 +20,14 @@ lattice of two geometry classes (from 512 elements, where faces are put in
 canonical order): both packages sweep it on the multi-class lattice ring.
 ``unit_square`` is the 2D quad lattice of the same kind.
 
+``config_problem(refine)`` is the problem of the repository's default
+``config/config.yaml`` as the command-line interface builds it: the
+unit-square-iso triangle mesh scaled to microns and refined ``refine``
+times, p = 1, 24 in-plane gauss directions, 2 x 20 bands, attribute 1 at
+-0.5 and 2 at +0.5. From ``refine=6`` (8,192 triangles) both packages
+sweep it on their general ring (pbte_tpu's one-hot ring); at ``refine=7``
+(32,768 triangles) it is the general ring's full-width case.
+
 Boundary attributes of the cube: 1 and 6 are the z faces (bottom, top),
 2 and 4 the y faces, 3 and 5 the x faces. Of the square: 1 and 3 the y
 faces (bottom, top), 2 and 4 the x faces.
@@ -28,6 +36,7 @@ faces (bottom, top), 2 and 4 the x faces.
 from __future__ import annotations
 
 import dataclasses
+from pathlib import Path
 
 import numpy as np
 
@@ -36,6 +45,8 @@ from pbte_tpu_torch.angular import quadrature as ang
 from pbte_tpu_torch.fem import assembly
 from pbte_tpu_torch.material import nongray_smrt as mat
 
+REPO_ROOT = Path(__file__).resolve().parents[1]
+DEFAULT_CONFIG = REPO_ROOT / "config" / "config.yaml"
 # isothermal walls: attr 6 hot, the rest cold
 WALL_BCS = {1: -0.5, 2: -0.5, 3: -0.5, 4: -0.5, 5: -0.5, 6: 0.5}
 # the square's: attr 3 (top) hot, the rest cold
@@ -110,3 +121,21 @@ def tet_box(nx, ny, nz, order, polar, azimuth, nspec):
         dimension=3, polar_points=polar, azimuth_points=azimuth))
     tables = mat.build_tables(mat.SILICON, num_spectral=nspec)
     return ops, quad, tables
+
+
+def config_problem(refine, face_mode="mfem-parity", nspec=None):
+    """((ops, quad, tables), bc_temps) of ``config/config.yaml``'s problem
+    as ``python -m pbte_tpu_torch.cli -c config/config.yaml -r REFINE``
+    builds it: its mesh, scaled by reference_length and refined
+    ``refine`` times, assembled at p = 1 with ``face_mode`` (the CLI's
+    default mfem-parity), and its angles, bands and walls; ``nspec``,
+    where given, replaces the config's spectral bands."""
+    from pbte_tpu_torch.config import load_run_config
+
+    rc = load_run_config(str(DEFAULT_CONFIG))
+    m = pmesh.uniform_refine(pmesh.load_mesh(str(
+        REPO_ROOT / rc.mesh_spec)).scaled(rc.material.ref_len), refine)
+    ops = assembly.assemble(pmesh.connect(m), order=1, face_mode=face_mode)
+    tables = mat.build_tables(rc.material, num_spectral=(
+        rc.n_spectral if nspec is None else nspec))
+    return (ops, ang.build(rc.angles), tables), dict(rc.bc_temps)

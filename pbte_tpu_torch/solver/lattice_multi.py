@@ -175,6 +175,90 @@ def class_ttc(massT, cls_oh, tc_slab):
     return out
 
 
+class LevelSweep:
+    """The per-level pieces the torch rings share (this module's and the
+    general one-hot ring's, ``solver/one_hot_ring.py``): the rhs of a
+    level from the state, the lagged temperature and the sources, and the
+    class-selected factor apply with the band sum of the macroscopic
+    partials, written into the new state ``ys`` and the partials ``ms``.
+
+    ``v`` (L, Gb, Km, BS, D, W) the state, ``ttc``, ``bsrc``, ``dsrc``,
+    ``xsrc``, ``macro_w`` and ``wvec`` those of
+    ``ops.lattice_ring.lattice_ring_sweep_ref``, ``bstack`` (Gb, Km, BS,
+    ncls D, D) and ``cls_oh`` (ncls, L, Gb, W) a ``MultiBucket``'s."""
+
+    def __init__(self, v, ttc, bsrc, bstack, cls_oh, macro_w, wvec, dsrc,
+                 xsrc):
+        L, Gb, Km, BS, D, W = v.shape
+        self.v, self.ttc, self.bsrc, self.dsrc = v, ttc, bsrc, dsrc
+        self.N = N = Gb * Km * BS
+        self.acc = acc = (torch.float64 if v.dtype == torch.float64
+                          else torch.float32)
+        self.w_src, self.w_rel, self.w_bcv, self.w_dir = (
+            wvec[i].to(acc)[:, None, None] for i in range(4))
+        self.vg = self.w_dir  # (BS, 1, 1): the non-dimensional group velocity
+        self.ncls = ncls = cls_oh.shape[0]
+        if ncls > 1:
+            # each slot's class, (L, Gb, 1, 1, 1, 1, W) for the gather along
+            # the class rows; padded slots read class 0, whose factor
+            # applied to their zero rhs gives the zero a one-hot would
+            self.cls_idx = cls_oh.argmax(dim=0).view(L, Gb, 1, 1, 1, 1, W)
+        self.bstack = bstack.to(acc).view(N, ncls * D, D)
+        self.xsrc = xsrc
+        if xsrc is not None:
+            self.gi = torch.arange(Gb, device=v.device)[:, None]
+            self.xval = xsrc.xval.to(acc)
+            self.none = torch.zeros((), dtype=acc, device=v.device)
+        self.mw = macro_w.to(acc).view(Gb * Km, 1, BS)
+        self.ys = torch.empty_like(v)
+        # level-major, so a level's band sum lands in place
+        self.ms_l = torch.empty((L, Gb, Km, D, W), dtype=acc, device=v.device)
+        self.ms = self.ms_l.permute(1, 2, 0, 3, 4)  # (Gb, Km, L, D, W)
+
+    def rhs(self, l):
+        """Level l's rhs (Gb, Km, BS, D, W) in the accumulation type,
+        contiguous, without the neighbour terms: the state term first (a
+        sum of two terms rounds the same in either order)."""
+        acc = self.acc
+        rhs = self.w_rel * self.v[l].to(acc)
+        rhs.addcmul_(self.w_src, self.ttc[l].to(acc)[:, None, None])
+        rhs.addcmul_(self.w_bcv, self.bsrc[l].to(acc)[:, :, None], value=-1)
+        if self.dsrc is not None:
+            rhs.addcmul_(self.w_dir, self.dsrc[l].to(acc)[:, :, None],
+                         value=-1)
+        if self.xsrc is not None:
+            m = self.xsrc.xmap[l].long()  # (Gb, W)
+            add = self.xval[self.gi, m.clamp(min=0)]  # (Gb, W, Km, BS, D)
+            add = torch.where((m >= 0)[:, :, None, None, None], add,
+                              self.none)
+            rhs += add.permute(0, 2, 3, 4, 1)
+        return rhs
+
+    def solve(self, l, rhs):
+        """Every class factor against the rhs, each slot keeping its own
+        class's rows (one gather), written into ``ys[l]`` (through a
+        temporary where the state's type is not the accumulation type),
+        and the band sum into ``ms[:, :, l]``; returns the level's solution
+        in the accumulation type."""
+        Gb, Km, BS, D, W = rhs.shape
+        N, ncls, acc = self.N, self.ncls, self.acc
+        v = self.v
+        sol = self.ys[l] if v.dtype == acc else torch.empty_like(rhs)
+        if ncls == 1:
+            torch.bmm(self.bstack, rhs.view(N, D, W), out=sol.view(N, D, W))
+        else:
+            sol_all = torch.bmm(self.bstack, rhs.view(N, D, W)).view(
+                Gb, Km, BS, ncls, D, W)
+            torch.gather(sol_all, 3, self.cls_idx[l].expand(
+                Gb, Km, BS, 1, D, W), out=sol.view(Gb, Km, BS, 1, D, W))
+        if v.dtype != acc:
+            self.ys[l] = sol.to(v.dtype)
+        # the band sum of the macroscopic partials, one batched product
+        torch.bmm(self.mw, sol.view(Gb * Km, BS, D * W),
+                  out=self.ms_l[l].view(Gb * Km, 1, D * W))
+        return sol
+
+
 def multi_class_sweep(v, ttc, bsrc, mb, macro_w, wvec, *, shifts, dsrc=None,
                       xsrc=None):
     """One sweep of one Km bucket on the multi-class lattice ring.
@@ -189,36 +273,14 @@ def multi_class_sweep(v, ttc, bsrc, mb, macro_w, wvec, *, shifts, dsrc=None,
     (group, slot, band) rows: every coupling class against the ring, then
     every class factor against the rhs."""
     L, Gb, Km, BS, D, W = v.shape
-    N = Gb * Km * BS
-    acc = torch.float64 if v.dtype == torch.float64 else torch.float32
-    w_src, w_rel, w_bcv, w_dir = (wvec[i].to(acc)[:, None, None]
-                                  for i in range(4))
-    vg = w_dir  # (BS, 1, 1): the non-dimensional group velocity
-    ncls = mb.cls_oh.shape[0]
-    bstack = mb.bstack.to(acc).view(N, ncls * D, D)
+    lv = LevelSweep(v, ttc, bsrc, mb.bstack, mb.cls_oh, macro_w, wvec, dsrc,
+                    xsrc)
+    N, acc = lv.N, lv.acc
     # the stacked couplings as a batch of one matrix (no copy)
     cstack = mb.cstack.to(acc).expand(N, -1, D)
-    if xsrc is not None:
-        gi = torch.arange(Gb, device=v.device)[:, None]
-        xval = xsrc.xval.to(acc)
-        none = torch.zeros((), dtype=acc, device=v.device)
-    mw = macro_w.to(acc).view(Gb * Km, 1, BS)
-    ys = torch.empty_like(v)
-    ms = torch.empty((Gb, Km, L, D, W), dtype=acc, device=v.device)
     ring = None  # the previous level's solution (bf16 state: in bf16)
     for l in range(L):
-        # (Gb, Km, BS, D, W), contiguous: the state term first (a sum of
-        # two terms rounds the same in either order)
-        rhs = w_rel * v[l].to(acc)
-        rhs.addcmul_(w_src, ttc[l].to(acc)[:, None, None])
-        rhs.addcmul_(w_bcv, bsrc[l].to(acc)[:, :, None], value=-1)
-        if dsrc is not None:
-            rhs.addcmul_(w_dir, dsrc[l].to(acc)[:, :, None], value=-1)
-        if xsrc is not None:
-            m = xsrc.xmap[l].long()  # (Gb, W)
-            add = xval[gi, m.clamp(min=0)]  # (Gb, W, Km, BS, D)
-            add = torch.where((m >= 0)[:, :, None, None, None], add, none)
-            rhs += add.permute(0, 2, 3, 4, 1)
+        rhs = lv.rhs(l)
         # the neighbour terms: out[w] = cin_f[w] C_{q_f(w)} ring[w - s_f]
         if ring is not None and cstack.shape[1]:
             y = torch.bmm(cstack, ring.to(acc).view(N, D, W))
@@ -232,25 +294,7 @@ def multi_class_sweep(v, ttc, bsrc, mb, macro_w, wvec, *, shifts, dsrc=None,
                 sel = torch.gather(y[..., :W - s], 3, idx)[:, :, :, 0]
                 term[..., s:].addcmul_(cin[l][:, :, None, None, s:].to(acc),
                                        sel)
-            rhs.addcmul_(vg, term, value=-1)
-        # every class factor, then each slot's own class, written into the
-        # new state where it has the accumulation type
-        sol = ys[l] if v.dtype == acc else torch.empty_like(rhs)
-        if ncls == 1:
-            torch.bmm(bstack, rhs.view(N, D, W), out=sol.view(N, D, W))
-        else:
-            sol_all = torch.bmm(bstack, rhs.view(N, D, W)).view(
-                Gb, Km, BS, ncls, D, W)
-            for c in range(ncls):
-                oh = mb.cls_oh[c, l].to(acc)[:, None, None, None, :]
-                if c == 0:
-                    torch.mul(sol_all[:, :, :, 0], oh, out=sol)
-                else:
-                    sol.addcmul_(sol_all[:, :, :, c], oh)
-        if v.dtype != acc:
-            ys[l] = sol.to(v.dtype)
-        # the band sum of the macroscopic partials, one batched product
-        ms[:, :, l] = torch.bmm(mw, sol.view(Gb * Km, BS, D * W)).view(
-            Gb, Km, D, W)
-        ring = ys[l] if v.dtype == torch.bfloat16 else sol
-    return ys, ms
+            rhs.addcmul_(lv.vg, term, value=-1)
+        sol = lv.solve(l, rhs)
+        ring = lv.ys[l] if v.dtype == torch.bfloat16 else sol
+    return lv.ys, lv.ms

@@ -2,8 +2,9 @@
 
 This package's own copies of ``_lattice_ring_tables``
 (``pbte_tpu/solver/source_iteration.py``) and ``mirror_direction_map``
-(``pbte_tpu/validation/oracle.py``), and the per-level hull windows of the
-lattice slab (``ring_windows``).
+(``pbte_tpu/validation/oracle.py``), the per-level hull windows of the
+lattice slab (``ring_windows``), and the slab layout, active faces and
+inflow tables that the lattice ring and the general one-hot ring share.
 """
 
 from __future__ import annotations
@@ -129,17 +130,16 @@ def mirror_direction_map(quad, dim: int, axes=None,
     return out
 
 
-def slab_layout(tables, sweep_nbr, act_f, shifts):
-    """The padded (L, W) slab layout of the lattice ring per group.
+def slab_positions(tables, sweep_nbr):
+    """The padded (L, W) slab layout of a ring per group.
 
-    ``tables`` (G, L, W) from ``lattice_ring_tables``; ``sweep_nbr`` (ne,
-    nf) the sweep's neighbour table; ``act_f`` (G, dim) and ``shifts``
-    (dim,) the inflow face and slab offset of each axis. Returns ``perm``
-    (G, L W) the element at each slab position or -1, ``pos_valid``,
-    ``perm_safe`` (-1 as 0), ``pos_of_elem`` (G, ne) and ``nbr_pos`` (G, nf,
-    L W) the slab position of each face's neighbour or -1 (boundary,
-    padding). Raises where a valid interior upwind read does not hit the
-    previous level's slab at exactly its axis's static shift."""
+    ``tables`` (G, L, W) the element at each (level, slot) or -1 (the
+    lattice's ``lattice_ring_tables``, or a general mesh's
+    ``plan.levels``); ``sweep_nbr`` (ne, nf) the sweep's neighbour table.
+    Returns ``perm`` (G, L W) the element at each slab position or -1,
+    ``pos_valid``, ``perm_safe`` (-1 as 0), ``pos_of_elem`` (G, ne) and
+    ``nbr_pos`` (G, nf, L W) the slab position of each face's neighbour or
+    -1 (boundary, padding)."""
     G, L, W = tables.shape
     ne, nf = sweep_nbr.shape
     ne_pad = L * W
@@ -160,7 +160,19 @@ def slab_layout(tables, sweep_nbr, act_f, shifts):
         -1,
     )
     nbr_pos = np.swapaxes(nbr_pos, 1, 2)  # (G, nf, ne_pad)
-    for g in range(G):
+    return perm, pos_valid, perm_safe, pos_of_elem, nbr_pos
+
+
+def slab_layout(tables, sweep_nbr, act_f, shifts):
+    """``slab_positions`` of the lattice ring, checked against its static
+    shifts: ``act_f`` (G, dim) and ``shifts`` (dim,) the inflow face and
+    slab offset of each axis. Raises where a valid interior upwind read
+    does not hit the previous level's slab at exactly its axis's static
+    shift."""
+    W = tables.shape[2]
+    perm, pos_valid, perm_safe, pos_of_elem, nbr_pos = slab_positions(
+        tables, sweep_nbr)
+    for g in range(tables.shape[0]):
         for j, f in enumerate(act_f[g]):
             psel = np.flatnonzero(pos_valid[g] & (nbr_pos[g, f] >= 0))
             d = psel - nbr_pos[g, f, psel]
@@ -170,6 +182,28 @@ def slab_layout(tables, sweep_nbr, act_f, shifts):
                     f"{np.unique(d)} != {W + int(shifts[j])}"
                 )
     return perm, pos_valid, perm_safe, pos_of_elem, nbr_pos
+
+
+def active_faces(ops, perm_safe, dirs_slots, dir_valid):
+    """The faces of each group that are ever inflow (pbte_tpu's general
+    ring, ``source_iteration.py:1198-1219``): a face is active in group g
+    when s . n < 0 for some valid slot direction s at some slab position
+    (padded positions read element 0, as pbte_tpu's probe does). Returns
+    ``act_f`` (G, nf_act), each group's active faces padded with a repeat
+    of its first, and ``act_valid`` (G, nf_act), False on the padding."""
+    G = perm_safe.shape[0]
+    probe = np.einsum("gefd,gkd->gkfe", ops.normals[perm_safe], dirs_slots)
+    probe = np.minimum(probe, 0.0) * dir_valid[:, :, None, None]
+    active = [np.flatnonzero((probe[g] < 0).any(axis=(0, 2)))
+              for g in range(G)]
+    nf_act = max(max((len(a) for a in active), default=1), 1)
+    act_f = np.zeros((G, nf_act), dtype=np.int64)
+    act_valid = np.zeros((G, nf_act), dtype=bool)
+    for g, a in enumerate(active):
+        a = a if len(a) else np.array([0])
+        act_f[g, :len(a)] = a
+        act_valid[g, :len(a)] = True
+    return act_f, act_valid
 
 
 def group_permuted(a, perm_safe, pos_valid, np_dtype):

@@ -1,7 +1,7 @@
 """Source-iteration PBTE solver (PyTorch + CUDA).
 
 Port of ``pbte_tpu/solver/source_iteration.py::SourceIterationSolver`` on
-one device, with three of its sweeps:
+one device, with four of its sweeps:
 
 - the shift-structured lattice ring on a Cartesian box lattice (no
   supercell merge): on a single-class lattice the path of its Pallas
@@ -11,6 +11,9 @@ one device, with three of its sweeps:
   lattice of several geometry classes, or of per-element couplings, its
   XLA ring's multi-class branch as torch products
   (``solver/lattice_multi.py``);
+- the general ring, its XLA ring's one-hot branch off the box lattice, as
+  torch products (``solver/one_hot_ring.py``): triangles, tets and other
+  meshes whose levels are wide, with the same closures;
 - the compact level-window scan (``solver/scan.py``) for every other mesh
   pbte_tpu scans: tri, quad, tet, hex and mixed meshes, small meshes,
   meshes read from gmsh or MFEM files, under the ``full``, ``on-the-fly``
@@ -25,15 +28,19 @@ TPU memory budgets: faces are canonicalised at ne >= 512; a detected
 simplex-lattice split goes to the supercell ring (``supercell="auto"``,
 without Dirichlet, reflective or periodic walls and axis-grazing
 directions), a lattice of at most 8 geometry classes to the lattice ring,
-a general mesh of small upwind gap to pbte_tpu's one-hot ring; the rest is
-scanned. The supercell ring has one memory fallback for the 80 GB card in
-place of pbte_tpu's 12 GB super-state budget: past
-``super_ring.SUPER_BUDGET`` bytes of its working set ``auto`` does not
-merge, and the fine mesh is scanned (``sweep_mode="ring"`` merges
-regardless, as pbte_tpu's forced ring does). The one-hot ring is not
-ported yet (ROADMAP.md queue 1, item 6c) and raises
-``NotImplementedError``; ``sweep_mode="scan"`` solves those problems. The
-rest of this docstring is the lattice ring's.
+a general mesh of at most 8 classes, upwind level gaps of at most 4 and
+levels of at least 64 elements to the general ring; the rest is scanned.
+``use_lattice=False`` (pbte_tpu's keyword) sweeps a box lattice on the
+general ring too, and then merges no supercell (the supercell ring is a
+lattice ring here). Two memory fallbacks for the 80 GB card stand in for
+pbte_tpu's TPU budgets: past ``super_ring.SUPER_BUDGET`` bytes of its
+working set ``auto`` does not merge, and the fine mesh is scanned; past
+``one_hot_ring.GENERAL_BUDGET`` ``auto`` scans a mesh it would sweep on
+the general ring (pbte_tpu's 700e6-byte one-hot and 4.5e9-byte state
+budgets; with no one-hot tables here, its refusal of a forced ring past
+2e9 one-hot bytes has no counterpart). ``sweep_mode="ring"`` merges and
+rings regardless, as pbte_tpu's forced ring does. The rest of this
+docstring is the lattice ring's.
 
 ``matmul_precision`` (constructor) and ``polish_precision`` (``solve``)
 are pbte_tpu's tiers of the TPU's matrix unit, whose default truncates f32
@@ -56,8 +63,9 @@ outer step:
    closure contributions per closure element (the sweep's sparse
    ``ClosureSource``);
 3. runs ``ops.lattice_ring.lattice_ring_sweep`` once per Km bucket (the
-   CUDA kernel for CUDA tensors, the plain version for CPU tensors), or on
-   a multi-class lattice ``lattice_multi.multi_class_sweep``;
+   CUDA kernel for CUDA tensors, the plain version for CPU tensors), on
+   a multi-class lattice ``lattice_multi.multi_class_sweep``, off the
+   lattice ``one_hot_ring.one_hot_sweep``;
 4. regroups the per-level macroscopic partials into Tc through the
    ``pos_of_elem`` gather and ``M^-T``, then Tv;
 5. computes the scale-invariant residual.
@@ -108,20 +116,20 @@ from pbte_tpu_torch.ops.lattice_ring import (
     lattice_ring_sweep,
     windows_on_device,
 )
-from pbte_tpu_torch.solver import lattice_multi, scan, super_ring
+from pbte_tpu_torch.solver import lattice_multi, one_hot_ring, scan, super_ring
 from pbte_tpu_torch.solver.lattice_tables import (
+    active_faces,
     group_permuted,
     inflow_tables,
     lattice_ring_tables,
     ring_windows,
     slab_layout,
+    slab_positions,
     window_slots,
 )
 from pbte_tpu_torch.sweep import planner
 
 _SUPER_BF16 = "ROADMAP.md queue 1, item 6b.1 (bf16 state on the supercell ring)"
-_ONE_HOT_RING = "ROADMAP.md queue 1, item 6c (general one-hot ring)"
-_SCAN_SOLVES = "sweep_mode='scan' solves the same problem"
 # the reflective-wall consts, global (the gather crosses buckets)
 REFL_KEYS = ("dif_fint", "dif_cin", "dif_wplus", "dif_norm", "dif_fvec",
              "spc_cin", "spc_gk", "spc_fmv")
@@ -185,6 +193,9 @@ class SourceIterationSolver:
         require_bcs: bool = True,  # False: a boundary attribute without a
         # condition is taken as an isothermal wall at deviation 0
         sweep_mode: str = "auto",  # "auto" | "scan" | "ring"
+        use_lattice: bool = True,  # the shift-structured ring on Cartesian
+        # box lattices; False sweeps them on the general ring (and merges
+        # no supercell), so both rings stay testable on one mesh
         cache_policy: str = "full",  # the scan path's factor cache: "full"
         # | "on-the-fly" (alias "per-iteration") | "eigen"
         supercell: str = "auto",  # "auto" | "on" | "off": merge simplex
@@ -280,7 +291,8 @@ class SourceIterationSolver:
                 ops, assembly.canonical_face_perm(ops))
             cls = assembly.element_classes(ops)
         self._super = None
-        if (supercell != "off" and sweep_mode in ("auto", "ring")
+        if (supercell != "off" and use_lattice
+                and sweep_mode in ("auto", "ring")
                 and not dirichlet_bcs
                 and not (diffuse_bcs or specular_bcs)
                 and not ops.periodic.any()
@@ -328,10 +340,12 @@ class SourceIterationSolver:
             dvec[sel] = float(gval) * ops.face_int[sel]
 
         # ---- path resolution: pbte_tpu's ring decision, less its TPU
-        # memory budgets. The ring takes single-class Cartesian lattices
-        # (this package's lattice path) and, on pbte_tpu, multi-class
-        # lattices and general meshes of small upwind gap through one-hot
-        # selection; everything else is the scan.
+        # memory budgets. The ring takes Cartesian box lattices of at most
+        # 8 geometry classes (the lattice ring: K1 on a single class, the
+        # multi-class torch ring otherwise) and general meshes of at most 8
+        # classes, small upwind gap and wide levels (the general ring,
+        # solver/one_hot_ring.py) whose working set fits
+        # one_hot_ring.GENERAL_BUDGET; everything else is the scan.
         self.sweep_mode = "scan"
         self._sweep = self._scan = None
         lt = None
@@ -365,21 +379,22 @@ class SourceIterationSolver:
             if cls is None:
                 cls = assembly.element_classes(ops)
             ncls = int(cls.max()) + 1
-            lat = planner.detect_lattice(sweep_nbr, ops.normals)
+            lat = (planner.detect_lattice(sweep_nbr, ops.normals)
+                   if use_lattice else None)
             lt = (None if lat is None
                   else lattice_ring_tables(lat, plan, dirs_np))
             if lt is not None:
                 ring = ncls <= 8 or sweep_mode == "ring"
             else:
+                W_g = min(plan.max_width, ne)
+                itemsize = np.dtype(np_dtype).itemsize
                 ring = sweep_mode == "ring" or (
-                    ncls <= 8 and min(plan.max_width, ne) >= 64
-                    and _upwind_gap(plan, sweep_nbr, ne) <= 4)
-            if ring and lt is None:
-                raise NotImplementedError(
-                    "not a Cartesian box lattice with an octant leveling "
-                    "(simplex, unstructured or axis-grazing), which pbte_tpu "
-                    f"sweeps with its one-hot ring: {_ONE_HOT_RING}; "
-                    f"{_SCAN_SOLVES}")
+                    ncls <= 8 and W_g >= 64
+                    and _upwind_gap(plan, sweep_nbr, ne) <= 4
+                    and one_hot_ring.ring_bytes(
+                        int(sizes.sum()) + G, BS, self.D, L, W_g, G, Km,
+                        ops.faces_per_elem, ncls, itemsize)
+                    <= one_hot_ring.GENERAL_BUDGET)
             if ring:
                 self.sweep_mode = "ring"
         if self.sweep_mode == "scan":
@@ -399,7 +414,11 @@ class SourceIterationSolver:
             self._dif_on, self._spc_on = sv._dif_on, sv._spc_on
             self.state_dtype = dtype
             return
-        self.state_bf16 = os.environ.get("PBTE_RING_STATE_BF16", "") == "1"
+        # the general ring (pbte_tpu's one-hot ring) off the box lattice;
+        # bf16 state is the lattice ring's alone, as in pbte_tpu
+        self._general = lt is None
+        self.state_bf16 = (not self._general and os.environ.get(
+            "PBTE_RING_STATE_BF16", "") == "1")
         if self.state_bf16 and dtype == torch.float64:
             raise ValueError("PBTE_RING_STATE_BF16=1 rounds float32 state to "
                              "bfloat16; unset it for float64 state")
@@ -414,16 +433,22 @@ class SourceIterationSolver:
 
         # ---- K1 takes a single-class lattice with a class coupling; other
         # lattices (several geometry classes, or couplings that differ
-        # within the class) take the multi-class torch ring
-        lat_tabs, act_f, lat_shifts = lt
+        # within the class) take the multi-class torch ring, general meshes
+        # the general ring
         ncls = int(cls.max()) + 1
-        ccpl = assembly.class_coupling(ops, cls) if ncls == 1 else None
         self._multi = None  # the multi-class ring's per-bucket operands
-        self.shifts = tuple(int(s) for s in lat_shifts)
-        self.W = W = lat_tabs.shape[2]
+        if self._general:
+            ccpl = None
+            self.shifts = ()
+            slab_tab = plan.levels  # (G, L, W): the plan's levels, padded
+        else:
+            slab_tab, act_f, lat_shifts = lt
+            ccpl = assembly.class_coupling(ops, cls) if ncls == 1 else None
+            self.shifts = tuple(int(s) for s in lat_shifts)
+        self.W = W = slab_tab.shape[2]
         # per-level hull windows (L, 2), or None where they save too little
-        # (the multi-class ring runs the full slab)
-        win = ring_windows(lat_tabs)
+        # (the torch rings run the full slab)
+        win = None if self._general else ring_windows(slab_tab)
         self.win = (win if ccpl is not None and window_slots(win, WINDOW_TILE)
                     < WINDOW_MAX_SHARE * L * W else None)
         # on a GPU the sweeps take the windows as a tensor, uploaded once
@@ -432,11 +457,20 @@ class SourceIterationSolver:
             if self.win is not None and device.type == "cuda" else None
         )
         self.ne_pad = L * W
-        nf_act = dim
 
-        # ---- padded (L, W) slab layout per group ---------------------------
-        perm, pos_valid, perm_safe, pos_of_elem, nbr_pos = slab_layout(
-            lat_tabs, sweep_nbr, act_f, self.shifts)
+        # ---- padded (L, W) slab layout per group, and the inflow faces:
+        # the lattice's axis faces, or on the general ring the faces each
+        # group ever reads an upwind neighbour through (pbte_tpu's active
+        # faces)
+        if self._general:
+            perm, pos_valid, perm_safe, pos_of_elem, nbr_pos = (
+                slab_positions(slab_tab, sweep_nbr))
+            act_f, act_valid = active_faces(ops, perm_safe, dirs_np[dirs_safe],
+                                            dir_valid)
+        else:
+            perm, pos_valid, perm_safe, pos_of_elem, nbr_pos = slab_layout(
+                slab_tab, sweep_nbr, act_f, self.shifts)
+        nf_act = act_f.shape[1]
         self._perm = perm
 
         def gperm(a):
@@ -477,8 +511,17 @@ class SourceIterationSolver:
             )  # (G, nf_act, Km, BS, D, D)
             bcat = np.concatenate([a64[:, None], -bcv], axis=1)
             bcat = np.moveaxis(bcat, 1, -2).reshape(G, Km, BS, D, -1)
-        else:
+        elif not self._general:
             cpl, q_of = lattice_multi.coupling_classes(ops, cls, invMT_r)
+        else:
+            # the coupling classes where they determine the couplings, else
+            # the per-element couplings (pbte_tpu's cpl_slab)
+            try:
+                couplings = lattice_multi.coupling_classes(ops, cls, invMT_r)
+            except NotImplementedError:
+                nbr_cls = cls[np.clip(ops.neighbor, 0, None)]
+                couplings = np.einsum("efij,efjk->efik", ops.coupling,
+                                      invMT_r[nbr_cls])
 
         # ---- lagged closures (periodic wraps, diffuse/specular walls) -----
         per = _periodic_tables(ops, perm_safe, pos_valid, pos_of_elem, fdot,
@@ -546,6 +589,14 @@ class SourceIterationSolver:
                              cin=put(ring_cin[:, gs][:, :, :km_b]))
                         if ccpl is not None else {}
                     ),
+                    # the general ring's factors, reads and couplings
+                    **(
+                        one_hot_ring.bucket_tables(
+                            gs, km_b, a_cls, cls, couplings, perm_safe,
+                            pos_valid, nbr_pos, act_f, act_valid, cin_act, L,
+                            W, put, iput)
+                        if self._general else {}
+                    ),
                     bsrc0=put(ring_bsrc0[:, gs, :km_b]),
                     macro_w=put(mw_slots[gs, :km_b]),
                     **(
@@ -574,7 +625,7 @@ class SourceIterationSolver:
                 for (gs, km_b), sc in zip(self._ring_buckets, scat)
             ),
         )
-        if ccpl is None:
+        if ccpl is None and not self._general:
             self._multi = tuple(
                 lattice_multi.bucket_tables(
                     gs, km_b, a_cls, cls, cpl, q_of, perm_safe, pos_valid,
@@ -635,7 +686,7 @@ class SourceIterationSolver:
             Tc.T[:, c["perm"]].reshape(D, G, L, W).permute(2, 1, 0, 3)
             * c["valid_slab"][:, :, None, :]
         )  # (L, G, D, W), padded slots zeroed (exact-zero fixed points)
-        if self._multi is None:
+        if c["massT"].dim() == 2:  # K1's single geometry class
             ttc_all = torch.einsum("ij,lgjw->lgiw", c["massT"], tc_slab)
         xsrc = self._closure_sources(u)
 
@@ -643,7 +694,13 @@ class SourceIterationSolver:
         v_new = []
         for bi, cb in enumerate(c["buckets"]):
             groups = self._bucket_groups[bi]
-            if self._multi is not None:
+            if self._general:
+                ys, ms = one_hot_ring.one_hot_sweep(
+                    u[bi], lattice_multi.class_ttc(c["massT"], cb["cls_oh"],
+                                                   tc_slab[:, groups]),
+                    cb["bsrc0"], cb, cb["macro_w"], c["wvec"],
+                    dsrc=cb.get("dsrc0"), xsrc=xsrc[bi])
+            elif self._multi is not None:
                 mb = self._multi[bi]
                 ys, ms = lattice_multi.multi_class_sweep(
                     u[bi], lattice_multi.class_ttc(c["massT"], mb.cls_oh,

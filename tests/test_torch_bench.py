@@ -1,6 +1,8 @@
 """bench_torch.py, the port's benchmark entry point, at a tiny size on the
-CPU: its last line parses and has bench.py's keys, the extra rows are there,
-and the entry point refuses to fall back from the GPU."""
+CPU: its last line parses and has bench.py's keys, the C++ baseline is
+measured, the extra rows are there (the general ring's at the default
+config refined 3 times), and the entry point refuses to fall back from the
+GPU."""
 
 import json
 import os
@@ -13,7 +15,7 @@ import pytest
 REPO = pathlib.Path(__file__).resolve().parents[1]
 TINY = {"PBTE_BENCH_NX": "8", "PBTE_BENCH_ORDER": "1", "PBTE_BENCH_POLAR": "2",
         "PBTE_BENCH_AZIMUTH": "4", "PBTE_BENCH_NSPEC": "1",
-        "PBTE_BENCH_STEPS": "2"}
+        "PBTE_BENCH_STEPS": "2", "PBTE_BENCH_GENERAL_REFINE": "3"}
 # bench.py:219-231, less frac_f32_peak (a share of a TPU's matmul peak),
 # which k1_share_of_bound stands in for
 BENCH_KEYS = {"metric", "value", "unit", "vs_baseline",
@@ -48,27 +50,35 @@ def test_last_line_has_bench_keys(cpu_result):
 
 
 def test_no_device_number_from_a_cpu_run(cpu_result):
-    """No baseline is measured (and the note says why), and a CPU run
-    states no kernel share of a bound."""
+    """The C++ baseline is measured (a host number: on a CPU run
+    ``vs_baseline`` compares two CPU runs), as bench.py measures it, on the
+    8-direction subset; a CPU run states no kernel share of a bound and no
+    device memory."""
     res = cpu_result
-    assert res["vs_baseline"] is None
-    assert res["cpp_baseline_dof_per_s"] is None
-    assert "pbte_tpu/native" in res["baseline_note"]
+    assert res["cpp_baseline_dof_per_s"] > 0
+    assert res["vs_baseline"] == pytest.approx(
+        res["value"] / res["cpp_baseline_dof_per_s"])
+    assert res["cpp_baseline"]["iters"] == 1
+    assert res["cpp_baseline"]["directions"] == 8
+    assert res["cpp_baseline"]["seconds"] > 0
+    assert "baseline_note" not in res
     assert res["k1_share_of_bound"] is None
     assert "max_memory_allocated" not in res["rows"]["f32"]
 
 
 def test_rows(cpu_result):
-    """The eleven rows with --p3-wide; each extra row ran under its own
+    """The twelve rows with --p3-wide; each extra row ran under its own
     settings, the float64 ones in float64 (the accelerated row to its
     tolerance); the tet rows are held by test_tet_scan_row and
     test_tet_super_row, the wide and graded lattices by
-    test_wide_and_graded_rows, the p3_wide_f64 row by test_p3_wide_row."""
+    test_wide_and_graded_rows, the p3_wide_f64 row by test_p3_wide_row,
+    the general ring's by test_general_ring_row."""
     rows = dict(cpu_result["rows"])
     assert list(rows) == ["f32", "bf16_state", "diffuse_walls", "p3_f32",
                           "f64_state", "wide_f32", "graded_f32",
                           "p3_wide_f64", "f64_bicgstab", "tet_scan",
-                          "tet_super"]
+                          "tet_super", "general_ring"]
+    rows.pop("general_ring")
     rows.pop("tet_scan")
     rows.pop("tet_super")
     rows.pop("p3_wide_f64")
@@ -151,6 +161,27 @@ def test_tet_super_row(cpu_result):
     assert row["converge_residual"] < row["converge_tol"] == 1e-7
     assert row["converge_steps"] % 20 == 0 and row["converge_wall_s"] > 0
     assert not cpu_result["rows"]["tet_scan"]["supercell"]
+
+
+def test_general_ring_row(cpu_result):
+    """The default config refined 3 times (128 triangles, 24 in-plane
+    directions, the run's 2 bands, consistent faces) on the general ring,
+    f32, then on the scan, with its C++ baseline: a number, with
+    vs_baseline the ring's DOF/s over it."""
+    row = cpu_result["rows"]["general_ring"]
+    assert "error" not in row, row
+    assert row["sweep_mode"] == "ring" and not row["supercell"]
+    assert not row["windows"] and row["state"] == "torch.float32"
+    assert row["shape"] == {"ne": 128, "D": 3, "K": 24, "BS": 2,
+                            "refine": 3}
+    assert row["dof_per_s"] > 0 and row["scan_ms_per_step"] > 0
+    assert row["ring_over_scan"] == pytest.approx(
+        row["ms_per_step"] / row["scan_ms_per_step"])
+    assert row["cpp_baseline_dof_per_s"] > 0
+    assert row["vs_baseline"] == pytest.approx(
+        row["dof_per_s"] / row["cpp_baseline_dof_per_s"])
+    assert row["residual"] == pytest.approx(row["scan_residual"], rel=1e-4)
+    assert "max_memory_allocated" not in row
 
 
 @pytest.mark.parametrize("arg,want", [

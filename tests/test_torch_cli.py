@@ -9,8 +9,11 @@ slices, the VTU, the residual history) as parsed floats within 1e-10 of
 their largest value in float64 (``io.outputs.compare_outputs``, which also
 lets a last printed digit round the other way). Cases: the demo config (the 2-element
 triangle mesh on the scan path, 101 iterations), the hex lattice ``-r 1``
-on the lattice ring (K1's plain version), the tet builtin on the scan, and
-a float32 run of the port against pbte_tpu's float64 files.
+on the lattice ring (K1's plain version), the tet builtin on the scan, a
+float32 run of the port against pbte_tpu's float64 files, and the demo
+config at ``-r 6`` (8,192 triangles) on the general ring, pbte_tpu's
+one-hot ring, 3 iterations without dumps: with its mfem-parity faces
+(both diverge alike) and with consistent faces (the fields compared).
 tests/test_torch_cli_flags.py has the boundary flags and the port's own
 flag behaviour. Each pbte_tpu command runs once per module.
 """
@@ -37,6 +40,9 @@ HEX = ["-m", "unit-cube-hex", "-r", "1", "-o", "1", "--face-mode",
        "--vtu"]
 TET = ["-m", "unit-cube-tet", "-o", "1", "--face-mode", "consistent", "-ad",
        "3", "-ap", "2", "-az", "4", "--max-iter", "5", "--tol", "0"]
+
+
+SQUARE_R6 = ["-r", "6", "--max-iter", "3", "--no-dumps"]
 
 
 def run_cli(pkg, args, cwd, timeout=600, platform=("--platform", "cpu")):
@@ -70,8 +76,12 @@ def runs(tmp_path_factory):
     """Runs each (package, case) once per module, on first use; returns
     a function of (pkg, case) -> (CompletedProcess, output directory)."""
     cache = {}
-    cases = {"demo": ["-c", str(REPO / "config/config.yaml")], "hex": HEX,
-             "tet": TET, "hex_f32": HEX + ["--dtype", "f32"]}
+    demo = ["-c", str(REPO / "config/config.yaml")]
+    cases = {"demo": demo, "hex": HEX,
+             "tet": TET, "hex_f32": HEX + ["--dtype", "f32"],
+             "square_r6": demo + SQUARE_R6,
+             "square_r6_consistent": demo + SQUARE_R6 + [
+                 "--face-mode", "consistent"]}
 
     def get(pkg, case):
         if (pkg, case) not in cache:
@@ -133,3 +143,37 @@ def test_f32_against_f64(runs):
         "pbte_tpu", "hex")
     errs = compare_outputs(ours, ref, F32_RTOL)
     assert max(errs.values()) > 0.0  # a float32 run, not the f64 one
+
+
+def test_default_config_refined_takes_the_general_ring(runs):
+    """``-c config/config.yaml -r 6 --max-iter 3`` (the config's defaults:
+    mfem-parity faces, f64): both CLIs exit 0 and sweep on a ring, the
+    port's general ring where pbte_tpu takes its one-hot ring (G = 6, L =
+    254, W = 64). The rank-one mfem-parity faces make this refined
+    iteration diverge in both packages (the residual 1, 1, then NaN from
+    an overflow; both scans do the same): the histories agree, NaNs in
+    the same places, and the NaN fields are not compared."""
+    (pt, ours), (pj, ref) = runs("pbte_tpu_torch", "square_r6"), runs(
+        "pbte_tpu", "square_r6")
+    assert sweep_mode(pt) == sweep_mode(pj) == "ring"
+    assert "groups=6 levels<=254 width<=64" in pt.stdout
+    assert "slab=254x64" in pt.stdout
+    hist = "2D/log/PBTE_NonGraySMRT_step_resisual.txt"
+    from pbte_tpu_torch.io.outputs import field_err
+
+    assert field_err(ours / hist, ref / hist) <= F64_RTOL
+    assert files(ours) == files(ref)
+
+
+def test_default_config_refined_consistent_faces(runs):
+    """The same at ``--face-mode consistent``, where the iteration
+    converges: the fields (T_slice.txt, the residual history) within 1e-10
+    of max of pbte_tpu's."""
+    (pt, ours), (pj, ref) = runs("pbte_tpu_torch", "square_r6_consistent"), \
+        runs("pbte_tpu", "square_r6_consistent")
+    assert sweep_mode(pt) == sweep_mode(pj) == "ring"
+    errs = compare_outputs(ours, ref, F64_RTOL)
+    assert sorted(errs) == ["2D/log/PBTE_NonGraySMRT_step_resisual.txt",
+                            "2D/results/T_slice.txt"]
+    hist = np.loadtxt(ours / "2D/log/PBTE_NonGraySMRT_step_resisual.txt")
+    assert np.isfinite(hist).all() and hist[-1, 1] < hist[0, 1]

@@ -220,8 +220,8 @@ def test_ring_quad_2d(case, bcs, kw):
     tests/test_dirichlet.py::test_dirichlet_matches_oracle_ring (quads,
     p=1, a Dirichlet top face) on the forced ring, at 528 and 512 elements:
     pbte_tpu's originals (9x8, 5x4) lie below the 512 elements from which
-    faces take canonical order, and there it takes its one-hot ring (ROADMAP
-    item 6c); from 512 on, 2D quad lattices take the single-class lattice
+    faces take canonical order, and there it takes its one-hot ring (the
+    port's general ring, tests/test_torch_one_hot_ring.py); from 512 on, 2D quad lattices take the single-class lattice
     ring (two active faces; the plain K1 version on the CPU). Held to
     pbte_tpu's XLA ring at 1e-12 of max and to the oracle as the originals
     (rtol 1e-12 and 1e-11, atol 1e-14)."""

@@ -373,6 +373,18 @@ def _graded_hex(pkg, n):
     return ops, quad, mat.build_tables(mat.SILICON, num_spectral=2)
 
 
+def _config_square(pkg, refine):
+    """The default config's problem as the CLIs build it at ``-r refine``
+    (unit-square-iso scaled to microns, then refined; mfem-parity faces;
+    24 in-plane gauss directions), with 2 x 2 bands."""
+    m, asm, ang, mat = PKG[pkg]
+    md = m.uniform_refine(m.load_mesh(str(MESH_DIR / "unit-square-iso.mesh"))
+                          .scaled(1.0e-6), refine)
+    ops = asm.assemble(m.connect(md), order=1, face_mode="mfem-parity")
+    quad = ang.build(ang.AngularOptions(dimension=2, azimuth_points=24))
+    return ops, quad, mat.build_tables(mat.SILICON, num_spectral=2)
+
+
 RESOLUTION = {
     # name: (problem builder over a package, bcs, keywords, port's answer)
     "tri_4x4": (lambda p: _problem(p, "tri_4x4", 1, "mfem-parity"), None,
@@ -389,7 +401,12 @@ RESOLUTION = {
     "tet_5x5x5_scan_forced": (lambda p: _tet_cube(p, 5), None,
                               dict(sweep_mode="scan"), "scan"),
     "tet_8x8x8_dirichlet_one_hot": (lambda p: _tet_cube(p, 8), None,
-                                    dict(dirichlet_bcs={6: 0.1}), "item 6c"),
+                                    dict(dirichlet_bcs={6: 0.1}), "ring"),
+    "tet_8x8x8_diffuse_one_hot": (lambda p: _tet_cube(p, 8),
+                                  {1: -0.5, 3: -0.5, 5: -0.5, 6: 0.5},
+                                  dict(diffuse_bcs=[2, 4]), "ring"),
+    "unit-square-iso_r6_one_hot": (lambda p: _config_square(p, 6),
+                                   {1: -0.5, 2: 0.5}, {}, "ring"),
     "hex_8x8x8_graded_multi_class": (lambda p: _graded_hex(p, 8), None, {},
                                      "ring"),
     "hex_4x4x4_periodic_x": (lambda p: _problem(p, "hex_4x4x4_periodic_x", 1,
@@ -404,32 +421,27 @@ def test_resolved_sweep_mode_matches_pbte_tpu(name):
     """sweep_mode="auto" resolves as pbte_tpu's structural gates do (less
     its TPU memory budgets, which resolve none of these cases otherwise):
     the scan where pbte_tpu scans, the supercell ring where pbte_tpu
-    merges a simplex lattice, the lattice ring on a multi-class lattice;
-    where pbte_tpu takes a ring this package lacks (one-hot) a
-    NotImplementedError names the ROADMAP item and says the scan solves
-    the problem."""
+    merges a simplex lattice, the lattice ring on a multi-class lattice,
+    and the general ring where pbte_tpu takes its one-hot ring (the 6-tet
+    cube 8^3 with a wall that blocks the merge, the default config's
+    triangles at -r 6)."""
     build, bcs, kw, want = RESOLUTION[name]
     jp, tp = build("jax"), build("torch")
     bcs = _walls(jp[0]) if bcs is None else bcs
     if "dirichlet_bcs" in kw:
         bcs = {a: t for a, t in bcs.items() if a not in kw["dirichlet_bcs"]}
     js = JaxSolver(*jp, bcs, dtype=jnp.float64, **kw)
-    if want in ("scan", "ring"):
-        assert js.sweep_mode == want
-        ts = SourceIterationSolver(*tp, bcs, dtype=torch.float64,
-                                   device="cpu", **kw)
-        assert ts.sweep_mode == want
-        # the supercell ring where pbte_tpu merges, else the lattice ring
-        assert (ts._super is not None) == (js._super is not None)
-        if want == "ring" and js._super is None:
-            assert js._ring_lattice and ts._multi is not None
-        return
-    assert js.sweep_mode == "ring" and js._super is None
-    assert not js._ring_lattice
-    with pytest.raises(NotImplementedError, match=want) as e:
-        SourceIterationSolver(*tp, bcs, dtype=torch.float64, device="cpu",
-                              **kw)
-    assert "sweep_mode='scan' solves the same problem" in str(e.value)
+    assert js.sweep_mode == want
+    ts = SourceIterationSolver(*tp, bcs, dtype=torch.float64, device="cpu",
+                               **kw)
+    assert ts.sweep_mode == want
+    # the supercell ring where pbte_tpu merges; else the lattice ring
+    # (the multi-class ring here) where pbte_tpu takes its lattice ring,
+    # the general ring where it takes its one-hot ring
+    assert (ts._super is not None) == (js._super is not None)
+    if want == "ring" and js._super is None:
+        assert ts._general == (not js._ring_lattice)
+        assert (ts._multi is not None) == js._ring_lattice
 
 
 def test_arguments_are_validated():

@@ -772,9 +772,11 @@ def test_entry_points_default_to_the_gpu(monkeypatch, entry):
 
 def test_no_jax_import():
     """The port builds and steps a hex 8^3 problem, and solves it in float64
-    with solve(accelerate="bicgstab") (solver/accel.py), in a process where
-    importing JAX, or anything of pbte_tpu, fails; every module of the
-    port, chip_smoke.py and bench_torch.py import there too."""
+    with solve(accelerate="bicgstab") (solver/accel.py), steps a 6-tet cube
+    on the general ring (solver/one_hot_ring.py) and runs the C++ baseline
+    (pbte_tpu_torch.native) on it, in a process where importing JAX, or
+    anything of pbte_tpu, fails; every module of the port, chip_smoke.py
+    and bench_torch.py import there too."""
     code = textwrap.dedent("""
         import importlib
         import pkgutil
@@ -813,6 +815,17 @@ def test_no_jax_import():
             WALL_BCS, dtype=torch.float64, device="cpu")
         r = s64.solve(tol=0, max_iter=6, verbose=False, accelerate="bicgstab")
         assert r.iterations == 5 and torch.isfinite(r.Tc).all()
+        import numpy as np
+        from pbte_tpu_torch import native
+        from pbte_tpu_torch.problem import tet_cube
+        tp = tet_cube(4, order=1, polar=2, azimuth=4, nspec=1)
+        g = SourceIterationSolver(*tp, WALL_BCS, device="cpu",
+                                  sweep_mode="ring", supercell="off")
+        assert g._general
+        u, Tc, Tv = g.initial_state()
+        u, Tc, Tv, r = g.step(u, Tc, Tv)
+        assert torch.isfinite(Tc).all() and bool(torch.isfinite(r))
+        assert np.isfinite(native.cpp_source_iteration(*tp, WALL_BCS, 1)[1]).all()
         assert not any(m.split(".")[0] in ("jax", "jaxlib", "pbte_tpu")
                        for m in sys.modules)
         print("no-jax ok")
