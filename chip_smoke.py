@@ -134,7 +134,9 @@ Phases (a failing phase raises and the script exits non-zero):
    dumps, slices and VTU on the card against ``--platform cpu`` (host logs
    byte-equal, fields within 1e-12 of max), checkpoint and resume (6 + 4
    against 10 steps, 1e-12 of max), ``--accelerate bicgstab`` to 1e-9,
-   ``--profile`` (its trace must name a K1 kernel) and ``-p`` (refused);
+   ``--profile`` (its trace must name a K1 kernel) and ``-p 2x2`` under
+   ``torchrun --standalone --nproc-per-node 4`` (four gloo ranks sharing
+   the card: the slab-lattice solver, the serial run's files);
 13. the general ring (pbte_tpu's one-hot ring, off the box lattice; torch
    products, no kernel of the kernels line: K1's count must stay 0): (a)
    ``python -m pbte_tpu_torch.cli -c config/config.yaml -r 7 --no-dumps``
@@ -149,7 +151,28 @@ Phases (a failing phase raises and the script exits non-zero):
    take the general ring, against the scan at 1e-11 of max; (c) the 6-tet
    cube 12^3 with a diffuse wall, where pbte_tpu's one-hot budget scans and
    the port rings: the ring against the scan in f32 and f64 (2e-6, 1e-11)
-   with both ms/step.
+   with both ms/step;
+14. the domain-decomposed solvers over torch.distributed (four ranks spawned
+   on this card, joined over gloo: NCCL takes one card a rank; the native
+   sweep planner and multilevel partitioner must have built): (a) the
+   slab-lattice solver on a 2 x 2 (dir x space) grid at the flagship
+   (f32): 3 steps through K1 against 3 through its plain version (Tc at
+   phase 3's F32_RTOL of max), then 2 + SHARD_TIMED_STEPS timed steps with
+   each rank's K1 launches (a rank with none fails), ms/step, the halo's
+   bytes a rank sends and the lagged closure source's ms per step (the
+   exit-layer ppermute through the host and the entry-row source), and
+   each rank's peak memory; (b) the slab solver on one rank (a 1 x 1
+   grid), 5 flagship steps against SourceIterationSolver's (2e-6 of max);
+   (c) the slab 2 x 2 and the single-device solver at hex 8^3 p=2 (16
+   directions, 8 bands), f64, each solved by BiCGStab to 1e-10 (1e-7 of
+   max); (d) the spatially sharded solver 2 x 2 on the 3^3 6-tet
+   cube, f64, against the lagged-interface oracle with its partition
+   (1e-12 of max), and on the 12^3 6-tet cube, 10 timed steps (Tc finite,
+   the residual falling); (e) SourceIterationSolver's dir sharding over
+   the grid's 2 dir ranks (each space rank a replica), 3 flagship steps
+   against the single-device solver's (2e-6 of max). Four ranks on one
+   card time-slice it: these numbers are correctness and the halo's cost,
+   not scaling.
 
 The line before the last is the card's name and power limit, the one before
 it {"kernels": [...]}, the last line {"ok": true, "device": {...}}.
@@ -269,6 +292,20 @@ GENERAL_STEPS = 20
 GENERAL_RTOL = {"f32": 2e-6, "f64": 1e-11}
 GENERAL_TET = dict(order=1, polar=2, azimuth=4, nspec=20)
 GENERAL_TET_STEPS = 5
+# phase 14, the sharded solvers on four ranks sharing the card
+SHARD_TIMED_STEPS = 20
+SHARD_TIMEOUT = 600  # seconds for the ranks' spawn, set-up included
+SHARD_1x1_RTOL = 2e-6  # slab 1 x 1 and dir sharding against one device
+SHARD_ACCEL_RTOL = 1e-7  # slab BiCGStab against the single device's
+SHARD_ORACLE_RTOL = 1e-12
+SHARD_CONFIG = dict(
+    device="cuda", flagship=None,  # FLAGSHIP, filled in by main
+    # (c): 16 directions x 8 bands (the flagship's 64 x 40 took 37 s of
+    # the phase's 122 on an H100: 413 step applications on four ranks)
+    accel=dict(nx=8, ny=8, nz=8, order=2, polar=2, azimuth=8, nspec=4),
+    tet_small=dict(n=3, order=1, polar=2, azimuth=4, nspec=2),
+    tet_timed=dict(n=12, order=1, polar=2, azimuth=4, nspec=2),
+    timed_steps=SHARD_TIMED_STEPS)
 
 
 _T0 = time.perf_counter()
@@ -1615,12 +1652,32 @@ def cli_profile(cwd):
 
 
 def cli_parallel(cwd):
-    """-p is refused, naming the distributed solvers' ROADMAP item."""
-    proc = run_cli(CLI_BASE + ["-p", "2x2"], cwd)
-    log(f"[smoke] cli -p 2x2: rc {proc.returncode}: {proc.stderr.strip()}")
-    if proc.returncode == 0 or "item 11" not in proc.stderr:
-        raise RuntimeError("cli: -p was not refused naming item 11")
-    return proc.returncode
+    """-p 2x2 under torchrun (four gloo ranks sharing the card): the
+    slab-lattice solver, the serial run's files (cli_resume's "full", 10
+    steps), finite fields. Returns its done line."""
+    from pbte_tpu_torch.io.outputs import files
+
+    env = dict(os.environ)
+    env["PYTHONPATH"] = (str(pathlib.Path(__file__).resolve().parent)
+                         + os.pathsep + env.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    proc = checked(subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "4", "-m", "pbte_tpu_torch.cli", *CLI_BASE,
+         "--max-iter", "10", "-p", "2x2", "--out", "par"], cwd=cwd, env=env,
+        capture_output=True, text=True, timeout=CLI_SUBPROCESS_TIMEOUT),
+        "-p 2x2")
+    done = cli_line(proc.stdout, "done:")
+    log(f"[smoke] cli -p 2x2 under torchrun in "
+        f"{time.perf_counter() - t0:.1f} s: "
+        f"{cli_line(proc.stdout, 'slab-lattice solver')} | {done}")
+    tc = (cwd / "par/log/Tc_all.txt").read_text().split()
+    if (set(files(cwd / "par")) != set(files(cwd / "full"))
+            or not all(np.isfinite(float(x)) for x in tc
+                       if x[0] in "-0123456789")):
+        raise RuntimeError("cli -p 2x2: not the serial run's files, or "
+                           "non-finite fields")
+    return done
 
 
 def phase_cli(lr, card, flag_dof):
@@ -1639,7 +1696,7 @@ def phase_cli(lr, card, flag_dof):
         rows["subprocess"] = dict(
             card_vs_cpu=cli_card_vs_cpu(tmp), resume=cli_resume(cwd),
             bicgstab=cli_bicgstab(cwd), profile_k1=cli_profile(cwd),
-            parallel_rc=cli_parallel(cwd))
+            parallel=cli_parallel(cwd))
     log(f"[smoke] phase 12 (the CLI) took {time.perf_counter() - t_phase:.1f}"
         f" s")
     return rows
@@ -1927,6 +1984,251 @@ def phase_f64_flagship(SourceIterationSolver, problem, lr, walls):
     return launches, row
 
 
+def _sync(device):
+    if device == "cuda":
+        torch.cuda.synchronize()
+
+
+def _shard_rank(rank, world, cfg):
+    """Phase 14 on one of four ranks: (a), (c), (d), (e) (see the module
+    docstring); returns this rank's results (the global fields on every
+    rank, from the solvers' gathers)."""
+    from pbte_tpu_torch import problem
+    from pbte_tpu_torch.ops import lattice_ring as lr
+    from pbte_tpu_torch.parallel.comm import Grid
+    from pbte_tpu_torch.parallel.slab import SlabLatticeSolver
+    from pbte_tpu_torch.parallel.spatial import SpatialShardedSolver
+    from pbte_tpu_torch.solver.source_iteration import SourceIterationSolver
+
+    dev = cfg["device"]
+    if dev == "cuda":
+        torch.cuda.set_device(0)
+    grid = Grid(dir=2, space=2)
+    out = dict(rank=rank)
+
+    # (a) the slab solver at the flagship, f32
+    t0 = time.perf_counter()
+    prob = problem.unit_cube(**cfg["flagship"])
+    s = SlabLatticeSolver(*prob, problem.WALL_BCS, grid, device=dev)
+    _sync(dev)
+    out["a_setup_s"] = time.perf_counter() - t0
+    out["a_shape"] = dict(L=s.L, W=s.W, G=s.G, Kl=s.Kl, BS=s.BS, D=s.D,
+                          ne_loc=s.ne_loc, windows=s.win is not None)
+    tcs = []
+    for sweep in (lr.lattice_ring_sweep, lr.lattice_ring_sweep_ref):
+        s.ring_sweep = sweep
+        st = s.initial_state()
+        for _ in range(3):
+            st = s.step(*st)[:3]
+        tcs.append(s.gather_Tc(st[1]))
+        del st
+    s.ring_sweep = lr.lattice_ring_sweep
+    out["a_tc_kernel"], out["a_tc_plain"] = tcs
+    u, Tc, Tv = s.initial_state()
+    for _ in range(2):
+        u, Tc, Tv, r = s.step(u, Tc, Tv)
+    if dev == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    lr.reset_launches()
+    res = []
+    _sync(dev)
+    grid.barrier()
+    t0 = time.perf_counter()
+    for _ in range(cfg["timed_steps"]):
+        u, Tc, Tv, r = s.step(u, Tc, Tv)
+        res.append(r)
+    _sync(dev)
+    grid.barrier()
+    wall = time.perf_counter() - t0
+    out["a_launches"] = lr.lattice_ring_sweep.launches
+    out["a_ms_per_step"] = wall / cfg["timed_steps"] * 1e3
+    out["a_residuals"] = [float(x) for x in res]
+    # the lagged closure source alone: the exit layer's ppermute (through
+    # the host on gloo) and the entry-row source
+    n_src = 5
+    _sync(dev)
+    grid.barrier()
+    t0 = time.perf_counter()
+    for _ in range(n_src):
+        s._closure_source(u)
+    _sync(dev)
+    grid.barrier()
+    out["a_halo_ms"] = (time.perf_counter() - t0) / n_src * 1e3
+    p = grid.index("space")
+    layer = s.W * s.Kl * s.BS * s.D * u.element_size()
+    out["a_halo_bytes"] = layer * (len(s._g_plus) * (p + 1 < s.P)
+                                   + len(s._g_minus) * (p > 0))
+    out["a_peak_bytes"] = (torch.cuda.max_memory_allocated()
+                           if dev == "cuda" else 0)
+    del s, u, Tc, Tv, prob
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+
+    # (c) slab BiCGStab, f64
+    prob = problem.unit_cube(**cfg["accel"])
+    s = SlabLatticeSolver(*prob, problem.WALL_BCS, grid, dtype=torch.float64,
+                          device=dev)
+    t0 = time.perf_counter()
+    r = s.solve(tol=1e-10, max_iter=1500, verbose=False, check_every=10,
+                accelerate="bicgstab")
+    out["c_tc"], out["c_iterations"] = r.Tc_global(), r.iterations
+    out["c_wall_s"] = time.perf_counter() - t0
+    del s, r, prob
+
+    # (d) the spatially sharded solver on 6-tet cubes, f64
+    walls = problem.WALL_BCS
+    for key in ("tet_small", "tet_timed"):
+        c = cfg[key]
+        sp = SpatialShardedSolver(
+            *problem.tet_cube(**c), walls, grid, dtype=torch.float64,
+            topo=problem.tet_topology(c["n"], c["n"], c["n"]), device=dev,
+            partition_method="multilevel")
+        if key == "tet_small":
+            r = sp.solve(tol=0, max_iter=4, verbose=False)
+            out["d_tc"], out["d_part"] = r.Tc_global(), sp.element_partition
+            continue
+        st = sp.initial_state()
+        st = sp.step(*st)[:3]
+        res = []
+        _sync(dev)
+        grid.barrier()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            *st, r = sp.step(*st)
+            res.append(r)
+        _sync(dev)
+        grid.barrier()
+        out["d_ms_per_step"] = (time.perf_counter() - t0) / 10 * 1e3
+        out["d_residuals"] = [float(x) for x in res]
+        out["d_tc_finite"] = bool(np.isfinite(sp.gather_Tc(st[1])).all())
+        out["d_shape"] = dict(ne=sp.ne, L=sp.L, W=sp.W, G=sp.G,
+                              interface=sp.pplan.num_interface)
+        del sp, st
+
+    # (e) dir sharding of the single-device solver: 2 dir ranks (each
+    # space rank a replica)
+    prob = problem.unit_cube(**cfg["flagship"])
+    lr.reset_launches()
+    sd = SourceIterationSolver(*prob, walls, device=dev, dir_sharding=grid)
+    st = sd.initial_state()
+    for _ in range(3):
+        st = sd.step(*st)[:3]
+    out["e_tc"] = st[1].cpu().numpy()
+    out["e_launches"] = lr.lattice_ring_sweep.launches
+    del sd, st
+    if rank != 0:  # the fields once
+        for k in [k for k, v in out.items() if isinstance(v, np.ndarray)]:
+            del out[k]
+    return out
+
+
+def phase_sharded(card, cfg):
+    """Phase 14: the domain-decomposed solvers. Returns its row."""
+    import tempfile
+
+    from pbte_tpu_torch import native, problem
+    from pbte_tpu_torch.parallel.comm import Grid
+    from pbte_tpu_torch.parallel.launch import run_ranks
+    from pbte_tpu_torch.parallel.slab import SlabLatticeSolver
+    from pbte_tpu_torch.solver.source_iteration import SourceIterationSolver
+    from pbte_tpu_torch.validation.oracle import solve_oracle
+
+    t_phase = time.perf_counter()
+    dev = cfg["device"]
+    # both native libraries build (raise otherwise)
+    native.get_lib()
+    native.get_partition_lib()
+    row = {}
+
+    # (b) slab on one rank against the single-device solver, and (e)'s and
+    # (c)'s references, before the ranks take the card
+    prob = problem.unit_cube(**cfg["flagship"])
+    one = SlabLatticeSolver(*prob, problem.WALL_BCS, Grid(dir=1, space=1),
+                            device=dev)
+    sd = SourceIterationSolver(*prob, problem.WALL_BCS, device=dev)
+    a, b = one.initial_state(), sd.initial_state()
+    for i in range(5):
+        a, b = one.step(*a)[:3], sd.step(*b)[:3]
+        if i == 2:
+            tc3 = b[1].cpu().numpy()
+    row["b_rel"] = rel_err(torch.as_tensor(one.gather_Tc(a[1])),
+                           b[1].cpu())[0]
+    del one, sd, a, b, prob
+    prob = problem.unit_cube(**cfg["accel"])
+    ref_c = SourceIterationSolver(*prob, problem.WALL_BCS,
+                                  dtype=torch.float64, device=dev).solve(
+        tol=1e-10, max_iter=1500, verbose=False, check_every=10,
+        accelerate="bicgstab")
+    tc_c = ref_c.Tc.cpu().numpy()
+    del ref_c, prob
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    log(f"[smoke] phase 14 (b) slab 1 x 1 against one device, 5 flagship "
+        f"steps: Tc rel {row['b_rel']:.3e} (tolerance {SHARD_1x1_RTOL})")
+    if not row["b_rel"] <= SHARD_1x1_RTOL:
+        raise RuntimeError("phase 14 (b): the 1 x 1 slab disagrees")
+
+    with tempfile.TemporaryDirectory() as d:
+        ranks = run_ranks(_shard_rank, 4, (cfg,), workdir=d,
+                          timeout=SHARD_TIMEOUT)
+    r0 = ranks[0]
+    a_rel = rel_err(torch.as_tensor(r0["a_tc_kernel"]),
+                    torch.as_tensor(r0["a_tc_plain"]))[0]
+    row["a"] = dict(
+        shape=r0["a_shape"], setup_s=max(r["a_setup_s"] for r in ranks),
+        kernel_vs_plain_rel=a_rel,
+        ms_per_step=max(r["a_ms_per_step"] for r in ranks),
+        launches=[r["a_launches"] for r in ranks],
+        halo_bytes=[r["a_halo_bytes"] for r in ranks],
+        halo_ms=max(r["a_halo_ms"] for r in ranks),
+        peak_bytes=[r["a_peak_bytes"] for r in ranks],
+        residuals=r0["a_residuals"])
+    log("[smoke] phase 14 (a) slab 2 x 2 flagship f32 " + json.dumps(row["a"])
+        + f" on {card}")
+    if not a_rel <= F32_RTOL:
+        raise RuntimeError(f"phase 14 (a): K1 against its plain version "
+                           f"{a_rel:.3e} > {F32_RTOL}")
+    if min(row["a"]["launches"]) == 0:
+        raise RuntimeError("phase 14 (a): a rank launched no K1")
+    res = row["a"]["residuals"]
+    if not (np.all(np.isfinite(res)) and res[-1] < res[0]):
+        raise RuntimeError(f"phase 14 (a): residuals {res}")
+    row["c_rel"] = rel_err(torch.as_tensor(r0["c_tc"]),
+                           torch.as_tensor(tc_c))[0]
+    row["c"] = dict(iterations=r0["c_iterations"], wall_s=r0["c_wall_s"])
+    log(f"[smoke] phase 14 (c) slab 2 x 2 BiCGStab f64: "
+        f"{r0['c_iterations']} step applications in {r0['c_wall_s']:.1f} s, "
+        f"Tc rel {row['c_rel']:.3e} against one device (tolerance "
+        f"{SHARD_ACCEL_RTOL})")
+    if not row["c_rel"] <= SHARD_ACCEL_RTOL:
+        raise RuntimeError("phase 14 (c): the BiCGStab fixed points differ")
+    c = cfg["tet_small"]
+    _, Tco, *_ = solve_oracle(*problem.tet_cube(**c), problem.WALL_BCS,
+                              tol=0, max_iter=4, part=r0["d_part"])
+    row["d_rel"] = rel_err(torch.as_tensor(r0["d_tc"]),
+                           torch.as_tensor(Tco))[0]
+    row["d"] = dict(shape=r0["d_shape"], ms_per_step=r0["d_ms_per_step"],
+                    residuals=r0["d_residuals"])
+    log(f"[smoke] phase 14 (d) spatial 2 x 2: 3^3 tets against the lagged "
+        f"oracle {row['d_rel']:.3e} (tolerance {SHARD_ORACLE_RTOL}); 12^3 "
+        f"tets " + json.dumps(row["d"]) + f" on {card}")
+    dres = r0["d_residuals"]
+    if not (row["d_rel"] <= SHARD_ORACLE_RTOL and r0["d_tc_finite"]
+            and np.all(np.isfinite(dres)) and dres[-1] < dres[0]):
+        raise RuntimeError("phase 14 (d): the spatial solver failed")
+    row["e_rel"] = rel_err(torch.as_tensor(r0["e_tc"]),
+                           torch.as_tensor(tc3))[0]
+    row["e_launches"] = [r["e_launches"] for r in ranks]
+    log(f"[smoke] phase 14 (e) dir sharding over 2 ranks, 3 flagship "
+        f"steps: Tc rel {row['e_rel']:.3e} (tolerance {SHARD_1x1_RTOL}), "
+        f"K1 launches {row['e_launches']}")
+    if not row["e_rel"] <= SHARD_1x1_RTOL or min(row["e_launches"]) == 0:
+        raise RuntimeError("phase 14 (e): dir sharding failed")
+    row["seconds"] = time.perf_counter() - t_phase
+    log(f"[smoke] phase 14 (the sharded solvers) took {row['seconds']:.1f} s")
+    return row
+
+
 def build_flagship(SourceIterationSolver, problem, name, **kw):
     t0 = time.perf_counter()
     solver = SourceIterationSolver(*problem, device="cuda", **kw)
@@ -2109,6 +2411,8 @@ def main() -> int:
     cli_rows = phase_cli(lr, card, flag["dof_per_s"])
     mark("phase 13 (the general ring)")
     general = phase_general(SourceIterationSolver, problem_mod, lr, card)
+    mark("phase 14 (the sharded solvers)")
+    sharded = phase_sharded(card, dict(SHARD_CONFIG, flagship=FLAGSHIP))
 
     mark("the kernels line")
     jax_mods = sorted(m for m in sys.modules
@@ -2156,7 +2460,10 @@ def main() -> int:
         + ", ".join(f"{k} {r['ring_ms_per_step']:.3f} against "
                     f"{r['scan_ms_per_step']:.3f} ms/step"
                     for k, r in general.items())
-        + f"; on {card}")
+        + f"; slab 2 x 2 on four ranks sharing the card "
+        f"{sharded['a']['ms_per_step']:.3f} ms/step, halo "
+        f"{sharded['a']['halo_ms']:.3f} ms/step; spatial 2 x 2 12^3 tets "
+        f"{sharded['d']['ms_per_step']:.3f} ms/step; on {card}")
 
     def k1_entry(name, state, n, shape=None,
                  source="pbte_tpu_torch/csrc/lattice_ring.cu"):
@@ -2209,7 +2516,8 @@ def main() -> int:
     log(f"[smoke] done in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": [
         k1_entry("lattice_ring_sweep", "f32", launches + film_launches
-                 + cli_rows["f32"]["k1_launches_by_state"]["f32"]),
+                 + cli_rows["f32"]["k1_launches_by_state"]["f32"]
+                 + sum(sharded["a"]["launches"])),
         k1_entry("lattice_ring_sweep_bf16", "bf16", bf16_launches),
         k1_entry("lattice_ring_sweep_f64", "f64", f64_launches
                  + cli_rows["f64"]["k1_launches_by_state"]["f64"]),

@@ -22,8 +22,16 @@ Where it differs from pbte_tpu's CLI:
   (it never falls back to the CPU); ``--platform cpu`` solves on the CPU.
 - ``--profile DIR`` runs the solve under ``torch.profiler`` (CPU and, on
   the GPU, CUDA activity) and writes a Chrome trace into DIR.
-- ``-p/--parallel`` (the domain-decomposed solvers) is not ported and
-  exits non-zero; the serial run solves the same problem.
+- ``-p DIRxSPACE`` runs the domain-decomposed solvers over
+  ``torch.distributed``: start the ranks with ``torchrun --nproc-per-node
+  N`` (N = DIR * SPACE; the environment rendezvous), each rank on its own
+  GPU over NCCL where the host has N of them, else over gloo (on one shared
+  card, or ``--platform cpu``). As in pbte_tpu, the slab-lattice solver
+  takes a class-uniform box lattice and the spatially sharded solver every
+  other mesh; a world size other than N exits with pbte_tpu's "needs N
+  devices" message. Rank 0 prints and writes every file; the fields are
+  gathered, so the dumps equal the serial run's layout, and ``--vtu``
+  writes one ``.vtu`` piece per partition under a ``.pvtu``.
 """
 
 from __future__ import annotations
@@ -33,10 +41,6 @@ import dataclasses
 import os
 import sys
 import time
-
-_PARALLEL = ("--parallel: the domain-decomposed solvers are not ported yet "
-             "(ROADMAP.md queue 1, item 11, distributed solvers); the serial "
-             "run (without -p) solves the same problem")
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -133,14 +137,29 @@ def _parser() -> argparse.ArgumentParser:
                          "into this directory")
     ap.add_argument("-p", "--parallel", default="",
                     help="the domain-decomposed solver over a DIRxSPACE "
-                         "device mesh: not ported (exits non-zero)")
+                         "grid of ranks (start them with torchrun "
+                         "--nproc-per-node DIR*SPACE)")
     return ap
 
 
 def main(argv=None) -> int:
     args = _parser().parse_args(argv)
+    n_dir = n_space = 1
     if args.parallel:
-        raise SystemExit(f"[pbte_tpu_torch] {_PARALLEL}")
+        try:
+            n_dir, n_space = (int(x) for x in args.parallel.lower().split("x"))
+        except ValueError:
+            raise SystemExit(
+                f"--parallel expects DIRxSPACE (e.g. 2x4), got "
+                f"{args.parallel!r}")
+        from pbte_tpu_torch.parallel.comm import env_rank
+
+        rank, world, local_rank = env_rank()
+        if world != n_dir * n_space:
+            raise SystemExit(
+                f"--parallel {args.parallel} needs {n_dir * n_space} devices, "
+                f"found {world} (start the ranks with torchrun "
+                f"--nproc-per-node {n_dir * n_space})")
     if args.accelerate != "none":
         # Krylov recurrences need exact-dtype state; override the bf16
         # state-storage flag before the solver is constructed
@@ -169,8 +188,24 @@ def main(argv=None) -> int:
         device = checked_device("cpu" if args.platform == "cpu" else "cuda")
     except RuntimeError as e:
         raise SystemExit(f"[pbte_tpu_torch] {e}")
+    grid = None
+    lead = True  # the rank that prints and writes
+    if args.parallel:
+        from pbte_tpu_torch.parallel.comm import Grid, init_process_group
+
+        if (device.type == "cuda"
+                and torch.cuda.device_count() >= n_dir * n_space):
+            device = torch.device("cuda", local_rank)  # NCCL, a card a rank
+            torch.cuda.set_device(device)
+        init_process_group(n_dir * n_space, rank, device=device)
+        grid = Grid(dir=n_dir, space=n_space)
+        lead = grid.rank == 0
+        if not lead:
+            sys.stdout = open(os.devnull, "w")  # rank 0 speaks
 
     def host(t):
+        if isinstance(t, np.ndarray):
+            return t
         return t.detach().cpu().numpy()
 
     if os.path.exists(args.config):
@@ -225,7 +260,8 @@ def main(argv=None) -> int:
     rc.output_dir = args.out
 
     log_dir = os.path.join(rc.output_dir, "log")
-    os.makedirs(log_dir, exist_ok=True)
+    if lead:
+        os.makedirs(log_dir, exist_ok=True)
 
     t0 = time.time()
     m = pmesh.load_mesh(rc.mesh_spec)
@@ -258,7 +294,7 @@ def main(argv=None) -> int:
           f"{tables.num_spectral}; HeatCapV={tables.heat_cap_v:.6g} "
           f"({time.time()-t0:.1f}s)")
 
-    if not args.no_dumps:
+    if not args.no_dumps and lead:
         mesh_name = os.path.splitext(os.path.basename(str(rc.mesh_spec)))[0]
         scheme_p = rc.angles.polar_scheme
         scheme_a = rc.angles.azimuth_scheme
@@ -274,21 +310,54 @@ def main(argv=None) -> int:
                                   os.path.join(log_dir, "phonon_properties.txt"))
 
     dtype = torch.float64 if args.dtype == "f64" else torch.float32
-    solver = SourceIterationSolver(
-        ops, quad, tables, rc.bc_temps, dtype=dtype, device=device,
-        dirichlet_bcs=rc.dirichlet_bcs or None,
-        diffuse_bcs=rc.diffuse_attrs or None,
-        specular_bcs=rc.specular_attrs or None,
-        sweep_mode=args.sweep_mode,
-        cache_policy=args.cache_policy,
-        matmul_precision=(None if args.matmul_precision == "default"
-                          else args.matmul_precision),
-    )
-    print(f"[pbte_tpu_torch] solver[{solver.sweep_mode}]: "
-          f"groups={solver.plan.num_groups} "
-          f"levels<={solver.plan.max_levels} width<={solver.plan.max_width} "
-          f"padding={solver.plan.padding_ratio():.1%} "
-          f"slab={solver.L}x{solver.W} on {device} ({time.time()-t0:.1f}s)")
+    bc_kw = dict(dirichlet_bcs=rc.dirichlet_bcs or None,
+                 diffuse_bcs=rc.diffuse_attrs or None,
+                 specular_bcs=rc.specular_attrs or None)
+    if grid is not None:
+        from pbte_tpu_torch.parallel.slab import SlabLatticeSolver
+        from pbte_tpu_torch.parallel.spatial import SpatialShardedSolver
+
+        if args.cache_policy != "full" or args.matmul_precision != "default":
+            print("[pbte_tpu_torch] WARNING: --cache-policy/--matmul-precision "
+                  "are not supported by the --parallel solver (it always "
+                  "builds the full A^-1 cache at default precision); "
+                  "ignoring")
+        # the slab-lattice ring decomposition (K1 in each shard); general
+        # meshes take the spatially sharded solver
+        try:
+            solver = SlabLatticeSolver(ops, quad, tables, rc.bc_temps, grid,
+                                       dtype=dtype, device=device, **bc_kw)
+            print(f"[pbte_tpu_torch] slab-lattice solver: grid (dir={n_dir}, "
+                  f"space={n_space}), slabs={solver.P} along axis "
+                  f"{solver.a0}, W={solver.W} L={solver.L} on {device} "
+                  f"({time.time()-t0:.1f}s)")
+        except NotImplementedError as e:
+            solver = SpatialShardedSolver(ops, quad, tables, rc.bc_temps,
+                                          grid, dtype=dtype, topo=topo,
+                                          device=device, **bc_kw)
+            print(f"[pbte_tpu_torch] parallel solver (general mesh: {e}): "
+                  f"grid (dir={n_dir}, space={n_space}), "
+                  f"partitions={solver.pplan.nparts} "
+                  f"interface={solver.pplan.num_interface} "
+                  f"edge_cut={solver.pplan.edge_cut()} "
+                  f"load_balance={solver.pplan.load_balance():.2f} "
+                  f"on {device} ({time.time()-t0:.1f}s)")
+    else:
+        solver = SourceIterationSolver(
+            ops, quad, tables, rc.bc_temps, dtype=dtype, device=device,
+            sweep_mode=args.sweep_mode,
+            cache_policy=args.cache_policy,
+            matmul_precision=(None if args.matmul_precision == "default"
+                              else args.matmul_precision),
+            **bc_kw,
+        )
+        print(f"[pbte_tpu_torch] solver[{solver.sweep_mode}]: "
+              f"groups={solver.plan.num_groups} "
+              f"levels<={solver.plan.max_levels} "
+              f"width<={solver.plan.max_width} "
+              f"padding={solver.plan.padding_ratio():.1%} "
+              f"slab={solver.L}x{solver.W} on {device} "
+              f"({time.time()-t0:.1f}s)")
 
     state = None
     if args.resume and args.checkpoint and os.path.exists(args.checkpoint):
@@ -315,15 +384,20 @@ def main(argv=None) -> int:
     if args.vtu_every > 0:
         from pbte_tpu_torch.io.vtu import ParaViewCollection
 
+        # parallel runs write one .vtu piece per partition under each
+        # cycle's .pvtu
         pv_coll = ParaViewCollection(
             m, rc.order, name="pbte_fields",
             root=os.path.join(rc.output_dir, "vis"),
+            part=solver.element_partition if grid is not None else None,
         )
 
         def _cycle_hook(it, u_c, Tc_c, Tv_c):
             Qc_c = host(solver.heat_flux(u_c)[0])
-            pv_coll.save({"T": host(solver.Tc_fine(Tc_c))}, {"Q": Qc_c},
-                         cycle=it)
+            Tc_c = (solver.gather_Tc(Tc_c) if grid is not None
+                    else host(solver.Tc_fine(Tc_c)))
+            if lead:
+                pv_coll.save({"T": Tc_c}, {"Q": Qc_c}, cycle=it)
 
         solve_kw["cycle_hook"] = _cycle_hook
         solve_kw["cycle_every"] = args.vtu_every
@@ -354,19 +428,36 @@ def main(argv=None) -> int:
     # step-residual history (the legacy PBTE_NonGraySMRT_step_resisual.txt,
     # its typo kept)
     hist_dir = os.path.join(rc.output_dir, f"{m.dim}D/log")
-    os.makedirs(hist_dir, exist_ok=True)
-    with open(os.path.join(hist_dir,
-                           "PBTE_NonGraySMRT_step_resisual.txt"), "w") as f:
-        for it, r in history:
-            f.write(f"{it} {r}\n")
+    if lead:
+        os.makedirs(hist_dir, exist_ok=True)
+        with open(os.path.join(hist_dir,
+                               "PBTE_NonGraySMRT_step_resisual.txt"),
+                  "w") as f:
+            for it, r in history:
+                f.write(f"{it} {r}\n")
 
-    Tc_out = host(solver.Tc_fine(res.Tc))
+    # the outputs do not depend on -p: the sharded fields are gathered
+    # (collective: every rank takes part)
+    Tc_out = (res.Tc_global() if grid is not None
+              else host(solver.Tc_fine(res.Tc)))
     if not args.no_dumps:
-        writers.write_temperature(Tc_out, os.path.join(log_dir, "Tc_all.txt"))
-        writers.write_coefficients(res.u_dirs(), quad, tables.num_branches,
-                                   os.path.join(log_dir, "coeff_all.txt"))
-        writers.write_element_integrals(
-            ops, os.path.join(log_dir, "integrals_all.txt"))
+        u_dirs = res.u_dirs()
+        if lead:
+            writers.write_temperature(Tc_out,
+                                      os.path.join(log_dir, "Tc_all.txt"))
+            writers.write_coefficients(u_dirs, quad, tables.num_branches,
+                                       os.path.join(log_dir, "coeff_all.txt"))
+            writers.write_element_integrals(
+                ops, os.path.join(log_dir, "integrals_all.txt"))
+    need_q = ((m.dim == 3 and (args.slice_z is not None
+                               or args.line_slice is not None))
+              or pv_coll is not None or args.vtu)
+    Qc = host(solver.heat_flux(res.u)[0]) if need_q else None
+    if not lead:
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
+        return 0
     if m.dim == 2:
         write_2d_slice(m, rc.order, Tc_out,
                        os.path.join(rc.output_dir, "2D/results/T_slice.txt"),
@@ -376,11 +467,9 @@ def main(argv=None) -> int:
     if m.dim != 3 and (args.slice_z is not None or args.line_slice is not None):
         print("[pbte_tpu_torch] WARNING: --slice-z/--line-slice are 3D-only; "
               f"ignored for this {m.dim}D mesh")
-    Qc = None
     if m.dim == 3 and (args.slice_z is not None or args.line_slice is not None):
         from pbte_tpu_torch.io.slice import write_3d_line_slice, write_3d_slice
 
-        Qc = host(solver.heat_flux(res.u)[0])
         res_dir = os.path.join(rc.output_dir, "3D/results")
         # slice coordinates are in units of reference_length (the legacy
         # code's z = 0.4 * L_REF); the mesh itself is in metres
@@ -396,18 +485,30 @@ def main(argv=None) -> int:
             write_3d_line_slice(m, rc.order, Tc_out, Qc, int(axis),
                                 c1 * scale, c2 * scale, path)
             print(f"[pbte_tpu_torch] 3D line slice written to {path}")
-    if (pv_coll is not None or args.vtu) and Qc is None:
-        Qc = host(solver.heat_flux(res.u)[0])
     if pv_coll is not None:
         pvd = pv_coll.save({"T": Tc_out}, {"Q": Qc}, cycle=res.iterations)
         print(f"[pbte_tpu_torch] ParaView collection written to {pvd}")
     if args.vtu:
-        from pbte_tpu_torch.io.vtu import write_vtu
+        if grid is not None:
+            from pbte_tpu_torch.io.vtu import write_pvtu
 
-        write_vtu(m, rc.order, {"T": Tc_out}, {"Q": Qc},
-                  os.path.join(rc.output_dir, "vis/pbte_fields"))
+            part = solver.element_partition
+            pieces = [(ids, {"T": Tc_out[ids]}, {"Q": Qc[:, ids]})
+                      for p in range(int(part.max()) + 1)
+                      for ids in (np.flatnonzero(part == p),)]
+            write_pvtu(m, rc.order, pieces,
+                       os.path.join(rc.output_dir, "vis/pbte_fields"))
+        else:
+            from pbte_tpu_torch.io.vtu import write_vtu
+
+            write_vtu(m, rc.order, {"T": Tc_out}, {"Q": Qc},
+                      os.path.join(rc.output_dir, "vis/pbte_fields"))
         print(f"[pbte_tpu_torch] ParaView output written to "
               f"{rc.output_dir}/vis/")
+    if grid is not None and grid.size > 1:
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
     return 0
 
 

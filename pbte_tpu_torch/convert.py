@@ -9,7 +9,9 @@ lattice (this package's general ring) and on the scan, so both packages
 can step from the same operators and the same state. pbte_tpu's supercell
 ring state carries over both ways (``state_from_numpy(..., supercell=True)``,
 ``super_state_to_numpy``); its supercell consts do not (this package builds
-its own factors from the same operators). This module imports no JAX: it
+its own factors from the same operators). The global states of its sharded
+solvers (slab, spatial, dir/band-sharded ring) become each rank's shard and
+back (``sharded_state_from_numpy``, ``sharded_state_to_numpy``). This module imports no JAX: it
 takes numpy arrays.
 """
 
@@ -281,3 +283,27 @@ def super_state_to_numpy(u):
     """The supercell ring's per-bucket state -> pbte_tpu's XLA-ring layout
     ``(L, Gb, Km_b, D', BS, W)`` as numpy arrays."""
     return [to_pbte_layout(ub).detach().cpu().numpy() for ub in u]
+
+
+def sharded_state_from_numpy(solver, u, Tc, Tv):
+    """A global state of pbte_tpu's sharded solvers (numpy, as its
+    ``SlabLatticeSolver`` holds it: u ``(P, L, G, Km, D, BS, W)``, Tc
+    ``(P, ne_loc, D)``, Tv ``(P, ne_loc)``; or its
+    ``SpatialShardedSolver``: u ``(P, G, Km, BS, D, ne_max)``, Tc ``(P,
+    ne_max, D)``, Tv ``(P, ne_max)``) -> this rank's shard on the port's
+    solver of the same kind (``solver.shard_state``); under a
+    ``dir_sharding`` grid, ``SourceIterationSolver``'s full per-bucket ring
+    state (``state_from_numpy``'s input) -> this rank's slots and bands."""
+    if hasattr(solver, "shard_state"):
+        return solver.shard_state(u, Tc, Tv)
+    ub, Tc, Tv = state_from_numpy(u, Tc, Tv, device=solver.device)
+    return solver.shard_buckets(ub), Tc, Tv
+
+
+def sharded_state_to_numpy(solver, u, Tc, Tv):
+    """The inverse (collective: every rank takes part and gets the global
+    numpy arrays in pbte_tpu's layout)."""
+    if hasattr(solver, "gather_state"):
+        return solver.gather_state(u, Tc, Tv)
+    return ([b.detach().cpu().numpy() for b in solver.gather_buckets(u)],
+            Tc.detach().cpu().numpy(), Tv.detach().cpu().numpy())

@@ -17,6 +17,12 @@ problem:
   (L, Gb, Km_b, BS, W, D') and permutes on save and load; ``"bsd"`` files
   load too), Tc per super element (ncell, D') and Tv per fine element.
 
+The sharded solvers (``parallel.slab``, ``parallel.spatial``) write
+pbte_tpu's files of their kind (the global state, gathered over the grid,
+written by rank 0) and read their own slice: ``save_checkpoint`` and
+``load_checkpoint`` hand them to the solver's methods of those names, which
+use ``write_npz`` and ``read_npz``.
+
 pbte_tpu's hull-windowed XLA-ring checkpoints (``fp_ring_windowed``, state
 ``u_{bucket}_{segment}`` in 128-lane windows) do not store the windows'
 slot offsets and are refused with a ValueError that says so.
@@ -63,12 +69,47 @@ def _np(t):
     return t.detach().cpu().numpy()
 
 
+def write_npz(path: str, fields: dict, fp: dict):
+    """Write ``fields`` and the fingerprint ``fp`` (as ``fp_*``) to
+    ``path`` (``.npz`` appended if missing) through a sibling temporary
+    file, so a crash mid-save keeps the previous checkpoint."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    final = path if path.endswith(".npz") else path + ".npz"
+    tmp = final + ".tmp"
+    with open(tmp, "wb") as fh:
+        np.savez_compressed(fh, **fields,
+                            **{f"fp_{k}": v for k, v in fp.items()})
+    os.replace(tmp, final)
+
+
+def read_npz(path: str, fp: dict):
+    """The checkpoint's arrays after checking every field of the
+    fingerprint ``fp`` (ValueError on a missing or different one)."""
+    data = np.load(path)
+    for k, v in fp.items():
+        if f"fp_{k}" not in data:
+            raise ValueError(f"checkpoint missing fingerprint field {k!r}")
+        stored = data[f"fp_{k}"]
+        if not np.allclose(stored, v):
+            raise ValueError(
+                f"checkpoint mismatch: {k} was {stored}, solver has {v}")
+    return data
+
+
 def save_checkpoint(path: str, solver, u, Tc, Tv, iteration: int,
                     residual: float):
     """Write the state to ``path`` (``.npz`` appended if missing) through a
     sibling temporary file, so a crash mid-save keeps the previous
-    checkpoint."""
-    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    checkpoint. A sharded solver writes its own kind (collective)."""
+    if hasattr(solver, "save_checkpoint"):
+        return solver.save_checkpoint(path, u, Tc, Tv, iteration, residual)
+    grid = getattr(solver, "dir_sharding", None)
+    if grid is not None:
+        # dir/band-sharded ring state: the full buckets, written by rank 0
+        u = solver.gather_buckets(u)
+        if grid.rank != 0:
+            grid.barrier()
+            return
     if isinstance(u, (tuple, list)):  # bucketed ring state
         if solver._super is not None:
             u = [to_pbte_layout(b) for b in u]
@@ -77,19 +118,11 @@ def save_checkpoint(path: str, solver, u, Tc, Tv, iteration: int,
         u_fields["u_layout"] = "bsd" if solver._super is None else "dbs"
     else:
         u_fields = {"u": _np(u)}
-    final = path if path.endswith(".npz") else path + ".npz"
-    tmp = final + ".tmp"
-    with open(tmp, "wb") as fh:
-        np.savez_compressed(
-            fh,
-            Tc=_np(Tc),
-            Tv=_np(Tv),
-            iteration=iteration,
-            residual=residual,
-            **u_fields,
-            **{f"fp_{k}": v for k, v in _fingerprint(solver).items()},
-        )
-    os.replace(tmp, final)
+    write_npz(path, dict(Tc=_np(Tc), Tv=_np(Tv), iteration=iteration,
+                         residual=residual, **u_fields),
+              _fingerprint(solver))
+    if grid is not None:
+        grid.barrier()
 
 
 def accel_ckpt_saver(path: str, solver, Tv):
@@ -106,16 +139,12 @@ def accel_ckpt_saver(path: str, solver, Tv):
 
 def load_checkpoint(path: str, solver):
     """Returns ((u, Tc, Tv), iteration, residual), the state on the
-    solver's device, ready for ``solver.solve(state=...)``."""
-    data = np.load(path)
+    solver's device, ready for ``solver.solve(state=...)`` (a sharded
+    solver's: this rank's slice)."""
+    if hasattr(solver, "load_checkpoint"):
+        return solver.load_checkpoint(path)
     fp = _fingerprint(solver)
-    for k, v in fp.items():
-        if f"fp_{k}" not in data:
-            raise ValueError(f"checkpoint missing fingerprint field {k!r}")
-        stored = data[f"fp_{k}"]
-        if not np.allclose(stored, v):
-            raise ValueError(
-                f"checkpoint mismatch: {k} was {stored}, solver has {v}")
+    data = read_npz(path, fp)
     if "fp_ring_windowed" in data or "u_nsegs" in data:
         raise ValueError(
             "checkpoint holds pbte_tpu's hull-windowed XLA-ring state (per "
@@ -154,6 +183,8 @@ def load_checkpoint(path: str, solver):
                 t = from_pbte_layout(t.transpose(3, 4))
             bufs.append(t)
         u = tuple(bufs)
+        if getattr(solver, "dir_sharding", None) is not None:
+            u = solver.shard_buckets(u)
     else:
         if "u" not in data or tuple(data["u"].shape) != want:
             got = tuple(data["u"].shape) if "u" in data else None

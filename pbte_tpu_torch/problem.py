@@ -111,6 +111,13 @@ def tet_cube(n, order, polar, azimuth, nspec):
     return tet_box(n, n, n, order, polar, azimuth, nspec)
 
 
+def tet_topology(nx, ny, nz):
+    """The face topology of ``tet_box``'s mesh (the spatially sharded
+    solver's partitioner reads it)."""
+    return pmesh.connect(
+        pmesh.make_cartesian_3d(nx, ny, nz, "tet").scaled(1.0e-6))
+
+
 def tet_box(nx, ny, nz, order, polar, azimuth, nspec):
     """(ops, quad, tables) of an nx x ny x nz box of unit extent split into
     6 tets per cell, in microns, with consistent faces."""

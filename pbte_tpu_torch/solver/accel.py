@@ -137,9 +137,45 @@ def stall_action(stale, nmv, since, last_gain_nmv):
     return "stop" if nmv - last_gain_nmv >= last_gain_nmv else "plateau"
 
 
+def plain_outer(step_fn, state, tol, max_iter, verbose=True, callback=None,
+                check_every=1, save_ckpt=None, ckpt_every=25, cycle_hook=None,
+                cycle_every=0, label="pbte_tpu_torch"):
+    """The plain outer source iteration (ref: src/PBTESolver.cpp:208-332)
+    over a solver's step, step_fn(u, Tc, Tv_prev) -> (u', Tc', Tv', res),
+    from ``state`` = (u, Tc, Tv); the loop of every solver's ``solve``.
+
+    The residual is read every ``check_every`` iterations and at the last:
+    ``callback(it, res)`` is called then, and the loop stops below
+    ``tol``. ``cycle_hook(it, u, Tc, Tv)`` sees the live state every
+    ``cycle_every`` iterations; ``save_ckpt(u, Tc, Tv, it, res, res_dev)``
+    is called every ``ckpt_every`` with the last residual read and this
+    iteration's on the device. Returns (u, Tc, Tv, residual, iterations)."""
+    u, Tc, prev_Tv = state
+    res = float("inf")
+    it = 0
+    for it in range(1, max_iter + 1):
+        u, Tc_new, Tv_new, res_dev = step_fn(u, Tc, prev_Tv)
+        if it % check_every == 0 or it == max_iter:
+            res = float(res_dev)
+            if verbose:
+                print(f"[{label}] iter {it}, residual = {res:.6e}")
+            if callback is not None:
+                callback(it, res)
+            if res < tol:
+                Tc, prev_Tv = Tc_new, Tv_new
+                break
+        prev_Tv = Tv_new
+        Tc = Tc_new
+        if cycle_hook and cycle_every > 0 and it % cycle_every == 0:
+            cycle_hook(it, u, Tc, prev_Tv)
+        if save_ckpt is not None and it % ckpt_every == 0:
+            save_ckpt(u, Tc, prev_Tv, it, res, res_dev)
+    return u, Tc, prev_Tv, res, it
+
+
 def bicgstab_outer(step_fn, zero_state, state, tol, max_iter, verbose=True,
                    callback=None, check_every=1, save_ckpt=None,
-                   ckpt_every=25, label="pbte_tpu_torch"):
+                   ckpt_every=25, label="pbte_tpu_torch", dot=tree_dot):
     """Generic BiCGStab outer solve over a solver's (u, Tc) state tree.
 
     step_fn(u, Tc, Tv_prev) -> (u', Tc', Tv', res) is the solver's step,
@@ -162,7 +198,9 @@ def bicgstab_outer(step_fn, zero_state, state, tol, max_iter, verbose=True,
     recurrence at x on a breakdown (a non-finite residual or |rho| below
     1e-300) and on a plateau, and stops on stagnation (``stall_action``).
     ``save_ckpt(u, Tc, nmv, relres)`` is called every ``ckpt_every``
-    BiCGStab iterations with the iterate x (``io.checkpoint``)."""
+    BiCGStab iterations with the iterate x (``io.checkpoint``). ``dot`` is
+    the inner product of two (u, Tc) trees: ``tree_dot`` on one device, the
+    grid's reduction of the sharded solvers (each global value once)."""
     u0, Tc0, Tv0 = zero_state
     F = _affine(step_fn, Tv0)
     b_aff = F((u0, Tc0))  # b = F(0)
@@ -176,7 +214,7 @@ def bicgstab_outer(step_fn, zero_state, state, tol, max_iter, verbose=True,
         _tmap(lambda o, bb: o.sub_(bb), out, b_aff)
         return _minus_into(v, out)
 
-    stage_p, stage_s, stage_x = make_bicgstab_kernels()
+    stage_p, stage_s, stage_x = make_bicgstab_kernels(dot)
     x = (u0, Tc0)
     if state is not None:
         _tmap(lambda z, s: z.copy_(s), x, (state[0], state[1]))
@@ -191,7 +229,7 @@ def bicgstab_outer(step_fn, zero_state, state, tol, max_iter, verbose=True,
     rho_prev = alpha = omega = one
     v = _zeros_like(r)
     p = _zeros_like(r)
-    bnorm = float(torch.sqrt(tree_dot(b_aff, b_aff)))
+    bnorm = float(torch.sqrt(dot(b_aff, b_aff)))
     res = float("inf")
     k = 0  # BiCGStab iterations (2 matvecs each)
     fetch_every = max(1, check_every // 2)
@@ -268,9 +306,10 @@ def bicgstab_outer(step_fn, zero_state, state, tol, max_iter, verbose=True,
     return u_f, Tc_f, Tv_f, tv_res, nmv
 
 
-def make_bicgstab_kernels():
+def make_bicgstab_kernels(dot=tree_dot):
     """The three updates between the two matvecs of a BiCGStab iteration,
-    as plain torch functions on 0-d scalar tensors. Each updates in place
+    as plain torch functions on 0-d scalar tensors, with the inner product
+    ``dot`` (a sharded solver's sums over its grid). Each updates in place
     the tree that pbte_tpu donates and returns it in pbte_tpu's place:
       - stage_p(r, rhat, p, v, rho_prev, alpha, omega) -> (rho, p_new),
         p_new in p's buffers;
@@ -278,7 +317,7 @@ def make_bicgstab_kernels():
       - stage_x(x, p, s, t, alpha) -> (omega, x_new, r_new, rnorm2), x_new
         in x's buffers and r_new in s's."""
     def stage_p(r, rhat, p, v, rho_prev, alpha, omega):
-        rho = tree_dot(rhat, r)
+        rho = dot(rhat, r)
         beta = (rho / rho_prev) * (alpha / omega)
         c = -beta * omega
         # r + beta p - beta omega v, summed in pbte_tpu's order
@@ -287,18 +326,18 @@ def make_bicgstab_kernels():
         return rho, p
 
     def stage_s(r, rhat, v, rho):
-        alpha = rho / tree_dot(rhat, v)
+        alpha = rho / dot(rhat, v)
         na = -alpha
         _tmap(lambda rr, vv: rr.addcmul_(vv, na), r, v)
         return alpha, r
 
     def stage_x(x, p, s, t, alpha):
-        omega = tree_dot(t, s) / tree_dot(t, t)
+        omega = dot(t, s) / dot(t, t)
         _tmap(lambda xx, pp, ss: xx.addcmul_(pp, alpha).addcmul_(ss, omega),
               x, p, s)
         no = -omega
         _tmap(lambda ss, tt: ss.addcmul_(tt, no), s, t)
-        return omega, x, s, tree_dot(s, s)
+        return omega, x, s, dot(s, s)
 
     return stage_p, stage_s, stage_x
 

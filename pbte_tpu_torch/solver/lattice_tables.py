@@ -12,15 +12,16 @@ from __future__ import annotations
 import numpy as np
 
 
-def lattice_ring_tables(lat, plan, dirs_np):
+def lattice_ring_tables(lat, plan, dirs_np, major_axis=None):
     """Per-group lattice slab tables for the shift-structured ring sweep.
 
     With wavefront level l = sum of sweep-transformed integer coordinates
     (i'_d = coord_d on positive sweep axes, n_d - 1 - coord_d on negative)
     and slab slot w = i'_p1 * n_p2 + i'_p2 over the plane axes (all axes but
-    the largest), the upwind neighbor along every axis sits in the previous
-    level's slab at a static offset: 0 for the major axis, n_p2 and 1 for
-    the plane axes.
+    the largest, or all but ``major_axis`` where it is given: the slab
+    solver partitions along a non-periodic axis), the upwind neighbor along
+    every axis sits in the previous level's slab at a static offset: 0 for
+    the major axis, n_p2 and 1 for the plane axes.
 
     Returns (tables (G, L, W), axis_faces (G, dim), shifts (dim,)) or None:
     tables[g, l, w] = element id (or -1 padding); axis_faces[g, j] = the
@@ -34,7 +35,7 @@ def lattice_ring_tables(lat, plan, dirs_np):
     L = int(dims.sum()) - dim + 1
     if L != plan.max_levels:
         return None
-    a0 = int(np.argmax(dims))
+    a0 = int(np.argmax(dims)) if major_axis is None else int(major_axis)
     plane = [d for d in range(dim) if d != a0]
     shifts = np.zeros(dim, dtype=np.int64)
     if dim == 3:

@@ -80,6 +80,19 @@ sweep's sums, Tc, Tv and the residual are then float64).
 over the affine step (``solver/accel.py``), in far fewer steps with
 float64 state.
 
+Dir and band sharding (pbte_tpu's ``dir_sharding``, there a
+``NamedSharding`` of the Km slot axis and optionally the band axis, which
+GSPMD partitions): here ``dir_sharding`` is a ``parallel.comm.Grid`` of
+``dir`` (x ``band``) ranks, each holding its shard of every bucket, ``(L,
+Gb, Km_b / n_dir, BS / n_band, D, W)``, and running K1 on it. Km_b rounds
+up to a multiple of ``n_dir`` and BS to a multiple of ``n_band`` (padded
+bands carry zero tables, exact zero fixed points), as in pbte_tpu. The
+macroscopic partials are all-reduced over the grid before Tc (the sum GSPMD
+inserts for pbte_tpu); Tc, Tv and the residual are then the same on every
+rank. The closures read the boundary values of every rank's shard
+(``all_gather``). Sharding runs on the lattice ring through K1 alone: the
+other sweeps raise NotImplementedError under it.
+
 Hull windows (pbte_tpu's default on the flagship, its ``_step_ring_win``).
 The slab pads every level to the full plane of W slots; the constructor
 computes each level's hull ``[lo_l, hi_l)`` of valid slots once
@@ -117,6 +130,7 @@ from pbte_tpu_torch.ops.lattice_ring import (
     windows_on_device,
 )
 from pbte_tpu_torch.solver import lattice_multi, one_hot_ring, scan, super_ring
+from pbte_tpu_torch.solver.accel import tree_dot as accel_tree_dot
 from pbte_tpu_torch.solver.lattice_tables import (
     active_faces,
     group_permuted,
@@ -207,6 +221,9 @@ class SourceIterationSolver:
         matmul_precision: str | None = None,  # pbte_tpu's MXU tiers: None,
         # "default", "high", "highest" or "selective"; every one runs the
         # exact float32 products below (see the module docstring)
+        dir_sharding=None,  # a parallel.comm.Grid of "dir" (x "band")
+        # ranks: this rank's shard of the slots (and bands); see the module
+        # docstring
     ):
         if dtype not in (torch.float32, torch.float64):
             raise ValueError(f"dtype must be float32 or float64, got {dtype}")
@@ -243,6 +260,23 @@ class SourceIterationSolver:
         vg = tables.flat("vg").astype(np.float64)
         heat_cap = tables.flat("heat_cap").astype(np.float64)
         self.dt_inv = dt_inv = float(inv_kn.max())
+        # dir/band sharding: the slot and band shards of this rank; the band
+        # axis pads to a multiple of its ranks with zero tables
+        self.dir_sharding = dir_sharding
+        n_dir = n_band = 1
+        self.BS_orig = BS
+        if dir_sharding is not None:
+            n_dir, n_band = dir_sharding.n("dir"), dir_sharding.n("band")
+            bpad = -(-BS // n_band) * n_band - BS
+            if bpad:
+                inv_kn, vg, heat_cap = (np.concatenate([a, np.zeros(bpad)])
+                                        for a in (inv_kn, vg, heat_cap))
+                self.BS = BS = BS + bpad
+        self._n_dir, self._n_band = n_dir, n_band
+        self._bl = BS // n_band  # this rank's bands
+        b0 = (dir_sharding.index("band") * self._bl
+              if dir_sharding is not None else 0)
+        bsl = slice(b0, b0 + self._bl)
 
         # ---- canonical face ordering: collapses the geometry-class count
         # of translation-invariant meshes (hex 6 -> 1). Gated to ne >= 512
@@ -320,7 +354,7 @@ class SourceIterationSolver:
                                               quad.directions)
         self.G = G = plan.num_groups
         sizes = np.array([len(d) for d in plan.dirs_of_group])
-        self.Km = Km = int(sizes.max())
+        self.Km = Km = -(-int(sizes.max()) // n_dir) * n_dir
         dirs_pad = np.full((G, Km), -1, dtype=np.int64)
         for g, d in enumerate(plan.dirs_of_group):
             dirs_pad[g, : len(d)] = d
@@ -371,6 +405,7 @@ class SourceIterationSolver:
             self._ring_buckets = sw.buckets
             self.W, self.ne_pad, self.consts = sw.W, sw.ne_pad, sw.consts
             self.shifts, self._perm = sw.shifts, sw._perm
+            self._no_sharding(dir_sharding, "the supercell ring")
             self.win = None  # the full (L, W) slab
             self.has_periodic = self._dif_on = self._spc_on = False
             self.state_dtype = dtype
@@ -413,6 +448,7 @@ class SourceIterationSolver:
             self.has_periodic = sv.has_periodic
             self._dif_on, self._spc_on = sv._dif_on, sv._spc_on
             self.state_dtype = dtype
+            self._no_sharding(dir_sharding, "the scan")
             return
         # the general ring (pbte_tpu's one-hot ring) off the box lattice;
         # bf16 state is the lattice ring's alone, as in pbte_tpu
@@ -425,7 +461,7 @@ class SourceIterationSolver:
 
         # groups of equal slot count run as one bucket with exactly that
         # many slots (flagship octants: [10]*4 and [6]*4)
-        km_req = np.maximum(sizes, 1)
+        km_req = np.maximum(-(-sizes // n_dir) * n_dir, 1)
         self._ring_buckets = [
             (np.flatnonzero(km_req == kv), int(kv))
             for kv in sorted({int(x) for x in km_req}, reverse=True)
@@ -445,6 +481,9 @@ class SourceIterationSolver:
             slab_tab, act_f, lat_shifts = lt
             ccpl = assembly.class_coupling(ops, cls) if ncls == 1 else None
             self.shifts = tuple(int(s) for s in lat_shifts)
+        if ccpl is None:
+            self._no_sharding(dir_sharding, "the general ring" if self._general
+                              else "the multi-class lattice ring")
         self.W = W = slab_tab.shape[2]
         # per-level hull windows (L, 2), or None where they save too little
         # (the torch rings run the full slab)
@@ -536,6 +575,11 @@ class SourceIterationSolver:
 
         mw_slots, fw_slots = macroscopic.slot_weights(quad, tables, dirs_pad,
                                                       dim)
+        if BS > self.BS_orig:  # padded bands weigh zero
+            mw_slots = np.pad(mw_slots, ((0, 0), (0, 0),
+                                         (0, BS - self.BS_orig)))
+            fw_slots = np.pad(fw_slots, ((0, 0), (0, 0),
+                                         (0, BS - self.BS_orig), (0, 0)))
         wvec = np.stack([
             inv_kn * heat_cap / (omega * dt_inv),  # src_w
             1.0 - inv_kn / dt_inv,  # relax_w
@@ -550,6 +594,13 @@ class SourceIterationSolver:
 
         def iput(a):
             return put(a, torch.int64)
+
+        d0 = dir_sharding.index("dir") if dir_sharding is not None else 0
+
+        def kss(km_b):
+            """This rank's slots of a bucket of km_b slots."""
+            kl = km_b // n_dir
+            return slice(d0 * kl, (d0 + 1) * kl)
 
         def bucket_scatter(gs):
             """The closure targets of the groups gs (closure_scatter)."""
@@ -575,7 +626,7 @@ class SourceIterationSolver:
             ),  # (L, G, W): zeroes the lagged source on padded slots
             # (D, D) the single geometry class's M^T, or (ncls, D, D)
             massT=put(massT_r[0] if ccpl is not None else massT_r),
-            wvec=put(wvec),
+            wvec=put(wvec[:, bsl]),  # this rank's bands under dir_sharding
             pos_of_elem=iput(pos_of_elem),  # (G, ne)
             ring_invMT=put(self._ring_invMT),  # (ne, D, D)
             basis_int_glob=put(ops.basis_int),  # (ne, D)
@@ -585,8 +636,8 @@ class SourceIterationSolver:
             buckets=tuple(
                 dict(
                     **(
-                        dict(bcat=put(bcat[gs][:, :km_b]),
-                             cin=put(ring_cin[:, gs][:, :, :km_b]))
+                        dict(bcat=put(bcat[gs][:, kss(km_b), bsl]),
+                             cin=put(ring_cin[:, gs][:, :, kss(km_b)]))
                         if ccpl is not None else {}
                     ),
                     # the general ring's factors, reads and couplings
@@ -597,17 +648,17 @@ class SourceIterationSolver:
                             W, put, iput)
                         if self._general else {}
                     ),
-                    bsrc0=put(ring_bsrc0[:, gs, :km_b]),
-                    macro_w=put(mw_slots[gs, :km_b]),
+                    bsrc0=put(ring_bsrc0[:, gs, kss(km_b)]),
+                    macro_w=put(mw_slots[gs][:, kss(km_b), bsl]),
                     **(
-                        {"dsrc0": put(ring_dsrc0[:, gs, :km_b])}
+                        {"dsrc0": put(ring_dsrc0[:, gs, kss(km_b)])}
                         if ring_dsrc0 is not None else {}
                     ),
                     # periodic wraps stay inside a group: per-bucket tables
                     **(
                         dict(
                             per_cpl=put(per["cpl"][gs]),  # (Gb, P, D, D)
-                            per_cin=put(per["cin"][gs][:, :km_b]),
+                            per_cin=put(per["cin"][gs][:, kss(km_b)]),
                             per_sl=iput(per["sl"][gs]),  # (Gb, P) sources
                             per_sw=iput(per["sw"][gs]),
                         )
@@ -643,23 +694,34 @@ class SourceIterationSolver:
             for gs, _ in self._ring_buckets
         )
         self.state_dtype = torch.bfloat16 if self.state_bf16 else dtype
+        self._vg_all = put(vg_s)  # every band's (the wall closures)
+        self._kss = kss
+        self._bsl = bsl
         # the sweep the step calls on a single-class lattice; the wrapper
         # launches the CUDA kernel for CUDA tensors (assign
         # lattice_ring_sweep_ref to compare with the plain version on the
         # same device)
         self.ring_sweep = lattice_ring_sweep
 
+    @staticmethod
+    def _no_sharding(dir_sharding, path):
+        if dir_sharding is not None:
+            raise NotImplementedError(
+                f"dir_sharding runs on the lattice ring through K1; this "
+                f"problem takes {path} (ROADMAP.md, item 11b)")
+
     # -- state -------------------------------------------------------------
 
     def initial_state(self):
         """Zero state, Tc and Tv (ref: PBTESolver::CreateInitialCoefficients):
-        per-bucket slabs on the ring, one (G, Km, BS, D, ne) tensor on the
-        scan."""
+        per-bucket slabs on the ring (this rank's shard under
+        ``dir_sharding``), one (G, Km, BS, D, ne) tensor on the scan."""
         if self._sweep is not None:
             return self._sweep.initial_state()
         u = tuple(
             torch.zeros(
-                (self.L, len(gs), km_b, self.BS, self.D, self.W),
+                (self.L, len(gs), km_b // self._n_dir, self._bl, self.D,
+                 self.W),
                 dtype=self.state_dtype, device=self.device,
             )
             for gs, km_b in self._ring_buckets
@@ -723,6 +785,8 @@ class SourceIterationSolver:
         partial = m_cat.permute(0, 2, 1, 3).reshape(G, D, self.ne_pad)
         pos = c["pos_of_elem"][:, None, :].expand(G, D, self.ne)
         Tc_v = torch.gather(partial, 2, pos).sum(dim=0).T  # (ne, D)
+        if self.dir_sharding is not None:
+            Tc_v = self.dir_sharding.psum(Tc_v, ("dir", "band"))
         Tc_new = torch.einsum("eij,ej->ei", c["ring_invMT"], Tc_v)
         Tv_new = macroscopic.compute_tv(Tc_new, c["basis_int_glob"])
         res = macroscopic.residual(Tv_new, Tv_prev)
@@ -739,13 +803,15 @@ class SourceIterationSolver:
             return (None,) * len(u)
         c = self.consts
         acc = self.dtype  # the closure arithmetic (bf16 state upcasts)
-        vg = c["wvec"][3]  # (BS,) non-dimensional group velocity
+        vg = c["wvec"][3]  # (BS,) non-dimensional group velocity (the
+        # rank's bands under dir_sharding)
+        grid = self.dir_sharding
         # contributions add up per closure element (corner elements have
         # several closure faces) in a (Gb, U, Km_b, BS, D) buffer that the
         # sweep reads through the bucket's slot map xmap
         sums = [
-            torch.zeros((len(gs), n_u, km_b, self.BS, self.D), dtype=acc,
-                        device=self.device)
+            torch.zeros((len(gs), n_u, km_b // self._n_dir, self._bl,
+                         self.D), dtype=acc, device=self.device)
             for (gs, km_b), n_u in zip(self._ring_buckets, self._closure_u)
         ]
 
@@ -776,12 +842,16 @@ class SourceIterationSolver:
                 cb = c["buckets"][bi]
                 vb = u[bi][cb["refl_pl"], self._bucket_gi[bi], :, :, :,
                            cb["refl_pw"]].to(acc)  # (Gb, P, Km_b, BS, D)
+                if grid is not None:  # every rank's slots and bands
+                    vb = grid.all_gather(vb.contiguous(), "dir", dim=2)
+                    vb = grid.all_gather(vb, "band", dim=3)
                 if km_b < self.Km:
                     vb = torch.nn.functional.pad(
                         vb, (0, 0, 0, 0, 0, self.Km - km_b))
                 parts.append(vb)
             v_bnd = torch.cat(parts)[self._inv_order]  # (G, P, Km, BS, D)
             pd = self._refl_Pd
+            vg = self._vg_all
             cons = []
             if self._dif_on:
                 out_flux = torch.einsum(
@@ -805,7 +875,8 @@ class SourceIterationSolver:
             refl_con = torch.cat(cons, dim=1)  # (G, P, Km, BS, D)
             for bi, (gs, km_b) in enumerate(self._ring_buckets):
                 add(bi, c["buckets"][bi]["refl_uid"],
-                    refl_con[self._bucket_groups[bi], :, :km_b])
+                    refl_con[self._bucket_groups[bi]][:, :, self._kss(km_b),
+                                                      self._bsl])
         return tuple(ClosureSource(cb["xmap"], sm)
                      for cb, sm in zip(c["buckets"], sums))
 
@@ -859,30 +930,22 @@ class SourceIterationSolver:
             return self._solve_bicgstab(tol, max_iter, state, verbose,
                                         callback, check_every,
                                         checkpoint_path, checkpoint_every)
-        u, Tc, Tv = state if state is not None else self.initial_state()
-        prev_Tv = Tv
-        res = float("inf")
-        it = 0
-        for it in range(1, max_iter + 1):
-            u, Tc_new, Tv_new, res_dev = self.step(u, Tc, prev_Tv)
-            if it % check_every == 0 or it == max_iter:
-                res = float(res_dev)
-                if verbose:
-                    print(f"[pbte_tpu_torch] iter {it}, residual = {res:.6e}")
-                if callback is not None:
-                    callback(it, res)
-                if res < tol:
-                    Tc, prev_Tv = Tc_new, Tv_new
-                    break
-            prev_Tv = Tv_new
-            Tc = Tc_new
-            if cycle_hook and cycle_every > 0 and it % cycle_every == 0:
-                cycle_hook(it, u, Tc, prev_Tv)
-            if checkpoint_path and it % checkpoint_every == 0:
-                from pbte_tpu_torch.io.checkpoint import save_checkpoint
+        from pbte_tpu_torch.solver import accel
 
-                save_checkpoint(checkpoint_path, self, u, Tc, prev_Tv, it,
+        save_ckpt = None
+        if checkpoint_path:
+            from pbte_tpu_torch.io.checkpoint import save_checkpoint
+
+            def save_ckpt(u, Tc, Tv, it, res, res_dev):
+                save_checkpoint(checkpoint_path, self, u, Tc, Tv, it,
                                 res if np.isfinite(res) else float(res_dev))
+
+        u, Tc, prev_Tv, res, it = accel.plain_outer(
+            self.step, state if state is not None else self.initial_state(),
+            tol, max_iter, verbose=verbose, callback=callback,
+            check_every=check_every, save_ckpt=save_ckpt,
+            ckpt_every=checkpoint_every, cycle_hook=cycle_hook,
+            cycle_every=cycle_every)
         if polish_iters > 0:
             u = _smap(lambda x: x.to(self.dtype), u)
             for _ in range(polish_iters):
@@ -937,14 +1000,41 @@ class SourceIterationSolver:
             verbose=verbose, callback=callback, check_every=check_every,
             save_ckpt=save_ckpt, ckpt_every=checkpoint_every,
             label="pbte_tpu_torch",
+            **({} if self.dir_sharding is None else {"dot": self._grid_dot}),
         )
         return SolveResult(u=u_f, Tc=Tc_f, Tv=Tv_f, residual=tv_res,
                            iterations=nmv, solver=self)
 
+    def _grid_dot(self, x, y):
+        """<x, y> over the dir-sharded (u, Tc) tree: the state's shards
+        sum over the grid, Tc is the same on every rank (counted once)."""
+        du = accel_tree_dot(x[0], y[0])
+        return self.dir_sharding.psum(du, ("dir", "band")) + torch.dot(
+            x[1].reshape(-1), y[1].reshape(-1))
+
+    def gather_buckets(self, u):
+        """The full per-bucket ring state from every rank's shard under
+        ``dir_sharding`` (collective; the state itself without it)."""
+        grid = self.dir_sharding
+        if grid is None or not isinstance(u, tuple):
+            return u
+        return tuple(grid.all_gather(grid.all_gather(b.contiguous(), "dir",
+                                                     dim=2), "band", dim=3)
+                     for b in u)
+
+    def shard_buckets(self, u):
+        """This rank's shard of a full per-bucket ring state."""
+        if self.dir_sharding is None or not isinstance(u, tuple):
+            return u
+        return tuple(b[:, :, self._kss(km_b), self._bsl].contiguous()
+                     for b, (_, km_b) in zip(u, self._ring_buckets))
+
     # -- views ----------------------------------------------------------------
 
     def _ring_u_standard(self, u):
-        """Bucketed ring state -> standard (G, Km, BS, D, ne_pad) numpy."""
+        """Bucketed ring state -> standard (G, Km, BS, D, ne_pad) numpy
+        (collective under ``dir_sharding``)."""
+        u = self.gather_buckets(u)
         host_dt = torch.float64 if self.dtype == torch.float64 else torch.float32
         out = np.zeros((self.G, self.Km, self.BS, self.D, self.ne_pad),
                        dtype=np.float64 if self.dtype == torch.float64
@@ -958,11 +1048,12 @@ class SourceIterationSolver:
 
     def u_by_direction(self, u):
         """Map the state to direction-major physical coefficients
-        (K, BS, ne, D) (numpy)."""
+        (K, BS, ne, D) (numpy; collective under ``dir_sharding``, without
+        its band padding)."""
         if self._sweep is not None:
             return self._sweep.u_by_direction(u)
-        us = self._ring_u_standard(u)
-        out = np.zeros((self.K, self.BS, self.ne, self.D), dtype=us.dtype)
+        us = self._ring_u_standard(u)[:, :, : self.BS_orig]
+        out = np.zeros((self.K, us.shape[2], self.ne, self.D), dtype=us.dtype)
         for g in range(self.G):
             valid = self._perm[g] >= 0
             elems = self._perm[g][valid]
@@ -989,6 +1080,7 @@ class SourceIterationSolver:
         (dim, ne) of the state, on its device."""
         if self._sweep is not None:
             return self._sweep.heat_flux(u)
+        u = self.gather_buckets(u)
         c = self.consts
         G, D, ne = self.G, self.D, self.ne
         parts = []

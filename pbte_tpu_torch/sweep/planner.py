@@ -4,9 +4,11 @@ This package's own copy of ``pbte_tpu/sweep/planner.py`` (less the sweep
 log writer). For each direction, element e depends on its neighbour
 across face f iff outward_normal(e, f) . s < 0; the dependency graph is
 Kahn-layered into wavefront levels. Directions with the same upwind sign
-pattern share one DAG and one level table (a group). pbte_tpu levels
-through a native C++ kernel where one is built; this copy runs the numpy
-fixpoint, which gives the same longest-path levels.
+pattern share one DAG and one level table (a group). As in pbte_tpu,
+``compute_levels`` and ``greedy_orders`` run the native C++ kernels
+(``pbte_tpu_torch.native``, built with g++ at first use) and fall back to
+their numpy forms, which give the same integers, where the library does not
+build (logged once).
 """
 
 from __future__ import annotations
@@ -32,7 +34,21 @@ def upwind_inflow(neighbor: np.ndarray, normals: np.ndarray,
 def compute_levels(neighbor: np.ndarray, normals: np.ndarray,
                    directions: np.ndarray) -> np.ndarray:
     """Wavefront level of each element per direction, (K, ne) int32:
-    level[k, e] = 1 + max(level[k, upwind neighbors]) (0 when none)."""
+    level[k, e] = 1 + max(level[k, upwind neighbors]) (0 when none).
+    The native Kahn kernel where it builds, else the numpy fixpoint."""
+    from pbte_tpu_torch import native as _native
+
+    try:
+        return _native.compute_levels(neighbor, normals, directions)
+    except ValueError:
+        raise SweepCycleError(
+            "upwind sweep levelization found a cycle (native kernel)")
+    except RuntimeError as e:
+        _native.log_fallback("compute_levels", e)
+    return _levels_numpy(neighbor, normals, directions)
+
+
+def _levels_numpy(neighbor, normals, directions):
     K = directions.shape[0]
     ne, nf = neighbor.shape
     inflow = upwind_inflow(neighbor, normals, directions)  # (K, ne, nf)
@@ -222,9 +238,24 @@ def greedy_orders(neighbor: np.ndarray, normals: np.ndarray,
     order; an element is ready when every interior-face neighbour with
     outward_normal . dir < 0 is already processed; processing within a pass
     makes later elements ready in the same pass; a pass with no progress
-    raises. pbte_tpu runs the same passes natively where built; here all
-    directions take their passes in lockstep, each element tested for every
-    unfinished direction at once (the same orders)."""
+    raises. The native kernel where it builds, as in pbte_tpu, else the
+    numpy form."""
+    from pbte_tpu_torch import native as _native
+
+    try:
+        out = _native.greedy_orders(neighbor, normals, directions)
+        return [out[k] for k in range(directions.shape[0])]
+    except ValueError:
+        raise SweepCycleError("angular sweep ordering stalled (native kernel)")
+    except RuntimeError as e:
+        _native.log_fallback("greedy_orders", e)
+    return _greedy_orders_numpy(neighbor, normals, directions)
+
+
+def _greedy_orders_numpy(neighbor, normals, directions):
+    """``greedy_orders``' numpy form: all directions' passes in lockstep,
+    each element tested for every unfinished direction at once (the same
+    orders as the native kernel)."""
     K = directions.shape[0]
     ne, nf = neighbor.shape
     dim = normals.shape[-1]

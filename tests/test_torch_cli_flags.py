@@ -9,7 +9,6 @@ pbte_tpu's CLI, and its own flag behaviour, as CPU subprocesses.
 - checkpoint and resume: 6 + 4 iterations bit-equal to 10 straight;
 - the angle overrides (-ad/-ap/-az/-aps/-aas) name the angles log;
 - ``--vtu-every`` writes a ParaView collection, ``--profile`` a trace;
-- ``-p`` exits non-zero naming the distributed solvers' ROADMAP item;
 - ``--platform default`` without a GPU exits non-zero and writes no result.
 """
 
@@ -119,14 +118,6 @@ def test_vtu_every_and_profile(tmp_path):
     assert len(traces) == 1 and "profiler trace written" in proc.stdout
     events = json.loads(traces[0].read_text())["traceEvents"]
     assert any("aten::" in str(e.get("name", "")) for e in events)
-
-
-def test_parallel_is_refused(tmp_path):
-    proc = run_cli("pbte_tpu_torch", TRI + ["-p", "2x2", "--max-iter", "2"],
-                   tmp_path)
-    assert proc.returncode != 0
-    assert "item 11" in proc.stderr and "serial run" in proc.stderr
-    assert not (tmp_path / "output").exists()
 
 
 @pytest.mark.skipif(torch.cuda.is_available(), reason="needs a machine "

@@ -215,6 +215,22 @@ def test_lattice_ring_tables(case):
         np.testing.assert_array_equal(a, b)
 
 
+@pytest.mark.parametrize("major_axis", [0, 1, 2])
+def test_lattice_ring_tables_major_axis(major_axis):
+    """The slab solver's major axis on a non-cubic box, every axis."""
+    pj, pt, oj, ot, qj, qt = _plans("9x8x8_p1_az8")
+    lj = jplan.detect_lattice(oj.sweep_neighbor, oj.normals)
+    lt = tplan.detect_lattice(ot.sweep_neighbor, ot.normals)
+    want = _lattice_ring_tables(lj, pj, qj.directions[:, :3],
+                                major_axis=major_axis)
+    got = tlt.lattice_ring_tables(lt, pt, qt.directions[:, :3],
+                                  major_axis=major_axis)
+    assert want is not None and got is not None
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+    assert got[2][major_axis] == 0
+
+
 @pytest.mark.parametrize("case", list(CASES))
 def test_ring_windows(case):
     """The per-level hull windows against win_lo / win_hi recomputed from

@@ -774,9 +774,11 @@ def test_no_jax_import():
     """The port builds and steps a hex 8^3 problem, and solves it in float64
     with solve(accelerate="bicgstab") (solver/accel.py), steps a 6-tet cube
     on the general ring (solver/one_hot_ring.py) and runs the C++ baseline
-    (pbte_tpu_torch.native) on it, in a process where importing JAX, or
-    anything of pbte_tpu, fails; every module of the port, chip_smoke.py
-    and bench_torch.py import there too."""
+    (pbte_tpu_torch.native) on it, solves on one rank with the slab and the
+    spatial solvers (parallel/) and runs the partition validation, in a
+    process where importing JAX, or anything of pbte_tpu, fails; every
+    module of the port, chip_smoke.py and bench_torch.py import there
+    too."""
     code = textwrap.dedent("""
         import importlib
         import pkgutil
@@ -826,6 +828,26 @@ def test_no_jax_import():
         u, Tc, Tv, r = g.step(u, Tc, Tv)
         assert torch.isfinite(Tc).all() and bool(torch.isfinite(r))
         assert np.isfinite(native.cpp_source_iteration(*tp, WALL_BCS, 1)[1]).all()
+        from pbte_tpu_torch import mesh as pmesh
+        from pbte_tpu_torch.parallel.comm import Grid
+        from pbte_tpu_torch.parallel.slab import SlabLatticeSolver
+        from pbte_tpu_torch.parallel.spatial import SpatialShardedSolver
+        from pbte_tpu_torch.validation.__main__ import main as validate_main
+        grid = Grid(dir=1, space=1)
+        sl = SlabLatticeSolver(
+            *unit_cube(8, 8, 8, order=1, polar=2, azimuth=4, nspec=2),
+            WALL_BCS, grid, device="cpu")
+        assert np.isfinite(sl.solve(tol=0, max_iter=2,
+                                    verbose=False).Tc_global()).all()
+        topo = pmesh.connect(pmesh.make_cartesian_3d(3, 3, 3, "tet")
+                             .scaled(1e-6))
+        sp = SpatialShardedSolver(*tet_cube(3, order=1, polar=2, azimuth=4,
+                                            nspec=1),
+                                  WALL_BCS, grid, topo=topo, device="cpu",
+                                  partition_method="multilevel")
+        assert np.isfinite(sp.solve(tol=0, max_iter=2,
+                                    verbose=False).Tc_global()).all()
+        assert validate_main(["2", "--mesh", "unit-cube-tet"]) == 0
         assert not any(m.split(".")[0] in ("jax", "jaxlib", "pbte_tpu")
                        for m in sys.modules)
         print("no-jax ok")
