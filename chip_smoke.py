@@ -5,7 +5,8 @@ float64 through the BiCGStab-accelerated solve) and the copy probe through
 them, run the legacy production tet shape through the scan path and the
 supercell ring, run the lattices of K1's tiled kernel, a 2D quad lattice
 and a graded lattice, check the results against the pbte_tpu goldens, and
-run the command-line interface at the flagship's width and as a subprocess.
+run the command-line interface at the flagship's width and as a subprocess,
+the general ring, and the sharded solvers on ranks sharing the card.
 
 Usage (from the root of a checkout, on a machine with one CUDA GPU):
 
@@ -105,9 +106,15 @@ Phases (a failing phase raises and the script exits non-zero):
    busy share and top kernels and ops from torch.profiler over 2 more
    steps; and 3 f32 steps from the zero state against phase 9's 3 f32 scan
    steps (iterate-exact paths, held at 2e-6 of max), then 3 float64 steps
-   against phase 9's float64 scan steps (1e-11 of max). The ring is torch
-   products (pbte_tpu's supercell body reaches no Pallas kernel): no kernel
-   of the kernels line launches in it, and the phase fails if K1 does;
+   against phase 9's float64 scan steps (1e-11 of max); between them, the
+   same shape with ``PBTE_RING_STATE_BF16=1``, asserted to take the
+   supercell ring with bf16 state: set-up, 2 warm-up steps, 10 steps in
+   turns with the f32 ring (each step timed by CUDA events), ms/step of
+   both, its own peak memory, torch.profiler's launches and top ops over 2
+   steps, 3 steps from the zero state against the f32 ring's 3 (3e-3 of
+   max) and finite, falling residuals. The ring is torch products
+   (pbte_tpu's supercell body reaches no Pallas kernel): no kernel of the
+   kernels line launches in it, and the phase fails if K1 does;
 11. the lattices no earlier phase solves: the wide hex 24^3 p=2 with the
    flagship's angles and bands (13,824 elements, W = 576) in f32
    (``wide_f32``), bf16 and f64 state, and quad 64^2 p=2 (16 azimuths, 40
@@ -170,9 +177,20 @@ Phases (a failing phase raises and the script exits non-zero):
    (1e-12 of max), and on the 12^3 6-tet cube, 10 timed steps (Tc finite,
    the residual falling); (e) SourceIterationSolver's dir sharding over
    the grid's 2 dir ranks (each space rank a replica), 3 flagship steps
-   against the single-device solver's (2e-6 of max). Four ranks on one
-   card time-slice it: these numbers are correctness and the halo's cost,
-   not scaling.
+   against the single-device solver's (2e-6 of max); (f), on two ranks,
+   ``dir_sharding`` off K1's lattice ring (``SHARD_PATHS``): the legacy tet
+   shape's supercell ring over dir = 2 and over band = 2, the default
+   config at -r 7 (consistent faces) on the general ring over band = 2,
+   the graded hex 16^3 on the multi-class ring over dir = 2 and the 6-tet
+   cube 12^3 with phase 13's diffuse walls on the scan over dir = 2: each
+   rank builds its shard from the problem the earlier phase built, 3 f32
+   steps from the zero state against the single-device solver's 3 (phases
+   10 and 11's; the general ring's and the scan's run before the ranks
+   take the card) at 2e-6 of max, each rank's ms/step and peak memory,
+   the path asserted and K1's count 0 (2 warm-up steps first: with one,
+   the first case's steps ran 1.6x slower). Ranks sharing one card
+   time-slice it: these numbers are correctness and the halo's cost, not
+   scaling.
 
 The line before the last is the card's name and power limit, the one before
 it {"kernels": [...]}, the last line {"ok": true, "device": {...}}.
@@ -249,6 +267,10 @@ TET_SUPER_RTOL = 2e-6
 # the same in float64: the paths sum in another order (1e-15 of max on the
 # CPU at 3 steps)
 TET_SUPER_F64_RTOL = 1e-11
+# the supercell ring with bf16 state against its f32 steps, 3 from the zero
+# state: the coupling operand, the couplings and the state rounded to bf16
+# (2.9e-4 to 9.3e-4 of max on the CPU, tests/test_torch_supercell.py)
+TET_SUPER_BF16_RTOL = 3e-3
 # the lattices of the tiled kernel (bench_k1's P3_LATTICE and WIDE) and the
 # one-CTA kernel's D = 9: a 2D quad lattice at p = 2 (two faces; 16
 # azimuths), and the graded flagship (the multi-class torch ring)
@@ -298,6 +320,17 @@ SHARD_TIMEOUT = 600  # seconds for the ranks' spawn, set-up included
 SHARD_1x1_RTOL = 2e-6  # slab 1 x 1 and dir sharding against one device
 SHARD_ACCEL_RTOL = 1e-7  # slab BiCGStab against the single device's
 SHARD_ORACLE_RTOL = 1e-12
+# (f): dir and band sharding off K1's lattice ring, on two ranks: (name,
+# the refs key of its problem, its grid, the path it must take)
+SHARD_PATHS = (
+    ("legacy tet supercell dir=2", "tet", dict(dir=2), "supercell"),
+    ("legacy tet supercell band=2", "tet", dict(band=2), "supercell"),
+    (f"general ring -r {GENERAL_REFINE} band=2", "general", dict(band=2),
+     "general"),
+    ("graded 16^3 multi-class ring dir=2", "graded", dict(dir=2), "multi"),
+    ("tet 12^3 diffuse scan dir=2", "scan", dict(dir=2), "scan"),
+)
+SHARD_PATH_STEPS = 3
 SHARD_CONFIG = dict(
     device="cuda", flagship=None,  # FLAGSHIP, filled in by main
     # (c): 16 directions x 8 bands (the flagship's 64 x 40 took 37 s of
@@ -1129,7 +1162,8 @@ def phase_tet_scan(SourceIterationSolver, problem, prob, lr, card):
     return row, tc_3
 
 
-def phase_tet_super(SourceIterationSolver, problem, prob, lr, card, tc_scan):
+def phase_tet_super(SourceIterationSolver, problem, prob, lr, card, tc_scan,
+                    refs):
     """The legacy production tet shape ``prob`` with the solver's defaults
     (phase 10): it must resolve to the supercell ring (G = 8 octant groups
     of the 5^3 macro lattice, D' = 6 x 20 = 120, L = 13, W = 25). Set-up
@@ -1139,7 +1173,9 @@ def phase_tet_super(SourceIterationSolver, problem, prob, lr, card, tc_scan):
     ``tc_scan["f32"]`` (the two paths are iterate-exact: f32 roundoff);
     then the same 3 steps in float64 against the scan's float64 steps. The
     ring is torch products, so no kernel of the kernels line launches here
-    (held: K1's count stays 0). Returns its row."""
+    (held: K1's count stays 0). The bf16-state ring runs between
+    (``phase_tet_super_bf16``). Puts the problem and the f32 ring's 3-step
+    Tc into ``refs["tet"]`` for phase 14 (f). Returns its row."""
     lr.reset_launches()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -1194,13 +1230,16 @@ def phase_tet_super(SourceIterationSolver, problem, prob, lr, card, tc_scan):
     row.update(prof)
     row["busy_share"] = (prof["device_ms_per_step"]
                          / prof["profiled_ms_per_step"])
-    del u, Tc, Tv
+    u32 = (u, Tc, Tv)
     st = s.initial_state()
     for _ in range(TET_COMPARE_STEPS):
         st = s.step(*st)[:3]
     rel, ab = rel_err(s.Tc_fine(st[1]), tc_scan["f32"].cuda())
     row["vs_scan_rel"] = rel
-    del s, st
+    row["bf16"] = phase_tet_super_bf16(SourceIterationSolver, problem, prob,
+                                       card, s, u32, st[1])
+    refs["tet"] = (prob, dict(bc_temps=problem.WALL_BCS), st[1].cpu())
+    del s, st, u32
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -1239,6 +1278,98 @@ def phase_tet_super(SourceIterationSolver, problem, prob, lr, card, tc_scan):
                            "disagree")
     if row["k1_launches"]:
         raise RuntimeError("legacy tet supercell: K1 launched")
+    return row
+
+
+def phase_tet_super_bf16(SourceIterationSolver, problem, prob, card, s32,
+                         st32, tc32):
+    """Phase 10's bf16 part: the legacy tet shape with
+    ``PBTE_RING_STATE_BF16=1`` must resolve to the supercell ring with bf16
+    state. Set-up, 2 warm-up steps, then TET_TIMED_STEPS steps in turns
+    with the f32 ring ``s32`` (from its state ``st32``), each step timed by
+    CUDA events, ms/step of both; the bf16 ring's own peak memory over 2
+    steps of it alone (above what the f32 ring holds: its consts, state and
+    step temporaries, as phase 10's f32 peak counts them);
+    torch.profiler over 2 more steps; 3 steps
+    from the zero state against the f32 ring's 3 (``tc32``) at
+    TET_SUPER_BF16_RTOL of max; finite, falling residuals. Returns its
+    row."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()  # what the f32 ring holds
+    os.environ["PBTE_RING_STATE_BF16"] = "1"
+    try:
+        t0 = time.perf_counter()
+        s = SourceIterationSolver(*prob, problem.WALL_BCS, device="cuda")
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+    finally:
+        del os.environ["PBTE_RING_STATE_BF16"]
+    if not (s._super is not None and s.sweep_mode == "ring"
+            and s.state_dtype == torch.bfloat16):
+        raise RuntimeError("the legacy tet shape with PBTE_RING_STATE_BF16=1 "
+                           "did not resolve to the supercell ring with bf16 "
+                           "state")
+    st = s.initial_state()
+    res = []
+    for _ in range(WARMUP_STEPS):
+        *st, r = s.step(*st)
+        res.append(r)
+    ms = {"bf16": 0.0, "f32": 0.0}
+    torch.cuda.synchronize()
+    for _ in range(TET_TIMED_STEPS):
+        for key in ("f32", "bf16"):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            if key == "bf16":
+                *st, r = s.step(*st)
+                res.append(r)
+            else:
+                st32 = s32.step(*st32)[:3]
+            e1.record()
+            torch.cuda.synchronize()
+            ms[key] += e0.elapsed_time(e1) / TET_TIMED_STEPS
+    if st[0][0].dtype != torch.bfloat16:
+        raise RuntimeError("legacy tet supercell bf16: the state is not bf16")
+    del st32  # the f32 ring's memory back to ``base``
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(WARMUP_STEPS):
+        *st, r = s.step(*st)
+        res.append(r)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    res = [float(x) for x in res]
+    prof = profile_steps(s, tuple(st), TET_PROFILED_STEPS)
+    del st
+    st = s.initial_state()
+    for _ in range(TET_COMPARE_STEPS):
+        st = s.step(*st)[:3]
+    rel, ab = rel_err(st[1], tc32)
+    ne, D, K, BS = s.ne, s.D, s.K, s.BS
+    row = dict(setup_s=setup_s, ms_per_step=ms["bf16"],
+               f32_ms_per_step_in_turns=ms["f32"],
+               dof_per_s=K * BS * ne * D / (ms["bf16"] * 1e-3),
+               max_memory_allocated=peak, residuals=res, vs_f32_rel=rel,
+               vs_f32_abs=ab, tolerance=TET_SUPER_BF16_RTOL,
+               launches_per_step=prof["launches_per_step"],
+               device_ms_per_step=prof["device_ms_per_step"],
+               top=prof["top"], top_ops=prof["top_ops"])
+    del s, st
+    torch.cuda.empty_cache()
+    log("[smoke] legacy tet supercell bf16 " + json.dumps(row))
+    log(f"[smoke] legacy tet supercell bf16 state: {ms['bf16']:.3f} ms/step "
+        f"against the f32 ring's {ms['f32']:.3f} in turns, "
+        f"{row['dof_per_s']:.4g} DOF/s, peak {peak / 1e9:.2f} GB (its own), "
+        f"set-up {setup_s:.1f} s; {TET_COMPARE_STEPS} steps Tc against the "
+        f"f32 ring's rel {rel:.3e} (abs {ab:.3e}), tolerance "
+        f"{TET_SUPER_BF16_RTOL}; on {card}")
+    if not (np.all(np.isfinite(res)) and res[-1] < res[0]):
+        raise RuntimeError(f"legacy tet supercell bf16: residuals not finite "
+                           f"and falling: {res}")
+    if not rel <= TET_SUPER_BF16_RTOL:
+        raise RuntimeError("legacy tet: the bf16 supercell ring and the f32 "
+                           "ring disagree")
     return row
 
 
@@ -1313,7 +1444,7 @@ def time_lattice(s, name, card, steps):
 
 
 def phase_new_lattices(SourceIterationSolver, problem, lr, card, wide_prob,
-                       quad_prob):
+                       quad_prob, refs):
     """Phase 11: the lattices the port took on the card in no earlier run.
     The wide hex 24^3 p=2 (flagship angles and bands, W = 576) in f32 state
     (``wide_f32``), bf16 and f64: 2 + 10 timed steps each through K1's
@@ -1321,8 +1452,9 @@ def phase_new_lattices(SourceIterationSolver, problem, lr, card, wide_prob,
     quad 64^2 p=2 through the one-CTA kernel at D = 9; then the graded hex
     16^3 p=2 (x spacing alternating 1 : 2) on the multi-class torch ring,
     timed, and its 3 f32 and 3 f64 steps from the zero state held against
-    the same problem's scan (GRADED_RTOL, GRADED_F64_RTOL of max). Returns
-    {row name: row}."""
+    the same problem's scan (GRADED_RTOL, GRADED_F64_RTOL of max). Puts the
+    graded problem and its ring's 3 f32 steps' Tc into ``refs["graded"]``
+    for phase 14 (f). Returns {row name: row}."""
     rows = {}
     n_steps = WARMUP_STEPS + NEW_TIMED_STEPS
     for name, prob, bcs, kw, env, variant in (
@@ -1393,6 +1525,8 @@ def phase_new_lattices(SourceIterationSolver, problem, lr, card, wide_prob,
             torch.cuda.empty_cache()
     rel, ab = rel_err(tc["auto_float32"], tc["scan_float32"])
     rel64, _ = rel_err(tc["auto_float64"], tc["scan_float64"])
+    refs["graded"] = (graded, dict(bc_temps=problem.WALL_BCS),
+                      tc["auto_float32"].cpu())
     row = rows["graded_f32"]
     row.update(vs_scan_rel=rel, f64_vs_scan_rel=rel64)
     log(f"[smoke] graded lattice: {TET_COMPARE_STEPS} steps of the "
@@ -1756,9 +1890,10 @@ def time_solve(s, steps):
     return (time.perf_counter() - t0) / steps * 1e3, r.Tc.detach().cpu()
 
 
-def phase_general(SourceIterationSolver, problem, lr, card):
+def phase_general(SourceIterationSolver, problem, lr, card, refs):
     """Phase 13: the general ring against the scan (see the module
-    docstring). Returns {case: row}."""
+    docstring). Puts the -r 7 problem and the 12^3 tet cube with its
+    diffuse walls into ``refs`` for phase 14 (f). Returns {case: row}."""
     import gc
     import tempfile
 
@@ -1794,6 +1929,7 @@ def phase_general(SourceIterationSolver, problem, lr, card):
                     f"{GENERAL_RTOL[state]}); on {card}")
                 if mode != "ring" or not rel <= GENERAL_RTOL[state]:
                     raise RuntimeError(f"general ring cli {state}: {row}")
+            refs["general"] = (prob, dict(bc_temps=bcs), None)
             del prob
         tet_bcs = {
             "dirichlet": dict(bc_temps={a: t for a, t in
@@ -1808,6 +1944,9 @@ def phase_general(SourceIterationSolver, problem, lr, card):
                                  (8, "diffuse", ("f64",)),
                                  (12, "diffuse", ("f32", "f64"))):
             prob = problem.tet_cube(n, **GENERAL_TET)
+            if n == 12:
+                refs["scan"] = (prob, dict(tet_bcs[walls], sweep_mode="scan"),
+                                None)
             for state in states:
                 dt = torch.float32 if state == "f32" else torch.float64
                 ring = SourceIterationSolver(*prob, device="cuda", dtype=dt,
@@ -2122,8 +2261,128 @@ def _shard_rank(rank, world, cfg):
     return out
 
 
-def phase_sharded(card, cfg):
-    """Phase 14: the domain-decomposed solvers. Returns its row."""
+def _solver_path(s):
+    """Which sweep a solver runs: supercell, scan, general, multi or k1."""
+    if s._super is not None:
+        return "supercell"
+    if s.sweep_mode == "scan":
+        return "scan"
+    return ("general" if s._general else "multi" if s._multi is not None
+            else "k1")
+
+
+def _shard_path_rank(rank, world, cfg):
+    """Phase 14 (f) on one of two ranks: each of SHARD_PATHS' problems (a
+    pickle the parent wrote) with ``dir_sharding`` on its grid, 2 warm-up
+    steps, then 3 f32 steps from the zero state timed between barriers;
+    returns per case the path,
+    the shard's shape, ms/step, peak memory, K1's launches and (rank 0)
+    Tc."""
+    import pickle
+
+    from pbte_tpu_torch.ops import lattice_ring as lr
+    from pbte_tpu_torch.parallel.comm import Grid
+    from pbte_tpu_torch.solver.source_iteration import SourceIterationSolver
+
+    dev = cfg["device"]
+    if dev == "cuda":
+        torch.cuda.set_device(0)
+    grids, out = {}, {}
+    for name, key, shape, _ in SHARD_PATHS:
+        gk = tuple(shape.items())
+        if gk not in grids:
+            grids[gk] = Grid(**shape)
+        with open(cfg["pickles"][key], "rb") as f:
+            prob, kw = pickle.load(f)
+        if dev == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        lr.reset_launches()
+        t0 = time.perf_counter()
+        s = SourceIterationSolver(*prob, device=dev, dir_sharding=grids[gk],
+                                  **kw)
+        _sync(dev)
+        setup_s = time.perf_counter() - t0
+        st = s.initial_state()
+        for _ in range(WARMUP_STEPS):  # first launches, handles, allocator
+            st = s.step(*st)[:3]
+        st = s.initial_state()
+        u0 = st[0][0] if isinstance(st[0], tuple) else st[0]
+        grids[gk].barrier()
+        t0 = time.perf_counter()
+        res = []
+        for _ in range(SHARD_PATH_STEPS):
+            *st, r = s.step(*st)
+            res.append(r)
+        _sync(dev)
+        grids[gk].barrier()
+        wall = time.perf_counter() - t0
+        out[name] = dict(
+            path=_solver_path(s), shard=list(u0.shape), setup_s=setup_s,
+            ms_per_step=wall / SHARD_PATH_STEPS * 1e3,
+            peak_bytes=(torch.cuda.max_memory_allocated() if dev == "cuda"
+                        else 0),
+            k1_launches=lr.lattice_ring_sweep.launches,
+            residuals=[float(x) for x in res],
+            Tc=st[1].cpu().numpy() if rank == 0 else None)
+        del s, st, u0, prob
+    return out
+
+
+def phase_sharded_paths(card, cfg, refs, SourceIterationSolver):
+    """Phase 14 (f): SHARD_PATHS on two gloo ranks sharing the card, each
+    against the single-device solver's 3 f32 steps (phases 10 and 11's,
+    or computed here before the ranks take the card) at SHARD_1x1_RTOL of
+    max. Returns its rows."""
+    import pickle
+    import tempfile
+
+    from pbte_tpu_torch.parallel.launch import run_ranks
+
+    dev = cfg["device"]
+    rows = {}
+    with tempfile.TemporaryDirectory() as d:
+        pickles, tc_ref = {}, {}
+        for key, (prob, kw, tc) in refs.items():
+            if tc is None:
+                s = SourceIterationSolver(*prob, device=dev, **kw)
+                st = s.initial_state()
+                for _ in range(SHARD_PATH_STEPS):
+                    st = s.step(*st)[:3]
+                tc = st[1].cpu()
+                del s, st
+            tc_ref[key] = tc
+            pickles[key] = str(pathlib.Path(d) / f"{key}.pkl")
+            with open(pickles[key], "wb") as f:
+                pickle.dump((prob, kw), f)
+        if dev == "cuda":
+            torch.cuda.empty_cache()
+        ranks = run_ranks(_shard_path_rank, 2, (dict(cfg, pickles=pickles),),
+                          workdir=d, timeout=SHARD_TIMEOUT)
+    for name, key, shape, path in SHARD_PATHS:
+        got = [r[name] for r in ranks]
+        rel, _ = rel_err(torch.as_tensor(got[0]["Tc"]), tc_ref[key])
+        rows[name] = row = dict(
+            grid=shape, path=got[0]["path"], shard=got[0]["shard"],
+            setup_s=max(g["setup_s"] for g in got),
+            ms_per_step=[g["ms_per_step"] for g in got],
+            peak_bytes=[g["peak_bytes"] for g in got],
+            k1_launches=[g["k1_launches"] for g in got],
+            residuals=got[0]["residuals"], tc_rel=rel,
+            tolerance=SHARD_1x1_RTOL)
+        log(f"[smoke] phase 14 (f) {name}: " + json.dumps(row) + f" on {card}")
+        res = row["residuals"]
+        if (row["path"] != path or any(row["k1_launches"])
+                or not rel <= SHARD_1x1_RTOL
+                or not (np.all(np.isfinite(res)) and res[-1] < res[0])):
+            raise RuntimeError(f"phase 14 (f) {name}: {row}")
+    return rows
+
+
+def phase_sharded(card, cfg, refs):
+    """Phase 14: the domain-decomposed solvers, (a)-(e) on four ranks,
+    then (f) on two (``refs``: phase_sharded_paths' problems). Returns its
+    row."""
     import tempfile
 
     from pbte_tpu_torch import native, problem
@@ -2224,6 +2483,7 @@ def phase_sharded(card, cfg):
         f"K1 launches {row['e_launches']}")
     if not row["e_rel"] <= SHARD_1x1_RTOL or min(row["e_launches"]) == 0:
         raise RuntimeError("phase 14 (e): dir sharding failed")
+    row["f"] = phase_sharded_paths(card, cfg, refs, SourceIterationSolver)
     row["seconds"] = time.perf_counter() - t_phase
     log(f"[smoke] phase 14 (the sharded solvers) took {row['seconds']:.1f} s")
     return row
@@ -2393,26 +2653,30 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     mark("phases 9, 10 (the legacy tet)")
+    refs = {}  # phase 14 (f)'s problems and single-device references
     tet_prob = problem_mod.tet_cube(**problem_mod.LEGACY_TET)
     tet, tc_scan = phase_tet_scan(SourceIterationSolver, problem_mod,
                                   tet_prob, lr, card)
     tet_super = phase_tet_super(SourceIterationSolver, problem_mod, tet_prob,
-                                lr, card, tc_scan)
+                                lr, card, tc_scan, refs)
     del tet_prob
     torch.cuda.empty_cache()
 
     mark("phase 11 (the new lattices)")
     new = phase_new_lattices(SourceIterationSolver, problem_mod, lr, card,
-                             wide_prob, quad_prob)
+                             wide_prob, quad_prob, refs)
     del wide_prob, quad_prob
     torch.cuda.empty_cache()
 
     mark("phase 12 (the CLI)")
     cli_rows = phase_cli(lr, card, flag["dof_per_s"])
     mark("phase 13 (the general ring)")
-    general = phase_general(SourceIterationSolver, problem_mod, lr, card)
+    general = phase_general(SourceIterationSolver, problem_mod, lr, card,
+                            refs)
     mark("phase 14 (the sharded solvers)")
-    sharded = phase_sharded(card, dict(SHARD_CONFIG, flagship=FLAGSHIP))
+    sharded = phase_sharded(card, dict(SHARD_CONFIG, flagship=FLAGSHIP),
+                            refs)
+    del refs
 
     mark("the kernels line")
     jax_mods = sorted(m for m in sys.modules
@@ -2446,7 +2710,11 @@ def main() -> int:
         f"rel {super_rel:.3e}; legacy tet scan {tet['ms_per_step']:.3f} "
         f"ms/step, {tet['dof_per_s']:.4g} DOF/s; supercell ring "
         f"{tet_super['ms_per_step']:.3f} ms/step, "
-        f"{tet_super['dof_per_s']:.4g} DOF/s; p=3 golden rel {p3_rel:.3e}, "
+        f"{tet_super['dof_per_s']:.4g} DOF/s, bf16 state "
+        f"{tet_super['bf16']['ms_per_step']:.3f} ms/step (f32 "
+        f"{tet_super['bf16']['f32_ms_per_step_in_turns']:.3f} in turns), "
+        f"peak {tet_super['bf16']['max_memory_allocated'] / 1e9:.2f} GB; "
+        f"p=3 golden rel {p3_rel:.3e}, "
         f"graded golden rel {graded_rel:.3e}; K1 past the old 16-CTA "
         f"ceiling: {sum(map(len, beyond_rows.values()))} cases held; "
         + "; ".join(f"{k} {r['ms_per_step']:.3f} ms/step, "
@@ -2463,7 +2731,11 @@ def main() -> int:
         + f"; slab 2 x 2 on four ranks sharing the card "
         f"{sharded['a']['ms_per_step']:.3f} ms/step, halo "
         f"{sharded['a']['halo_ms']:.3f} ms/step; spatial 2 x 2 12^3 tets "
-        f"{sharded['d']['ms_per_step']:.3f} ms/step; on {card}")
+        f"{sharded['d']['ms_per_step']:.3f} ms/step; dir/band sharding on "
+        f"two ranks: "
+        + ", ".join(f"{k} {max(r['ms_per_step']):.3f} ms/step"
+                    for k, r in sharded["f"].items())
+        + f"; on {card}")
 
     def k1_entry(name, state, n, shape=None,
                  source="pbte_tpu_torch/csrc/lattice_ring.cu"):

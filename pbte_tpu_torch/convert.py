@@ -170,7 +170,7 @@ def general_bucket(cb, mats_b, device):
 _SCAN_KEYS = ("perm", "pos_of_elem", "basis_int_glob", "macro_w", "flux_w",
               "src_w", "relax_w", "vg", "mass_t", "coupling", "dif_pos",
               "dif_fint", "dif_cin", "dif_wplus", "dif_norm", "spc_pos",
-              "spc_fm", "spc_cin", "spc_gk", "spc_src")
+              "spc_fm", "spc_cin", "spc_gk")
 
 
 def scan_consts_from_numpy(c: dict, device="cuda") -> dict:
@@ -248,7 +248,7 @@ def scan_consts_from_numpy(c: dict, device="cuda") -> dict:
 
 
 def state_from_numpy(u, Tc, Tv, device="cuda", layout="bsd",
-                     supercell=False):
+                     supercell=False, state_dtype=None):
     """pbte_tpu state (u, Tc, Tv) -> tensors.
 
     On the scan u is one array (G, Km, BS, D, ne) and ``layout`` is not
@@ -260,20 +260,27 @@ def state_from_numpy(u, Tc, Tv, device="cuda", layout="bsd",
     supercell ring's per-bucket ``(L, Gb, Km_b, D', BS, W)`` (pbte_tpu's
     XLA ring; ``layout`` not read), carried into this package's ``(L, Gb,
     Km_b, BS, W, D')``; Tc is then per super element and Tv per fine
-    element. ``device`` defaults to the GPU and raises without one
-    (``device="cpu"`` for the CPU)."""
+    element. ``state_dtype`` casts a ring's u (torch.bfloat16 for the
+    bf16 state of a float32 solver; None keeps the arrays' type, a
+    bfloat16 array of pbte_tpu's becoming bfloat16). ``device`` defaults
+    to the GPU and raises without one (``device="cpu"`` for the CPU)."""
     device = checked_device(device)
     if not isinstance(u, (tuple, list)):
         return _tensor(u, device), _tensor(Tc, device), _tensor(Tv, device)
+
+    def ring(ub):
+        t = _tensor(ub, device)
+        return t if state_dtype is None else t.to(state_dtype)
+
     if supercell:
-        return (tuple(from_pbte_layout(_tensor(ub, device)) for ub in u),
+        return (tuple(from_pbte_layout(ring(ub)) for ub in u),
                 _tensor(Tc, device), _tensor(Tv, device))
     if layout not in ("bsd", "dbs"):
         raise ValueError(f"layout must be 'bsd' or 'dbs', got {layout!r}")
     if layout == "dbs":
         u = [np.swapaxes(np.asarray(ub), 3, 4) for ub in u]
     return (
-        tuple(_tensor(ub, device) for ub in u),
+        tuple(ring(ub) for ub in u),
         _tensor(Tc, device),
         _tensor(Tv, device),
     )
@@ -281,8 +288,12 @@ def state_from_numpy(u, Tc, Tv, device="cuda", layout="bsd",
 
 def super_state_to_numpy(u):
     """The supercell ring's per-bucket state -> pbte_tpu's XLA-ring layout
-    ``(L, Gb, Km_b, D', BS, W)`` as numpy arrays."""
-    return [to_pbte_layout(ub).detach().cpu().numpy() for ub in u]
+    ``(L, Gb, Km_b, D', BS, W)`` as numpy arrays (a bfloat16 state as
+    float32, exact; ``state_from_numpy(..., supercell=True, state_dtype=
+    torch.bfloat16)`` takes it back)."""
+    return [to_pbte_layout(ub).detach().cpu().float().numpy()
+            if ub.dtype == torch.bfloat16
+            else to_pbte_layout(ub).detach().cpu().numpy() for ub in u]
 
 
 def sharded_state_from_numpy(solver, u, Tc, Tv):
@@ -292,11 +303,14 @@ def sharded_state_from_numpy(solver, u, Tc, Tv):
     ``SpatialShardedSolver``: u ``(P, G, Km, BS, D, ne_max)``, Tc ``(P,
     ne_max, D)``, Tv ``(P, ne_max)``) -> this rank's shard on the port's
     solver of the same kind (``solver.shard_state``); under a
-    ``dir_sharding`` grid, ``SourceIterationSolver``'s full per-bucket ring
-    state (``state_from_numpy``'s input) -> this rank's slots and bands."""
+    ``dir_sharding`` grid, ``SourceIterationSolver``'s full state
+    (``state_from_numpy``'s input: the ring's or the supercell ring's
+    buckets, the scan's tensor) -> this rank's slots and bands."""
     if hasattr(solver, "shard_state"):
         return solver.shard_state(u, Tc, Tv)
-    ub, Tc, Tv = state_from_numpy(u, Tc, Tv, device=solver.device)
+    ub, Tc, Tv = state_from_numpy(u, Tc, Tv, device=solver.device,
+                                  supercell=solver._super is not None,
+                                  state_dtype=solver.state_dtype)
     return solver.shard_buckets(ub), Tc, Tv
 
 
@@ -305,5 +319,12 @@ def sharded_state_to_numpy(solver, u, Tc, Tv):
     numpy arrays in pbte_tpu's layout)."""
     if hasattr(solver, "gather_state"):
         return solver.gather_state(u, Tc, Tv)
-    return ([b.detach().cpu().numpy() for b in solver.gather_buckets(u)],
-            Tc.detach().cpu().numpy(), Tv.detach().cpu().numpy())
+    u = solver.gather_buckets(u)
+    if not isinstance(u, tuple):  # the scan
+        u = u.detach().cpu().numpy()
+    elif solver._super is not None:
+        u = super_state_to_numpy(u)
+    else:
+        u = [b.detach().cpu().float().numpy() if b.dtype == torch.bfloat16
+             else b.detach().cpu().numpy() for b in u]
+    return u, Tc.detach().cpu().numpy(), Tv.detach().cpu().numpy()

@@ -21,7 +21,11 @@ The sharded solvers (``parallel.slab``, ``parallel.spatial``) write
 pbte_tpu's files of their kind (the global state, gathered over the grid,
 written by rank 0) and read their own slice: ``save_checkpoint`` and
 ``load_checkpoint`` hand them to the solver's methods of those names, which
-use ``write_npz`` and ``read_npz``.
+use ``write_npz`` and ``read_npz``. Under ``dir_sharding`` every path's
+file holds the full state (``gather_buckets``, rank 0 writes; Km as
+rounded up to the dir ranks, as pbte_tpu records it) and each rank loads
+its own slots and bands (``shard_buckets``). bfloat16 state is written as
+float32 (exact) and loads back in the solver's state dtype.
 
 pbte_tpu's hull-windowed XLA-ring checkpoints (``fp_ring_windowed``, state
 ``u_{bucket}_{segment}`` in 128-lane windows) do not store the windows'
@@ -106,7 +110,7 @@ def save_checkpoint(path: str, solver, u, Tc, Tv, iteration: int,
     grid = getattr(solver, "dir_sharding", None)
     if grid is not None:
         # dir/band-sharded ring state: the full buckets, written by rank 0
-        u = solver.gather_buckets(u)
+        u = solver.gather_buckets(u)  # every path's full state
         if grid.rank != 0:
             grid.barrier()
             return
@@ -191,6 +195,8 @@ def load_checkpoint(path: str, solver):
             raise ValueError(
                 f"checkpoint u has shape {got}, solver expects {want}")
         u = torch.as_tensor(data["u"], **put).to(solver.dtype)
+        if getattr(solver, "dir_sharding", None) is not None:
+            u = solver.shard_buckets(u)
     Tc = torch.as_tensor(data["Tc"], **put).to(solver.dtype)
     Tv = torch.as_tensor(data["Tv"], **put).to(solver.dtype)
     return (u, Tc, Tv), int(data["iteration"]), float(data["residual"])

@@ -177,6 +177,44 @@ class Grid:
             dist.barrier()
 
 
+class DirShard:
+    """This rank's share of the direction slots and bands under
+    ``SourceIterationSolver``'s ``dir_sharding`` grid (``grid`` None: all
+    of them). A Km bucket of ``km_b`` slots (a multiple of the ``dir``
+    ranks) gives each ``dir`` rank a contiguous ``km_b / n_dir`` of them,
+    and the ``BS`` bands (a multiple of the ``band`` ranks) each ``band``
+    rank ``BS / n_band``, as pbte_tpu's ``NamedSharding`` of the slot and
+    band axes does. Other axes of the grid hold replicas."""
+
+    def __init__(self, grid, BS):
+        self.grid = grid
+        self.n_dir = grid.n("dir") if grid is not None else 1
+        self.n_band = grid.n("band") if grid is not None else 1
+        self.bl = BS // self.n_band  # this rank's bands
+        b0 = grid.index("band") * self.bl if grid is not None else 0
+        self.bsl = slice(b0, b0 + self.bl)
+        self._d0 = grid.index("dir") if grid is not None else 0
+
+    def kss(self, km_b):
+        """This rank's slots of a bucket of ``km_b`` slots."""
+        kl = km_b // self.n_dir
+        return slice(self._d0 * kl, (self._d0 + 1) * kl)
+
+    def psum(self, x):
+        """x summed over the slot and band ranks (x itself unsharded)."""
+        if self.grid is None:
+            return x
+        return self.grid.psum(x, ("dir", "band"))
+
+    def gather(self, x, dir_dim, band_dim):
+        """Every rank's slots (along ``dir_dim``) and bands (along
+        ``band_dim``) of x, in grid order (collective)."""
+        if self.grid is None:
+            return x
+        x = self.grid.all_gather(x.contiguous(), "dir", dim=dir_dim)
+        return self.grid.all_gather(x, "band", dim=band_dim)
+
+
 def init_process_group(world_size, rank, device):
     """Join ``world_size`` ranks through torchrun's environment rendezvous
     (no-op for one rank, or when already joined): NCCL when ``device`` is

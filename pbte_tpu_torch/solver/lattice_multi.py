@@ -126,14 +126,17 @@ def coupling_classes(ops, cls, invMT_r):
 
 
 def bucket_tables(gs, km_b, a_cls, cls, cpl, q_of, perm_safe, pos_valid,
-                  act_f, ring_cin, L, W, np_dtype, put, iput):
+                  act_f, ring_cin, L, W, np_dtype, put, iput, ks=slice(None),
+                  bs=slice(None)):
     """A bucket's ``MultiBucket`` from the host tables: the groups ``gs``
     with ``km_b`` slots, the class factors ``a_cls``, the element classes,
     the coupling classes ``cpl`` and each face's ``q_of``, the slab layout
     (``perm_safe``, ``pos_valid`` (G, L W)), the active faces ``act_f``
     (G, nf_act) and the inflow coefficients ``ring_cin`` (L, G, Km,
     nf_act, W); ``put`` uploads a numpy array in the solver dtype, ``iput``
-    an index array as int64."""
+    an index array as int64. ``ks`` and ``bs`` select this rank's slots
+    of the bucket and bands under dir/band sharding (the factors and
+    inflow coefficients of the others are not uploaded)."""
     ncls = a_cls.shape[1]
     Gb = len(gs)
     valid = pos_valid[gs]  # (Gb, L W)
@@ -152,11 +155,12 @@ def bucket_tables(gs, km_b, a_cls, cls, cpl, q_of, perm_safe, pos_valid,
     pos_of[used] = np.arange(len(used))
     faces = []
     for f, q in enumerate(q_face):
-        cin_f = ring_cin[:, gs][:, :, :km_b, f]  # (L, Gb, Km_b, W)
+        cin_f = ring_cin[:, gs][:, :, :km_b, f][:, :, ks]  # (L,Gb,Km_b,W)
         faces.append((iput(np.where(q >= 0, pos_of[np.maximum(q, 0)], 0)),
                       put(np.where((q >= 0)[:, :, None, :], cin_f, 0.0))))
     D = a_cls.shape[-1]
-    bstack = np.moveaxis(a_cls[gs][:, :, :km_b], 1, 3)  # (Gb,Km,BS,ncls,D,D)
+    # (Gb, Km, BS, ncls, D, D), this rank's slots and bands
+    bstack = np.moveaxis(a_cls[gs][:, :, :km_b][:, :, ks][:, :, :, bs], 1, 3)
     return MultiBucket(
         bstack=put(bstack.reshape(bstack.shape[:3] + (ncls * D, D))),
         cls_oh=put(oh), cstack=put(cpl[used].reshape(-1, D)),

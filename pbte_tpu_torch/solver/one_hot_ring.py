@@ -66,7 +66,8 @@ def ring_bytes(n_slots, BS, D, L, W, G, Km, nf, ncls, itemsize):
 
 
 def bucket_tables(gs, km_b, a_cls, cls, couplings, perm_safe, pos_valid,
-                  nbr_pos, act_f, act_valid, cin_act, L, W, put, iput):
+                  nbr_pos, act_f, act_valid, cin_act, L, W, put, iput,
+                  ks=slice(None), bs=slice(None)):
     """A bucket's operands of the general ring, a dict of device tensors.
 
     ``gs`` the bucket's groups with ``km_b`` slots; ``a_cls`` (G, ncls,
@@ -77,7 +78,8 @@ def bucket_tables(gs, km_b, a_cls, cls, couplings, perm_safe, pos_valid,
     ``pos_valid`` (G, L W) and ``nbr_pos`` (G, nf, L W); the active faces
     ``act_f`` and ``act_valid`` (G, nf_act); ``cin_act`` (G, nf_act, Km,
     L W) their inflow coefficients on interior faces. ``put`` uploads in
-    the solver dtype, ``iput`` as int64.
+    the solver dtype, ``iput`` as int64; ``ks`` and ``bs`` select this
+    rank's slots of the bucket and bands under dir/band sharding.
 
     Keys: ``bstack`` and ``cls_oh`` as ``lattice_multi.MultiBucket``'s;
     ``nb_lev`` and ``nb_slot`` (L, Gb, W, 1, 1, nf_act) the upwind
@@ -103,11 +105,12 @@ def bucket_tables(gs, km_b, a_cls, cls, couplings, perm_safe, pos_valid,
                                                pos_valid[g], L, W)
         use[i] &= act_valid[g][:, None, None]
     lev, slot = np.where(use, lev, 0), np.where(use, slot, 0)
-    cin = cin_act[gs][:, :, :km_b].reshape(Gb, nf, km_b, L, W)
+    cin = cin_act[gs][:, :, :km_b].reshape(Gb, nf, km_b, L, W)[:, :, ks]
     cin = np.where(use[:, :, None], cin, 0.0)
+    a_b = a_cls[gs][:, :, :km_b][:, :, ks][:, :, :, bs]  # this rank's
     out = dict(
-        bstack=put(np.moveaxis(a_cls[gs][:, :, :km_b], 1, 3).reshape(
-            Gb, km_b, a_cls.shape[3], ncls * D, D)),
+        bstack=put(np.moveaxis(a_b, 1, 3).reshape(
+            Gb, a_b.shape[2], a_b.shape[3], ncls * D, D)),
         cls_oh=put(oh),
         nb_lev=iput(lev.transpose(2, 0, 3, 1)[:, :, :, None, None]),
         nb_slot=iput(slot.transpose(2, 0, 3, 1)[:, :, :, None, None]),

@@ -39,6 +39,17 @@ copies would pass ``CLASS_OPS_BUDGET``. None has an argument or a switch.
 Host math is float64 numpy; the constants go to ``device`` in the solver
 dtype. Every window op is a torch op: pbte_tpu's scan reaches no Pallas
 kernel (its level body is XLA einsums and gathers).
+
+Dir and band sharding (``dir_sharding``, pbte_tpu's layout of its
+``:2187-2196``): a rank holds ``(G, Km / n_dir, BS / n_band, D, ne)``,
+its own slots and bands, and builds only their factors (every cache
+policy) and their sources and weights; the eigen cache's conditioning
+guard takes the largest estimate over the ranks, so every rank falls back
+alike. The memory fallbacks are reckoned from the rank's share. The
+macroscopic partials are summed over the ranks before Tc. A periodic
+partner lies in the rank's own slot; the reflective walls gather every
+rank's boundary values first (the diffuse wall sums over every slot and
+band, the specular mirror slot may lie on another rank).
 """
 
 from __future__ import annotations
@@ -114,13 +125,15 @@ class ScanSweep:
     """Constants and step of the scan path for one problem (built by
     ``SourceIterationSolver``; its attributes are the solver's)."""
 
-    def __init__(self, ops, quad, tables, plan, dirs_pad, band, *, bc_T,
+    def __init__(self, ops, quad, plan, dirs_pad, band, slot_w, *, bc_T,
                  dvec, diffuse_bcs, specular_bcs, cache_policy, cls_cache,
-                 dtype, device):
+                 dtype, device, shard):
         """``band`` is the solver's (inv_kn, vg, heat_cap, dt_inv): three
-        (BS,) tables and the pseudo time step's inverse; ``bc_T`` (ne, nf)
-        the wall temperatures and ``dvec`` (ne, nf, D) the Dirichlet
-        inflow, None without one."""
+        (BS,) tables and the pseudo time step's inverse; ``slot_w`` the
+        (G, Km, BS) macroscopic and (G, Km, BS, dim) heat-flux slot
+        weights; ``bc_T`` (ne, nf) the wall temperatures and ``dvec`` (ne,
+        nf, D) the Dirichlet inflow, None without one; ``shard`` this
+        rank's ``parallel.comm.DirShard``."""
         np_dtype = np.float32 if dtype == torch.float32 else np.float64
         itemsize = np.dtype(np_dtype).itemsize
         self.dtype, self.device = dtype, device
@@ -132,6 +145,7 @@ class ScanSweep:
         omega = quad.total_weight
         inv_kn, vg, heat_cap, dt_inv = band
         self.BS = BS = len(vg)
+        self.shard = shard
         self.has_periodic = bool(ops.periodic.any())
         self.has_dirichlet = dvec is not None
 
@@ -141,6 +155,10 @@ class ScanSweep:
         dir_valid = dirs_pad >= 0
         dirs_np = quad.directions[:, :dim]
         dirs_safe = np.where(dir_valid, dirs_pad, 0)
+        # this rank's slots and bands
+        ks, bs = shard.kss(Km), shard.bsl
+        self.Kl, self.Bl = Kl, Bl = Km // shard.n_dir, shard.bl
+        dirs_l = dirs_safe[:, ks]
 
         # ---- compact level-ordered layout ----------------------------------
         self.L = L = plan.max_levels
@@ -207,7 +225,7 @@ class ScanSweep:
         # the rhs base is hoisted over all elements unless its two
         # (G, Km, BS, D, ne) temporaries pass the budget (the closures
         # scatter into it, so they force it; the class streams drop it)
-        hoist_bytes = 2 * G * Km * BS * D * ne * itemsize
+        hoist_bytes = 2 * G * Kl * Bl * D * ne * itemsize
         self._hoist_rhs = (
             (self.has_periodic or self._dif_on or self._spc_on
              or hoist_bytes <= HOIST_BUDGET)
@@ -268,8 +286,12 @@ class ScanSweep:
         factors = None
         self.cache_policy = cache_policy
         if cache_policy == "eigen":
-            factors = self._eigen_factors(ops, dirs_np, dirs_safe, perm,
+            factors = self._eigen_factors(ops, dirs_np, dirs_l, perm,
                                           np_dtype)
+            if shard.grid is not None:  # every rank falls back alike
+                self.cond_max = float(shard.grid.pmax(torch.tensor(
+                    self.cond_max, dtype=torch.float64, device=device),
+                    ("dir", "band")))
             cond_bound = 1e5 if np_dtype == np.float32 else 1e11
             if self.cond_max > cond_bound:
                 fb = ("class-batched full" if self._cls is not None
@@ -286,21 +308,21 @@ class ScanSweep:
                     self.ncls = 0
                 factors = None
         if self.cache_policy == "full" and self._cls is not None:
-            factors = self._class_full_factors(ops, dirs_np, dirs_safe, perm,
-                                               vg_s, np_dtype)
+            factors = self._class_full_factors(ops, dirs_np, dirs_l, perm,
+                                               vg_s[bs], np_dtype)
         elif self.cache_policy == "full":
-            factors = self._elem_full_factors(ops, dirs_np, dirs_safe, perm,
-                                              fdot, vg_s, np_dtype)
+            factors = self._elem_full_factors(ops, dirs_np, dirs_l, perm,
+                                              fdot[:, ks], vg_s[bs], np_dtype)
         elif self.cache_policy == "on-the-fly":
-            g_mat = np.empty((G, Km, D, D, ne), dtype=np_dtype)
+            g_mat = np.empty((G, Kl, D, D, ne), dtype=np_dtype)
             for g in range(G):
-                g_mat[g] = self._transport_g(ops, dirs_np[dirs_safe[g]],
-                                             perm[g], fdot[g]).transpose(
+                g_mat[g] = self._transport_g(ops, dirs_np[dirs_l[g]],
+                                             perm[g], fdot[g, ks]).transpose(
                                                  0, 2, 3, 1)
             factors = {"g_mat": g_mat,
                        "mass": np.moveaxis(ops.mass[perm], 1, -1)}
         # the on-the-fly policy's batched inverse over all groups
-        inv_ws = 3 * G * Km * BS * self.W * D * D * itemsize
+        inv_ws = 3 * G * Kl * Bl * self.W * D * D * itemsize
         self._seq_groups = self.cache_policy == "on-the-fly" \
             and inv_ws > SEQ_BUDGET
 
@@ -315,23 +337,24 @@ class ScanSweep:
         def iput(a):
             return put(a, torch.int64)
 
-        mw_slots, fw_slots = macroscopic.slot_weights(quad, tables, dirs_pad,
-                                                      dim)
+        mw_slots, fw_slots = slot_w
+        # this rank's slots and bands, except where the views and the
+        # diffuse wall read the full state (flux_w, dif_wplus)
         c = dict(
             perm=iput(perm),
             pos_of_elem=iput(pos_of_elem),
             basis_int_glob=put(ops.basis_int),
-            macro_w=put(mw_slots),  # (G, Km, BS)
-            flux_w=put(fw_slots),  # (G, Km, BS, dim)
-            src_w=put(inv_kn * heat_cap / (omega * dt_inv)),
-            relax_w=put(1.0 - inv_kn / dt_inv),
-            vg=put(vg_s),
-            vg_bc_w=put(vg_s * (heat_cap / omega)),
-            bsrc=put(bsrc),  # (G, Km, D, ne)
-            cin_int=put(cin_int),  # (G, Km, nf, ne)
+            macro_w=put(mw_slots[:, ks, bs]),  # (G, Km, BS)
+            flux_w=put(fw_slots),  # (G, Km, BS, dim), every slot and band
+            src_w=put((inv_kn * heat_cap / (omega * dt_inv))[bs]),
+            relax_w=put((1.0 - inv_kn / dt_inv)[bs]),
+            vg=put(vg_s[bs]),
+            vg_bc_w=put((vg_s * (heat_cap / omega))[bs]),
+            bsrc=put(bsrc[:, ks]),  # (G, Km, D, ne)
+            cin_int=put(cin_int[:, ks]),  # (G, Km, nf, ne)
         )
         if dsrc is not None:
-            c["dsrc"] = put(dsrc)
+            c["dsrc"] = put(dsrc[:, ks])
         if self._scan_cls_ops:
             c["cls_massT"] = put(np.swapaxes(ops.mass[self._cls_reps], -1, -2))
             c["cls_cpl"] = put(cls_cpl)  # (ncls, nf, D, D)
@@ -340,10 +363,11 @@ class ScanSweep:
             c["coupling"] = put(gperm(ops.coupling))  # (G, nf, D, D, ne)
         if per is not None:
             c.update(per_pos=iput(per["pos"]), per_src=iput(per["src"]),
-                     per_cpl=put(per["cpl"]), per_cin=put(per_cin))
+                     per_cpl=put(per["cpl"]), per_cin=put(per_cin[:, ks]))
         for k, v in refl.items():
-            c[k] = iput(v) if k in ("dif_pos", "spc_pos", "spc_gk",
-                                    "spc_src") else put(v)
+            if k in ("dif_cin", "spc_cin", "spc_gk"):
+                v = v[:, ks]
+            c[k] = iput(v) if k in ("dif_pos", "spc_pos", "spc_gk") else put(v)
         for k, v in (factors or {}).items():
             c[k] = put(v)
         if self._scan_cls_ops:
@@ -366,12 +390,13 @@ class ScanSweep:
                             np_dtype):
         """A^-1 per (group, slot, band, class): ``a_cls`` (G, Km, BS, ncls,
         D, D), the exact-inverse class cache (pbte_tpu's
-        ``_class_full_mats``)."""
+        ``_class_full_mats``), for the slots ``dirs_safe`` (G, Km) and the
+        bands of ``vg_s``."""
         reps = self._cls_reps
         stiff_r, fmass_r = ops.stiff[reps], ops.face_mass[reps]
         mass_r, norm_r = ops.mass[reps], ops.normals[reps]
-        a_cls = np.empty((self.G, self.Km, self.BS, self.ncls, self.D,
-                          self.D), dtype=np_dtype)
+        a_cls = np.empty(dirs_safe.shape + (len(vg_s), self.ncls, self.D,
+                                            self.D), dtype=np_dtype)
         for g in range(self.G):
             dk = dirs_np[dirs_safe[g]]
             fd = np.einsum("cfd,kd->kcf", norm_r, dk)
@@ -385,9 +410,10 @@ class ScanSweep:
     def _elem_full_factors(self, ops, dirs_np, dirs_safe, perm, fdot, vg_s,
                            np_dtype):
         """A^-1 per element: ``a_inv`` (G, Km, BS, D, D, ne), the full
-        cache."""
-        a_inv = np.empty((self.G, self.Km, self.BS, self.D, self.D, self.ne),
-                         dtype=np_dtype)
+        cache, for the slots ``dirs_safe`` (G, Km) and the bands of
+        ``vg_s``."""
+        a_inv = np.empty(dirs_safe.shape + (len(vg_s), self.D, self.D,
+                                            self.ne), dtype=np_dtype)
         for g in range(self.G):
             G_g = self._transport_g(ops, dirs_np[dirs_safe[g]], perm[g],
                                     fdot[g])
@@ -400,8 +426,9 @@ class ScanSweep:
         """A(vg) = M (I + vg C), C = M^-1 G = V diag(lam) V^-1, so
         A^-1(vg) = V diag(1/(1 + vg lam)) V^-1 M^-1: band-independent
         factors, split into real and imaginary parts. Per class (with the
-        classes' one-hot) or per element; sets ``cond_max``."""
-        G, Km, D = self.G, self.Km, self.D
+        classes' one-hot) or per element, for the slots ``dirs_safe`` (G,
+        Km); sets ``cond_max``."""
+        (G, Km), D = dirs_safe.shape, self.D
         cond_max = 0.0
         if self._cls is not None:
             reps = self._cls_reps
@@ -445,8 +472,9 @@ class ScanSweep:
     # -- state and step ------------------------------------------------------
 
     def initial_state(self):
+        """Zero state (this rank's slots and bands), Tc and Tv."""
         z = dict(dtype=self.dtype, device=self.device)
-        return (torch.zeros((self.G, self.Km, self.BS, self.D, self.ne), **z),
+        return (torch.zeros((self.G, self.Kl, self.Bl, self.D, self.ne), **z),
                 torch.zeros((self.ne, self.D), **z),
                 torch.zeros((self.ne,), **z))
 
@@ -478,6 +506,7 @@ class ScanSweep:
         partial = torch.einsum("gkb,gkbie->gie", c["macro_w"], u_new)
         pos = c["pos_of_elem"][:, None, :].expand(G, self.D, self.ne)
         Tc_new = torch.gather(partial, 2, pos).sum(dim=0).T  # (ne, D)
+        Tc_new = self.shard.psum(Tc_new)  # every rank's slots and bands
         Tv_new = macroscopic.compute_tv(Tc_new, c["basis_int_glob"])
         res = macroscopic.residual(Tv_new, Tv_prev)
         return u_new, Tc_new, Tv_new, res
@@ -495,34 +524,42 @@ class ScanSweep:
 
     def _add_closures(self, u, rhs_base):
         """Lagged periodic, diffuse and specular contributions of the
-        previous iterate u, scattered into the hoisted rhs base."""
+        previous iterate u (this rank's slots and bands), scattered into the
+        hoisted rhs base. The reflective walls read every rank's boundary
+        values (gathered)."""
         c = self.consts
-        G, Km, BS, D = self.G, self.Km, self.BS, self.D
+        sh = self.shard
         b = (slice(None), None, None)
 
         def gather(a, pos):
             """a (G, Km, BS, D, ne) at per-group positions (G, P)."""
             return a.gather(-1, pos[:, None, None, None, :].expand(
-                G, Km, BS, D, pos.shape[1]))
+                a.shape[:-1] + pos.shape[1:]))
 
         def scatter_add(pos, val):
             rhs_base.scatter_add_(-1, pos[:, None, None, None, :].expand(
-                G, Km, BS, D, pos.shape[1]), val)
+                rhs_base.shape[:-1] + pos.shape[1:]), val)
 
         if self.has_periodic:
             contrib = torch.einsum("gpij,gkp,gkbjp->gkbip", c["per_cpl"],
                                    c["per_cin"], gather(u, c["per_src"]))
             scatter_add(c["per_pos"], -c["vg"][b] * contrib)
         if self._dif_on:
+            # every slot's and band's outgoing flux (G, Km, BS, D, P)
+            u_b = sh.gather(gather(u, c["dif_pos"]), 1, 2)
             out_flux = torch.einsum("gkp,pi,gkbip->bp", c["dif_wplus"],
-                                    c["dif_fint"], gather(u, c["dif_pos"]))
-            u_in = out_flux * c["dif_norm"][None, :]  # (BS, P)
+                                    c["dif_fint"], u_b)
+            u_in = out_flux[sh.bsl] * c["dif_norm"][None, :]  # (BS, P)
             scatter_add(c["dif_pos"], -torch.einsum(
                 "gkp,b,bp,pi->gkbip", c["dif_cin"], c["vg"], u_in,
                 c["dif_fint"]))
         if self._spc_on:
-            u_flat = u.reshape((G * Km,) + u.shape[2:])
-            u_m = u_flat[c["spc_gk"], :, :, c["spc_src"]]  # (G,Km,P,BS,D)
+            # every slot's and band's values at the wall, (G Km, P, BS, D):
+            # the mirror slot spc_gk may lie in any group and on any rank
+            u_b = sh.gather(gather(u, c["spc_pos"]), 1, 2)
+            u_b = u_b[:, :, sh.bsl].permute(0, 1, 4, 2, 3).flatten(0, 1)
+            p_idx = torch.arange(u_b.shape[1], device=u.device)
+            u_m = u_b[c["spc_gk"], p_idx]  # (G, Km, P, BS, D)
             scatter_add(c["spc_pos"], -torch.einsum(
                 "gkp,b,pij,gkpbj->gkbip", c["spc_cin"], c["vg"],
                 c["spc_fm"], u_m))
@@ -531,7 +568,7 @@ class ScanSweep:
         """The level recurrence of the groups ``gs`` (a slice) over u in
         place (u, t_tc and rhs_base already cut to those groups)."""
         c = self.consts
-        Gb, Km, BS, D = u.shape[0], self.Km, self.BS, self.D
+        Gb, Km, BS, D = u.shape[:4]
         nf = self.nf
         b = (slice(None), None, None)
         for lvl in c["levels"]:
@@ -629,8 +666,8 @@ class ScanSweep:
     # -- views ---------------------------------------------------------------
 
     def u_by_direction(self, u):
-        """Slot-major group-ordered u -> direction-major (K, BS, ne, D)
-        (numpy)."""
+        """Slot-major group-ordered u (every rank's slots and bands) ->
+        direction-major (K, BS, ne, D) (numpy)."""
         u = u.detach().cpu().numpy()
         out = np.zeros((self.K, self.BS, self.ne, self.D), dtype=u.dtype)
         for g in range(self.G):
@@ -642,7 +679,8 @@ class ScanSweep:
         return out
 
     def heat_flux(self, u):
-        """Qc (dim, ne, D) and Qv (dim, ne) of the scan state."""
+        """Qc (dim, ne, D) and Qv (dim, ne) of the scan state (every rank's
+        slots and bands)."""
         c = self.consts
         partial = torch.einsum("gkbd,gkbie->gdie", c["flux_w"], u)
         pos = c["pos_of_elem"][:, None, None, :].expand(
@@ -659,9 +697,9 @@ def reflective_tables(ops, quad, dirs_pad, pos_of_elem, diffuse_bcs,
     empty without them. Diffuse: ``dif_pos`` (G, P_d) the group position of
     each face's element, ``dif_fint`` (P_d, D), ``dif_cin`` and ``dif_wplus``
     (G, Km, P_d), ``dif_norm`` (P_d,). Specular: ``spc_pos`` (G, P_s),
-    ``spc_fm`` (P_s, D, D) the face mass, ``spc_cin`` (G, Km, P_s),
+    ``spc_fm`` (P_s, D, D) the face mass, ``spc_cin`` (G, Km, P_s) and
     ``spc_gk`` (G, Km, P_s) the flat (group, slot) of the mirror direction
-    and ``spc_src`` (G, Km, P_s) the element's position in that group."""
+    (whose value at the wall is read at its group's ``spc_pos``)."""
     dim = ops.dim
     Km = dirs_pad.shape[1]
     dir_valid = dirs_pad >= 0
@@ -713,7 +751,6 @@ def reflective_tables(ops, quad, dirs_pad, pos_of_elem, diffuse_bcs,
             spc_fm=ops.face_mass[s_e, s_f],
             spc_cin=np.minimum(sdotn_g, 0.0),
             spc_gk=g_of_dir[km_glob] * Km + k_of_dir[km_glob],
-            spc_src=pos_of_elem[g_of_dir[km_glob], s_e[None, None, :]],
         )
     return out
 

@@ -72,9 +72,11 @@ outer step:
 
 State layout: a tuple of per-bucket ``(L, Gb, Km_b, BS, D, W)`` slabs of
 the mass-transformed state ``v = M^T u`` (band-major, as on the JAX
-Pallas path), float32 or, with ``PBTE_RING_STATE_BF16=1``, bfloat16, or
-float64 (``dtype=torch.float64``, on the CPU or the GPU: every operand, the
-sweep's sums, Tc, Tv and the residual are then float64).
+Pallas path), float32 or, with ``PBTE_RING_STATE_BF16=1``, bfloat16 (on
+the supercell ring too; the scan and the general ring keep float32, as
+pbte_tpu's do), or float64 (``dtype=torch.float64``, on the CPU or the
+GPU: every operand, the sweep's sums, Tc, Tv and the residual are then
+float64).
 
 ``solve(accelerate="bicgstab")`` solves the same fixed point by BiCGStab
 over the affine step (``solver/accel.py``), in far fewer steps with
@@ -83,15 +85,21 @@ float64 state.
 Dir and band sharding (pbte_tpu's ``dir_sharding``, there a
 ``NamedSharding`` of the Km slot axis and optionally the band axis, which
 GSPMD partitions): here ``dir_sharding`` is a ``parallel.comm.Grid`` of
-``dir`` (x ``band``) ranks, each holding its shard of every bucket, ``(L,
-Gb, Km_b / n_dir, BS / n_band, D, W)``, and running K1 on it. Km_b rounds
-up to a multiple of ``n_dir`` and BS to a multiple of ``n_band`` (padded
-bands carry zero tables, exact zero fixed points), as in pbte_tpu. The
-macroscopic partials are all-reduced over the grid before Tc (the sum GSPMD
-inserts for pbte_tpu); Tc, Tv and the residual are then the same on every
-rank. The closures read the boundary values of every rank's shard
-(``all_gather``). Sharding runs on the lattice ring through K1 alone: the
-other sweeps raise NotImplementedError under it.
+``dir`` (x ``band``) ranks, on every sweep ``sweep_mode`` resolves to.
+Each rank holds and sweeps its own slots and bands
+(``parallel.comm.DirShard``): of every bucket on the rings, ``(L, Gb,
+Km_b / n_dir, BS / n_band, D, W)`` (K1 runs on it on a single-class
+lattice; the supercell ring's is ``(L, Gb, Km_b / n_dir, BS / n_band, W,
+D')``), and ``(G, Km / n_dir, BS / n_band, D, ne)`` on the scan; it builds
+or uploads only their operators. Km (each bucket's) rounds up to a
+multiple of ``n_dir`` and BS to a multiple of ``n_band`` (padded bands
+carry zero tables, exact zero fixed points), as in pbte_tpu. The
+macroscopic partials are all-reduced over the grid before Tc (the sum
+GSPMD inserts for pbte_tpu); Tc, Tv and the residual are then the same on
+every rank. The closures read the boundary values of every rank's shard
+(``all_gather``); BiCGStab's inner product sums the shards. The views,
+checkpoints and ``convert`` gather (``gather_buckets``) or shard
+(``shard_buckets``) the state, whatever the sweep.
 
 Hull windows (pbte_tpu's default on the flagship, its ``_step_ring_win``).
 The slab pads every level to the full plane of W slots; the constructor
@@ -129,6 +137,7 @@ from pbte_tpu_torch.ops.lattice_ring import (
     lattice_ring_sweep,
     windows_on_device,
 )
+from pbte_tpu_torch.parallel.comm import DirShard
 from pbte_tpu_torch.solver import lattice_multi, one_hot_ring, scan, super_ring
 from pbte_tpu_torch.solver.accel import tree_dot as accel_tree_dot
 from pbte_tpu_torch.solver.lattice_tables import (
@@ -143,7 +152,6 @@ from pbte_tpu_torch.solver.lattice_tables import (
 )
 from pbte_tpu_torch.sweep import planner
 
-_SUPER_BF16 = "ROADMAP.md queue 1, item 6b.1 (bf16 state on the supercell ring)"
 # the reflective-wall consts, global (the gather crosses buckets)
 REFL_KEYS = ("dif_fint", "dif_cin", "dif_wplus", "dif_norm", "dif_fvec",
              "spc_cin", "spc_gk", "spc_fmv")
@@ -242,9 +250,11 @@ class SourceIterationSolver:
         self.cache_policy = cache_policy
         # bf16 state (same opt-in as pbte_tpu): halves the state streams;
         # the product operands and the ring are then bf16 as well, and the
-        # macroscopic partials stay f32
-        # (the scan path keeps exact-dtype state, as pbte_tpu's does)
+        # macroscopic partials stay f32 (the lattice and supercell rings;
+        # the scan and the general ring keep exact-dtype state, as
+        # pbte_tpu's do)
         self.state_bf16 = False
+        want_bf16 = os.environ.get("PBTE_RING_STATE_BF16", "") == "1"
         self.device = device = checked_device(device)
         self.dtype = dtype
         np_dtype = np.float32 if dtype == torch.float32 else np.float64
@@ -263,20 +273,17 @@ class SourceIterationSolver:
         # dir/band sharding: the slot and band shards of this rank; the band
         # axis pads to a multiple of its ranks with zero tables
         self.dir_sharding = dir_sharding
-        n_dir = n_band = 1
         self.BS_orig = BS
         if dir_sharding is not None:
-            n_dir, n_band = dir_sharding.n("dir"), dir_sharding.n("band")
+            n_band = dir_sharding.n("band")
             bpad = -(-BS // n_band) * n_band - BS
             if bpad:
                 inv_kn, vg, heat_cap = (np.concatenate([a, np.zeros(bpad)])
                                         for a in (inv_kn, vg, heat_cap))
                 self.BS = BS = BS + bpad
-        self._n_dir, self._n_band = n_dir, n_band
-        self._bl = BS // n_band  # this rank's bands
-        b0 = (dir_sharding.index("band") * self._bl
-              if dir_sharding is not None else 0)
-        bsl = slice(b0, b0 + self._bl)
+        self._shard = shard = DirShard(dir_sharding, BS)
+        n_dir = shard.n_dir
+        bsl = shard.bsl
 
         # ---- canonical face ordering: collapses the geometry-class count
         # of translation-invariant meshes (hex 6 -> 1). Gated to ne >= 512
@@ -364,6 +371,15 @@ class SourceIterationSolver:
         dirs_safe = np.where(dir_valid, dirs_pad, 0)
         self.L = L = plan.max_levels
 
+        # macroscopic and heat-flux weights per slot; padded bands weigh zero
+        mw_slots, fw_slots = macroscopic.slot_weights(quad, tables, dirs_pad,
+                                                      dim)
+        if BS > self.BS_orig:
+            mw_slots = np.pad(mw_slots, ((0, 0), (0, 0),
+                                         (0, BS - self.BS_orig)))
+            fw_slots = np.pad(fw_slots, ((0, 0), (0, 0),
+                                         (0, BS - self.BS_orig), (0, 0)))
+
         nf = ops.faces_per_elem
         bc_T = np.zeros((ne, nf))
         for attr, T in bc_temps.items():
@@ -393,22 +409,20 @@ class SourceIterationSolver:
                     "(axis-grazing quadrature direction or leveling "
                     "mismatch); pass supercell='off' to use the fine-mesh "
                     "scan path")
-            if os.environ.get("PBTE_RING_STATE_BF16", "") == "1":
-                raise NotImplementedError(
-                    f"PBTE_RING_STATE_BF16=1 on the supercell ring: "
-                    f"{_SUPER_BF16}; unset it for float32 state")
+            self.state_bf16 = want_bf16
+            self._check_bf16()
+            self.state_dtype = torch.bfloat16 if want_bf16 else dtype
             self.sweep_mode = "ring"
             self._sweep = sw = super_ring.SuperRingSweep(
-                self._super, ops, quad, tables, plan, dirs_pad,
-                (inv_kn, vg, heat_cap, dt_inv), lt, bc_T=bc_T, dtype=dtype,
-                device=device)
+                self._super, ops, quad, plan, dirs_pad,
+                (inv_kn, vg, heat_cap, dt_inv), lt, (mw_slots, fw_slots),
+                bc_T=bc_T, dtype=dtype, state_dtype=self.state_dtype,
+                device=device, shard=shard)
             self._ring_buckets = sw.buckets
             self.W, self.ne_pad, self.consts = sw.W, sw.ne_pad, sw.consts
             self.shifts, self._perm = sw.shifts, sw._perm
-            self._no_sharding(dir_sharding, "the supercell ring")
             self.win = None  # the full (L, W) slab
             self.has_periodic = self._dif_on = self._spc_on = False
-            self.state_dtype = dtype
             return
         if sweep_mode in ("auto", "ring"):
             if cls is None:
@@ -434,12 +448,12 @@ class SourceIterationSolver:
                 self.sweep_mode = "ring"
         if self.sweep_mode == "scan":
             self._sweep = self._scan = scan.ScanSweep(
-                ops, quad, tables, plan, dirs_pad,
-                (inv_kn, vg, heat_cap, dt_inv), bc_T=bc_T,
+                ops, quad, plan, dirs_pad, (inv_kn, vg, heat_cap, dt_inv),
+                (mw_slots, fw_slots), bc_T=bc_T,
                 dvec=dvec if dirichlet_bcs else None,
                 diffuse_bcs=diffuse_bcs, specular_bcs=specular_bcs,
                 cache_policy=cache_policy, cls_cache=cls, dtype=dtype,
-                device=device)
+                device=device, shard=shard)
             sv = self._scan
             self.cache_policy = sv.cache_policy  # after the eigen guard
             self.W, self.ne_pad, self.consts = sv.W, sv.ne_pad, sv.consts
@@ -448,16 +462,12 @@ class SourceIterationSolver:
             self.has_periodic = sv.has_periodic
             self._dif_on, self._spc_on = sv._dif_on, sv._spc_on
             self.state_dtype = dtype
-            self._no_sharding(dir_sharding, "the scan")
             return
         # the general ring (pbte_tpu's one-hot ring) off the box lattice;
         # bf16 state is the lattice ring's alone, as in pbte_tpu
         self._general = lt is None
-        self.state_bf16 = (not self._general and os.environ.get(
-            "PBTE_RING_STATE_BF16", "") == "1")
-        if self.state_bf16 and dtype == torch.float64:
-            raise ValueError("PBTE_RING_STATE_BF16=1 rounds float32 state to "
-                             "bfloat16; unset it for float64 state")
+        self.state_bf16 = not self._general and want_bf16
+        self._check_bf16()
 
         # groups of equal slot count run as one bucket with exactly that
         # many slots (flagship octants: [10]*4 and [6]*4)
@@ -481,9 +491,6 @@ class SourceIterationSolver:
             slab_tab, act_f, lat_shifts = lt
             ccpl = assembly.class_coupling(ops, cls) if ncls == 1 else None
             self.shifts = tuple(int(s) for s in lat_shifts)
-        if ccpl is None:
-            self._no_sharding(dir_sharding, "the general ring" if self._general
-                              else "the multi-class lattice ring")
         self.W = W = slab_tab.shape[2]
         # per-level hull windows (L, 2), or None where they save too little
         # (the torch rings run the full slab)
@@ -573,13 +580,6 @@ class SourceIterationSolver:
         self._dif_on = refl is not None and "dif_fvec" in refl
         self._spc_on = refl is not None and "spc_fmv" in refl
 
-        mw_slots, fw_slots = macroscopic.slot_weights(quad, tables, dirs_pad,
-                                                      dim)
-        if BS > self.BS_orig:  # padded bands weigh zero
-            mw_slots = np.pad(mw_slots, ((0, 0), (0, 0),
-                                         (0, BS - self.BS_orig)))
-            fw_slots = np.pad(fw_slots, ((0, 0), (0, 0),
-                                         (0, BS - self.BS_orig), (0, 0)))
         wvec = np.stack([
             inv_kn * heat_cap / (omega * dt_inv),  # src_w
             1.0 - inv_kn / dt_inv,  # relax_w
@@ -595,12 +595,7 @@ class SourceIterationSolver:
         def iput(a):
             return put(a, torch.int64)
 
-        d0 = dir_sharding.index("dir") if dir_sharding is not None else 0
-
-        def kss(km_b):
-            """This rank's slots of a bucket of km_b slots."""
-            kl = km_b // n_dir
-            return slice(d0 * kl, (d0 + 1) * kl)
+        kss = shard.kss
 
         def bucket_scatter(gs):
             """The closure targets of the groups gs (closure_scatter)."""
@@ -645,7 +640,7 @@ class SourceIterationSolver:
                         one_hot_ring.bucket_tables(
                             gs, km_b, a_cls, cls, couplings, perm_safe,
                             pos_valid, nbr_pos, act_f, act_valid, cin_act, L,
-                            W, put, iput)
+                            W, put, iput, ks=kss(km_b), bs=bsl)
                         if self._general else {}
                     ),
                     bsrc0=put(ring_bsrc0[:, gs, kss(km_b)]),
@@ -680,7 +675,8 @@ class SourceIterationSolver:
             self._multi = tuple(
                 lattice_multi.bucket_tables(
                     gs, km_b, a_cls, cls, cpl, q_of, perm_safe, pos_valid,
-                    act_f, ring_cin, L, W, np_dtype, put, iput)
+                    act_f, ring_cin, L, W, np_dtype, put, iput, ks=kss(km_b),
+                    bs=bsl)
                 for gs, km_b in self._ring_buckets)
         order = np.concatenate([gs for gs, _ in self._ring_buckets])
         inv_order = np.empty(G, dtype=np.int64)
@@ -695,20 +691,16 @@ class SourceIterationSolver:
         )
         self.state_dtype = torch.bfloat16 if self.state_bf16 else dtype
         self._vg_all = put(vg_s)  # every band's (the wall closures)
-        self._kss = kss
-        self._bsl = bsl
         # the sweep the step calls on a single-class lattice; the wrapper
         # launches the CUDA kernel for CUDA tensors (assign
         # lattice_ring_sweep_ref to compare with the plain version on the
         # same device)
         self.ring_sweep = lattice_ring_sweep
 
-    @staticmethod
-    def _no_sharding(dir_sharding, path):
-        if dir_sharding is not None:
-            raise NotImplementedError(
-                f"dir_sharding runs on the lattice ring through K1; this "
-                f"problem takes {path} (ROADMAP.md, item 11b)")
+    def _check_bf16(self):
+        if self.state_bf16 and self.dtype == torch.float64:
+            raise ValueError("PBTE_RING_STATE_BF16=1 rounds float32 state to "
+                             "bfloat16; unset it for float64 state")
 
     # -- state -------------------------------------------------------------
 
@@ -720,8 +712,8 @@ class SourceIterationSolver:
             return self._sweep.initial_state()
         u = tuple(
             torch.zeros(
-                (self.L, len(gs), km_b // self._n_dir, self._bl, self.D,
-                 self.W),
+                (self.L, len(gs), km_b // self._shard.n_dir, self._shard.bl,
+                 self.D, self.W),
                 dtype=self.state_dtype, device=self.device,
             )
             for gs, km_b in self._ring_buckets
@@ -785,8 +777,7 @@ class SourceIterationSolver:
         partial = m_cat.permute(0, 2, 1, 3).reshape(G, D, self.ne_pad)
         pos = c["pos_of_elem"][:, None, :].expand(G, D, self.ne)
         Tc_v = torch.gather(partial, 2, pos).sum(dim=0).T  # (ne, D)
-        if self.dir_sharding is not None:
-            Tc_v = self.dir_sharding.psum(Tc_v, ("dir", "band"))
+        Tc_v = self._shard.psum(Tc_v)  # every rank's slots and bands
         Tc_new = torch.einsum("eij,ej->ei", c["ring_invMT"], Tc_v)
         Tv_new = macroscopic.compute_tv(Tc_new, c["basis_int_glob"])
         res = macroscopic.residual(Tv_new, Tv_prev)
@@ -805,13 +796,13 @@ class SourceIterationSolver:
         acc = self.dtype  # the closure arithmetic (bf16 state upcasts)
         vg = c["wvec"][3]  # (BS,) non-dimensional group velocity (the
         # rank's bands under dir_sharding)
-        grid = self.dir_sharding
         # contributions add up per closure element (corner elements have
         # several closure faces) in a (Gb, U, Km_b, BS, D) buffer that the
         # sweep reads through the bucket's slot map xmap
         sums = [
-            torch.zeros((len(gs), n_u, km_b // self._n_dir, self._bl,
-                         self.D), dtype=acc, device=self.device)
+            torch.zeros((len(gs), n_u, km_b // self._shard.n_dir,
+                         self._shard.bl, self.D), dtype=acc,
+                         device=self.device)
             for (gs, km_b), n_u in zip(self._ring_buckets, self._closure_u)
         ]
 
@@ -842,9 +833,7 @@ class SourceIterationSolver:
                 cb = c["buckets"][bi]
                 vb = u[bi][cb["refl_pl"], self._bucket_gi[bi], :, :, :,
                            cb["refl_pw"]].to(acc)  # (Gb, P, Km_b, BS, D)
-                if grid is not None:  # every rank's slots and bands
-                    vb = grid.all_gather(vb.contiguous(), "dir", dim=2)
-                    vb = grid.all_gather(vb, "band", dim=3)
+                vb = self._shard.gather(vb, 2, 3)  # every rank's slots, bands
                 if km_b < self.Km:
                     vb = torch.nn.functional.pad(
                         vb, (0, 0, 0, 0, 0, self.Km - km_b))
@@ -875,8 +864,8 @@ class SourceIterationSolver:
             refl_con = torch.cat(cons, dim=1)  # (G, P, Km, BS, D)
             for bi, (gs, km_b) in enumerate(self._ring_buckets):
                 add(bi, c["buckets"][bi]["refl_uid"],
-                    refl_con[self._bucket_groups[bi]][:, :, self._kss(km_b),
-                                                      self._bsl])
+                    refl_con[self._bucket_groups[bi]][
+                        :, :, self._shard.kss(km_b), self._shard.bsl])
         return tuple(ClosureSource(cb["xmap"], sm)
                      for cb, sm in zip(c["buckets"], sums))
 
@@ -1009,24 +998,29 @@ class SourceIterationSolver:
         """<x, y> over the dir-sharded (u, Tc) tree: the state's shards
         sum over the grid, Tc is the same on every rank (counted once)."""
         du = accel_tree_dot(x[0], y[0])
-        return self.dir_sharding.psum(du, ("dir", "band")) + torch.dot(
-            x[1].reshape(-1), y[1].reshape(-1))
+        return self._shard.psum(du) + torch.dot(x[1].reshape(-1),
+                                                y[1].reshape(-1))
 
     def gather_buckets(self, u):
-        """The full per-bucket ring state from every rank's shard under
-        ``dir_sharding`` (collective; the state itself without it)."""
-        grid = self.dir_sharding
-        if grid is None or not isinstance(u, tuple):
+        """The full state from every rank's shard under ``dir_sharding``
+        (collective; the state itself without it): per bucket on the rings
+        (slots on axis 2, bands on axis 3, the supercell's too), the one
+        ``(G, Km, BS, D, ne)`` tensor on the scan (axes 1 and 2)."""
+        if self.dir_sharding is None:
             return u
-        return tuple(grid.all_gather(grid.all_gather(b.contiguous(), "dir",
-                                                     dim=2), "band", dim=3)
-                     for b in u)
+        if not isinstance(u, tuple):
+            return self._shard.gather(u, 1, 2)
+        return tuple(self._shard.gather(b, 2, 3) for b in u)
 
     def shard_buckets(self, u):
-        """This rank's shard of a full per-bucket ring state."""
-        if self.dir_sharding is None or not isinstance(u, tuple):
+        """This rank's shard of a full state (``gather_buckets``'
+        inverse)."""
+        sh = self._shard
+        if self.dir_sharding is None:
             return u
-        return tuple(b[:, :, self._kss(km_b), self._bsl].contiguous()
+        if not isinstance(u, tuple):
+            return u[:, sh.kss(self.Km), sh.bsl].contiguous()
+        return tuple(b[:, :, sh.kss(km_b), sh.bsl].contiguous()
                      for b, (_, km_b) in zip(u, self._ring_buckets))
 
     # -- views ----------------------------------------------------------------
@@ -1051,7 +1045,8 @@ class SourceIterationSolver:
         (K, BS, ne, D) (numpy; collective under ``dir_sharding``, without
         its band padding)."""
         if self._sweep is not None:
-            return self._sweep.u_by_direction(u)
+            full = self._sweep.u_by_direction(self.gather_buckets(u))
+            return full[:, : self.BS_orig]
         us = self._ring_u_standard(u)[:, :, : self.BS_orig]
         out = np.zeros((self.K, us.shape[2], self.ne, self.D), dtype=us.dtype)
         for g in range(self.G):
@@ -1078,9 +1073,9 @@ class SourceIterationSolver:
     def heat_flux(self, u):
         """Heat-flux coefficients Qc (dim, ne, D) and cell integrals Qv
         (dim, ne) of the state, on its device."""
+        u = self.gather_buckets(u)
         if self._sweep is not None:
             return self._sweep.heat_flux(u)
-        u = self.gather_buckets(u)
         c = self.consts
         G, D, ne = self.G, self.D, self.ne
         parts = []

@@ -32,9 +32,31 @@ the new state, which the next level reads as its ring. No per-level copy
 of the state is made. pbte_tpu's own layout, ``(L, Gb, Km_b, D', BS, W)``,
 is what checkpoints hold (``to_pbte_layout``, ``from_pbte_layout``).
 
-Float32 products run exactly (TF32 off, ``exact_f32_products``); float64
-state runs in float64 throughout. The factor is built in float64 on the
-solver's device by ``supercell.block_triangular_factor``.
+State dtypes. Float32 products run exactly (TF32 off,
+``exact_f32_products``); float64 state runs in float64 throughout. With
+``PBTE_RING_STATE_BF16=1`` a float32 solver stores the state in bfloat16,
+as pbte_tpu's bf16-state ring does (its two-matmul body with bf16 staging,
+``:3128-3153``): the coupling operand is written in bfloat16 (the bf16
+ring times the f32 coefficient, rounded once) and multiplied with the
+couplings rounded to bfloat16, the product accumulated in float32
+(``baddbmm`` with ``out_dtype=torch.float32`` on the card, on the CPU the
+same bf16 values in a float32 product); the rhs and the factor apply stay
+float32, the macroscopic partials read the float32 solution, and the new
+level is stored rounded to bfloat16. The step takes its mode from the
+state's dtype, so a float32 copy of a bfloat16 state steps exactly. The
+couplings are scaled by sigma and the operand by 1/sigma here, where
+pbte_tpu rounds the unscaled operand and couplings: the bfloat16 roundings
+fall on other products (sigma is a power of two, so the couplings' round
+the same, the operand's do not).
+
+Dir and band sharding (``dir_sharding``): a rank holds and sweeps its own
+slots and bands of every bucket, ``(L, Gb, Km_b / n_dir, BS / n_band, W,
+D')``, builds only their factors (the float64 build and its memory split
+over the ranks) and their coefficients and weights; the couplings are
+geometry and shared. The macroscopic partials are summed over the ranks
+before ``M^-T`` (``parallel.comm.DirShard``), so Tc and Tv are the same on
+every rank. The factor is built in float64 on the solver's device by
+``supercell.block_triangular_factor``.
 """
 
 from __future__ import annotations
@@ -84,20 +106,38 @@ def from_pbte_layout(ub: torch.Tensor) -> torch.Tensor:
     return ub.permute(0, 1, 2, 4, 5, 3).contiguous()
 
 
+def _couple(rhs, xcat, ccat):
+    """rhs += xcat @ ccat, batched over groups, into the float32 (or
+    float64) rhs in place. bfloat16 operands accumulate in float32: on the
+    card in cuBLAS (``out_dtype``), on the CPU, which has no such product,
+    as the same bfloat16 values multiplied in float32."""
+    if xcat.dtype != torch.bfloat16:
+        rhs.baddbmm_(xcat, ccat)
+    elif rhs.is_cuda:
+        torch.baddbmm(rhs, xcat, ccat, torch.float32, out=rhs)
+    else:
+        rhs.baddbmm_(xcat.float(), ccat.float())
+
+
 class SuperRingSweep:
     """Constants and step of the supercell ring for one problem (built by
     ``SourceIterationSolver`` on the merged ``ops``; its attributes are the
     solver's)."""
 
-    def __init__(self, sc, ops, quad, tables, plan, dirs_pad, band, lt, *,
-                 bc_T, dtype, device):
+    def __init__(self, sc, ops, quad, plan, dirs_pad, band, lt, slot_w, *,
+                 bc_T, dtype, state_dtype, device, shard):
         """``sc`` the verified supercell and ``ops`` its merged operators;
-        ``band`` the solver's (inv_kn, vg, heat_cap, dt_inv); ``lt`` the
-        lattice tables of the macro mesh (``lattice_ring_tables``); ``bc_T``
-        (ne, nf) the wall temperatures of the super faces."""
+        ``band`` the solver's (inv_kn, vg, heat_cap, dt_inv), padded to the
+        band ranks; ``lt`` the lattice tables of the macro mesh
+        (``lattice_ring_tables``); ``slot_w`` the (G, Km, BS) macroscopic
+        and (G, Km, BS, dim) heat-flux slot weights; ``bc_T`` (ne, nf) the
+        wall temperatures of the super faces; ``state_dtype`` the state's
+        (bfloat16 for a float32 solver's bf16 state); ``shard`` this rank's
+        ``parallel.comm.DirShard``."""
         np_dtype = np.float32 if dtype == torch.float32 else np.float64
         self.sc = sc
-        self.dtype, self.device = dtype, device
+        self.dtype, self.state_dtype, self.device = dtype, state_dtype, device
+        self.shard = shard
         self.ne = ne = ops.num_elements
         self.D = Dp = ops.ndof
         self.dim = dim = ops.dim
@@ -105,6 +145,7 @@ class SuperRingSweep:
         omega = quad.total_weight
         inv_kn, vg, heat_cap, dt_inv = band
         self.BS = BS = len(vg)
+        bsl = shard.bsl
         self.G = G = plan.num_groups
         self.Km = Km = dirs_pad.shape[1]
         self.dirs_pad = dirs_pad
@@ -118,8 +159,10 @@ class SuperRingSweep:
         self.ne_pad = L * W
         nf_act = dim
 
+        # groups of equal slot count (rounded up to the dir ranks) run as
+        # one bucket
         sizes = np.array([len(d) for d in plan.dirs_of_group])
-        km_req = np.maximum(sizes, 1)
+        km_req = np.maximum(-(-sizes // shard.n_dir) * shard.n_dir, 1)
         self.buckets = [
             (np.flatnonzero(km_req == kv), int(kv))
             for kv in sorted({int(x) for x in km_req}, reverse=True)
@@ -145,13 +188,14 @@ class SuperRingSweep:
         # subnormals
         sigma = 2.0 ** np.round(np.log2(vg_s.max()))
         cvg = -(cin_act.reshape(G, nf_act, Km, L, W).transpose(3, 0, 2, 1, 4)
-                [:, :, :, :, None, :] * (vg_s / sigma)[:, None])
+                [:, :, :, :, None, :] * (vg_s[bsl] / sigma)[:, None])
         bsrc0 = bsrc0.reshape(G, Km, Dp, L, W).transpose(3, 0, 1, 4, 2)
 
         # ---- factors (float64 on the device) and couplings -----------------
         # the ring carries v = M^T u: the apply factor is B = M^T A^-1 (A
         # block-triangular with the intra-cell couplings) and M^-T folds
-        # into the neighbour couplings, which are geometry-only
+        # into the neighbour couplings, which are geometry-only. Each rank
+        # builds the factors of its own slots and bands alone.
         mass_r = ops.mass[0]
         massT_r = mass_r.T
         invMT_r = np.linalg.inv(massT_r)
@@ -160,21 +204,27 @@ class SuperRingSweep:
             [massT_r[c * D:(c + 1) * D, c * D:(c + 1) * D]
              for c in range(gsz)]), device=device)
         mass_dev = torch.as_tensor(np.array(mass_r), device=device)
-        vg_dev = torch.as_tensor(vg_s, device=device)
-        fac_T = torch.empty((G, Km, BS, Dp, Dp), dtype=dtype, device=device)
+        vg_dev = torch.as_tensor(vg_s[bsl], device=device)
+        facs = []
         t0 = time.perf_counter()
-        for g in range(G):
-            dk = dirs_np[dirs_safe[g]]  # (Km, dim)
-            fd = np.einsum("fd,kd->kf", ops.normals[0], dk)
-            G_k = (-np.einsum("kd,dij->kij", dk, ops.stiff[0])
-                   + np.einsum("kf,fij->kij", np.maximum(fd, 0.0),
-                               ops.face_mass[0])
-                   + sc.gmat_internal(dk))
-            A = (mass_dev + vg_dev[None, :, None, None]
-                 * torch.as_tensor(G_k, device=device)[:, None])
-            B = _supercell.block_triangular_factor(sc, A, dk, massT_blocks)
-            fac_T[g] = B.transpose(-1, -2).to(dtype)
-            del A, B
+        for gs, km_b in self.buckets:
+            ks = shard.kss(km_b)
+            fac_T = torch.empty((len(gs), km_b // shard.n_dir, shard.bl, Dp,
+                                 Dp), dtype=dtype, device=device)
+            for i, g in enumerate(gs):
+                dk = dirs_np[dirs_safe[g, ks]]  # (Km_b / n_dir, dim)
+                fd = np.einsum("fd,kd->kf", ops.normals[0], dk)
+                G_k = (-np.einsum("kd,dij->kij", dk, ops.stiff[0])
+                       + np.einsum("kf,fij->kij", np.maximum(fd, 0.0),
+                                   ops.face_mass[0])
+                       + sc.gmat_internal(dk))
+                A = (mass_dev + vg_dev[None, :, None, None]
+                     * torch.as_tensor(G_k, device=device)[:, None])
+                B = _supercell.block_triangular_factor(sc, A, dk,
+                                                       massT_blocks)
+                fac_T[i] = B.transpose(-1, -2).to(dtype)
+                del A, B
+            facs.append(fac_T)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         self.factor_s = time.perf_counter() - t0  # the factor build's seconds
@@ -185,8 +235,7 @@ class SuperRingSweep:
         ccat = np.ascontiguousarray(
             cc.transpose(0, 1, 3, 2).reshape(G, nf_act * Dp, Dp)) * sigma
 
-        mw_slots, fw_slots = macroscopic.slot_weights(quad, tables, dirs_pad,
-                                                      dim)
+        mw_slots, fw_slots = slot_w
 
         def put(a, dt=dtype):
             return torch.tensor(np.asarray(a), device=device).to(dt)
@@ -198,25 +247,27 @@ class SuperRingSweep:
             massT_T=put(mass_r),  # (D', D'): tc @ M = (M^T tc) row-wise
             invMT_T=put(invMT_r.T),
             pos_of_elem=put(pos_of_elem, torch.int64),  # (G, ne)
-            src_w=put(inv_kn * heat_cap / (omega * dt_inv)),
-            relax_w=put(1.0 - inv_kn / dt_inv),
-            neg_vg_bc_w=put(-vg_s * heat_cap / omega),
+            # this rank's bands
+            src_w=put((inv_kn * heat_cap / (omega * dt_inv))[bsl]),
+            relax_w=put((1.0 - inv_kn / dt_inv)[bsl]),
+            neg_vg_bc_w=put((-vg_s * heat_cap / omega)[bsl]),
             super_basis=put(sc.basis_int_cells),  # (ncell, gsz, D)
             super_scat=put(sc.scatter_fine(), torch.int64),
-            flux_w=put(fw_slots),  # (G, Km, BS, dim)
+            flux_w=put(fw_slots),  # (G, Km, BS, dim), every slot and band
             buckets=tuple(
                 dict(
-                    fac_T=fac_T[torch.as_tensor(gs, device=device), :km_b]
-                    .contiguous(),  # (Gb, Km_b, BS, D', D') = B^T
+                    fac_T=fac,  # (Gb, Km_b, BS, D', D') = B^T, this rank's
                     ccat=put(ccat[gs]),  # (Gb, dim D', D')
-                    cvg=put(cvg[:, gs, :km_b]),  # (L, Gb, Km_b, dim, BS, W)
-                    bsrc0=put(bsrc0[:, gs, :km_b]),  # (L, Gb, Km_b, W, D')
-                    macro_w=put(mw_slots[gs, :km_b]),  # (Gb, Km_b, BS)
+                    # (L, Gb, Km_b, dim, BS, W)
+                    cvg=put(cvg[:, gs][:, :, shard.kss(km_b)]),
+                    # (L, Gb, Km_b, W, D')
+                    bsrc0=put(bsrc0[:, gs][:, :, shard.kss(km_b)]),
+                    macro_w=put(mw_slots[gs][:, shard.kss(km_b), bsl]),
                 )
-                for gs, km_b in self.buckets
+                for (gs, km_b), fac in zip(self.buckets, facs)
             ),
         )
-        del fac_T
+        del facs
         order = np.concatenate([gs for gs, _ in self.buckets])
         inv_order = np.empty(G, dtype=np.int64)
         inv_order[order] = np.arange(G)
@@ -227,18 +278,22 @@ class SuperRingSweep:
     # -- state and step ------------------------------------------------------
 
     def initial_state(self):
-        z = dict(dtype=self.dtype, device=self.device)
+        """Zero state (this rank's slots and bands), Tc and Tv."""
+        sh = self.shard
         u = tuple(
-            torch.zeros((self.L, len(gs), km_b, self.BS, self.W, self.D), **z)
+            torch.zeros((self.L, len(gs), km_b // sh.n_dir, sh.bl, self.W,
+                         self.D), dtype=self.state_dtype, device=self.device)
             for gs, km_b in self.buckets)
+        z = dict(dtype=self.dtype, device=self.device)
         return (u, torch.zeros((self.ne, self.D), **z),
                 torch.zeros((self.sc.ne_fine,), **z))
 
     def step(self, u, Tc, Tv_prev):
         """One outer iteration (the caller's state is not changed): (u, Tc,
-        Tv, residual), Tv and the residual over the fine elements."""
+        Tv, residual), Tv and the residual over the fine elements. A
+        bfloat16 state runs the bf16 body (see the module docstring)."""
         c = self.consts
-        G, L, W, Dp, BS = self.G, self.L, self.W, self.D, self.BS
+        G, L, W, Dp = self.G, self.L, self.W, self.D
         # lagged temperature M^T Tc on the slab, (L, G, W, D'), zero at
         # padded slots (exact-zero fixed points of the iteration)
         tc_slab = (Tc[c["perm"]].reshape(G, L, W, Dp).transpose(0, 1)
@@ -248,9 +303,11 @@ class SuperRingSweep:
         m_parts, v_new = [], []
         for bi, cb in enumerate(c["buckets"]):
             v = u[bi]
-            Gb, Km_b = v.shape[1], v.shape[2]
+            bf16 = v.dtype == torch.bfloat16
+            Gb, Km_b, BS = v.shape[1:4]
             rows = Gb * Km_b * BS
-            # rhs of every level but the neighbour term
+            # rhs of every level but the neighbour term (in the solver's
+            # dtype: a bf16 state is read exactly)
             rhs = torch.addcmul(
                 ttc[:, self._bucket_groups[bi], None, None]
                 * c["src_w"][band], v, c["relax_w"][band])
@@ -261,6 +318,13 @@ class SuperRingSweep:
             xcat = torch.zeros((Gb, Km_b, BS, W, len(self.shifts) * Dp),
                                dtype=v.dtype, device=v.device)
             fac = cb["fac_T"].view(rows, Dp, Dp)
+            ccat = cb["ccat"].to(torch.bfloat16) if bf16 else cb["ccat"]
+            if bf16:  # the f32 solution of a level, and the partials
+                sol = torch.empty((rows, W, Dp), dtype=rhs.dtype,
+                                  device=v.device)
+                m = torch.empty((L, Gb, 1, W * Dp), dtype=rhs.dtype,
+                                device=v.device)
+                mw = cb["macro_w"].reshape(Gb, 1, Km_b * BS)
             for lv in range(L):
                 if lv:
                     ring = out[lv - 1]
@@ -269,20 +333,27 @@ class SuperRingSweep:
                             ring[:, :, :, :W - s],
                             cb["cvg"][lv, :, :, f, :, s:, None],
                             out=xcat[:, :, :, s:, f * Dp:(f + 1) * Dp])
-                    rhs[lv].view(Gb, -1, Dp).baddbmm_(
-                        xcat.view(Gb, Km_b * BS * W, -1), cb["ccat"])
-                torch.bmm(rhs[lv].view(rows, W, Dp), fac,
-                          out=out[lv].view(rows, W, Dp))
+                    _couple(rhs[lv].view(Gb, -1, Dp),
+                            xcat.view(Gb, Km_b * BS * W, -1), ccat)
+                if not bf16:
+                    torch.bmm(rhs[lv].view(rows, W, Dp), fac,
+                              out=out[lv].view(rows, W, Dp))
+                    continue
+                torch.bmm(rhs[lv].view(rows, W, Dp), fac, out=sol)
+                torch.bmm(mw, sol.view(Gb, Km_b * BS, W * Dp), out=m[lv])
+                out[lv].view(rows, W, Dp).copy_(sol)
             del rhs, xcat
-            # macroscopic partials of every level: the band-weighted sum
-            m = torch.matmul(cb["macro_w"].reshape(Gb, 1, Km_b * BS),
-                             out.view(L, Gb, Km_b * BS, W * Dp))
+            if not bf16:
+                # macroscopic partials of every level: the band-weighted sum
+                m = torch.matmul(cb["macro_w"].reshape(Gb, 1, Km_b * BS),
+                                 out.view(L, Gb, Km_b * BS, W * Dp))
             m_parts.append(m.view(L, Gb, W, Dp))
             v_new.append(out)
         m_cat = torch.cat(m_parts, dim=1)[:, self._inv_order]  # (L,G,W,D')
         partial = m_cat.transpose(0, 1).reshape(G, self.ne_pad, Dp)
         pos = c["pos_of_elem"][:, :, None].expand(G, self.ne, Dp)
         Tc_v = torch.gather(partial, 1, pos).sum(dim=0)  # (ne, D')
+        Tc_v = self.shard.psum(Tc_v)  # every rank's slots and bands
         Tc_new = torch.matmul(Tc_v, c["invMT_T"])  # v = M^T u => Tc = M^-T
         Tv_new = self.tv_from_tc(Tc_new)
         res = macroscopic.residual(Tv_new, Tv_prev)
@@ -314,7 +385,8 @@ class SuperRingSweep:
 
     def u_by_direction(self, u):
         """Direction-major physical coefficients per fine element (K, BS,
-        ne_fine, D) (numpy)."""
+        ne_fine, D) (numpy) of a full state (every rank's slots and
+        bands)."""
         host_dt = torch.float64 if self.dtype == torch.float64 else torch.float32
         us = np.zeros((self.G, self.Km, self.BS, self.D, self.ne_pad),
                       dtype=np.float64 if self.dtype == torch.float64
@@ -341,14 +413,14 @@ class SuperRingSweep:
 
     def heat_flux(self, u):
         """Qc (dim, ne_fine, D) and Qv (dim, ne_fine) per fine element, on
-        the state's device."""
+        the state's device, of a full state."""
         c = self.consts
         sc = self.sc
         G, Dp, dim = self.G, self.D, self.dim
         parts = []
         for bi, (gs, km_b) in enumerate(self.buckets):
             fw = c["flux_w"][self._bucket_groups[bi], :km_b]  # (Gb,Km,BS,dim)
-            p = torch.einsum("gkbd,lgkbwi->gdlwi", fw, u[bi])
+            p = torch.einsum("gkbd,lgkbwi->gdlwi", fw, u[bi].to(self.dtype))
             parts.append(p.reshape(len(gs), dim, self.ne_pad, Dp))
         partial = torch.cat(parts)[self._inv_order]  # (G, dim, ne_pad, D')
         pos = c["pos_of_elem"][:, None, :, None].expand(G, dim, self.ne, Dp)

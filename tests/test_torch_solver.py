@@ -775,7 +775,8 @@ def test_no_jax_import():
     with solve(accelerate="bicgstab") (solver/accel.py), steps a 6-tet cube
     on the general ring (solver/one_hot_ring.py) and runs the C++ baseline
     (pbte_tpu_torch.native) on it, solves on one rank with the slab and the
-    spatial solvers (parallel/) and runs the partition validation, in a
+    spatial solvers (parallel/) and the dir-sharded supercell ring, and
+    runs the partition validation, in a
     process where importing JAX, or anything of pbte_tpu, fails; every
     module of the port, chip_smoke.py and bench_torch.py import there
     too."""
@@ -848,6 +849,14 @@ def test_no_jax_import():
         assert np.isfinite(sp.solve(tol=0, max_iter=2,
                                     verbose=False).Tc_global()).all()
         assert validate_main(["2", "--mesh", "unit-cube-tet"]) == 0
+        from pbte_tpu_torch.problem import tet_box
+        sc = SourceIterationSolver(
+            *tet_box(2, 2, 2, order=1, polar=2, azimuth=4, nspec=1),
+            WALL_BCS, device="cpu", supercell="on",
+            dir_sharding=Grid(dir=1, band=1))
+        assert sc._super is not None
+        assert np.isfinite(sc.solve(tol=0, max_iter=2,
+                                    verbose=False).Tc.numpy()).all()
         assert not any(m.split(".")[0] in ("jax", "jaxlib", "pbte_tpu")
                        for m in sys.modules)
         print("no-jax ok")

@@ -14,9 +14,11 @@ in float32 ``rtol=2e-5, atol=5e-7`` on each field over its max, against
 pbte_tpu's float32 ring with exact operands (``PBTE_RING_BF16=0``).
 
 Also: the oracle, the walls that gate the merge off, the memory budget,
-the bf16-state opt-in (refused on this path), checkpoints within and
-across the packages, the state carried by ``convert``, the accelerated and
-polished solves, the gmsh production mesh and the supercell golden.
+bf16 state (``PBTE_RING_STATE_BF16=1``) against pbte_tpu's bf16 ring and
+the port's float32 ring, with its polish, checkpoint and ``convert``,
+checkpoints within and across the packages, the state carried by
+``convert``, the accelerated and polished solves, the gmsh production mesh
+and the supercell golden.
 """
 
 import os
@@ -264,13 +266,116 @@ def test_budget_resolves_to_the_scan(monkeypatch):
     assert super_ring.super_ring_bytes(s._super, s.K, s.BS, 4) > 0
 
 
-def test_bf16_state_opt_in_raises(monkeypatch):
-    """PBTE_RING_STATE_BF16=1 is not ignored on this path: it raises,
-    naming the ROADMAP item."""
+BF16_CASES = [("tet3x2x2", 1), ("tet3x2x2", 2), ("tri", 1)]
+
+
+def _bf16_pair(mesh, order, monkeypatch):
+    """pbte_tpu's and the port's float32 supercell rings with bf16 state
+    (PBTE_RING_STATE_BF16=1)."""
+    monkeypatch.setenv("PBTE_RING_STATE_BF16", "1")
+    bcs = WALLS_2D if mesh == "tri" else WALLS_3D
+    js = JaxSolver(*_problem("jax", mesh, order, 2, 4), bcs,
+                   dtype=jnp.float32, supercell="on")
+    ts = SourceIterationSolver(*_problem("torch", mesh, order, 2, 4), bcs,
+                               device="cpu", supercell="on")
+    assert js._super is not None and js._ring_state_bf16
+    assert ts._super is not None and ts.state_bf16
+    assert ts.state_dtype == torch.bfloat16
+    return js, ts, bcs
+
+
+@pytest.mark.parametrize("mesh,order", BF16_CASES)
+def test_bf16_state_against_pbte_tpu(mesh, order, monkeypatch):
+    """bf16 state against pbte_tpu's bf16 supercell ring, each step from
+    pbte_tpu's state carried across (``convert``). Both round the coupling
+    operand and the couplings to bf16 and accumulate in f32, but at other
+    products: the port scales the operand by -vg/sigma before rounding it
+    (the subnormal guard of this module's docstring), pbte_tpu rounds the
+    unscaled one and applies vg after the product. So the roundings differ,
+    and Tc agrees to 1e-3 of max (measured 1.0e-4 to 2.4e-4 per step on
+    these three cases)."""
+    js, ts, _ = _bf16_pair(mesh, order, monkeypatch)
+    u, Tc, Tv = js.initial_state()
+    assert u[0].dtype == jnp.bfloat16
+    for _ in range(4):
+        st = convert.state_from_numpy([np.asarray(b) for b in u],
+                                      np.asarray(Tc), np.asarray(Tv),
+                                      device="cpu", supercell=True)
+        assert st[0][0].dtype == torch.bfloat16
+        u, Tc, Tv, _ = js.step(u, Tc, Tv)
+        ut, Tct, _, _ = ts.step(*st)
+        assert ut[0].dtype == torch.bfloat16 and Tct.dtype == torch.float32
+        _close(Tct, Tc, 1e-3, "Tc vs pbte_tpu's bf16 ring")
+
+
+@pytest.mark.parametrize("mesh,order", BF16_CASES)
+def test_bf16_state_against_f32(mesh, order, monkeypatch):
+    """3 steps from the zero state with bf16 state against the port's
+    float32 ring: Tc to 3e-3 of max (measured 2.9e-4 to 9.3e-4), finite
+    and falling residuals."""
+    _, ts, bcs = _bf16_pair(mesh, order, monkeypatch)
+    (_, Tcb, _), hb = _run(ts, 3)
+    monkeypatch.delenv("PBTE_RING_STATE_BF16")
+    t32 = SourceIterationSolver(*_problem("torch", mesh, order, 2, 4), bcs,
+                                device="cpu", supercell="on")
+    assert t32.state_dtype == torch.float32
+    (_, Tc32, _), h32 = _run(t32, 3)
+    _close(Tcb, Tc32, 3e-3, "bf16 Tc vs f32")
+    assert np.all(np.isfinite(hb)) and hb[-1] < hb[0]
+
+
+def test_bf16_state_refused_in_float64(monkeypatch):
+    """PBTE_RING_STATE_BF16=1 rounds float32 state: a float64 solver on the
+    supercell ring refuses it, as on the lattice ring."""
     monkeypatch.setenv("PBTE_RING_STATE_BF16", "1")
     tp = _problem("torch", "tet2x2x2", 1, 2, 4)
-    with pytest.raises(NotImplementedError, match="item 6b.1"):
-        SourceIterationSolver(*tp, WALLS_3D, device="cpu", supercell="on")
+    with pytest.raises(ValueError, match="float64"):
+        SourceIterationSolver(*tp, WALLS_3D, dtype=torch.float64,
+                              device="cpu", supercell="on")
+
+
+def test_bf16_polish_steps_a_float32_copy(monkeypatch):
+    """solve(polish_iters=1) after bf16 steps steps a float32 copy of the
+    state exactly (the step takes its mode from the state's dtype): the
+    same as one float32-state step of the same solver by hand, and as one
+    step of a float32 solver."""
+    _, ts, bcs = _bf16_pair("tet3x2x2", 1, monkeypatch)
+    r = ts.solve(tol=0, max_iter=3, verbose=False, polish_iters=1)
+    assert r.u[0].dtype == torch.float32 and r.iterations == 4
+    (u, Tc, Tv), _ = _run(ts, 3)
+    assert u[0].dtype == torch.bfloat16
+    u32 = tuple(b.float() for b in u)
+    up, Tcp, _, _ = ts.step(u32, Tc, Tv)
+    assert all(torch.equal(a, b) for a, b in zip(r.u, up))
+    assert torch.equal(r.Tc, Tcp)
+    monkeypatch.delenv("PBTE_RING_STATE_BF16")
+    t32 = SourceIterationSolver(*_problem("torch", "tet3x2x2", 1, 2, 4), bcs,
+                                device="cpu", supercell="on")
+    _, Tc32, _, _ = t32.step(u32, Tc, Tv)
+    assert torch.equal(Tc32, Tcp)
+
+
+def test_bf16_checkpoint_and_convert_roundtrip(monkeypatch, tmp_path):
+    """A bf16 supercell state saves (as float32, exact) and loads back in
+    bf16 bit for bit; the resumed run equals the uninterrupted one bit for
+    bit; convert carries it to pbte_tpu's layout and back."""
+    _, ts, _ = _bf16_pair("tet3x2x2", 1, monkeypatch)
+    full = ts.solve(tol=0, max_iter=5, verbose=False)
+    half = ts.solve(tol=0, max_iter=3, verbose=False)
+    ck = str(tmp_path / "super_bf16.npz")
+    tckpt.save_checkpoint(ck, ts, half.u, half.Tc, half.Tv, 3, half.residual)
+    (u, Tc, Tv), it, _ = tckpt.load_checkpoint(ck, ts)
+    assert it == 3
+    assert all(a.dtype == torch.bfloat16 and torch.equal(a, b)
+               for a, b in zip(u, half.u))
+    resumed = ts.solve(tol=0, max_iter=2, verbose=False, state=(u, Tc, Tv))
+    assert torch.equal(resumed.Tc, full.Tc)
+    back = convert.super_state_to_numpy(half.u)
+    assert back[0].dtype == np.float32
+    st = convert.state_from_numpy(back, half.Tc.numpy(), half.Tv.numpy(),
+                                  device="cpu", supercell=True,
+                                  state_dtype=torch.bfloat16)
+    assert all(torch.equal(a, b) for a, b in zip(st[0], half.u))
 
 
 def test_supercell_off_keeps_the_fine_mesh():

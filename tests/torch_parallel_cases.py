@@ -26,10 +26,33 @@ def build_problem(spec):
     order, polar, azimuth, nspec, periodic_axes[, edge])`` (edge: the
     cube's length in metres, a micron by default), ``("quad", nx, ny,
     order, azimuth, nspec[, edge])``, ``("tri", nx, ny, order, azimuth,
-    nspec, face_mode[, edge])`` or ``("tet", n, order, polar, azimuth, nspec)``; meshes in
-    microns."""
+    nspec, face_mode[, edge])`` or ``("tet", n, order, polar, azimuth,
+    nspec)``; meshes in microns. Also, with no topology (None):
+    ``("tetbox", nx, ny, nz, order, polar, azimuth, nspec)``
+    (``problem.tet_box``), ``("graded", n, order, polar, azimuth, nspec)``
+    (``problem.graded_cube``) and ``("square", refine, azimuth, nspec[,
+    azimuth_scheme])``, the default config's unit square refined
+    ``refine`` times (consistent faces, p = 1)."""
+    from pbte_tpu_torch import problem
+
     kind = spec[0]
     face_mode = "consistent"
+    if kind == "tetbox":
+        return (None,) + problem.tet_box(*spec[1:])
+    if kind == "graded":
+        return (None,) + problem.graded_cube(*spec[1:])
+    if kind == "square":
+        _, refine, az, nspec, *scheme = spec
+        m = pmesh.uniform_refine(pmesh.load_mesh(
+            str(problem.REPO_ROOT / "config" / "mesh" / "unit-square-iso.mesh")
+        ).scaled(1e-6), refine)
+        ops = assembly.assemble(pmesh.connect(m), order=1,
+                                face_mode="consistent")
+        quad = ang.build(ang.AngularOptions(
+            dimension=2, azimuth_points=az,
+            azimuth_scheme=scheme[0] if scheme else "gauss"))
+        return (None, ops, quad,
+                mat.build_tables(mat.SILICON, num_spectral=nspec))
     if kind == "hex":
         _, nx, ny, nz, order, polar, az, nspec, per, *edge = spec
         m = pmesh.make_cartesian_3d(nx, ny, nz, "hex").scaled(
@@ -77,6 +100,22 @@ def run_cases(rank, world, shape, cases, workdir=None):
         fn = globals()[case["fn"]]
         t0 = time.perf_counter()
         out[name] = fn(grid, case, workdir)
+        out[name]["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def run_grid_cases(rank, world, cases, workdir=None):
+    """Every case of ``cases`` on the grid its ``"grid"`` names (axis ->
+    ranks, over all ``world`` ranks; each grid made once, in the order
+    the cases name them, on every rank); returns name -> results dict."""
+    torch.set_flush_denormal(True)
+    grids, out = {}, {}
+    for name, case in cases.items():
+        key = tuple(case["grid"].items())
+        if key not in grids:
+            grids[key] = _grid(case["grid"])
+        t0 = time.perf_counter()
+        out[name] = globals()[case["fn"]](grids[key], case, workdir)
         out[name]["seconds"] = time.perf_counter() - t0
     return out
 
@@ -140,28 +179,56 @@ def dir_sharded(grid, case, workdir):
     (or a solve to ``tol``)."""
     from pbte_tpu_torch.solver.source_iteration import SourceIterationSolver
 
+    import os
+
     topo, ops, quad, tables = build_problem(case["problem"])
-    s = SourceIterationSolver(ops, quad, tables, case["bcs"],
-                              dtype=_f64(case), device="cpu",
-                              dir_sharding=grid, **case.get("kw", {}))
+    env = case.get("env", {})
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        s = SourceIterationSolver(ops, quad, tables, case["bcs"],
+                                  dtype=_f64(case), device="cpu",
+                                  dir_sharding=grid, **case.get("kw", {}))
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k)
+            else:
+                os.environ[k] = v
     r = s.solve(tol=case.get("tol", 0), max_iter=case["iters"],
                 verbose=False, check_every=case.get("check_every", 1),
                 accelerate=case.get("accelerate"))
-    res = dict(Tc=r.Tc.numpy(), residual=r.residual,
+    u0 = r.u[0] if isinstance(r.u, tuple) else r.u
+    path = ("supercell" if s._super is not None else "scan"
+            if s.sweep_mode == "scan" else "general" if s._general
+            else "multi" if s._multi is not None else "k1")
+    res = dict(Tc=r.Tc.numpy(), Tv=r.Tv.numpy(), residual=r.residual,
                iterations=r.iterations, BS=s.BS, Km=s.Km,
-               shard=tuple(r.u[0].shape), mode=s.sweep_mode,
-               k1=s._multi is None and not s._general,
-               windowed=s.win is not None)
+               shard=tuple(u0.shape), state_dtype=str(u0.dtype),
+               mode=s.sweep_mode, path=path, k1=path == "k1",
+               windowed=s.win is not None, policy=s.cache_policy)
     if case.get("views"):
         res["u_dirs"] = r.u_dirs()
+        res["Qc"] = s.heat_flux(r.u)[0].numpy()
+    if case.get("convert"):
+        from pbte_tpu_torch import convert
+
+        u, _, _ = convert.sharded_state_to_numpy(s, r.u, r.Tc, r.Tv)
+        res["u_full"] = u
+        back, _, _ = convert.sharded_state_from_numpy(s, u, r.Tc.numpy(),
+                                                      r.Tv.numpy())
+        pairs = zip(back, r.u) if isinstance(back, tuple) else [(back, r.u)]
+        res["convert_roundtrip"] = all(torch.equal(a, b) for a, b in pairs)
     if case.get("ckpt"):
         from pbte_tpu_torch.io.checkpoint import load_checkpoint, save_checkpoint
 
-        res["ckpt"] = str(workdir / "dir_ring.npz")
+        res["ckpt"] = str(workdir / f"dir_{case.get('ckpt_name', 'ring')}.npz")
         save_checkpoint(res["ckpt"], s, r.u, r.Tc, r.Tv, r.iterations,
                         r.residual)
         (u, _, _), _, _ = load_checkpoint(res["ckpt"], s)
-        res["reloaded"] = all(torch.equal(a, b) for a, b in zip(u, r.u))
+        pairs = zip(u, r.u) if isinstance(u, tuple) else [(u, r.u)]
+        res["reloaded"] = all(a.dtype == b.dtype and torch.equal(a, b)
+                              for a, b in pairs)
     return res
 
 
