@@ -29,14 +29,18 @@ Rows (each rebuilds the solver under its environment):
   lattice per axis) at order 3 (D = 64), 2 x 8 = 16 directions, 2 x 4
   bands, float64 state: W = 784 slots, a level past the 16 CTAs of the
   earlier cluster kernel, which raised there; with its
-  ``k1_share_of_bound``. Its host set-up is long and large (at 28^3 the
-  solver's constructor passes 72 GB of host memory, so on a card machine
-  of 96 GiB the row records where it stopped, not a step), so it runs in a
-  child process of its own (``--row p3_wide_f64``): the row records
-  ``setup_s`` and the host's peak resident memory (``host_peak_rss_gb``).
-  The parent stops the child where its host memory passes
-  ``P3_WIDE_HOST_LIMIT_GB`` (before the host's own limit would end the
-  whole run) or it runs past ``P3_WIDE_TIMEOUT_S``, and the row then
+  ``k1_share_of_bound``. Its host set-up is long and large, so it runs in
+  a child process of its own (``--row p3_wide_f64``): the row records
+  ``setup_s``, the host's peak resident memory (``host_peak_rss_gb``) and
+  ``stages``, the child's host memory at each stage it reaches
+  (``start``, ``assembled``, ``constructed``, ``initial state``, ``first
+  step``, ``warm-up``, ``timed``, ``shares``, ``done``): the seconds
+  since it started, the resident (``VmRSS``) and peak resident
+  (``VmHWM``) memory of ``/proc/self/status``, ``ru_maxrss``, and on the
+  GPU the device's ``max_memory_allocated``; each stage is also logged
+  as it is reached. The parent stops the child where its host memory
+  passes ``P3_WIDE_HOST_LIMIT_GB`` (before the host's own limit would end
+  the whole run) or it runs past ``P3_WIDE_TIMEOUT_S``, and the row then
   records the last stage the child reached and its host memory. Its
   order, angles and bands take the PBTE_BENCH_* overrides where they are
   set.
@@ -207,6 +211,12 @@ def k1_share_of_bound(solver, state):
     return out
 
 
+def takes_k1(solver):
+    """Whether ``solver`` sweeps on K1 (the single-class lattice ring)."""
+    return (solver._sweep is None and solver._multi is None
+            and not solver._general)
+
+
 def build(device, size, env=None, solver_kw=None, make=None):
     """(solver, set-up seconds) of the problem ``make(**size)`` (the unit
     cube by default) built under ``env``."""
@@ -234,6 +244,35 @@ def host_peak_rss_gb():
     return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6
 
 
+def stage_logger(label, device=None):
+    """``(stage, stages)``: ``stage(name, **info)`` appends to ``stages``
+    and logs the seconds since the logger was made, this process's
+    resident and peak resident host memory (``VmRSS``, ``VmHWM``), its
+    ``ru_maxrss`` and, on a GPU, the device's ``max_memory_allocated``
+    (GB), with ``info``."""
+    t0 = time.perf_counter()
+    stages = []
+
+    def stage(name, **info):
+        rec = dict(stage=name, s=round(time.perf_counter() - t0, 1),
+                   rss_gb=status_gb("self", "VmRSS"),
+                   hwm_gb=status_gb("self", "VmHWM"),
+                   maxrss_gb=host_peak_rss_gb())
+        if device is not None and device.type == "cuda":
+            rec["device_peak_gb"] = torch.cuda.max_memory_allocated(
+                device) / 1e9
+        rec.update(info)
+        stages.append(rec)
+        log(f"{label} stage {name} at {rec['s']:.1f} s, host "
+            f"{rec['rss_gb']:.2f} GB, peak {rec['hwm_gb']:.2f} GB "
+            f"(ru_maxrss {rec['maxrss_gb']:.2f} GB)"
+            + "".join(f", {k} {v}" for k, v in rec.items()
+                      if k not in ("stage", "s", "rss_gb", "hwm_gb",
+                                   "maxrss_gb")))
+
+    return stage, stages
+
+
 def p3_wide_size(nx):
     """The p3_wide_f64 row's lattice: 7/4 of the run's per axis (28^3 by
     default), P3_WIDE's order, angles and bands unless PBTE_BENCH_* set
@@ -246,13 +285,8 @@ def p3_wide_size(nx):
 
 def p3_wide_child(device, steps, size):
     """The p3_wide_f64 row in this (child) process: each stage it reaches is
-    logged with the seconds and the host's peak memory so far; returns the
-    row."""
-    t0 = time.perf_counter()
-
-    def stage(name):
-        log(f"p3_wide_f64 stage {name} at {time.perf_counter() - t0:.1f} s, "
-            f"host peak {host_peak_rss_gb():.2f} GB")
+    logged and recorded (``stage_logger``); returns the row."""
+    stage, stages = stage_logger("p3_wide_f64", device)
 
     def assemble(**kw):
         out = problem.unit_cube(**kw)
@@ -263,40 +297,42 @@ def p3_wide_child(device, steps, size):
     row, shape = run_row("p3_wide_f64", device, steps, size,
                          solver_kw=dict(bc_temps=problem.WALL_BCS,
                                         dtype=torch.float64),
-                         shares=device.type == "cuda", make=assemble)
+                         shares=device.type == "cuda", make=assemble,
+                         stage=stage)
     stage("done")
     row.update(shape=dict(shape, W=size["ny"] * size["nz"],
                           nx=size["nx"], order=size["order"]),
-               host_peak_rss_gb=host_peak_rss_gb())
+               host_peak_rss_gb=host_peak_rss_gb(), stages=stages)
     return row
 
 
-def rss_gb(pid):
-    """Resident host memory of process ``pid`` (GB; 0 once it is gone)."""
+def status_gb(pid, key):
+    """The ``key`` line (``VmRSS``, ``VmHWM``) of process ``pid``'s status
+    (or ``"self"``'s), in GB; 0 once the process is gone."""
     try:
         with open(f"/proc/{pid}/status") as f:
             for line in f:
-                if line.startswith("VmRSS:"):
+                if line.startswith(key + ":"):
                     return int(line.split()[1]) / 1e6
     except OSError:
         pass
     return 0.0
 
 
-def p3_wide_row(device, steps, size):
-    """Run the p3_wide_f64 row in a child process and return its row; stop
-    the child past P3_WIDE_HOST_LIMIT_GB of host memory or
-    P3_WIDE_TIMEOUT_S, and then return where it failed: why, its exit
-    code, the last stage it logged, its host memory and the tail of its
-    errors."""
-    cmd = [sys.executable, os.path.abspath(__file__), "--device",
-           device.type, "--row", "p3_wide_f64"]
+def p3_wide_row(device, steps, size, cmd=None):
+    """Run the p3_wide_f64 row in a child process (``cmd``, by default this
+    script's ``--row p3_wide_f64``) and return its row; stop the child
+    past P3_WIDE_HOST_LIMIT_GB of host memory or P3_WIDE_TIMEOUT_S, and
+    then return where it failed: why, its exit code, the last stage it
+    logged, its host memory and the tail of its errors."""
+    cmd = cmd or [sys.executable, os.path.abspath(__file__), "--device",
+                  device.type, "--row", "p3_wide_f64"]
     with tempfile.TemporaryFile("w+") as out, \
             tempfile.TemporaryFile("w+") as err:
         proc = subprocess.Popen(cmd, stdout=out, stderr=err, text=True)
         t0, peak, stopped = time.perf_counter(), 0.0, None
         while proc.poll() is None:
-            rss = rss_gb(proc.pid)
+            rss = status_gb(proc.pid, "VmRSS")
             peak = max(peak, rss)
             if rss > P3_WIDE_HOST_LIMIT_GB:
                 stopped = (f"host memory {rss:.1f} GB past the "
@@ -329,24 +365,36 @@ def release(device):
 
 
 def run_row(name, device, steps, size, env=None, solver_kw=None, shares=False,
-            make=None, converge=False):
+            make=None, converge=False, stage=None):
     """Build the solver under ``env`` and time ``steps`` steps (and with
     ``converge`` solve from the zero state to ``CONVERGE_TOL``); returns
     the row and the solver's shape. On the GPU the row counts the K1
-    launches of its timed steps by variant (``k1_launches``)."""
+    launches of its timed steps by variant (``k1_launches``). ``stage``
+    (``stage_logger``'s) is called as each stage ends: ``constructed``,
+    ``initial state``, ``first step``, ``warm-up``, ``timed`` and, with
+    ``shares``, ``shares``."""
+    stage = stage or (lambda name, **info: None)
     solver, setup_s = build(device, size, env, solver_kw, make)
+    stage("constructed", sweep_mode=solver.sweep_mode, k1=takes_k1(solver))
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     u, Tc, Tv = solver.initial_state()
-    for _ in range(WARMUP_STEPS):
-        u, Tc, Tv, r = solver.step(u, Tc, Tv)
     sync(device)
+    stage("initial state")
+    for i in range(WARMUP_STEPS):
+        u, Tc, Tv, r = solver.step(u, Tc, Tv)
+        if i == 0:
+            sync(device)
+            stage("first step")
+    sync(device)
+    stage("warm-up")
     lr.reset_launches()
     t0 = time.perf_counter()
     for _ in range(steps):
         u, Tc, Tv, r = solver.step(u, Tc, Tv)
     sync(device)
     dt = time.perf_counter() - t0
+    stage("timed")
     launches = dict(lr.lattice_ring_sweep.launches_by_variant)
     res = float(r)
     if not (torch.isfinite(Tc).all() and res == res):
@@ -364,6 +412,7 @@ def run_row(name, device, steps, size, env=None, solver_kw=None, shares=False,
         row["k1_launches"] = launches
         if shares:
             row["k1_share_of_bound"] = k1_share_of_bound(solver, (u, Tc, Tv))
+            stage("shares")
     if converge:
         del u, Tc, Tv
         sync(device)

@@ -61,7 +61,11 @@ Phases (a failing phase raises and the script exits non-zero):
    windows as the solver takes them by default: setup, 2 warm-up + 30 timed
    steps, ms/step, element-ordinate DOF/s, peak memory, residuals, kernel
    launches; then 3 steps through the kernel and through the plain version
-   from one state;
+   from one state; then ``solve(accelerate="compensated")``, 4 iterations
+   (the state carried as a compensated sum of two trees, two step
+   applications an iteration and a residual step every 2) with its K1
+   launches (a count of calls of K1's plain version must stay 0) and Tc
+   against as many plain steps' (``COMPENSATED_RTOL`` of max);
 6. the same flagship as a film: x faces isothermal, the other four diffuse
    (the lagged closure through K1's xsrc), measured as phase 5; then the
    flagship with bf16 state (PBTE_RING_STATE_BF16=1), the same way;
@@ -143,7 +147,8 @@ Phases (a failing phase raises and the script exits non-zero):
    against 10 steps, 1e-12 of max), ``--accelerate bicgstab`` to 1e-9,
    ``--profile`` (its trace must name a K1 kernel) and ``-p 2x2`` under
    ``torchrun --standalone --nproc-per-node 4`` (four gloo ranks sharing
-   the card: the slab-lattice solver, the serial run's files);
+   the card: the slab-lattice solver, the serial run's files); these four
+   subprocess checks run side by side;
 13. the general ring (pbte_tpu's one-hot ring, off the box lattice; torch
    products, no kernel of the kernels line: K1's count must stay 0): (a)
    ``python -m pbte_tpu_torch.cli -c config/config.yaml -r 7 --no-dumps``
@@ -190,7 +195,19 @@ Phases (a failing phase raises and the script exits non-zero):
    the path asserted and K1's count 0 (2 warm-up steps first: with one,
    the first case's steps ran 1.6x slower). Ranks sharing one card
    time-slice it: these numbers are correctness and the halo's cost, not
-   scaling.
+   scaling;
+15. the lattice of ``bench_torch.py --p3-wide``'s row, hex 28^3 p=3 (2 x 8
+   directions, 2 x 4 bands, float64 state; 21,952 elements, D = 64, W =
+   784): a process of its own, started before phase 2, assembles it and
+   builds its solver on the card while phases 2-14 run (minutes of host
+   set-up), logging its host memory by stage (``bench_torch.stage_logger``)
+   and the set-up seconds, and is stopped past
+   ``bench_torch.P3_WIDE_HOST_LIMIT_GB`` of host memory; at this phase it
+   runs 2 + 3 steps through K1's tiled f64 kernel (launches by variant:
+   two buckets a step; a count of calls of K1's plain version must stay
+   0; Tc finite of shape (ne, D), the residual falling), then holds one
+   more step's sweep of every bucket against ``lattice_ring_sweep_ref`` on
+   the same device and inputs (phase 3's F64_RTOL of max, ys and ms).
 
 The line before the last is the card's name and power limit, the one before
 it {"kernels": [...]}, the last line {"ok": true, "device": {...}}.
@@ -340,6 +357,22 @@ SHARD_CONFIG = dict(
     tet_timed=dict(n=12, order=1, polar=2, azimuth=4, nspec=2),
     timed_steps=SHARD_TIMED_STEPS)
 
+
+# phase 5's compensated solve: iterations, residual cadence, and Tc against
+# the plain iteration's after as many steps
+COMPENSATED_ITERS = 4
+COMPENSATED_CHECK_EVERY = 2
+COMPENSATED_RTOL = 2e-5
+# phase 15: bench_torch.py's p3_wide_f64 lattice (its P3_WIDE at 7/4 of the
+# flagship's 16 per axis), its timed steps, the seconds this phase waits
+# for its set-up and for its steps, and the BLAS threads of its process
+# (the earlier phases keep the other cores); its process may take
+# bench_torch.P3_WIDE_HOST_LIMIT_GB of host memory
+P3_WIDE = dict(nx=28, ny=28, nz=28, order=3, polar=2, azimuth=8, nspec=4)
+P3_WIDE_STEPS = 3
+P3_WIDE_SETUP_TIMEOUT = 1000
+P3_WIDE_RUN_TIMEOUT = 300
+P3_WIDE_THREADS = 2
 
 _T0 = time.perf_counter()
 
@@ -1827,10 +1860,20 @@ def phase_cli(lr, card, flag_dof):
             rows[state] = phase_cli_flagship(lr, card, tmp, state, flag_dof)
         cwd = tmp / "sub"
         cwd.mkdir()
-        rows["subprocess"] = dict(
-            card_vs_cpu=cli_card_vs_cpu(tmp), resume=cli_resume(cwd),
-            bicgstab=cli_bicgstab(cwd), profile_k1=cli_profile(cwd),
-            parallel=cli_parallel(cwd))
+        # the subprocess checks run side by side (each waits on its own
+        # processes; -p 2x2 compares with the resume check's full run)
+        from concurrent.futures import ThreadPoolExecutor
+
+        with ThreadPoolExecutor(4) as ex:
+            card_vs_cpu = ex.submit(cli_card_vs_cpu, tmp)
+            chain = ex.submit(lambda: (cli_resume(cwd), cli_parallel(cwd)))
+            bicgstab = ex.submit(cli_bicgstab, cwd)
+            profile_k1 = ex.submit(cli_profile, cwd)
+            resume, parallel = chain.result()
+            rows["subprocess"] = dict(
+                card_vs_cpu=card_vs_cpu.result(), resume=resume,
+                bicgstab=bicgstab.result(), profile_k1=profile_k1.result(),
+                parallel=parallel)
     log(f"[smoke] phase 12 (the CLI) took {time.perf_counter() - t_phase:.1f}"
         f" s")
     return rows
@@ -2489,6 +2532,220 @@ def phase_sharded(card, cfg, refs):
     return row
 
 
+def phase_compensated(solver, lr, card):
+    """Phase 5's compensated solve of the f32 flagship: COMPENSATED_ITERS
+    iterations through K1 (launches counted, K1's plain version never
+    called), Tc finite and within COMPENSATED_RTOL of max of the plain
+    iteration's after as many steps. Returns the row."""
+    calls, restore = count_plain_sweeps(lr)
+    try:
+        lr.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = solver.solve(tol=0, max_iter=COMPENSATED_ITERS,
+                         check_every=COMPENSATED_CHECK_EVERY, verbose=False,
+                         accelerate="compensated")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        by_variant = dict(lr.lattice_ring_sweep.launches_by_variant)
+        launches = lr.lattice_ring_sweep.launches
+    finally:
+        restore()
+    # an iteration steps the value part once
+    plain = solver.solve(tol=0, max_iter=COMPENSATED_ITERS, verbose=False,
+                         check_every=COMPENSATED_ITERS)
+    rel, _ = rel_err(r.Tc, plain.Tc)
+    # b, two steps an iteration, a residual step every COMPENSATED_CHECK_EVERY
+    # iterations and the final one, each one launch a bucket
+    steps = (r.iterations + COMPENSATED_ITERS // COMPENSATED_CHECK_EVERY + 1)
+    want = steps * len(solver._ring_buckets)
+    row = dict(iterations=r.iterations, residual=r.residual, wall_s=wall,
+               k1_launches=launches, k1_launches_by_variant=by_variant,
+               plain_calls=len(calls), vs_plain_rel=rel)
+    log(f"[smoke] compensated flagship: {COMPENSATED_ITERS} iterations, "
+        f"{r.iterations} step applications in {wall:.3f} s, residual "
+        f"{r.residual:.3e}, K1 launches {by_variant} (want {want}), plain "
+        f"sweeps {len(calls)}; Tc against {COMPENSATED_ITERS} plain steps' "
+        f"rel "
+        f"{rel:.3e} (tolerance {COMPENSATED_RTOL}); on {card}")
+    if calls or launches != want or by_variant.get("persistent") != want:
+        raise RuntimeError(f"compensated flagship: K1 launches {by_variant}, "
+                           f"want {want} one-CTA; plain sweeps {len(calls)}")
+    if not (torch.isfinite(r.Tc).all() and r.residual == r.residual
+            and rel <= COMPENSATED_RTOL):
+        raise RuntimeError("compensated flagship: Tc not finite or not the "
+                           "plain iteration's")
+    return row
+
+
+def _p3_wide_child(conn, size, card):
+    """Phase 15's process: sends ("ready", set-up) once its solver is
+    built, waits for "go", then sends ("row", row); ("error", text) where
+    either fails."""
+    import traceback
+
+    try:
+        _p3_wide_run(conn, size, card)
+    except Exception as e:  # the parent raises it
+        conn.send(("error", f"{type(e).__name__}: {e}\n"
+                            f"{traceback.format_exc()[-3000:]}"))
+    finally:
+        conn.close()
+
+
+def _p3_wide_run(conn, size, card):
+    import bench_torch
+    from pbte_tpu_torch import problem
+    from pbte_tpu_torch.ops import lattice_ring as lr
+    from pbte_tpu_torch.solver.source_iteration import SourceIterationSolver
+
+    # each stage's host memory (the card machine reports no VmHWM: its
+    # peak is ru_maxrss) and device peak, logged as it ends
+    stage, stages = bench_torch.stage_logger("p3_wide",
+                                             torch.device("cuda"))
+    t0 = time.perf_counter()
+    stage("start")
+    prob = problem.unit_cube(**size)
+    assembly_s = time.perf_counter() - t0
+    stage("assembled")
+    t1 = time.perf_counter()
+    s = SourceIterationSolver(*prob, problem.WALL_BCS, dtype=torch.float64,
+                              device="cuda")
+    torch.cuda.synchronize()
+    solver_s = time.perf_counter() - t1
+    del prob
+    stage("constructed")
+    conn.send(("ready", dict(stages=stages, assembly_s=assembly_s,
+                             solver_s=solver_s)))
+    if conn.recv() != "go":
+        return
+    stage("go")
+    row = time_lattice(s, "p3_wide_f64", card, P3_WIDE_STEPS)
+    stage("steps")
+    # one more step from a non-zero state, each bucket's sweep launched and
+    # then run through the plain version on the same inputs (not counted:
+    # the counts were read above)
+    inner, errs = s.ring_sweep, []
+
+    def compared(v, *args, **kw):
+        ys, ms = inner(v, *args, **kw)
+        ys_p, ms_p = lr.lattice_ring_sweep_ref(v, *args,
+                                               **dict(kw, win=s.win))
+        errs.append(dict(ys_rel=rel_err(ys, ys_p)[0],
+                         ms_rel=rel_err(ms, ms_p)[0]))
+        return ys, ms
+
+    st = s.step(*s.initial_state())[:3]
+    s.ring_sweep = compared
+    try:
+        s.step(*st)
+    finally:
+        s.ring_sweep = inner
+    torch.cuda.synchronize()
+    stage("compared")
+    row.update(nx=size["nx"], order=size["order"], stages=stages,
+               assembly_s=assembly_s, solver_s=solver_s,
+               buckets_n=len(s._ring_buckets), vs_plain=errs,
+               windows=s.win is not None)
+    conn.send(("row", row))
+
+
+def start_p3_wide(card):
+    """Start phase 15's process (its BLAS on P3_WIDE_THREADS threads) and a
+    thread that stops it past bench_torch.P3_WIDE_HOST_LIMIT_GB of host
+    memory; returns (process, connection, the stop record)."""
+    import multiprocessing as mp
+    import threading
+
+    import bench_torch
+
+    ctx = mp.get_context("spawn")
+    conn, child_conn = ctx.Pipe()
+    keys = ("OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS", "MKL_NUM_THREADS")
+    saved = {k: os.environ.get(k) for k in keys}
+    os.environ.update(dict.fromkeys(keys, str(P3_WIDE_THREADS)))
+    try:
+        proc = ctx.Process(target=_p3_wide_child,
+                           args=(child_conn, P3_WIDE, card), daemon=True)
+        proc.start()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    child_conn.close()
+    stopped = []
+
+    def watch():
+        while proc.is_alive():
+            rss = bench_torch.status_gb(proc.pid, "VmRSS")
+            if rss > bench_torch.P3_WIDE_HOST_LIMIT_GB:
+                stopped.append(rss)
+                proc.kill()
+                return
+            time.sleep(0.5)
+
+    threading.Thread(target=watch, daemon=True).start()
+    return proc, conn, stopped
+
+
+def _p3_wide_recv(proc, conn, stopped, timeout, what):
+    import bench_torch
+
+    if not conn.poll(timeout):
+        proc.kill()
+        raise RuntimeError(f"p3_wide: no {what} after {timeout} s")
+    try:
+        kind, payload = conn.recv()
+    except EOFError:
+        proc.join(10)
+        raise RuntimeError(
+            f"p3_wide: its process ended (exit {proc.exitcode}) before its "
+            f"{what}" + (f", stopped at {stopped[0]:.1f} GB of host memory "
+                         f"(limit {bench_torch.P3_WIDE_HOST_LIMIT_GB})"
+                         if stopped else "")) from None
+    if kind == "error":
+        raise RuntimeError(f"p3_wide: {payload}")
+    return payload
+
+
+def phase_p3_wide(proc, conn, stopped, card):
+    """Phase 15 (see the module docstring): waits for the process's
+    set-up, sends it "go" and checks its row. Returns the row."""
+    t0 = time.perf_counter()
+    setup = _p3_wide_recv(proc, conn, stopped, P3_WIDE_SETUP_TIMEOUT,
+                          "set-up")
+    log(f"[smoke] p3_wide set-up (in its process, while the earlier phases "
+        f"ran): assembly {setup['assembly_s']:.1f} s, solver "
+        f"{setup['solver_s']:.1f} s; host memory by stage "
+        + json.dumps(setup["stages"])
+        + f"; waited {time.perf_counter() - t0:.1f} s for it here")
+    conn.send("go")
+    row = _p3_wide_recv(proc, conn, stopped, P3_WIDE_RUN_TIMEOUT, "row")
+    proc.join(60)
+    peak = max(st["maxrss_gb"] for st in row["stages"])
+    want = {"tiled": row["buckets_n"] * (WARMUP_STEPS + P3_WIDE_STEPS)}
+    got = {k: v for k, v in row["k1_launches_by_variant"].items() if v}
+    worst = max(max(e.values()) for e in row["vs_plain"])
+    log(f"[smoke] p3_wide hex {row['nx']}^3 p={row['order']} f64 (ne "
+        f"{row['ne']}, D {row['D']}, W {row['W']}, L {row['L']}): set-up "
+        f"{row['assembly_s'] + row['solver_s']:.1f} s, host peak "
+        f"{peak:.2f} GB, {row['ms_per_step']:.3f} ms/step, "
+        f"{row['dof_per_s']:.4g} DOF/s, device peak "
+        f"{row['max_memory_allocated'] / 1e9:.2f} GB, K1 {got}; one step's "
+        f"sweep against the plain version {json.dumps(row['vs_plain'])} "
+        f"(tolerance {F64_RTOL}); on {card}")
+    if got != want or row["k1_launches_by_state"].get("f64") != want["tiled"]:
+        raise RuntimeError(f"p3_wide: K1 launches {got}, want {want} f64")
+    if len(row["vs_plain"]) != row["buckets_n"] or not worst <= F64_RTOL:
+        raise RuntimeError("p3_wide: a sweep disagrees with the plain "
+                           "version")
+    if proc.exitcode != 0:
+        raise RuntimeError(f"p3_wide: its process exited {proc.exitcode}")
+    return row
+
+
 def build_flagship(SourceIterationSolver, problem, name, **kw):
     t0 = time.perf_counter()
     solver = SourceIterationSolver(*problem, device="cuda", **kw)
@@ -2521,6 +2778,8 @@ def main() -> int:
         f"count {torch.cuda.device_count()}")
     card = bench_dma.card_name_power()
     log(f"[smoke] nvidia-smi: {card}")
+    # phase 15's host set-up runs in a process of its own from here on
+    p3w = start_p3_wide(card)
 
     mark("phase 2 (the builds)")
     t0 = time.perf_counter()
@@ -2568,6 +2827,7 @@ def main() -> int:
 
     mark("phase 5 (the flagship)")
     launches, flag = phase_flagship(solver, lr, setup_s, "flagship")
+    comp = phase_compensated(solver, lr, card)
     del solver
     torch.cuda.empty_cache()
 
@@ -2677,6 +2937,8 @@ def main() -> int:
     sharded = phase_sharded(card, dict(SHARD_CONFIG, flagship=FLAGSHIP),
                             refs)
     del refs
+    mark("phase 15 (hex 28^3 p=3 f64)")
+    p3_wide = phase_p3_wide(*p3w, card)
 
     mark("the kernels line")
     jax_mods = sorted(m for m in sys.modules
@@ -2735,7 +2997,12 @@ def main() -> int:
         f"two ranks: "
         + ", ".join(f"{k} {max(r['ms_per_step']):.3f} ms/step"
                     for k, r in sharded["f"].items())
-        + f"; on {card}")
+        + f"; compensated flagship {comp['iterations']} step applications,"
+        f" Tc rel {comp['vs_plain_rel']:.3e} of the plain iteration's; "
+        f"hex 28^3 p=3 f64 {p3_wide['ms_per_step']:.3f} ms/step after "
+        f"{p3_wide['assembly_s'] + p3_wide['solver_s']:.1f} s of set-up, "
+        f"host peak {max(st['maxrss_gb'] for st in p3_wide['stages']):.2f} GB"
+        f"; on {card}")
 
     def k1_entry(name, state, n, shape=None,
                  source="pbte_tpu_torch/csrc/lattice_ring.cu"):
@@ -2767,9 +3034,9 @@ def main() -> int:
             "library_ms": None,
         }
 
-    def tiled_entry(name, state, row):
+    def tiled_entry(name, state, row, extra=0):
         return k1_entry(name, state,
-                        new[row]["k1_launches_by_variant"]["tiled"],
+                        new[row]["k1_launches_by_variant"]["tiled"] + extra,
                         shape="wide 24^3 p=2",
                         source="pbte_tpu_torch/csrc/lattice_ring_tiled.cu")
 
@@ -2788,6 +3055,7 @@ def main() -> int:
     log(f"[smoke] done in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": [
         k1_entry("lattice_ring_sweep", "f32", launches + film_launches
+                 + comp["k1_launches"]
                  + cli_rows["f32"]["k1_launches_by_state"]["f32"]
                  + sum(sharded["a"]["launches"])),
         k1_entry("lattice_ring_sweep_bf16", "bf16", bf16_launches),
@@ -2798,7 +3066,8 @@ def main() -> int:
                  shape="quad 64^2 p=2"),
         tiled_entry("lattice_ring_sweep_tiled", "f32", "wide_f32"),
         tiled_entry("lattice_ring_sweep_tiled_bf16", "bf16", "wide_bf16"),
-        tiled_entry("lattice_ring_sweep_tiled_f64", "f64", "wide_f64"),
+        tiled_entry("lattice_ring_sweep_tiled_f64", "f64", "wide_f64",
+                    p3_wide["k1_launches_by_variant"]["tiled"]),
         {
             "name": "dma_auto_copy",
             "route": "cuda",

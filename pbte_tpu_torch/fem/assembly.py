@@ -496,8 +496,40 @@ def _assemble_mixed(
     )
 
 
+# element_classes and class_coupling pass over the elements (or the class
+# representatives) in chunks of this many rows: no temporary is larger than
+# a chunk of the largest per-element part (0.2 GB of face_mass at p = 3)
+CLASS_CHUNK = 1024
+
+
+def _chunks(n, chunk):
+    return (slice(i, min(i + chunk, n)) for i in range(0, n, chunk))
+
+
+def _class_parts(ops):
+    """The per-element tensors element_classes compares, each with whether
+    its axis 1 is the local-face axis."""
+    return [(ops.mass, False), (ops.stiff, False), (ops.face_mass, True),
+            (ops.face_int, True), (ops.basis_int, False),
+            (ops.normals, True)]
+
+
+def _part_rows(part, rows, perm):
+    """``rows`` (a slice or an index array) of a part, faces re-ordered by
+    the face permutation ``perm`` (ne, nf) where given, flattened to (n,
+    cols)."""
+    arr, faces = part
+    a = arr[rows]
+    if faces and perm is not None:
+        idx = perm[rows]
+        a = np.take_along_axis(a, idx.reshape(idx.shape + (1,) * (a.ndim - 2)),
+                               axis=1)
+    return a.reshape(len(a), -1)
+
+
 def element_classes(
-    ops: ElementOps, grain: float = 1e-11, merge: bool = True
+    ops: ElementOps, grain: float = 1e-11, merge: bool = True,
+    perm: np.ndarray | None = None,
 ) -> np.ndarray:
     """Geometry-class index per element: elements whose volume/face operator
     tensors and outward normals agree (to relative `grain`) share a class.
@@ -511,23 +543,21 @@ def element_classes(
     from the signature (the solver masks inflow with cin=0 on boundary faces,
     so class coupling entries there are never read).
 
+    ``perm`` (ne, nf): the classes of ``permute_faces(ops, perm)``, without
+    that copy. The elements pass in chunks of ``CLASS_CHUNK`` rows; the
+    result does not depend on it.
+
     Returns class_of_elem (ne,) int64; classes are numbered by first
     occurrence. Correctness does not depend on tight classing — an
     over-split classing only costs performance, and callers fall back to
     per-element operators when the count is large.
     """
     ne = ops.num_elements
-    parts = [
-        ops.mass.reshape(ne, -1),
-        ops.stiff.reshape(ne, -1),
-        ops.face_mass.reshape(ne, -1),
-        ops.face_int.reshape(ne, -1),
-        ops.basis_int.reshape(ne, -1),
-        ops.normals.reshape(ne, -1),
-    ]
+    chunk = CLASS_CHUNK
+    parts = _class_parts(ops)
     # exact row dedup via two independent wrap-around polynomial hashes,
-    # accumulated part-by-part (NO (ne, ~6000) concatenation: that is a 5GB
-    # temp at ne=1e5 and dominated setup time).
+    # accumulated part by part and chunk by chunk (no (ne, ~6000)
+    # concatenation, and no part-sized temporary).
     # Each part quantizes against its OWN scale: normals are O(1) while mass
     # entries are O(volume) ~ 1e-22 after micron scaling — one global scale
     # made every volume-dependent operator invisible to the hash and falsely
@@ -536,14 +566,22 @@ def element_classes(
     rng = np.random.default_rng(0x5EED)
     h1 = np.zeros(ne, dtype=np.int64)
     h2 = np.zeros(ne, dtype=np.int64)
+    scales = []
     with np.errstate(over="ignore"):
-        for p in parts:
-            scale = max(float(np.abs(p).max()), 1e-300)
-            q = np.rint(p * (1.0 / (scale * grain))).astype(np.int64)
-            r1 = rng.integers(1, 2**62, size=q.shape[1], dtype=np.int64) | 1
-            r2 = rng.integers(1, 2**62, size=q.shape[1], dtype=np.int64) | 1
-            h1 += q @ r1
-            h2 += q @ r2
+        for part in parts:
+            arr = part[0]
+            scale = max(max((float(np.abs(arr[sl]).max())
+                             for sl in _chunks(ne, chunk)), default=0.0),
+                        1e-300)
+            scales.append(scale)
+            cols = arr[:1].size
+            r1 = rng.integers(1, 2**62, size=cols, dtype=np.int64) | 1
+            r2 = rng.integers(1, 2**62, size=cols, dtype=np.int64) | 1
+            for sl in _chunks(ne, chunk):
+                q = np.rint(_part_rows(part, sl, perm)
+                            * (1.0 / (scale * grain))).astype(np.int64)
+                h1[sl] += q @ r1
+                h2[sl] += q @ r2
     hh = np.empty((ne, 2), dtype=np.int64)
     hh[:, 0], hh[:, 1] = h1, h2
     key = hh.view([("a", np.int64), ("b", np.int64)]).ravel()
@@ -560,10 +598,11 @@ def element_classes(
         return cls
     first_elem = np.empty(len(first_idx), dtype=np.int64)
     first_elem[rank] = first_idx
-    return _merge_noise_classes(parts, cls, first_elem)
+    return _merge_noise_classes(parts, scales, perm, cls, first_elem, chunk)
 
 
-def _merge_noise_classes(parts, cls, first_elem, merge_rel: float = 1e-9):
+def _merge_noise_classes(parts, scales, perm, cls, first_elem, chunk,
+                         merge_rel: float = 1e-9):
     """Merge classes whose representatives agree to `merge_rel` relative.
 
     The fine 1e-11 hash grain over-splits when assembly noise straddles a
@@ -573,35 +612,39 @@ def _merge_noise_classes(parts, cls, first_elem, merge_rel: float = 1e-9):
     ring sweep (ncls gate) and exploding the class-factor build. Unlike
     coarsening the hash grain (which risks silently merging genuinely
     different elements), this pass COMPARES representative rows directly:
-    candidate groups come from a coarse two-offset hash over the (few)
+    candidate groups come from a coarse two-offset hash over the
     representatives, and every member is then VERIFIED against its group's
     first representative — violators stay separate. Residual over-splits
     (noise straddling both coarse grids in some column) are possible but
-    rare, and over-splitting is a performance concern only."""
+    rare, and over-splitting is a performance concern only.
+
+    The representatives' rows (each part over its scale ``scales``, faces
+    re-ordered by ``perm`` where given) are read chunk by chunk, never held
+    whole, so the pass takes any number of fine classes: the split grows
+    with the lattice (355 classes at 8^3, 2793 at 16^3, 9906 of hex 28^3
+    p=3's 21,952 elements), and pbte_tpu's cap of 8192 classes, set for the
+    memory of the whole (classes, columns) matrix, left that lattice with
+    9906 classes (and so on the scan) instead of one."""
     ncls = len(first_elem)
-    # the (ncls, cols) representative matrix is the cost of this pass —
-    # ~1GB at 8192 reps of a p=3 hex (the host has >100GB); genuinely
-    # unstructured meshes beyond that fall back to per-element operators
-    # in every caller anyway. The fine split GROWS with ne (every noise
-    # straddle is a new key: 355 classes at 8^3, 2793 at 16^3 p=3), so a
-    # low cap would defeat the merge exactly at production scale.
-    if ncls <= 1 or ncls > 8192:
+    if ncls <= 1:
         return cls
+
+    def rows(i, idx):
+        return _part_rows(parts[i], idx, perm) * (1.0 / scales[i])
+
     rng = np.random.default_rng(0xC0A15E)
     h1 = np.zeros(ncls, dtype=np.int64)
     h2 = np.zeros(ncls, dtype=np.int64)
-    rep_rows = []
     with np.errstate(over="ignore"):
-        for p in parts:
-            scale = max(float(np.abs(p).max()), 1e-300)
-            pr = p[first_elem] * (1.0 / scale)  # (ncls, cols) normalized
-            rep_rows.append(pr)
-            q1 = np.rint(pr / merge_rel).astype(np.int64)
-            q2 = np.rint(pr / merge_rel + 0.49).astype(np.int64)
-            r1 = rng.integers(1, 2**62, size=pr.shape[1], dtype=np.int64) | 1
-            h1 += q1 @ r1
-            h2 += q2 @ r1
-    R = np.concatenate(rep_rows, axis=1)  # (ncls, total cols), normalized
+        for i, part in enumerate(parts):
+            r1 = rng.integers(1, 2**62, size=part[0][:1].size,
+                              dtype=np.int64) | 1
+            for sl in _chunks(ncls, chunk):
+                pr = rows(i, first_elem[sl])  # (n, cols) normalized
+                q1 = np.rint(pr / merge_rel).astype(np.int64)
+                q2 = np.rint(pr / merge_rel + 0.49).astype(np.int64)
+                h1[sl] += q1 @ r1
+                h2[sl] += q2 @ r1
     parent = np.arange(ncls)
     for h in (h1, h2):
         order = np.argsort(h, kind="stable")
@@ -612,8 +655,16 @@ def _merge_noise_classes(parts, cls, first_elem, merge_rel: float = 1e-9):
                 continue
             grp = order[s:e]
             base = grp[0]
-            ok = np.abs(R[grp] - R[base]).max(axis=1) <= merge_rel
-            for g in grp[ok]:
+            # each member's largest deviation from the group's first
+            # representative, over every part
+            dev = np.zeros(len(grp))
+            for i in range(len(parts)):
+                ref_row = rows(i, first_elem[base:base + 1])
+                for sl in _chunks(len(grp), chunk):
+                    np.maximum(dev[sl], np.abs(
+                        rows(i, first_elem[grp[sl]]) - ref_row).max(axis=1),
+                        out=dev[sl])
+            for g in grp[dev <= merge_rel]:
                 parent[g] = min(parent[g], parent[base])
     # resolve one level (parents point at smaller ids whose parents are
     # themselves resolved in index order)
@@ -673,22 +724,25 @@ def permute_faces(ops: ElementOps, perm: np.ndarray) -> ElementOps:
 def class_coupling(ops: ElementOps, cls: np.ndarray) -> np.ndarray | None:
     """Per-class neighbor coupling (ncls, nf, D, D), or None if elements of
     one class disagree on any interior face (then coupling must stay
-    per-element). Boundary faces contribute nothing (solver masks them)."""
+    per-element). Boundary faces contribute nothing (solver masks them).
+    Each face's members are compared in chunks of ``CLASS_CHUNK`` rows; the
+    result does not depend on it."""
     ncls = int(cls.max()) + 1
     nf, D = ops.faces_per_elem, ops.ndof
+    chunk = CLASS_CHUNK
     out = np.zeros((ncls, nf, D, D))
-    have = np.zeros((ncls, nf), dtype=bool)
     interior = ops.neighbor >= 0  # (ne, nf)
     for c in range(ncls):
         sel = cls == c
         for f in range(nf):
-            rows = ops.coupling[sel & interior[:, f], f]  # (n_cf, D, D)
-            if len(rows) == 0:
+            idx = np.flatnonzero(sel & interior[:, f])
+            if len(idx) == 0:
                 continue
-            ref_row = rows[0]
+            ref_row = ops.coupling[idx[0], f]
             scale = max(np.abs(ref_row).max(), 1e-300)
-            if np.abs(rows - ref_row).max() > 1e-10 * scale:
-                return None
+            for sl in _chunks(len(idx), chunk):
+                if (np.abs(ops.coupling[idx[sl], f] - ref_row).max()
+                        > 1e-10 * scale):
+                    return None
             out[c, f] = ref_row
-            have[c, f] = True
     return out

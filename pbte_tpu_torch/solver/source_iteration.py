@@ -80,7 +80,9 @@ float64).
 
 ``solve(accelerate="bicgstab")`` solves the same fixed point by BiCGStab
 over the affine step (``solver/accel.py``), in far fewer steps with
-float64 state.
+float64 state; ``solve(accelerate="compensated")`` iterates it with the
+state carried as a compensated sum of two trees (``accel.
+compensated_outer``).
 
 Dir and band sharding (pbte_tpu's ``dir_sharding``, there a
 ``NamedSharding`` of the Km slot axis and optionally the band axis, which
@@ -155,8 +157,6 @@ from pbte_tpu_torch.sweep import planner
 # the reflective-wall consts, global (the gather crosses buckets)
 REFL_KEYS = ("dif_fint", "dif_cin", "dif_wplus", "dif_norm", "dif_fvec",
              "spc_cin", "spc_gk", "spc_fmv")
-_COMPENSATED = ('ROADMAP.md "Not to port": accel.compensated_outer reaches '
-                'the same floor as the plain float32 iteration')
 # windows are rounded out to the kernel's m-tiles of this many slots, and
 # taken when they keep under this share of the slab (pbte_tpu's gate)
 WINDOW_TILE = 16
@@ -289,15 +289,15 @@ class SourceIterationSolver:
         # of translation-invariant meshes (hex 6 -> 1). Gated to ne >= 512
         # and the ring-capable modes exactly as pbte_tpu is, so small
         # meshes and the scan mode keep their face order (and classes).
+        # The canonical order is classified before it is copied (the copy
+        # of the face tensors is made only where it wins).
         cls = None
         if sweep_mode in ("auto", "ring") and ne >= 512:
             cls0 = assembly.element_classes(ops, merge=False)
-            ops_c = assembly.permute_faces(
-                ops, assembly.canonical_face_perm(ops)
-            )
-            cls1 = assembly.element_classes(ops_c)
+            face_perm = assembly.canonical_face_perm(ops)
+            cls1 = assembly.element_classes(ops, perm=face_perm)
             if cls1.max() < cls0.max():
-                ops, cls = ops_c, cls1
+                ops, cls = assembly.permute_faces(ops, face_perm), cls1
             else:
                 cls = assembly.element_classes(ops)
 
@@ -899,8 +899,12 @@ class SourceIterationSolver:
         (``accel.bicgstab_outer``; float32 or float64 state, float64 for
         deep tolerances): ``tol`` is then the linear relative residual, the
         result carries the Tv residual of a final plain step, and
-        ``iterations`` counts step applications. ``None`` or ``"none"`` is
-        the plain loop.
+        ``iterations`` counts step applications. ``"compensated"`` runs the
+        plain fixed point with the state carried as the unevaluated sum of
+        two trees (``accel.compensated_outer``): two step applications an
+        iteration, ``iterations`` counting them, the residual read every
+        ``check_every`` iterations; bfloat16 state raises ValueError.
+        ``None`` or ``"none"`` is the plain loop.
 
         ``checkpoint_path`` writes a resumable ``.npz`` every
         ``checkpoint_every`` iterations (``io.checkpoint``, pbte_tpu's
@@ -913,8 +917,8 @@ class SourceIterationSolver:
             raise ValueError(f"unknown polish_precision={polish_precision!r}"
                              f"; one of {POLISH_PRECISIONS}")
         if accelerate == "compensated":
-            raise NotImplementedError(
-                f"solve(accelerate='compensated'): {_COMPENSATED}")
+            return self._solve_compensated(tol, max_iter, state, verbose,
+                                           callback, check_every)
         if accelerate == "bicgstab":
             return self._solve_bicgstab(tol, max_iter, state, verbose,
                                         callback, check_every,
@@ -993,6 +997,23 @@ class SourceIterationSolver:
         )
         return SolveResult(u=u_f, Tc=Tc_f, Tv=Tv_f, residual=tv_res,
                            iterations=nmv, solver=self)
+
+    def _solve_compensated(self, tol, max_iter, state, verbose, callback,
+                           check_every):
+        """The plain fixed point with the state carried as a compensated
+        sum (accel.compensated_outer), two step applications an iteration;
+        ``iterations`` counts step applications."""
+        from pbte_tpu_torch.solver import accel
+
+        if self.state_bf16:
+            raise ValueError(
+                "accelerate='compensated' needs exact-dtype state; unset "
+                "PBTE_RING_STATE_BF16")
+        u_f, Tc_f, Tv_f, tv_res, nst = accel.compensated_outer(
+            self.step, self.initial_state(), state, tol, max_iter,
+            verbose=verbose, callback=callback, check_every=check_every)
+        return SolveResult(u=u_f, Tc=Tc_f, Tv=Tv_f, residual=tv_res,
+                           iterations=nst, solver=self)
 
     def _grid_dot(self, x, y):
         """<x, y> over the dir-sharded (u, Tc) tree: the state's shards

@@ -489,17 +489,147 @@ def test_refined_solve_matches_jax(inner, refine_problem, _flush_denormals):
     assert ot["correction_relres"] < opts["inner_tol"]
 
 
+# ---- the compensated iteration ---------------------------------------------
+
+# (map keywords, tol, max_iter, check_every, warm start): stopped below tol
+# at a read, run to the cap with a read there, warm-started
+COMPENSATED_CASES = {
+    "converge": (dict(seed=1), 1e-9, 400, 3, False),
+    "cap": (dict(seed=3), 0.0, 7, 2, False),
+    "warm": (dict(seed=1), 1e-9, 400, 5, True),
+}
+
+
+@pytest.mark.parametrize("case", list(COMPENSATED_CASES))
+def test_compensated_outer_follows_jax(case):
+    """compensated_outer through both packages on the synthetic map: the
+    same reads (iteration, residual), value part, Tv, final residual and
+    step applications. Each TwoSum is exact, so the two agree to the
+    rounding of the numpy step they share (measured: equal)."""
+    kw, tol, max_iter, check_every, warm = COMPENSATED_CASES[case]
+    fmap = _affine_map(**kw)
+    seen_j, seen_t = [], []
+    state_j = state_t = None
+    if warm:
+        u, Tc = _warm_state(fmap)
+        state_j = (tuple(jnp.asarray(x) for x in u), jnp.asarray(Tc), None)
+        state_t = (tuple(torch.from_numpy(x.copy()) for x in u),
+                   torch.from_numpy(Tc.copy()), None)
+    rj = jaccel.compensated_outer(
+        _jax_step(fmap), _jax_zero(), state_j, tol, max_iter, verbose=False,
+        callback=lambda n, r: seen_j.append((n, r)), check_every=check_every)
+    rt = accel.compensated_outer(
+        _torch_step(fmap), _torch_zero(), state_t, tol, max_iter,
+        verbose=False, callback=lambda n, r: seen_t.append((n, r)),
+        check_every=check_every)
+    assert [n for n, _ in seen_t] == [n for n, _ in seen_j]
+    for got, want in zip(seen_t, seen_j):
+        assert abs(got[1] - want[1]) <= SYN_RTOL * want[1]
+    assert rt[4] == rj[4] == 1 + 2 * seen_t[-1][0]
+    _assert_rel(_flat(rt[:2]), _flat(rj[:2]), SYN_RTOL, "x")
+    _assert_rel(rt[2].numpy(), rj[2], SYN_RTOL, "Tv")
+    assert abs(rt[3] - rj[3]) <= SYN_RTOL * rj[3]
+    if case == "cap":
+        assert [n for n, _ in seen_t] == [2, 4, 6, 7]
+    else:
+        assert seen_t[-1][1] < tol <= seen_t[-2][1]
+
+
+def test_two_sum_is_exact():
+    """two_sum's pair holds a + b exactly: s is the rounded sum, and e what
+    the rounding dropped (checked in float64 against exact rationals)."""
+    from fractions import Fraction
+
+    rng = np.random.default_rng(11)
+    a = torch.from_numpy(rng.standard_normal(64) * 10.0 ** rng.integers(
+        -8, 8, 64))
+    b = torch.from_numpy(rng.standard_normal(64) * 10.0 ** rng.integers(
+        -8, 8, 64))
+    (s,), (e,) = accel.two_sum((a,), (b,))
+    assert torch.equal(s, a + b)
+    for x, y, ss, ee in zip(a.tolist(), b.tolist(), s.tolist(), e.tolist()):
+        assert Fraction(ss) + Fraction(ee) == Fraction(x) + Fraction(y)
+
+
+@pytest.mark.parametrize("walls", list(WALLS))
+def test_solve_compensated_matches_jax(walls):
+    """solve(accelerate="compensated") in float64: the port's plain sweep
+    against pbte_tpu's XLA ring (its compensated_outer over _step_plain),
+    10 iterations with the residual read every 4: Tc, Tv and the state
+    within 1e-12 of max, the residual, and the same step applications
+    (21)."""
+    js, ts = _solvers(walls)
+    opts = dict(tol=0, max_iter=10, verbose=False, check_every=4,
+                accelerate="compensated")
+    rj, rt = js.solve(**opts), ts.solve(**opts)
+    assert rt.iterations == rj.iterations == 21
+    tol = 1e-12
+    for got, want in ((rt.Tc.numpy(), np.asarray(rj.Tc)),
+                      (rt.Tv.numpy(), np.asarray(rj.Tv)),
+                      (ts._ring_u_standard(rt.u),
+                       js._ring_u_standard(rj.u))):
+        np.testing.assert_allclose(got, want, rtol=0,
+                                   atol=tol * np.abs(want).max())
+    np.testing.assert_allclose(rt.residual, rj.residual, rtol=1e-8)
+
+
+# tests/test_accel.py's walls and problem (hex n^3 p=1 at a micron, 2 x 4
+# directions, 2 x 2 bands)
+BCS3 = {a: (0.5 if a == 6 else -0.5) for a in range(1, 7)}
+
+
+def _port_problem(nx):
+    return unit_cube(nx, nx, nx, order=1, polar=2, azimuth=4, nspec=2)
+
+
+def test_compensated_matches_plain_fixed_point_f64():
+    """pbte_tpu's property (tests/test_accel.py:181) on the port: in float64
+    the compensated solve reaches the plain fixed point (1e-9 of max)."""
+    s = SourceIterationSolver(*_port_problem(4), BCS3, dtype=torch.float64,
+                              device="cpu", sweep_mode="ring",
+                              supercell="off")
+    opts = dict(tol=1e-11, max_iter=2000, verbose=False, check_every=10)
+    r_plain = s.solve(**opts)
+    r_comp = s.solve(accelerate="compensated", **opts)
+    assert r_comp.residual < 1e-10
+    Tp = r_plain.Tc.numpy()
+    np.testing.assert_allclose(r_comp.Tc.numpy(), Tp, rtol=0,
+                               atol=1e-9 * np.abs(Tp).max())
+
+
+def test_compensated_f32_floor_equals_plain_floor():
+    """pbte_tpu's refutation (tests/test_accel.py:197) on the port: in
+    float32 (exact products) the compensated state reaches the plain
+    iteration's floor against the float64 fixed point, within 20%. The
+    float64 point is BiCGStab's to 1e-12 (1.0e-10 of max from the plain
+    solve's, 191 steps against 1,400) and the float32 solves stop at 1,200
+    iterations, where both sit on the floor already: measured 1.912e-6 at
+    1,200 and at pbte_tpu's 3,000 (2.37e-6 at 800), the two equal."""
+    prob = _port_problem(6)
+    kw = dict(device="cpu", sweep_mode="ring", supercell="off")
+    s64 = SourceIterationSolver(*prob, BCS3, dtype=torch.float64, **kw)
+    truth = s64.solve(tol=1e-12, max_iter=4000, verbose=False, check_every=2,
+                      accelerate="bicgstab").Tc.numpy()
+    s32 = SourceIterationSolver(*prob, BCS3, dtype=torch.float32, **kw)
+    opts = dict(tol=0, max_iter=1200, verbose=False, check_every=100)
+    r_plain = s32.solve(**opts)
+    r_comp = s32.solve(accelerate="compensated", **opts)
+    scale = np.linalg.norm(truth)
+    b_plain = np.linalg.norm(r_plain.Tc.double().numpy() - truth) / scale
+    b_comp = np.linalg.norm(r_comp.Tc.double().numpy() - truth) / scale
+    assert b_plain < 5e-6 and b_comp < 5e-6, (b_comp, b_plain)
+    assert abs(b_comp - b_plain) < 0.2 * b_plain, (b_comp, b_plain)
+
+
 # ---- refusals ---------------------------------------------------------------
 
 def test_accelerate_refusals(monkeypatch, tmp_path):
-    """bf16 state with bicgstab, "compensated" (not ported), an unknown
-    value and float64 with PBTE_RING_STATE_BF16=1 are refused; a
+    """bf16 state with bicgstab or "compensated" (as pbte_tpu refuses it),
+    an unknown value and float64 with PBTE_RING_STATE_BF16=1 are refused; a
     checkpoint with or without acceleration is written."""
     prob = unit_cube(**SIZE)
     ts = SourceIterationSolver(*prob, WALL_BCS, dtype=torch.float64,
                                device="cpu")
-    with pytest.raises(NotImplementedError, match="Not to port"):
-        ts.solve(max_iter=3, verbose=False, accelerate="compensated")
     with pytest.raises(ValueError, match="unknown accelerate"):
         ts.solve(max_iter=3, verbose=False, accelerate="gmres")
     for acc in (None, "bicgstab"):  # checkpoints are taken (item 9)
@@ -515,8 +645,9 @@ def test_accelerate_refusals(monkeypatch, tmp_path):
                               device="cpu")
     tb = SourceIterationSolver(*prob, WALL_BCS, device="cpu")
     assert tb.state_bf16
-    with pytest.raises(ValueError, match="exact-dtype"):
-        tb.solve(max_iter=6, verbose=False, accelerate="bicgstab")
+    for acc in ("bicgstab", "compensated"):
+        with pytest.raises(ValueError, match="exact-dtype"):
+            tb.solve(max_iter=6, verbose=False, accelerate=acc)
 
 
 # ---- the accelerated golden -------------------------------------------------

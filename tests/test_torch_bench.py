@@ -7,6 +7,7 @@ GPU."""
 import json
 import os
 import pathlib
+import re
 import subprocess
 import sys
 
@@ -113,6 +114,17 @@ def test_p3_wide_row(cpu_result):
     assert row["dof_per_s"] > 0 and row["setup_s"] > 0
     assert row["host_peak_rss_gb"] > 0
     assert "k1_share_of_bound" not in row  # a device number: GPU only
+    # the host memory at each stage the child reached (shares: GPU only)
+    stages = row["stages"]
+    assert [st["stage"] for st in stages] == [
+        "start", "assembled", "constructed", "initial state", "first step",
+        "warm-up", "timed", "done"]
+    for st in stages:
+        assert 0 < st["rss_gb"] <= st["hwm_gb"] and st["maxrss_gb"] > 0
+        assert "device_peak_gb" not in st
+    assert [st["s"] for st in stages] == sorted(st["s"] for st in stages)
+    assert stages[2]["sweep_mode"] == "ring" and stages[2]["k1"]
+    assert max(st["maxrss_gb"] for st in stages) <= row["host_peak_rss_gb"]
 
 
 def test_wide_and_graded_rows(cpu_result):
@@ -301,8 +313,10 @@ def test_p3_wide_child_stopped_past_its_host_memory(monkeypatch):
     assert "past the 0.02 GB allowed" in row["error"], row
     assert row["exit"] != 0 and row["host_peak_gb"] > 0.02
     assert row["size"]["nx"] == 14
-    assert row["last_stage"] is None or "p3_wide_f64 stage" in \
-        row["last_stage"]
+    last = row["last_stage"]
+    assert last is None or re.search(
+        r"p3_wide_f64 stage [a-z -]+ at [0-9.]+ s, host [0-9.]+ GB, peak "
+        r"[0-9.]+ GB \(ru_maxrss [0-9.]+ GB\)", last), last
 
 
 # (reads every 2 matvecs, cadence) -> where pbte_tpu's guard stops: a
