@@ -32,8 +32,8 @@ Phases (a failing phase raises and the script exits non-zero):
    the flagship's hull windows (the solver's default), the random inputs
    zeroed outside the windows as the windows' contract asks: the windowed
    kernel is held to the windowed plain version at the same tolerances and
-   to the full-slab kernel on the same inputs (ys bit for bit, ms to 1e-6
-   of max: its atomics add in another order), timed in turns with it, and
+   to the full-slab kernel on the same inputs (ys and ms bit for bit: the
+   band sum of ms runs in band order), timed in turns with it, and
    both bounds are printed (full slab; in-window slots only); the
    wrapper's shared-memory sizes against the library's, in all three types.
    Then the same kernel-vs-plain cases (each state type, full slab and
@@ -48,7 +48,8 @@ Phases (a failing phase raises and the script exits non-zero):
    (``BEYOND_CEILING``: D = 64 at W = 784 f64, 1600 f32 and 3600 bf16,
    D = 8 at W = 4225 f32, each in its state type, with bench_k1's
    synthetic operands at a small L, Gb, Km and BS, full slab and with
-   windows that grow and shrink across tile boundaries);
+   windows that grow and shrink across tile boundaries); every case
+   launches the kernel twice more on its inputs (phase 16 (a));
 4. the copy probe (python -m pbte_tpu_torch.bench_dma): every K2 and K3
    configuration held bit-exact (torch.equal) to its input at small and
    ragged totals (one vector, a block less 16 bytes, a block plus 16 bytes,
@@ -83,7 +84,8 @@ Phases (a failing phase raises and the script exits non-zero):
    set-up, 2 + 30 timed steps and 3 steps kernel vs plain as phase 5; then
    solve(accelerate="bicgstab", tol=1e-8) with its K1 launches (2 per step
    application: nothing fell back to the plain version), wall time, linear
-   relres, Tv residual and peak memory; the plain f64 solve to the same Tv
+   relres, Tv residual and peak memory, and the same solve once more from
+   the zero state (phase 16 (b)); the plain f64 solve to the same Tv
    residual, its steps, seconds and Tc against the accelerated one; and
    refined_solve with the f32 flagship solver as the base and the f64
    solver's step as the defect step: the defect before and after one round,
@@ -207,7 +209,33 @@ Phases (a failing phase raises and the script exits non-zero):
    two buckets a step; a count of calls of K1's plain version must stay
    0; Tc finite of shape (ne, D), the residual falling), then holds one
    more step's sweep of every bucket against ``lattice_ring_sweep_ref`` on
-   the same device and inputs (phase 3's F64_RTOL of max, ys and ms).
+   the same device and inputs (phase 3's F64_RTOL of max, ys and ms);
+16. reproducibility (its checks run inside the phases that build the
+   solvers; this phase sums them up and fails where one failed): (a) every
+   K1 case of phase 3 (the flagship's buckets, p=3 16^3, the p=3 golden's
+   lattice, wide, quad D=9, the shapes past the old ceiling; f32, bf16,
+   f64; full slab and windowed) launched REPEAT_LAUNCHES times on the same
+   inputs, ys and ms torch.equal to the first launch's; (b) phase 8's f64
+   BiCGStab solve run twice from the zero state: the same step
+   applications, the same relres at every read (==), Tc bit-equal; (c)
+   REPRO_STEPS steps from the zero state twice, Tc and the residuals
+   bit-equal, on every path with a scatter or a K1 launch: the flagship
+   (f32, diffuse walls, bf16 state, f64), the closures golden's hex 8^3
+   (periodic, diffuse and specular walls), the scan golden's tets and the
+   legacy tet cut to REPRO_TET's bands with diffuse walls (the scan), the
+   supercell ring, phase 11's lattices (K1's tiled kernel in three types,
+   the quad D=9, the graded multi-class ring), the general ring at -r
+   REPRO_GENERAL_REFINE and on the 12^3 tets with diffuse walls (and their
+   scan), and on phase 14's gloo ranks the slab 2 x 2 at the flagship and
+   the spatial solver with diffuse and specular walls; (d) each of (c)'s
+   paths once more under torch.use_deterministic_algorithms(True,
+   warn_only=True) (the process's setting restored after): a warning that
+   names an operation without a deterministic form fails the phase, and
+   so does a non-finite Tc (the audit fills new tensors with NaN, so a read
+   of unwritten memory, such as a slot of ms K1 left unwritten, shows);
+   torch's note that a cuBLAS product wants CUBLAS_WORKSPACE_CONFIG is
+   recorded apart (cuBLAS gives the same bits on one stream, and the
+   repeated runs hold the products to that).
 
 The line before the last is the card's name and power limit, the one before
 it {"kernels": [...]}, the last line {"ok": true, "device": {...}}.
@@ -229,15 +257,17 @@ import torch
 WARMUP_STEPS = 2
 TIMED_STEPS = 30
 TIMED_LAUNCHES = 10
-# windowed vs full-slab kernel on the same inputs: ys is bit-equal; ms sums
-# the same band terms by atomics in another order
-WIN_MS_RTOL = 1e-6
+# phase 16: K1 launches a case on the same inputs (each held bit for bit to
+# the first), and the steps from the zero state a path runs twice (Tc and
+# the residuals bit for bit) and once more under the determinism audit
+REPEAT_LAUNCHES = 2
+REPRO_STEPS = 3
 DMA_TOTAL_MB = 512
 DMA_REPS = 20
 XSRC_ROWS = 1024  # closure rows of the random K1 closure source
 # kernel vs plain on the same card: f32 sums in another order (FMA chains
-# in the kernel, cuBLAS in the plain version; ms also by atomics in run-to-
-# run order), so errors are stated relative to the largest value
+# in the kernel, cuBLAS in the plain version; ms by the band chain in band
+# order), so errors are stated relative to the largest value
 F32_RTOL = 1e-5
 # bf16 state: the ring and the state are rounded to bf16 every level, so a
 # sum that lands on the other side of a rounding boundary moves one ulp and
@@ -245,8 +275,7 @@ F32_RTOL = 1e-5
 BF16_ULPS = 2
 BF16_MS_RTOL = 1e-3
 GOLDEN_RTOL = 2e-5
-# f64 state, kernel vs plain: both sum in float64 in another order (and ms
-# by atomics in run-to-run order)
+# f64 state, kernel vs plain: both sum in float64 in another order
 F64_RTOL = 1e-12
 # the f64 BiCGStab golden: pbte_tpu's XLA ring and the kernel sum in another
 # order, and the recurrence carries that on (1e-14 between pbte_tpu and the
@@ -254,10 +283,11 @@ F64_RTOL = 1e-12
 ACCEL_GOLDEN_RTOL = 1e-9
 ACCEL_TOL = 1e-8  # linear relative residual of the f64 flagship solve
 ACCEL_MAX_ITER = 1500
-# the residual is read every 10 BiCGStab iterations. At the flagship the
-# f64 relres can plateau near 1e-3 for 40 to over 120 step applications,
-# by the order of the ms atomics (measured on an H100): the guard restarts
-# the recurrence there (accel.stall_action), where pbte_tpu's stopped it
+# the residual is read every 20 BiCGStab iterations. At the flagship the
+# f64 relres can plateau near 1e-3 for 40 to over 120 step applications
+# (measured on an H100 while K1 summed ms by atomics, whose order moved the
+# plateaus from run to run): the guard restarts the recurrence there
+# (accel.stall_action), where pbte_tpu's stopped it
 ACCEL_CHECK_EVERY = 20
 # the plain f64 solve to the accelerated solve's Tv residual: it contracts
 # by ~0.9925 a step at the flagship, so ~2100 steps (1500 reached 6.2e-8 of
@@ -331,6 +361,17 @@ GENERAL_STEPS = 20
 GENERAL_RTOL = {"f32": 2e-6, "f64": 1e-11}
 GENERAL_TET = dict(order=1, polar=2, azimuth=4, nspec=20)
 GENERAL_TET_STEPS = 5
+# phase 16 (c): the legacy tet shape on the scan cut to 2 x 2 bands with
+# diffuse walls, the general ring on the default config at -r 6 (the
+# coarsest refinement that takes it: -r 5's levels are 32 wide, below
+# pbte_tpu's 64, and scan), and the
+# spatial solver on phase 14's small 6-tet cube with diffuse and specular
+# walls (the walls of tests/test_torch_parallel.py's reflective cases)
+REPRO_TET = dict(nspec=2)
+REPRO_TET_DIFFUSE = (2, 4)
+REPRO_GENERAL_REFINE = 6
+REPRO_SPATIAL_WALLS = dict(bc_temps={5: -0.5, 3: 0.5},
+                           diffuse_bcs=[1, 2], specular_bcs=[4, 6])
 # phase 14, the sharded solvers on four ranks sharing the card
 SHARD_TIMED_STEPS = 20
 SHARD_TIMEOUT = 600  # seconds for the ranks' spawn, set-up included
@@ -400,6 +441,92 @@ def bf16_ulp_of_max(ref):
     return 2.0 ** (np.floor(np.log2(m)) - 7)
 
 
+# phase 16's records, one a path: REPRO_STEPS steps twice and under the
+# audit (repro_check), and the f64 BiCGStab solve twice (phase 8)
+REPRO = []
+# torch's note that a cuBLAS product is not covered by the audit unless
+# CUBLAS_WORKSPACE_CONFIG is set: cuBLAS gives the same bits on one stream
+# (its "results reproducibility" section), and the port runs on one stream
+# a process; phase 16 records the note and holds the products to the
+# repeated runs' bit-equality instead
+CUBLAS_NOTE = "CUBLAS_WORKSPACE_CONFIG"
+
+
+def deterministic_audit(fn):
+    """fn() under torch.use_deterministic_algorithms(True, warn_only=True)
+    (torch then warns at each operation it has no deterministic form of,
+    and fills new tensors with NaN, so a read of unwritten memory shows),
+    the process's setting restored after. Returns (fn's result, the
+    distinct warnings about determinism, the cuBLAS note apart)."""
+    import warnings
+
+    prev = torch.are_deterministic_algorithms_enabled()
+    prev_warn = torch.is_deterministic_algorithms_warn_only_enabled()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            out = fn()
+            torch.cuda.synchronize()
+        finally:
+            torch.use_deterministic_algorithms(prev, warn_only=prev_warn)
+    msgs = {str(w.message) for w in caught}
+    found = sorted(m for m in msgs if "determinis" in m.lower()
+                   and CUBLAS_NOTE not in m)
+    cublas = any(CUBLAS_NOTE in m for m in msgs)
+    return out, found, cublas
+
+
+def steps_from_zero(solver, n):
+    """(Tc, the residuals) after n steps of ``solver`` from its zero state,
+    on the device."""
+    st = solver.initial_state()
+    res = []
+    for _ in range(n):
+        *st, r = solver.step(*st)
+        res.append(r)
+    torch.cuda.synchronize()
+    return st[1], torch.stack(res)
+
+
+def repro_record(solver, name, steps=REPRO_STEPS):
+    """Phase 16 (c) and (d) on one solver: ``steps`` steps from the zero
+    state twice, Tc and the residuals bit for bit, then once more under
+    deterministic_audit (its Tc finite; whether it equals the others is
+    recorded). Returns the record."""
+    t0 = time.perf_counter()
+    tc0, r0 = steps_from_zero(solver, steps)
+    tc1, r1 = steps_from_zero(solver, steps)
+    equal = bool(torch.equal(tc0, tc1) and torch.equal(r0, r1))
+    t1 = time.perf_counter()
+    (tc2, r2), found, cublas = deterministic_audit(
+        lambda: steps_from_zero(solver, steps))
+    rec = dict(path=name, steps=steps, bit_equal=equal,
+               audit_warnings=found, audit_cublas_note=cublas,
+               audit_finite=bool(torch.isfinite(tc2).all()),
+               audit_equal=bool(torch.equal(tc0, tc2)
+                                and torch.equal(r0, r2)),
+               runs_s=t1 - t0, audit_s=time.perf_counter() - t1)
+    return rec
+
+
+def repro_held(rec):
+    """Log a phase 16 record, add it to REPRO and raise where it failed: a
+    mismatch, a warning of the audit, a non-finite Tc."""
+    REPRO.append(rec)
+    log("[smoke] phase 16 " + json.dumps(rec))
+    if (not (rec["bit_equal"] and rec.get("audit_finite", True))
+            or rec.get("audit_warnings")):
+        raise RuntimeError(f"phase 16: {rec['path']} is not reproducible: "
+                           f"{rec}")
+    return rec
+
+
+def repro_check(solver, name, steps=REPRO_STEPS):
+    """repro_record on this process's solver, held (repro_held)."""
+    return repro_held(repro_record(solver, name, steps))
+
+
 def time_turns(fns, n):
     """Mean CUDA-event ms of each of fns, launched in turns after one
     warm-up each."""
@@ -432,6 +559,94 @@ K1_CASES = (
 )
 
 
+def k1_case_inputs(lr, spec, case, rng, gen, inside, inside_t):
+    """One K1 case's launch on ``spec`` (``k1_spec``): (args, kw, host
+    windows, device windows) for (bucket, state, Dirichlet source, closure
+    source, hull windows), seeded random state and sources drawn on the
+    card from ``gen`` (closure maps from ``rng``), the spec's operators."""
+    bi, state, dirichlet, closure, windowed = case
+    L, D, W, BS = spec["L"], spec["D"], spec["W"], spec["BS"]
+    cb = spec["buckets"][bi]
+    Gb, Km = cb["macro_w"].shape[:2]
+    # host windows for the plain version and the bounds, the solver's
+    # uploaded tensor for the kernel
+    win, win_k = ((spec["win"], spec["win_dev"]) if windowed
+                  else (None, None))
+    f64 = state == "f64"
+
+    def rnd(*shape):
+        """Seeded normal values of a slab-shaped operand (L first, W last),
+        zero outside the windows in a windowed case."""
+        t = torch.randn(shape, generator=gen, device="cuda",
+                        dtype=torch.float64 if f64 else torch.float32)
+        if windowed and shape[0] == L:
+            t *= inside_t.view((L,) + (1,) * (len(shape) - 2) + (W,))
+        return t
+
+    v = rnd(L, Gb, Km, BS, D, W)
+    ttc = rnd(L, Gb, D, W)
+    dsrc = rnd(L, Gb, Km, D, W) if dirichlet else None
+    xsrc = None
+    if closure:  # 40% of the slots read one of XSRC_ROWS random rows
+        xmap = np.where(rng.random((L, Gb, W)) < 0.4,
+                        rng.integers(0, XSRC_ROWS, (L, Gb, W)), -1)
+        if windowed:  # the contract: no closure row outside a window
+            xmap = np.where(inside[:, None, :], xmap, -1)
+        xsrc = lr.ClosureSource(
+            torch.from_numpy(xmap.astype(np.int32)).cuda(),
+            rnd(Gb, XSRC_ROWS, Km, BS, D))
+    cast = state == "bf16"
+    if cast:
+        v = v.to(torch.bfloat16)
+    ops = [cb["bsrc0"], cb["cin"], cb["bcat"], cb["macro_w"], spec["wvec"]]
+    if f64:  # the float64 kernel takes float64 operators
+        ops = [t.double() for t in ops]
+    kw = dict(shifts=spec["shifts"], dsrc=dsrc, xsrc=xsrc, cast_bf16=cast)
+    return (v, ttc, *ops), kw, win, win_k
+
+
+def case_tag(case, shape_tag=""):
+    bi, state, dirichlet, closure, windowed = case
+    return (f"{shape_tag}bucket {bi} {state}"
+            f"{' dirichlet' if dirichlet else ''}"
+            f"{' closure' if closure else ''}"
+            f"{' windows' if windowed else ''}")
+
+
+def k1_repeats(lr, args, kw, win_k, first, n):
+    """Phase 16 (a): K1 launched n - 1 more times on the inputs that gave
+    ``first`` (its ys, ms); the launches whose ys and whose ms differ from
+    the first's in any bit."""
+    ys_differ = ms_differ = 0
+    for _ in range(n - 1):
+        ys, ms = lr.lattice_ring_sweep(*args, **kw, win=win_k)
+        torch.cuda.synchronize()
+        ys_differ += not torch.equal(ys, first[0])
+        ms_differ += not torch.equal(ms, first[1])
+        del ys, ms
+    return dict(launches=n, ys_differ=ys_differ, ms_differ=ms_differ)
+
+
+def window_masks(spec):
+    """(L, W) in-window masks of ``spec``'s windows, on the host and on the
+    card (all True without windows)."""
+    L, W = spec["L"], spec["W"]
+    inside = np.zeros((L, W), dtype=bool)
+    if spec["win"] is not None:
+        for l, (lo, hi) in enumerate(spec["win"]):
+            inside[l, lo:hi] = True
+    return inside, torch.from_numpy(inside).cuda()
+
+
+def card_generator(rng):
+    """A generator on the card seeded from ``rng``: the slab-sized operands
+    are drawn there (on the host, numpy's generator took several seconds a
+    case at these sizes)."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(int(rng.integers(2 ** 62)))
+    return gen
+
+
 def run_k1_cases(lr, spec, cases, rng, shape_tag="", carried_ms=True):
     """Kernel vs plain for each (bucket, state, Dirichlet source, closure
     source, hull windows) case on ``spec`` (``k1_spec``): seeded random
@@ -447,67 +662,27 @@ def run_k1_cases(lr, spec, cases, rng, shape_tag="", carried_ms=True):
     to that band's share of 2^-8, and over the ~1e9 rounded ring values of
     the wide lattice one such flip lands near the largest ms (1.16e-3 and
     1.19e-3 of max measured on an H100, with ys within 0.5 ulp of max and
-    f32 within 2.4e-6: the arithmetic agrees)."""
-    L, D, W, BS = spec["L"], spec["D"], spec["W"], spec["BS"]
+    f32 within 2.4e-6: the arithmetic agrees).
+
+    Every case also launches the kernel REPEAT_LAUNCHES times on its inputs
+    (phase 16 (a)): ys and ms must repeat bit for bit."""
+    L, D, W = spec["L"], spec["D"], spec["W"]
     nf = len(spec["shifts"])
-    inside = np.zeros((L, W), dtype=bool)
-    if spec["win"] is not None:
-        for l, (lo, hi) in enumerate(spec["win"]):
-            inside[l, lo:hi] = True
-    inside_t = torch.from_numpy(inside).cuda()
-    # the slab-sized operands are drawn on the card (on the host, numpy's
-    # generator took several seconds a case at these sizes), from a seed
-    # that ``rng`` gives
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(int(rng.integers(2 ** 62)))
+    inside, inside_t = window_masks(spec)
+    gen = card_generator(rng)
     rows = []
-    for bi, state, dirichlet, closure, windowed in cases:
-        cb = spec["buckets"][bi]
-        Gb, Km = cb["macro_w"].shape[:2]
-        # host windows for the plain version and the bounds, the solver's
-        # uploaded tensor for the kernel
-        win, win_k = ((spec["win"], spec["win_dev"]) if windowed
-                      else (None, None))
+    for case in cases:
+        bi, state, dirichlet, closure, windowed = case
         f64 = state == "f64"
-
-        def rnd(*shape):
-            """Seeded normal values of a slab-shaped operand (L first, W
-            last), zero outside the windows in a windowed case."""
-            t = torch.randn(shape, generator=gen, device="cuda",
-                            dtype=torch.float64 if f64 else torch.float32)
-            if windowed and shape[0] == L:
-                t *= inside_t.view((L,) + (1,) * (len(shape) - 2) + (W,))
-            return t
-
-        v = rnd(L, Gb, Km, BS, D, W)
-        ttc = rnd(L, Gb, D, W)
-        dsrc = rnd(L, Gb, Km, D, W) if dirichlet else None
-        xsrc = None
-        if closure:  # 40% of the slots read one of XSRC_ROWS random rows
-            xmap = np.where(rng.random((L, Gb, W)) < 0.4,
-                            rng.integers(0, XSRC_ROWS, (L, Gb, W)), -1)
-            if windowed:  # the contract: no closure row outside a window
-                xmap = np.where(inside[:, None, :], xmap, -1)
-            xsrc = lr.ClosureSource(
-                torch.from_numpy(xmap.astype(np.int32)).cuda(),
-                rnd(Gb, XSRC_ROWS, Km, BS, D))
         cast = state == "bf16"
-        if cast:
-            v = v.to(torch.bfloat16)
-        ops = [cb["bsrc0"], cb["cin"], cb["bcat"], cb["macro_w"],
-               spec["wvec"]]
-        if f64:  # the float64 kernel takes float64 operators
-            ops = [t.double() for t in ops]
-        args = (v, ttc, *ops)
-        kw = dict(shifts=spec["shifts"], dsrc=dsrc, xsrc=xsrc,
-                  cast_bf16=cast)
+        args, kw, win, win_k = k1_case_inputs(lr, spec, case, rng, gen,
+                                              inside, inside_t)
+        v, dsrc, xsrc = args[0], kw["dsrc"], kw["xsrc"]
+        tag = case_tag(case, shape_tag)
         plan = lr.launch_plan(D, W, nf, v.dtype, L, shifts=spec["shifts"])
-        tag = (f"{shape_tag}bucket {bi} {state}"
-               f"{' dirichlet' if dirichlet else ''}"
-               f"{' closure' if closure else ''}"
-               f"{' windows' if windowed else ''}")
         ys, ms = lr.lattice_ring_sweep(*args, **kw, win=win_k)
         torch.cuda.synchronize()
+        repeat = k1_repeats(lr, args, kw, win_k, (ys, ms), REPEAT_LAUNCHES)
         ys_r, ms_r = lr.lattice_ring_sweep_ref(*args, **kw, win=win)
         torch.cuda.synchronize()
         if not (torch.isfinite(ys.float()).all() and torch.isfinite(ms).all()):
@@ -544,7 +719,9 @@ def run_k1_cases(lr, spec, cases, rng, shape_tag="", carried_ms=True):
                    dirichlet=dirichlet, xsrc=closure, windows=windowed,
                    variant=plan.variant, Wt=plan.Wt, C=plan.C,
                    ys_rel=ys_rel, ys_abs=ys_abs, ys_ulps_of_max=ys_ulps,
-                   ms_rel=ms_rel, ms_abs=ms_abs, **level, tolerance=tol)
+                   ms_rel=ms_rel, ms_abs=ms_abs, **level, tolerance=tol,
+                   repeat=repeat)
+        ok = ok and repeat["ys_differ"] == 0 and repeat["ms_differ"] == 0
         if windowed:
             # the windowed kernel against the full-slab kernel
             outside = ~inside_t
@@ -555,13 +732,12 @@ def run_k1_cases(lr, spec, cases, rng, shape_tag="", carried_ms=True):
             ys_f, ms_f = lr.lattice_ring_sweep(*args, **kw)
             torch.cuda.synchronize()
             ys_equal = torch.equal(ys, ys_f)
-            ms_full_rel, _ = rel_err(ms, ms_f)
+            ms_equal = torch.equal(ms, ms_f)
             del ys_f, ms_f
             row.update(ys_equals_full_slab=ys_equal,
-                       ms_vs_full_slab_rel=ms_full_rel,
-                       full_slab_tolerance=f"ys bit-equal, ms rel <= "
-                                           f"{WIN_MS_RTOL}")
-            ok = ok and ys_equal and ms_full_rel <= WIN_MS_RTOL
+                       ms_equals_full_slab=ms_equal,
+                       full_slab_tolerance="ys and ms bit-equal")
+            ok = ok and ys_equal and ms_equal
         del ys, ms
         fns = [lambda: lr.lattice_ring_sweep(*args, **kw, win=win_k),
                lambda: lr.lattice_ring_sweep_ref(*args, **kw, win=win)]
@@ -600,7 +776,7 @@ def run_k1_cases(lr, spec, cases, rng, shape_tag="", carried_ms=True):
                row.get("full_slab_share_of_bound", 0.0)) > 1.0:
             raise RuntimeError(f"{tag}: faster than its bound: {row}")
         rows.append(row)
-        del v, ttc, dsrc, xsrc, args, kw, fns
+        del v, dsrc, xsrc, args, kw, fns
         torch.cuda.empty_cache()
     return rows
 
@@ -692,6 +868,18 @@ def check_k1_smem(solver, lr):
                                f"the wrapper checks {want} B ({state})")
     log(f"[smoke] K1 shared memory per CTA at D={D} W={W}: "
         + ", ".join(f"{str(k).split('.')[-1]} {v} B" for k, v in got.items()))
+    # the scratch a launch takes: the CTAs' tickets and the level flags
+    for cb in solver.consts["buckets"]:
+        Gb, Km, BS = cb["macro_w"].shape
+        plan = lr.launch_plan(D, W, nf, torch.float32, L, solver.shifts)
+        want = lr.scratch_numel(plan, Gb, Km, BS)
+        n = lib.pbte_lattice_ring_scratch_numel(Gb, Km, BS)
+        parts = lib.pbte_lattice_ring_ms_parts(BS)
+        if n != want or parts != lr.ms_parts(plan, BS):
+            raise RuntimeError(f"K1 scratch and ms partials at Gb={Gb} "
+                               f"Km={Km} BS={BS}: the kernel takes {n}, "
+                               f"{parts}, the wrapper {want}, "
+                               f"{lr.ms_parts(plan, BS)}")
     # the tiled kernel's widest tiles and carve-up (its halo from the
     # shifts) at the tiles the plans of phase 3 and 11 launch and beyond
     tiled = lr._lib("lattice_ring_tiled")
@@ -718,8 +906,14 @@ def check_k1_smem(solver, lr):
                                    f"Wt={Wt} C={C} shifts {sh}: the kernel "
                                    f"takes {n} B, the wrapper checks {want} B "
                                    f"({state})")
-    log("[smoke] K1 tiled kernel: the wrapper's widest tiles and shared "
-        "memory sizes equal the library's")
+    for Gb, Km, BS, C in ((4, 10, 40, 3), (2, 6, 8, 49)):
+        n = tiled.pbte_lattice_ring_scratch_numel(Gb, Km, BS, C)
+        if n != lr.tiled_scratch_numel(Gb, Km, BS, C):
+            raise RuntimeError(f"K1 tiled scratch at Gb={Gb} Km={Km} BS={BS} "
+                               f"C={C}: the kernel takes {n}, the wrapper "
+                               f"{lr.tiled_scratch_numel(Gb, Km, BS, C)}")
+    log("[smoke] K1 tiled kernel: the wrapper's widest tiles, shared memory "
+        "and scratch sizes equal the library's")
 
 
 TILED_MODES = ("f32", "bf16", "f64")
@@ -912,11 +1106,12 @@ PARAM_KEYS = ("nx", "ny", "nz", "order", "polar", "azimuth", "nspec")
 
 
 def phase_golden(SourceIterationSolver, unit_cube, file, keys=PARAM_KEYS,
-                 lr=None):
+                 lr=None, repro=None):
     """The port on the GPU against a pbte_tpu golden Tc (isothermal walls,
     or periodic, diffuse and specular closures when the file names them),
     the problem built by ``unit_cube(**params)`` from the file's ``keys``.
-    With ``lr`` it returns the K1 launches by variant of the solve too."""
+    With ``lr`` it returns the K1 launches by variant of the solve too;
+    with ``repro`` (a name) the solver also takes phase 16's repro_check."""
     golden = pathlib.Path(__file__).resolve().parent / "tests" / "data"
     with np.load(golden / file) as d:
         params = {k: d[k].item() for k in keys}
@@ -940,6 +1135,8 @@ def phase_golden(SourceIterationSolver, unit_cube, file, keys=PARAM_KEYS,
         f"rel {rel:.3e} (abs {ab:.3e}), tolerance {GOLDEN_RTOL}")
     if not rel <= GOLDEN_RTOL:
         raise RuntimeError(f"GPU Tc disagrees with the pbte_tpu golden {file}")
+    if repro:
+        repro_check(s, repro)
     if lr is None:
         return rel
     return rel, dict(lr.lattice_ring_sweep.launches_by_variant), s
@@ -1001,6 +1198,8 @@ def phase_scan_golden(SourceIterationSolver, tet_cube):
     if not (s.sweep_mode == "scan" and rel <= GOLDEN_RTOL):
         raise RuntimeError("the GPU's scan path disagrees with the pbte_tpu "
                            "scan golden")
+    repro_check(s, "scan golden 3^3 tets, diffuse walls (the scan's "
+                   "closure scatters)")
     return rel
 
 
@@ -1192,6 +1391,21 @@ def phase_tet_scan(SourceIterationSolver, problem, prob, lr, card):
         raise RuntimeError("legacy tet: f32 and f64 scans disagree")
     if not cs_rel <= TET_CLASS_STREAMS_RTOL:
         raise RuntimeError("legacy tet: the class streams disagree")
+
+    # phase 16 (c): the scan's closure scatters at the legacy tet shape cut
+    # to REPRO_TET's bands, with diffuse walls
+    s = SourceIterationSolver(
+        *problem.tet_cube(**dict(problem.LEGACY_TET, **REPRO_TET)),
+        {a: t for a, t in problem.WALL_BCS.items()
+         if a not in REPRO_TET_DIFFUSE},
+        diffuse_bcs=list(REPRO_TET_DIFFUSE), device="cuda",
+        **problem.LEGACY_TET_SOLVER)
+    if s.sweep_mode != "scan":
+        raise RuntimeError("the legacy tet with diffuse walls did not scan")
+    repro_check(s, f"legacy tet {REPRO_TET} diffuse walls "
+                   f"{list(REPRO_TET_DIFFUSE)} (the scan's closure scatters)")
+    del s
+    torch.cuda.empty_cache()
     return row, tc_3
 
 
@@ -1272,6 +1486,7 @@ def phase_tet_super(SourceIterationSolver, problem, prob, lr, card, tc_scan,
     row["bf16"] = phase_tet_super_bf16(SourceIterationSolver, problem, prob,
                                        card, s, u32, st[1])
     refs["tet"] = (prob, dict(bc_temps=problem.WALL_BCS), st[1].cpu())
+    repro_check(s, "legacy tet supercell ring")
     del s, st, u32
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -1508,6 +1723,7 @@ def phase_new_lattices(SourceIterationSolver, problem, lr, card, wide_prob,
             os.environ.pop("PBTE_RING_STATE_BF16", None)
         row = time_lattice(s, name, card, NEW_TIMED_STEPS)
         row["setup_s"] = setup_s
+        repro_check(s, f"{name} (K1 {variant})")
         want = {variant: len(s._ring_buckets) * n_steps}
         got = {k: v for k, v in row["k1_launches_by_variant"].items() if v}
         if got != want:
@@ -1544,6 +1760,7 @@ def phase_new_lattices(SourceIterationSolver, problem, lr, card, wide_prob,
                     raise RuntimeError("graded_f32: K1 launched on the "
                                        "multi-class ring")
                 rows["graded_f32"] = row
+                repro_check(s, "graded 16^3 multi-class ring")
             st = s.initial_state()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -1974,6 +2191,15 @@ def phase_general(SourceIterationSolver, problem, lr, card, refs):
                     raise RuntimeError(f"general ring cli {state}: {row}")
             refs["general"] = (prob, dict(bc_temps=bcs), None)
             del prob
+            # phase 16 (c): the general ring at -r REPRO_GENERAL_REFINE
+            prob, bcs = problem.config_problem(REPRO_GENERAL_REFINE,
+                                               face_mode="consistent")
+            s = SourceIterationSolver(*prob, bcs, device="cuda")
+            if s.sweep_mode != "ring" or not s._general:
+                raise RuntimeError("the default config did not take the "
+                                   "general ring")
+            repro_check(s, f"general ring -r {REPRO_GENERAL_REFINE}")
+            del s, prob
         tet_bcs = {
             "dirichlet": dict(bc_temps={a: t for a, t in
                                         problem.WALL_BCS.items() if a != 6},
@@ -2000,11 +2226,17 @@ def phase_general(SourceIterationSolver, problem, lr, card, refs):
                                        "general ring")
                 ring_ms, tc_ring = time_solve(ring, GENERAL_TET_STEPS)
                 shape = dict(G=ring.G, L=ring.L, W=ring.W)
+                if (n, state) == (12, "f32"):
+                    repro_check(ring, f"general ring tet 12^3 {walls} walls "
+                                      f"(the closure sums)")
                 del ring
                 scan = SourceIterationSolver(*prob, device="cuda", dtype=dt,
                                              sweep_mode="scan",
                                              **tet_bcs[walls])
                 scan_ms, tc_scan = time_solve(scan, GENERAL_TET_STEPS)
+                if (n, state) == (12, "f32"):
+                    repro_check(scan, f"scan tet 12^3 {walls} walls (the "
+                                      f"scan's closure scatters)")
                 del scan
                 gc.collect()
                 torch.cuda.empty_cache()
@@ -2037,6 +2269,19 @@ def tree_norm(tree):
     return float(torch.sqrt(tree_dot(tree, tree)))
 
 
+def solve_bicgstab(s64):
+    """The f64 flagship's accelerated solve from the zero state: (result,
+    the linear relres at every read, wall seconds)."""
+    relres = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    acc = s64.solve(tol=ACCEL_TOL, max_iter=ACCEL_MAX_ITER, verbose=False,
+                    check_every=ACCEL_CHECK_EVERY, accelerate="bicgstab",
+                    callback=lambda nmv, res: relres.append(res))
+    torch.cuda.synchronize()
+    return acc, relres, time.perf_counter() - t0
+
+
 def phase_f64_flagship(SourceIterationSolver, problem, lr, walls):
     """The f64 flagship: timed steps, the accelerated solve, the plain solve
     to the same Tv residual, and refined_solve on an f32 base. Returns
@@ -2052,14 +2297,7 @@ def phase_f64_flagship(SourceIterationSolver, problem, lr, walls):
     # the accelerated solve
     torch.cuda.reset_peak_memory_stats()
     lr.reset_launches()
-    relres = []
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    acc = s64.solve(tol=ACCEL_TOL, max_iter=ACCEL_MAX_ITER, verbose=False,
-                    check_every=ACCEL_CHECK_EVERY, accelerate="bicgstab",
-                    callback=lambda nmv, res: relres.append(res))
-    torch.cuda.synchronize()
-    acc_s = time.perf_counter() - t0
+    acc, relres, acc_s = solve_bicgstab(s64)
     acc_peak = torch.cuda.max_memory_allocated()
     acc_launches = lr.lattice_ring_sweep.launches_by_state["f64"]
     launches += acc_launches
@@ -2083,8 +2321,24 @@ def phase_f64_flagship(SourceIterationSolver, problem, lr, walls):
             and torch.isfinite(acc.Tc).all()):
         raise RuntimeError(f"the accelerated f64 solve: {row['bicgstab']}")
     Tc_acc = acc.Tc
+    n_acc = acc.iterations
     del acc
     torch.cuda.empty_cache()
+
+    # phase 16 (b): the same solve again from the zero state repeats its
+    # step applications, its relres at every read and its Tc bit for bit
+    lr.reset_launches()
+    again, relres2, again_s = solve_bicgstab(s64)
+    launches += lr.lattice_ring_sweep.launches_by_state["f64"]
+    repro_held(dict(
+        path="f64 flagship bicgstab", solves=2,
+        step_applications=[n_acc, again.iterations],
+        relres_reads=len(relres), wall_s=[acc_s, again_s],
+        bit_equal=bool(again.iterations == n_acc and relres2 == relres
+                       and torch.equal(again.Tc, Tc_acc))))
+    del again
+    torch.cuda.empty_cache()
+    repro_check(s64, "f64 flagship (K1 one-CTA f64)")
 
     # the plain solve to the same Tv residual
     lr.reset_launches()
@@ -2206,6 +2460,9 @@ def _shard_rank(rank, world, cfg):
         del st
     s.ring_sweep = lr.lattice_ring_sweep
     out["a_tc_kernel"], out["a_tc_plain"] = tcs
+    # phase 16 (c), (d) on this rank: K1 and the slab's closure sums
+    out["a_repro"] = repro_record(s, "slab 2 x 2 flagship f32 (K1; the "
+                                     "slab's closure sums)")
     u, Tc, Tv = s.initial_state()
     for _ in range(2):
         u, Tc, Tv, r = s.step(u, Tc, Tv)
@@ -2286,6 +2543,17 @@ def _shard_rank(rank, world, cfg):
         out["d_shape"] = dict(ne=sp.ne, L=sp.L, W=sp.W, G=sp.G,
                               interface=sp.pplan.num_interface)
         del sp, st
+    # phase 16 (c), (d) on this rank: the spatial solver's wall sums, on
+    # the small cube with diffuse and specular walls
+    c = cfg["tet_small"]
+    refl = dict(REPRO_SPATIAL_WALLS)
+    sp = SpatialShardedSolver(
+        *problem.tet_cube(**c), refl.pop("bc_temps"), grid,
+        dtype=torch.float64, topo=problem.tet_topology(c["n"], c["n"], c["n"]),
+        device=dev, partition_method="multilevel", **refl)
+    out["d_repro"] = repro_record(sp, "spatial 2 x 2 tet 3^3, diffuse and "
+                                      "specular walls (its wall sums)")
+    del sp
 
     # (e) dir sharding of the single-device solver: 2 dir ranks (each
     # space rank a replica)
@@ -2474,6 +2742,10 @@ def phase_sharded(card, cfg, refs):
         ranks = run_ranks(_shard_rank, 4, (cfg,), workdir=d,
                           timeout=SHARD_TIMEOUT)
     r0 = ranks[0]
+    for r in ranks:
+        for key in ("a_repro", "d_repro"):
+            repro_held(dict(r[key], path=f"{r[key]['path']}, rank "
+                                         f"{r['rank']}"))
     a_rel = rel_err(torch.as_tensor(r0["a_tc_kernel"]),
                     torch.as_tensor(r0["a_tc_plain"]))[0]
     row["a"] = dict(
@@ -2746,6 +3018,37 @@ def phase_p3_wide(proc, conn, stopped, card):
     return row
 
 
+def phase_repro_summary(rows, new_rows, beyond_rows, card):
+    """Phase 16: the reproducibility checks the earlier phases ran (K1's
+    repeated launches in phase 3's rows, REPRO's paths), summed up; raises
+    where one failed (each check also raised where it ran)."""
+    k1 = (rows + sum(new_rows.values(), [])
+          + sum(beyond_rows.values(), []))
+    by = {}
+    for r in k1:
+        key = f"{r['variant']} {r['state']}"
+        by.setdefault(key, [0, 0])
+        by[key][0] += 1
+        by[key][1] += r["repeat"]["ys_differ"] + r["repeat"]["ms_differ"]
+    bicg = next(r for r in REPRO if r["path"] == "f64 flagship bicgstab")
+    out = dict(
+        k1_cases=len(k1), k1_launches_a_case=REPEAT_LAUNCHES,
+        k1_cases_differing={k: v[1] for k, v in by.items()},
+        k1_cases_by_kernel={k: v[0] for k, v in by.items()},
+        bicgstab_step_applications=bicg["step_applications"],
+        paths={r["path"]: r["bit_equal"] for r in REPRO},
+        audit_warnings=sorted({w for r in REPRO
+                               for w in r.get("audit_warnings", ())}),
+        audit_cublas_note=any(r.get("audit_cublas_note") for r in REPRO),
+        audit_tc_equal={r["path"]: r["audit_equal"] for r in REPRO
+                        if "audit_equal" in r})
+    log("[smoke] phase 16 reproducibility " + json.dumps(out) + f" on {card}")
+    if (any(by[k][1] for k in by) or not all(out["paths"].values())
+            or out["audit_warnings"]):
+        raise RuntimeError(f"phase 16: not reproducible: {out}")
+    return out
+
+
 def build_flagship(SourceIterationSolver, problem, name, **kw):
     t0 = time.perf_counter()
     solver = SourceIterationSolver(*problem, device="cuda", **kw)
@@ -2828,6 +3131,7 @@ def main() -> int:
     mark("phase 5 (the flagship)")
     launches, flag = phase_flagship(solver, lr, setup_s, "flagship")
     comp = phase_compensated(solver, lr, card)
+    repro_check(solver, "flagship f32 (K1 one-CTA)")
     del solver
     torch.cuda.empty_cache()
 
@@ -2870,6 +3174,7 @@ def main() -> int:
                                         **DIFFUSE_WALLS)
     film_launches, film_row = phase_flagship(film, lr, film_setup_s,
                                              "diffuse-wall flagship")
+    repro_check(film, "diffuse-wall flagship (K1; the closure sums)")
     del film
     torch.cuda.empty_cache()
 
@@ -2882,14 +3187,17 @@ def main() -> int:
         del os.environ["PBTE_RING_STATE_BF16"]
     bf16_launches, bf16_row = phase_flagship(bf16, lr, bf16_setup_s,
                                              "bf16-state flagship")
+    repro_check(bf16, "bf16-state flagship (K1 one-CTA bf16)")
     del bf16
     torch.cuda.empty_cache()
 
     mark("phase 7 (the goldens)")
     golden_rel = phase_golden(SourceIterationSolver, unit_cube,
                               "torch_port_golden.npz")
-    closure_rel = phase_golden(SourceIterationSolver, unit_cube,
-                               "torch_port_golden_closures.npz")
+    closure_rel = phase_golden(
+        SourceIterationSolver, unit_cube, "torch_port_golden_closures.npz",
+        repro="hex 8^3 periodic, diffuse and specular walls (the closure "
+              "sums)")
     accel_rel = phase_accel_golden(SourceIterationSolver, unit_cube, lr)
     scan_rel = phase_scan_golden(SourceIterationSolver, problem_mod.tet_cube)
     super_rel = phase_super_golden(SourceIterationSolver, problem_mod.tet_box)
@@ -2939,6 +3247,9 @@ def main() -> int:
     del refs
     mark("phase 15 (hex 28^3 p=3 f64)")
     p3_wide = phase_p3_wide(*p3w, card)
+
+    mark("phase 16 (reproducibility)")
+    repro = phase_repro_summary(rows, new_rows, beyond_rows, card)
 
     mark("the kernels line")
     jax_mods = sorted(m for m in sys.modules

@@ -3,8 +3,11 @@ relative residual plateaus, and where the stagnation guard stops it.
 
 ``problem.unit_cube(**FLAGSHIP)`` with ``WALL_BCS`` and float64 state is
 solved ``--free`` times with the guard off (``accel.STALL_READS`` set out of
-reach), the residual read every BiCGStab iteration, to ``TOL``. Runs differ
-only in the order of K1's ``ms`` atomics, which the recurrence carries on.
+reach), the residual read every BiCGStab iteration, to ``TOL``. K1 sums
+``ms`` in band order, so one input gives one trajectory: the free runs
+repeat it bit for bit (``free_trajectories``: the distinct (matvec,
+relres) sequences among them, 1 when they repeat; while K1 summed ``ms`` by
+atomics the runs differed, and the recurrence carried the differences on).
 Each trajectory is then read at the cadences of ``CADENCES`` (matvecs
 between reads), and pbte_tpu's guard replayed on it (6 reads and 60
 matvecs without a 10% gain stop the solve): ``stop_fixed`` is the matvec
@@ -105,9 +108,11 @@ def main(argv=None):
                free=[], guarded=[])
     saved = accel.STALL_READS
     accel.STALL_READS = 1 << 30
+    trajectories = set()
     try:
         for i in range(args.free):
             r, reads, wall = solve(s, check_every=2)
+            trajectories.add(tuple(reads))
             row = dict(
                 step_applications=r.iterations, wall_s=wall,
                 last_relres=reads[-1][1], plateaus=plateaus(reads),
@@ -119,6 +124,7 @@ def main(argv=None):
                 file=sys.stderr, flush=True)
     finally:
         accel.STALL_READS = saved
+    out["free_trajectories"] = len(trajectories)
     actions = []
 
     def counted(*a):

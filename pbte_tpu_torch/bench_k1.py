@@ -5,7 +5,11 @@ Every design is a build of a K1 source: the committed source as it stands
 a source file (default: the committed one) built with ``-D`` defines, for
 example a scratch design, or a measurement variant of the committed source
 (``PBTE_K1_NO_MS``, ``PBTE_K1_NO_YS``, ``PBTE_K1_NO_PRODUCT``: see the
-source). All are built at once. Two flags go among the defines: ``@full``
+source; ``PBTE_K1_NO_MS`` drops the band sum of ms, so its time against
+``current`` is what the band chain costs). A design from before the band
+chain (no ``pbte_lattice_ring_scratch_numel`` in its library) is launched
+as it was: ms zeroed first, the one-CTA entry points without the scratch.
+All are built at once. Two flags go among the defines: ``@full``
 launches the design without windows and holds and compares it to
 ``full_slab`` (a variant that is right on the full slab only), and
 ``@nowin`` (which implies ``@full``) says that the source has the C entry
@@ -44,7 +48,9 @@ FP64 FMA kernel of commit fdfeb19::
     python -m pbte_tpu_torch.bench_k1 --design fma=build/k1_fma.cu \\
         --state f64
 
-``--shape p3`` and ``--shape wide`` time the tiled kernel
+``--shape quad`` times the one-CTA kernel at D = 9 (quad 64^2 p=2, its
+first Km bucket, in each state type). ``--shape p3`` and ``--shape wide``
+time the tiled kernel
 (``csrc/lattice_ring_tiled.cu``, the committed source and each design's
 default) instead, at the shapes that take it: hex 16^3 p=3 (D = 64, the
 p3_f32 row's lattice, its Km = 2 bucket: the lattice's own inflow
@@ -81,13 +87,17 @@ from pbte_tpu_torch.ops import lattice_ring as lr
 CASES = ((0, "f32", False), (0, "bf16", False), (1, "f32", True),
          (1, "bf16", False), (0, "f64", True), (1, "f64", True))
 STATES = ("f32", "bf16", "f64")
-SHAPES = ("flagship", "p3", "wide")
+SHAPES = ("flagship", "p3", "wide", "quad")
 # the lattices of the tiled kernel: bench_torch.py's p3_f32 lattice (D =
 # 64) and the flagship 1.5 times as wide per axis (W = 576)
 P3_LATTICE = dict(nx=16, ny=16, nz=16, order=3, polar=4, azimuth=4, nspec=20)
 WIDE = dict(nx=24, ny=24, nz=24, order=2, polar=4, azimuth=16, nspec=20)
+# the one-CTA kernel at D = 9 (two faces): chip_smoke.py's quad 64^2 p=2
+QUAD = dict(nx=64, ny=64, order=2, azimuth=16, nspec=20)
 # the tiled shapes' cases: the last bucket (p3 has one), each state type
 TILED_CASES = tuple((-1, state, False) for state in STATES)
+# the quad lattice's cases: its first bucket (phase 3's), each state type
+QUAD_CASES = tuple((0, state, False) for state in STATES)
 
 
 def k1_spec(solver):
@@ -179,15 +189,17 @@ def synthetic_spec(D, W, shifts, L, Gb, Km, BS, seed):
 
 
 def shape_spec(shape):
-    """``k1_spec`` of a tiled shape: "p3" (``p3_spec``) or "wide" (the wide
-    lattice's solver, its operators as they are)."""
+    """``k1_spec`` of a shape other than the flagship: "p3" (``p3_spec``),
+    "wide" or "quad" (the lattice's solver, its operators as they are)."""
     if shape == "p3":
         return p3_spec()
     from pbte_tpu_torch import problem
     from pbte_tpu_torch.solver.source_iteration import SourceIterationSolver
 
-    s = SourceIterationSolver(*problem.unit_cube(**WIDE), problem.WALL_BCS,
-                              device="cuda")
+    prob, bcs = ((problem.unit_square(**QUAD), problem.SQUARE_BCS)
+                 if shape == "quad" else
+                 (problem.unit_cube(**WIDE), problem.WALL_BCS))
+    s = SourceIterationSolver(*prob, bcs, device="cuda")
     spec = k1_spec(s)
     del s
     return spec
@@ -270,13 +282,14 @@ def time_designs(runs, reps, rounds):
 
 def cases_of(states, shape="flagship"):
     """The cases of the given state types (all of them for None) at
-    ``shape``: CASES at the flagship, TILED_CASES at a tiled shape."""
+    ``shape``: CASES at the flagship, QUAD_CASES at the quad lattice,
+    TILED_CASES at a tiled shape."""
     unknown = set(states or ()) - set(STATES)
     if unknown:
         raise ValueError(f"unknown states {sorted(unknown)}, want {STATES}")
     if shape not in SHAPES:
         raise ValueError(f"unknown shape {shape}, want one of {SHAPES}")
-    cases = CASES if shape == "flagship" else TILED_CASES
+    cases = {"flagship": CASES, "quad": QUAD_CASES}.get(shape, TILED_CASES)
     return [c for c in cases if not states or c[1] in states]
 
 
@@ -287,7 +300,8 @@ def run(designs, reps, rounds, states=None, shape="flagship"):
     cases = cases_of(states, shape)
     builds = ["current"] + [d[0] for d in designs]
     flags = {"current": frozenset()} | {d[0]: d[3] for d in designs}
-    committed = _build.CSRC_DIR / ("lattice_ring.cu" if shape == "flagship"
+    committed = _build.CSRC_DIR / ("lattice_ring.cu"
+                                   if shape in ("flagship", "quad")
                                    else "lattice_ring_tiled.cu")
     sources = {"current": (committed, ())} | {
         name: (path or committed, defines)
@@ -325,15 +339,16 @@ def run(designs, reps, rounds, states=None, shape="flagship"):
         # a one-CTA design from before the float64 kernel sits out the f64
         # cases (every tiled design has them)
         case_builds = [n for n in builds if state != "f64"
-                       or shape != "flagship"
+                       or shape not in ("flagship", "quad")
                        or hasattr(libs[n], "pbte_lattice_ring_sweep_f64")]
         runs = {n: launcher(libs[n], args, kw,
                             None if n in full else spec["win_dev"])
                 for n in case_builds}
         runs["full_slab"] = launcher(libs["current"], args, kw, None)
         # every design against the committed build launched the same way
-        # (the inputs respect the windows' contract, so the two references
-        # differ in the order of the ms atomics alone)
+        # (the inputs respect the windows' contract, so the committed build
+        # windowed and on the full slab agree bit for bit; a design from
+        # before the band chain sums ms in another order)
         errs = {}
         dt = torch.float64 if state == "f64" else torch.float32
         held_to = {
@@ -408,8 +423,9 @@ def main(argv=None) -> int:
     ap.add_argument("--state", action="append", default=[],
                     choices=STATES, help="keep the cases of this state type")
     ap.add_argument("--shape", default="flagship", choices=SHAPES,
-                    help="the flagship's buckets (csrc/lattice_ring.cu) or "
-                         "a tiled shape (csrc/lattice_ring_tiled.cu)")
+                    help="the flagship's buckets or quad 64^2 p=2 "
+                         "(csrc/lattice_ring.cu) or a tiled shape "
+                         "(csrc/lattice_ring_tiled.cu)")
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--rounds", type=int, default=5)
     ap.add_argument("--out", default=None)

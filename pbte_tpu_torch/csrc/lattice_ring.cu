@@ -12,7 +12,7 @@
 //                 (+ xval[g,u,k,b,i] where u = xmap[l,g,w] >= 0)
 //   nb_f[i, w]  = cin[l,g,k,f,w] * ring[i, w - s_f]   (zero where w < s_f)
 //   sol[:, w]   = bcat[g,k,b] (D, J) @ [rhs; nb_0; nb_1; nb_2][:, w]
-//   ys[l,g,k,b] = sol;  ring = sol;  ms[g,k,l] += macro_w[g,k,b] * sol
+//   ys[l,g,k,b] = sol;  ring = sol;  ms[g,k,l] = sum_b macro_w[g,k,b] * sol
 // with J = (1 + nf) D and f32 accumulation (float64 state: a kernel of its
 // own, lattice_ring_f64_kernel below, accumulates in float64). In cast mode
 // (bf16 state) the product operands (rhs, nb_f, bcat) and the ring are
@@ -38,7 +38,7 @@
 // tiles are double-buffered by level parity): the next level reads them as
 // its ring only where its cin is zero, and 0 * x = 0 for the finite x they
 // hold, in the TF32 split as in bf16. So the windowed results equal the
-// full-slab results (ys bit for bit, ms up to the order of its atomics).
+// full-slab results bit for bit, ys and ms.
 //
 // Shapes. Instantiated for D in {4, 9, 16} (quad p = 1-3, two faces) and
 // {8, 27} (hex p = 1, 2, three faces), W <= 256; hex p = 3 (D = 64) and
@@ -47,8 +47,15 @@
 // with it: lattice_ring_common.cuh.
 //
 // Design. One CTA runs one (g, k, b) over all L levels (the level axis is a
-// dependence chain; the band sum of ms is the only coupling between CTAs,
-// done with f32 atomics). Per level the product is a (W x J) @ (J x D)
+// dependence chain; the band sum of ms is the only coupling between CTAs).
+// The band sum runs in a fixed order (the band chain of
+// lattice_ring_common.cuh): a CTA takes a ticket from the launch's scratch
+// and runs the (g, k, b) it names, b fastest, so band b waits only on band
+// b - 1, which started before it. Bands chain kChainBands = 8 at a time,
+// each chain into a partial of ms of its own that the wrapper adds in
+// order: a chain of all 40 bands made the last band of a (g, k) wait ~39
+// hand-offs before its first level. One input gives one ys and one ms, bit
+// for bit, from launch to launch. Per level the product is a (W x J) @ (J x D)
 // matrix product on the tensor cores with W as the M dimension: mma.sync
 // m16n8k8 TF32 for f32 state as 3xTF32 (each operand split into TF32 hi and
 // lo parts, hi*hi + hi*lo + lo*hi summed in f32: the f32 answer to ~1e-6,
@@ -65,8 +72,16 @@
 // of W and run the product; 8 producer warps build level l+1's rhs tile
 // (reading v, ttc, bsrc, dsrc, cin, xmap and the closure rows from device
 // memory and L2) while the consumers run level l, then stream level l's
-// solution out of shared memory as ys (coalesced along W) and as the ms
-// atomics. The rhs, shifted-cin and solution tiles are double-buffered by
+// solution out of shared memory as ys (coalesced along W). The band sum of
+// ms goes to whichever role has time (kConsumerMs): in f32 at D = 16 and 27
+// the product sets the pace and the producers add level l - 1's terms in
+// their wait for level l; in bf16 the producers set it (they hold level
+// l + 2's operands in registers besides) and at D <= 9 the product is
+// small, so there each consumer warp adds its own m-tiles' terms after it
+// writes them. (Measured on an H100, flagship b0: the producers' add made
+// bf16 2.1x slower, spilling; the consumers' 1.4x. Quad D = 9 f32: the
+// producers' 1.35x, bf16 with the consumers' 1.0x; PERF.md section 6.) The
+// rhs, shifted-cin and solution tiles are double-buffered by
 // level parity; named barriers hand each tile between the roles (full /
 // empty per buffer), and one consumer barrier orders a level's solution
 // writes before its reads as the next ring. One CTA (16 warps) per SM.
@@ -104,7 +119,8 @@
 
 // Measurement variants (bench_k1.py builds them with -D; the default build
 // defines none; each gives wrong results and only times what is left):
-// PBTE_K1_NO_MS drops the ms atomics, PBTE_K1_NO_YS the ys stores,
+// PBTE_K1_NO_MS drops the band sum of ms (its chain of level flags with
+// it: ms is then left unwritten), PBTE_K1_NO_YS the ys stores,
 // PBTE_K1_NO_PRODUCT the tensor-core product, PBTE_K1_NO_LOADS the
 // producers' loads from device memory (with NO_YS and NO_MS: the product
 // and the hand-over of the tiles alone).
@@ -156,7 +172,14 @@ struct Smem {
 // barrier ids: rhs tile s full / empty, solution tile s full / empty, and
 // the consumers' own level barrier
 constexpr int kRhsFull = 1, kRhsEmpty = 3, kSolFull = 5, kSolEmpty = 7,
-              kConsumers = 9;
+              kConsumers = 9, kMsDone = 10;
+// bands a chain of the band sum of ms: each chain of kChainBands bands sums
+// into a partial of its own (the wrapper adds the partials in order), so a
+// band waits on at most kChainBands - 1 others before it
+constexpr int kChainBands = 8;
+// ms rows a producer loads before it adds and stores them where a column
+// pass holds several rows (W <= 128)
+constexpr int kMsBatch = 9;
 
 template <int D, typename State, bool CAST>
 __global__ void __launch_bounds__(kThreads, 1)
@@ -170,11 +193,16 @@ lattice_ring_kernel(const State* __restrict__ v, const float* __restrict__ ttc,
                     const int* __restrict__ xmap,
                     const float* __restrict__ xval, int n_u,
                     const int* __restrict__ win, State* __restrict__ ys,
-                    float* __restrict__ ms, int L,
+                    float* __restrict__ ms, int* scratch, int L,
                     int Gb, int Km, int BS, int W, int nf, Shifts sh) {
   using G = Geo<D, CAST>;
   constexpr int NT = G::NT;
   constexpr int KT_FACE = G::KT_FACE;
+  // who adds ms: the consumers where the producers set the pace (bf16
+  // state, whose producers hold a level's operands) or the product is small
+  // (D <= 9), else (f32 at D = 16, 27, where the product sets it) the
+  // producers, in their wait for the consumers
+  constexpr bool kConsumerMs = CAST || D <= 9;
   const int WP = tile_stride(W);
   const int WC = cin_stride(W);
   const int J = (1 + nf) * D;
@@ -192,12 +220,22 @@ lattice_ring_kernel(const State* __restrict__ v, const float* __restrict__ ttc,
   };
   int2* wins = reinterpret_cast<int2*>(smem + lay.wins);  // [lo, hi) per level
 
+  // the (g, k, b) this CTA runs: tickets in launch order, b fastest
+  __shared__ int s_ticket;
   const int tid = threadIdx.x;
-  const int b = blockIdx.x % BS;
-  const int gk = blockIdx.x / BS;  // g * Km + k
+  if (tid == 0) s_ticket = atomicAdd(scratch, 1);
+  __syncthreads();
+  const int b = s_ticket % BS;
+  const int gk = s_ticket / BS;  // g * Km + k
   const int g = gk / Km;
   const int k = gk % Km;
   const size_t DW = static_cast<size_t>(D) * W;
+  // the band chain's level flags of this (g, k), one a band; the partial of
+  // ms this band's chain sums into, and whether the band starts its chain
+  int* flags = scratch + 1 + static_cast<size_t>(gk) * BS;
+  float* ms_part =
+      ms + static_cast<size_t>(b / kChainBands) * Gb * Km * L * DW;
+  const bool first = b % kChainBands == 0;
 
   // the factor block in mma fragment order: B[kk][n] = bcat[n, f D + jj]
   // for the k index kk = f KP + jj of face block f (zero where jj >= D or
@@ -382,30 +420,79 @@ lattice_ring_kernel(const State* __restrict__ v, const float* __restrict__ ttc,
         });
       }
     };
-    // level l's solution out: ys (state dtype) and the ms partial
+    // level l's ms terms mw * sol in band order (the band chain; where
+    // kConsumerMs, the consumers add them, below): the chain's first
+    // band stores them (zeros outside the window), band b > 0 adds them to
+    // the window's columns once band b - 1 has released the level; then
+    // every producer meets at kMsDone and one releases the level to band
+    // b + 1. It runs while the consumers multiply level l + 2 (the tile of
+    // level l is theirs again after it): in the producers' wait for the
+    // consumers, not after their stores
+    auto add_ms = [&](int l) {
+      const bool inw = in_window(l);
+      if (on && (first || inw)) {
+        const float* sol = sol_t(l & 1) + pw;
+        float* ms_l = ms_part + (static_cast<size_t>(gk) * L + l) * DW + pw;
+        if (first) {
+          rows([&](int j) {
+            ms_l[static_cast<size_t>(j) * W] =
+                inw ? __fmul_rn(mw, sol[j * WP]) : 0.f;
+          });
+        } else if (R == 1) {
+          // every row's load in flight at once
+          flag_wait(flags + b - 1, l + 1);
+          float old[D];
+#pragma unroll
+          for (int j = 0; j < D; ++j) {
+            old[j] = __ldcg(ms_l + static_cast<size_t>(j) * W);
+          }
+#pragma unroll
+          for (int j = 0; j < D; ++j) {
+            __stcg(ms_l + static_cast<size_t>(j) * W,
+                   __fadd_rn(old[j], __fmul_rn(mw, sol[j * WP])));
+          }
+        } else {
+          flag_wait(flags + b - 1, l + 1);
+          // rows j0, j0 + R, ... in batches of kMsBatch, each batch's
+          // loads in flight before its adds
+          for (int j0 = pj; j0 < D; j0 += kMsBatch * R) {
+            float old[kMsBatch];
+#pragma unroll
+            for (int q = 0; q < kMsBatch; ++q) {
+              const int j = j0 + q * R;
+              if (j < D) old[q] = __ldcg(ms_l + static_cast<size_t>(j) * W);
+            }
+#pragma unroll
+            for (int q = 0; q < kMsBatch; ++q) {
+              const int j = j0 + q * R;
+              if (j < D) {
+                __stcg(ms_l + static_cast<size_t>(j) * W,
+                       __fadd_rn(old[q], __fmul_rn(mw, sol[j * WP])));
+              }
+            }
+          }
+        }
+      }
+      bar_sync(kMsDone, kProducerThreads);
+      if (p == 0) flag_release(flags + b, l + 1);
+    };
+    // level l's solution out as ys (state dtype; zero outside the window)
     auto store = [&](int l) {
+#ifndef PBTE_K1_NO_YS
       if (!on) return;
       const float* sol = sol_t(l & 1);
       const size_t lgk = (static_cast<size_t>(l) * Gb + g) * Km + k;
       State* ys_l = ys + (lgk * BS + b) * DW + pw;
-      if (!in_window(l)) {  // ys is zero outside the window, ms untouched
-#ifndef PBTE_K1_NO_YS
+      if (!in_window(l)) {
         rows([&](int j) {
           ys_l[static_cast<size_t>(j) * W] = from_f32<State>(0.f);
         });
-#endif
         return;
       }
-      float* ms_l = ms + (static_cast<size_t>(gk) * L + l) * DW + pw;
       rows([&](int j) {
-        const float s = sol[j * WP + pw];
-#ifndef PBTE_K1_NO_YS
-        ys_l[static_cast<size_t>(j) * W] = from_f32<State>(s);
-#endif
-#ifndef PBTE_K1_NO_MS
-        atomicAdd(ms_l + static_cast<size_t>(j) * W, mw * s);
-#endif
+        ys_l[static_cast<size_t>(j) * W] = from_f32<State>(sol[j * WP + pw]);
       });
+#endif
     };
 
     fetch(0);
@@ -418,12 +505,24 @@ lattice_ring_kernel(const State* __restrict__ v, const float* __restrict__ ttc,
         if (l + 1 >= 2) bar_sync(kRhsEmpty + s1, kThreads);
         prep(l + 1);
         bar_arrive(kRhsFull + s1, kThreads);
-        if (l + 2 < L) fetch(l + 2);
       }
+      if (!kConsumerMs && l >= 1) {
+        // level l - 1's ms, then its tile is free for level l + 1
+#ifndef PBTE_K1_NO_MS
+        add_ms(l - 1);
+#endif
+        if (l + 1 < L) bar_arrive(kSolEmpty + ((l - 1) & 1), kThreads);
+      }
+      if (l + 2 < L) fetch(l + 2);
       bar_sync(kSolFull + (l & 1), kThreads);
       store(l);
-      if (l + 2 < L) bar_arrive(kSolEmpty + (l & 1), kThreads);
+      if (kConsumerMs && l + 2 < L) {
+        bar_arrive(kSolEmpty + (l & 1), kThreads);
+      }
     }
+#ifndef PBTE_K1_NO_MS
+    if (!kConsumerMs) add_ms(L - 1);
+#endif
     return;
   }
 
@@ -432,6 +531,58 @@ lattice_ring_kernel(const State* __restrict__ v, const float* __restrict__ ttc,
   const int warp = tid >> 5;
   const int gq = lane >> 2;  // fragment group: rows gq, gq + 8
   const int tq = lane & 3;   // thread in group: k (and n) columns
+
+  // kConsumerMs: level l's ms terms of this warp's m-tiles of the window
+  // [t0, t0 + nt) in band order (the chain's first band stores them, zeros
+  // outside the window and over the other m-tiles; band b > 0 adds the
+  // window's columns once band b - 1 has released the level)
+  auto consumer_ms = [&](const float* sol, int2 wl, int t0, int nt, int l) {
+    constexpr int IT = (D + 1) / 2;  // steps of 2 rows
+    const float mw = macro_w[static_cast<size_t>(gk) * BS + b];
+    float* ms_l = ms_part + (static_cast<size_t>(gk) * L + l) * DW;
+    const int c = lane & 15;
+    const int jh = lane >> 4;
+#pragma unroll
+    for (int m = 0; m < kMTilesPerWarp; ++m) {
+      if (warp + m * kConsumerWarps >= nt) continue;
+      const int w = (t0 + warp + m * kConsumerWarps) * 16 + c;
+      const bool inw = w >= wl.x && w < wl.y;
+      if (w >= W) continue;
+      if (first) {
+#pragma unroll
+        for (int it = 0; it < IT; ++it) {
+          const int j = 2 * it + jh;
+          if (j < D) {
+            ms_l[static_cast<size_t>(j) * W + w] =
+                inw ? __fmul_rn(mw, sol[j * WP + w]) : 0.f;
+          }
+        }
+      } else if (inw) {
+        flag_wait(flags + b - 1, l + 1);
+        float old[IT];
+#pragma unroll
+        for (int it = 0; it < IT; ++it) {
+          const int j = 2 * it + jh;
+          if (j < D) old[it] = __ldcg(ms_l + static_cast<size_t>(j) * W + w);
+        }
+#pragma unroll
+        for (int it = 0; it < IT; ++it) {
+          const int j = 2 * it + jh;
+          if (j < D) {
+            __stcg(ms_l + static_cast<size_t>(j) * W + w,
+                   __fadd_rn(old[it], __fmul_rn(mw, sol[j * WP + w])));
+          }
+        }
+      }
+    }
+    if (first) {
+      for (int mt = warp; mt * 16 < W; mt += kConsumerWarps) {
+        const int w = mt * 16 + c;
+        if ((mt >= t0 && mt < t0 + nt) || w >= W) continue;
+        for (int j = jh; j < D; j += 2) ms_l[static_cast<size_t>(j) * W + w] = 0.f;
+      }
+    }
+  };
 
   for (int l = 0; l < L; ++l) {
     const int s = l & 1;
@@ -577,9 +728,21 @@ lattice_ring_kernel(const State* __restrict__ v, const float* __restrict__ ttc,
       }
     }
     bar_arrive(kSolFull + s, kThreads);
+#ifndef PBTE_K1_NO_MS
+    // kConsumerMs: this warp's m-tiles' ms terms in band order, 2 rows x 16
+    // columns a step, as the float64 kernel's consumers add theirs
+    if constexpr (kConsumerMs) {
+      __syncwarp();
+      consumer_ms(sol, wl, t0, nt, l);
+    }
+#endif
     // every consumer's part of tile s is written before it is read as the
-    // next level's ring (and every read of tile s ^ 1 is done)
+    // next level's ring (and every read of tile s ^ 1 is done; with
+    // kConsumerMs every consumer's ms of level l is stored)
     bar_sync(kConsumers, kConsumerThreads);
+#ifndef PBTE_K1_NO_MS
+    if (kConsumerMs && tid == 0) flag_release(flags + b, l + 1);
+#endif
   }
 }
 
@@ -593,8 +756,8 @@ cudaError_t launch(const void* v, const float* ttc, const float* bsrc,
                    const float* cin, const float* bcat, const float* macro_w,
                    const float* wvec, const float* dsrc, const int* xmap,
                    const float* xval, int n_u, const int* win, void* ys,
-                   float* ms, int L, int Gb, int Km, int BS, int W, int nf,
-                   Shifts sh, cudaStream_t stream) {
+                   float* ms, int* scratch, int L, int Gb, int Km, int BS,
+                   int W, int nf, Shifts sh, cudaStream_t stream) {
   const size_t smem = smem_bytes<D, State, CAST>(W, nf, L);
   auto kernel = lattice_ring_kernel<D, State, CAST>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -603,8 +766,8 @@ cudaError_t launch(const void* v, const float* ttc, const float* bsrc,
   if (err != cudaSuccess) return err;
   kernel<<<Gb * Km * BS, kThreads, smem, stream>>>(
       static_cast<const State*>(v), ttc, bsrc, cin, bcat, macro_w, wvec, dsrc,
-      xmap, xval, n_u, win, static_cast<State*>(ys), ms, L, Gb, Km, BS, W, nf,
-      sh);
+      xmap, xval, n_u, win, static_cast<State*>(ys), ms, scratch, L, Gb, Km,
+      BS, W, nf, sh);
   return cudaGetLastError();
 }
 
@@ -613,15 +776,15 @@ cudaError_t dispatch_d(int D, const void* v, const float* ttc,
                        const float* bsrc, const float* cin, const float* bcat,
                        const float* macro_w, const float* wvec,
                        const float* dsrc, const int* xmap, const float* xval,
-                       int n_u, const int* win, void* ys, float* ms, int L,
-                       int Gb, int Km, int BS, int W, int nf, Shifts sh,
-                       cudaStream_t stream) {
+                       int n_u, const int* win, void* ys, float* ms,
+                       int* scratch, int L, int Gb, int Km, int BS, int W,
+                       int nf, Shifts sh, cudaStream_t stream) {
   switch (D) {
 #define PBTE_K1_CASE(d)                                                     \
   case d:                                                                   \
     return launch<d, State, CAST>(v, ttc, bsrc, cin, bcat, macro_w, wvec,   \
-                                  dsrc, xmap, xval, n_u, win, ys, ms, L, Gb, \
-                                  Km, BS, W, nf, sh, stream);
+                                  dsrc, xmap, xval, n_u, win, ys, ms,       \
+                                  scratch, L, Gb, Km, BS, W, nf, sh, stream);
     PBTE_K1_ONE_CTA_D(PBTE_K1_CASE)
 #undef PBTE_K1_CASE
     default:
@@ -665,8 +828,11 @@ cudaError_t dispatch_d(int D, const void* v, const float* ttc,
 //
 // The consumers, not the producers, stream the solution out: each warp,
 // after writing its own m-tiles' columns of the solution tile, reads them
-// back (the warp's own writes, so no barrier) and stores them as ys and as
-// the ms atomics, 2 rows x 16 columns per instruction, whole 128-byte lines.
+// back (the warp's own writes, so no barrier) and stores them as ys and
+// into ms in band order (the band chain, as the f32 kernel; band 0's
+// consumers also store the zeros of ms outside the window's m-tiles, and
+// consumer thread 0 releases the level after the consumers' barrier), 2
+// rows x 16 columns per instruction, whole 128-byte lines.
 // With one solution tile a producer pass over it would have to end before
 // the consumers write the next level, so the producers' loads and those
 // stores would run one after the other and set the pace together; the
@@ -676,11 +842,11 @@ cudaError_t dispatch_d(int D, const void* v, const float* ttc,
 // Hull windows as in the f32 kernel: the consumers run the window's m-tiles
 // only; columns of those tiles outside the window get a zero rhs and zero
 // inflow coefficients, so their solution is an exact zero, and ys there is
-// stored as such; ms is added for the window's columns only. Rows of the
+// stored as such; band b > 0 adds ms for the window's columns only. Rows of the
 // solution tile that a level does not compute keep an earlier level's
 // finite solution, which the next level reads only where its cin is zero.
-// So windowed ys equals the full slab's bit for bit, and ys is exact zeros
-// outside the windows (Krylov vectors stay zero on the padding).
+// So windowed ys and ms equal the full slab's bit for bit, and both are
+// exact zeros outside the windows (Krylov vectors stay zero on the padding).
 //
 // Shared memory at the flagship (D = 27, W = 256, three faces, row stride
 // 260 doubles, which is 4 mod 16: the 16 lanes of a half-warp's 8-byte
@@ -701,7 +867,9 @@ cudaError_t dispatch_d(int D, const void* v, const float* ttc,
 // every band re-reads ttc, bsrc and dsrc from L2, which the bound counts
 // once. Giving the producers more registers (setmaxnreg 144/112, 152/104),
 // an L2 prefetch of level l+2's v rows and the producers streaming ys and
-// ms out of the solution tile (1.45x) were slower and are not kept.
+// ms out of the solution tile (1.45x) were slower and are not kept. The
+// band chain of ms on the consumers made the launch 1.15x slower than its
+// atomics (PERF.md section 6).
 //
 // Measurement variants: PBTE_K1_NO_MS, PBTE_K1_NO_YS, PBTE_K1_NO_PRODUCT and
 // PBTE_K1_NO_LOADS as above.
@@ -738,8 +906,8 @@ lattice_ring_f64_kernel(const double* __restrict__ v,
                         const int* __restrict__ xmap,
                         const double* __restrict__ xval, int n_u,
                         const int* __restrict__ win, double* __restrict__ ys,
-                        double* __restrict__ ms, int L, int Gb, int Km,
-                        int BS, int W, int nf, Shifts sh) {
+                        double* __restrict__ ms, int* scratch, int L, int Gb,
+                        int Km, int BS, int W, int nf, Shifts sh) {
   using G = GeoF64<D>;
   constexpr int NT = G::NT;
   constexpr int KT_FACE = G::KT_FACE;
@@ -758,12 +926,22 @@ lattice_ring_f64_kernel(const double* __restrict__ v,
   };
   int2* wins = reinterpret_cast<int2*>(smem + lay.wins);  // [lo, hi) per level
 
+  // the (g, k, b) this CTA runs: tickets in launch order, b fastest
+  __shared__ int s_ticket;
   const int tid = threadIdx.x;
-  const int b = blockIdx.x % BS;
-  const int gk = blockIdx.x / BS;  // g * Km + k
+  if (tid == 0) s_ticket = atomicAdd(scratch, 1);
+  __syncthreads();
+  const int b = s_ticket % BS;
+  const int gk = s_ticket / BS;  // g * Km + k
   const int g = gk / Km;
   const int k = gk % Km;
   const size_t DW = static_cast<size_t>(D) * W;
+  // the band chain's level flags of this (g, k), one a band; the partial of
+  // ms this band's chain sums into, and whether the band starts its chain
+  int* flags = scratch + 1 + static_cast<size_t>(gk) * BS;
+  double* ms_part =
+      ms + static_cast<size_t>(b / kChainBands) * Gb * Km * L * DW;
+  const bool first = b % kChainBands == 0;
 
   // the factor in B-fragment order: entry (kt NT + n) 32 + lane holds
   // B[kk][i] = bcat[i, f D + jj] for k-step kt of face block f, k index
@@ -1003,12 +1181,16 @@ lattice_ring_f64_kernel(const double* __restrict__ v,
       }
     }
     __syncwarp();
-    // this warp's m-tiles out of the tile: ys (zeros included) and the ms
-    // partials of the window's columns, 2 rows x 16 columns a step
+    // this warp's m-tiles out of the tile: ys (zeros included), then the ms
+    // terms in band order: band 0 stores them over the m-tiles' columns
+    // (zeros outside the window), band b > 0 adds them to the window's
+    // columns once band b - 1 has released the level; 2 rows x 16 columns
+    // a step
     {
+      constexpr int IT = (D + 1) / 2;  // steps of 2 rows
       const size_t lgk = (static_cast<size_t>(l) * Gb + g) * Km + k;
       double* ys_l = ys + (lgk * BS + b) * DW;
-      double* ms_l = ms + (static_cast<size_t>(gk) * L + l) * DW;
+      double* ms_l = ms_part + (static_cast<size_t>(gk) * L + l) * DW;
       const int c = lane & 15;
       const int jh = lane >> 4;
 #pragma unroll
@@ -1017,23 +1199,62 @@ lattice_ring_f64_kernel(const double* __restrict__ v,
         const int w = (t0 + warp + m * kConsumerWarps) * 16 + c;
         const bool inw = w >= wl.x && w < wl.y;
         if (w >= W) continue;
-#pragma unroll
-        for (int it = 0; it < (D + 1) / 2; ++it) {
-          const int j = 2 * it + jh;
-          if (j >= D) break;
-          const double x = sol[j * WP + w];
-          const size_t o = static_cast<size_t>(j) * W + w;
 #ifndef PBTE_K1_NO_YS
-          ys_l[o] = x;
+#pragma unroll
+        for (int it = 0; it < IT; ++it) {
+          const int j = 2 * it + jh;
+          if (j < D) ys_l[static_cast<size_t>(j) * W + w] = sol[j * WP + w];
+        }
 #endif
 #ifndef PBTE_K1_NO_MS
-          if (inw) atomicAdd(ms_l + o, mw * x);
+        if (first) {
+#pragma unroll
+          for (int it = 0; it < IT; ++it) {
+            const int j = 2 * it + jh;
+            if (j < D) {
+              ms_l[static_cast<size_t>(j) * W + w] =
+                  inw ? __dmul_rn(mw, sol[j * WP + w]) : 0.0;
+            }
+          }
+        } else if (inw) {
+          flag_wait(flags + b - 1, l + 1);
+          double old[IT];
+#pragma unroll
+          for (int it = 0; it < IT; ++it) {
+            const int j = 2 * it + jh;
+            if (j < D) old[it] = __ldcg(ms_l + static_cast<size_t>(j) * W + w);
+          }
+#pragma unroll
+          for (int it = 0; it < IT; ++it) {
+            const int j = 2 * it + jh;
+            if (j < D) {
+              __stcg(ms_l + static_cast<size_t>(j) * W + w,
+                     __dadd_rn(old[it], __dmul_rn(mw, sol[j * WP + w])));
+            }
+          }
+        }
 #endif
+      }
+#ifndef PBTE_K1_NO_MS
+      if (first) {
+        // the chain's first band: the zeros of ms over the m-tiles outside
+        // the window
+        for (int mt = warp; mt * 16 < W; mt += kConsumerWarps) {
+          const int w = mt * 16 + c;
+          if ((mt >= t0 && mt < t0 + nt) || w >= W) continue;
+          for (int j = jh; j < D; j += 2) {
+            ms_l[static_cast<size_t>(j) * W + w] = 0.0;
+          }
         }
       }
+#endif
     }
-    // level l's solution is in the tile before level l+1 reads it
+    // level l's solution is in the tile before level l+1 reads it (and
+    // every consumer's ms of level l is stored)
     bar_sync(kConsumers, kConsumerThreads);
+#ifndef PBTE_K1_NO_MS
+    if (tid == 0) flag_release(flags + b, l + 1);
+#endif
   }
 }
 
@@ -1043,8 +1264,9 @@ cudaError_t launch_f64(const double* v, const double* ttc, const double* bsrc,
                        const double* macro_w, const double* wvec,
                        const double* dsrc, const int* xmap,
                        const double* xval, int n_u, const int* win,
-                       double* ys, double* ms, int L, int Gb, int Km, int BS,
-                       int W, int nf, Shifts sh, cudaStream_t stream) {
+                       double* ys, double* ms, int* scratch, int L, int Gb,
+                       int Km, int BS, int W, int nf, Shifts sh,
+                       cudaStream_t stream) {
   const size_t smem = SmemF64<D>(W, nf, L).total;
   auto kernel = lattice_ring_f64_kernel<D, DIR>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -1053,7 +1275,7 @@ cudaError_t launch_f64(const double* v, const double* ttc, const double* bsrc,
   if (err != cudaSuccess) return err;
   kernel<<<Gb * Km * BS, kThreads, smem, stream>>>(
       v, ttc, bsrc, cin, bcat, macro_w, wvec, dsrc, xmap, xval, n_u, win, ys,
-      ms, L, Gb, Km, BS, W, nf, sh);
+      ms, scratch, L, Gb, Km, BS, W, nf, sh);
   return cudaGetLastError();
 }
 
@@ -1066,16 +1288,17 @@ cudaError_t launch_f64_d(const double* v, const double* ttc,
                          const double* bcat, const double* macro_w,
                          const double* wvec, const double* dsrc,
                          const int* xmap, const double* xval, int n_u,
-                         const int* win, double* ys, double* ms, int L,
-                         int Gb, int Km, int BS, int W, int nf, Shifts sh,
-                         cudaStream_t stream) {
+                         const int* win, double* ys, double* ms,
+                         int* scratch, int L, int Gb, int Km, int BS, int W,
+                         int nf, Shifts sh, cudaStream_t stream) {
   return dsrc != nullptr
              ? launch_f64<D, true>(v, ttc, bsrc, cin, bcat, macro_w, wvec,
-                                   dsrc, xmap, xval, n_u, win, ys, ms, L, Gb,
-                                   Km, BS, W, nf, sh, stream)
+                                   dsrc, xmap, xval, n_u, win, ys, ms,
+                                   scratch, L, Gb, Km, BS, W, nf, sh, stream)
              : launch_f64<D, false>(v, ttc, bsrc, cin, bcat, macro_w, wvec,
-                                    dsrc, xmap, xval, n_u, win, ys, ms, L, Gb,
-                                    Km, BS, W, nf, sh, stream);
+                                    dsrc, xmap, xval, n_u, win, ys, ms,
+                                    scratch, L, Gb, Km, BS, W, nf, sh,
+                                    stream);
 }
 
 
@@ -1083,22 +1306,40 @@ cudaError_t launch_f64_d(const double* v, const double* ttc,
 
 extern "C" {
 
+// int32 entries of a launch's scratch: the ticket counter, then the band
+// chain's level flag of each (g, k, b). (Its presence marks the entry
+// points that take the scratch and write every slot of ms.)
+long long pbte_lattice_ring_scratch_numel(int Gb, int Km, int BS) {
+  return 1 + static_cast<long long>(Gb) * Km * BS;
+}
+
+// partials of ms a launch writes: one a chain of kChainBands bands
+int pbte_lattice_ring_ms_parts(int BS) {
+  return (BS + kChainBands - 1) / kChainBands;
+}
+
 // cast_bf16 = 0: f32 state, exact f32 operands (3xTF32 products).
 // cast_bf16 = 1: bf16 state, bf16 operands and ring, f32 accumulation.
 // dsrc may be null (no Dirichlet faces), xmap and xval null (no lagged
 // closures; n_u is then ignored), win null (full slab) or (L, 2) int32 on
-// the device. ms must be zeroed by the caller (the band sum is atomic); ys
-// is written in full. Returns a cudaError_t.
+// the device. ys is written in full; ms holds
+// pbte_lattice_ring_ms_parts(BS) partials (P, Gb, Km, L, D, W), each
+// written in full and summed in band order over its chain's bands;
+// scratch: n_scratch >= pbte_lattice_ring_scratch_numel int32, zeroed by
+// the caller before every launch. Returns a cudaError_t.
 int pbte_lattice_ring_sweep(int cast_bf16, int D, const void* v,
                             const float* ttc, const float* bsrc,
                             const float* cin, const float* bcat,
                             const float* macro_w, const float* wvec,
                             const float* dsrc, const int* xmap,
                             const float* xval, int n_u, const int* win,
-                            void* ys, float* ms, int L, int Gb, int Km,
+                            void* ys, float* ms, int* scratch,
+                            long long n_scratch, int L, int Gb, int Km,
                             int BS, int W, int nf, int s0, int s1, int s2,
                             void* stream) {
-  if (nf < 1 || nf > kMaxFaces || W < 1 || W > kMaxW || L < 1) {
+  if (nf < 1 || nf > kMaxFaces || W < 1 || W > kMaxW || L < 1 ||
+      scratch == nullptr ||
+      n_scratch < pbte_lattice_ring_scratch_numel(Gb, Km, BS)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Shifts sh{{s0, s1, s2}};
@@ -1107,11 +1348,11 @@ int pbte_lattice_ring_sweep(int cast_bf16, int D, const void* v,
       cast_bf16
           ? dispatch_d<__nv_bfloat16, true>(D, v, ttc, bsrc, cin, bcat,
                                             macro_w, wvec, dsrc, xmap, xval,
-                                            n_u, win, ys, ms, L, Gb, Km, BS,
-                                            W, nf, sh, st)
+                                            n_u, win, ys, ms, scratch, L, Gb,
+                                            Km, BS, W, nf, sh, st)
           : dispatch_d<float, false>(D, v, ttc, bsrc, cin, bcat, macro_w,
                                      wvec, dsrc, xmap, xval, n_u, win, ys, ms,
-                                     L, Gb, Km, BS, W, nf, sh, st);
+                                     scratch, L, Gb, Km, BS, W, nf, sh, st);
   return static_cast<int>(err);
 }
 
@@ -1133,16 +1374,20 @@ long long pbte_lattice_ring_smem_bytes(int cast_bf16, int D, int W, int nf,
 
 // float64 state, float64 operands and accumulation (ms in float64); the
 // arguments of pbte_lattice_ring_sweep less cast_bf16, with the same
-// contract (ms zeroed by the caller, ys written in full).
+// contract (ys written in full, ms as its partials, the scratch zeroed
+// by the caller).
 int pbte_lattice_ring_sweep_f64(int D, const double* v, const double* ttc,
                                 const double* bsrc, const double* cin,
                                 const double* bcat, const double* macro_w,
                                 const double* wvec, const double* dsrc,
                                 const int* xmap, const double* xval, int n_u,
-                                const int* win, double* ys, double* ms, int L,
+                                const int* win, double* ys, double* ms,
+                                int* scratch, long long n_scratch, int L,
                                 int Gb, int Km, int BS, int W, int nf, int s0,
                                 int s1, int s2, void* stream) {
-  if (nf < 1 || nf > kMaxFaces || W < 1 || W > kMaxW || L < 1) {
+  if (nf < 1 || nf > kMaxFaces || W < 1 || W > kMaxW || L < 1 ||
+      scratch == nullptr ||
+      n_scratch < pbte_lattice_ring_scratch_numel(Gb, Km, BS)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Shifts sh{{s0, s1, s2}};
@@ -1152,8 +1397,8 @@ int pbte_lattice_ring_sweep_f64(int D, const double* v, const double* ttc,
 #define PBTE_K1_CASE(d)                                                      \
   case d:                                                                    \
     err = launch_f64_d<d>(v, ttc, bsrc, cin, bcat, macro_w, wvec, dsrc, xmap, \
-                          xval, n_u, win, ys, ms, L, Gb, Km, BS, W, nf, sh,  \
-                          st);                                               \
+                          xval, n_u, win, ys, ms, scratch, L, Gb, Km, BS, W, \
+                          nf, sh, st);                                       \
     break;
     PBTE_K1_ONE_CTA_D(PBTE_K1_CASE)
 #undef PBTE_K1_CASE

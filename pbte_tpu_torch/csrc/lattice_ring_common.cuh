@@ -2,7 +2,8 @@
 // Hopper (sm_90a): lattice_ring.cu (one CTA holds a whole level) and
 // lattice_ring_tiled.cu (a thread-block cluster holds it in column tiles).
 // Operand rounding, the TF32 split, the tensor-core products (mma.sync
-// m16n8k8 TF32, m16n8k16 bf16, m16n8k4 f64) and the tile geometry.
+// m16n8k8 TF32, m16n8k16 bf16, m16n8k4 f64), the tile geometry and the
+// level flags of the band chain of ms.
 
 #pragma once
 
@@ -107,6 +108,41 @@ __device__ __forceinline__ void mma_f64(double (&d)[4], double a0, double a1,
 
 __host__ __device__ constexpr size_t align16(size_t n) {
   return (n + 15) / 16 * 16;
+}
+
+// The band chain of ms, K1's band sum in a fixed order. A launch's CTAs
+// take tickets in launch order with the band fastest (after the tile in
+// the tiled kernel), so the CTA of band b - 1 has started, and is resident
+// or done, before band b waits on it. Per (group, slot[, tile]) each band
+// keeps a flag in the launch's scratch, the count of levels it has added
+// to ms. Band 0 stores its terms of level l (zeros outside the window, so
+// every slot of ms is written); band b > 0 waits until band b - 1's flag
+// passes l (an acquire load), adds its terms with plain loads through L2
+// and stores, and every thread that stored meets at a barrier before one
+// releases the level (a release store of l + 1: the barrier orders the
+// CTA's stores before it, and the release is cumulative, as in CUTLASS's
+// semaphore; no fence of its own). So each slot sums its bands in band
+// order, whichever CTA reaches a level first.
+__device__ __forceinline__ int flag_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.s32 %0, [%1];\n"
+               : "=r"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+__device__ __forceinline__ void flag_release(int* p, int v) {
+  asm volatile("st.release.gpu.global.s32 [%0], %1;\n" ::"l"(p), "r"(v)
+               : "memory");
+}
+// wait until *flag >= target; no launch waits this long (~17 s at the
+// H100's clock): a fault, not a hang
+__device__ __forceinline__ void flag_wait(const int* flag, int target) {
+  const long long t0 = clock64();
+  while (flag_acquire(flag) < target) {
+    __nanosleep(32);
+    if (clock64() - t0 > (1ll << 35)) __trap();
+  }
 }
 
 // Tile geometry of one (D, mode) for f32 and bf16 state

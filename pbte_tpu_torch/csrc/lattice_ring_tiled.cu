@@ -29,9 +29,15 @@
 // the tile has stored (a release store after them); a tile waits, with an
 // acquire load, only on the lower tiles its halo reads. Each CTA first takes
 // a ticket from a counter in the same scratch and runs the tile the ticket
-// names (t fastest), so it waits only on CTAs that started before it and are
-// resident or done, however many fit the card: no deadlock (the decoupled
-// look-back argument). The wrapper zeroes the scratch before every launch.
+// names (t fastest, then b), so it waits only on CTAs that started before it
+// and are resident or done, however many fit the card: no deadlock (the
+// decoupled look-back argument). The band sum of ms runs in a fixed order,
+// band 0 first (the band chain of lattice_ring_common.cuh), per (g, k,
+// tile): a second flag per (g, k, b, tile) in the scratch counts the levels
+// whose ms the tile has added, and tile t of band b waits only on tile t of
+// band b - 1, which started before it. One input gives one ys and one ms,
+// bit for bit, from launch to launch. The wrapper zeroes the scratch before
+// every launch.
 //
 // Warp roles, a level's loads in flight (after lattice_ring.cu):
 //   - 8 consumer warps run the product (W x J) @ (J x D) on the tensor cores.
@@ -51,16 +57,18 @@
 //     bytes at a time where aligned) as soon as those tiles' flags say it
 //     is stored, into the halo buffer of level l + 1's parity.
 //   - the 3 (f64: 2) "out" warps stream level l out of its solution tile:
-//     ys (zeros outside the window), then the flag, then the ms band sum by
-//     atomics (16-byte float4 atomics where the toolkit has them).
+//     ys (zeros outside the window), then the flag, then the level's ms
+//     terms in band order (band 0 stores them over the tile, zeros outside
+//     the window; band b > 0 adds them to the window's columns after band
+//     b - 1's release), 16 bytes at a time where the slab width allows.
 // The rhs, inflow, solution and (where they fit) halo tiles are
 // double-buffered by level parity; named barriers hand each buffer between
 // roles. The factor block stays in shared memory in mma fragment order for
 // all L levels. Rows of a tile that a level does not compute keep an earlier
 // level's finite solution; the next level reads them only where its inflow
 // coefficient is zero (the windows' contract), so the windowed results equal
-// the full slab's (ys bit for bit, ms up to the order of its atomics), and a
-// column's sum runs in one fixed order whatever the window.
+// the full slab's bit for bit, ys and ms, and a column's sum runs in one
+// fixed order whatever the window.
 //
 // Shared memory, f32 at D = 64 and Wt = 64 (three faces, shifts 0, 1, n):
 // the factor 4 x 8 k-steps x 8 n-tiles x 32 lanes x 8 B = 65,536 B, two
@@ -85,24 +93,16 @@
 // kept: the halo and the operands loaded by one role (9.6 ms at p = 3
 // f32), 2 or 7 load warps, scalar loads (14.1 ms), 1 halo warp (f64 1.45x),
 // unrolling the vector loads 4 rows deep (spills), scalar ms atomics (bf16
-// 1.08x).
+// 1.08x; the band sum was float4 atomics before the band chain).
 
 #include <type_traits>
 
 #include "lattice_ring_common.cuh"
 
-// float4 atomicAdd on global memory (sm_90, CUDA 12.1 and later) adds the
-// ms band sum 16 bytes at a time
-#if defined(__CUDACC_VER_MAJOR__) && \
-    (__CUDACC_VER_MAJOR__ * 100 + __CUDACC_VER_MINOR__ >= 1201)
-#define PBTE_K1_F4_ATOMICS 1
-#else
-#define PBTE_K1_F4_ATOMICS 0
-#endif
-
 // Measurement variants (bench_k1.py builds them with -D; the default build
 // defines none; each gives wrong results and only times what is left):
-// PBTE_K1_NO_MS drops the ms atomics, PBTE_K1_NO_YS the ys stores (the
+// PBTE_K1_NO_MS drops the band sum of ms (its chain of level flags with it:
+// ms is then left unwritten), PBTE_K1_NO_YS the ys stores (the
 // halo then reads whatever ys held), PBTE_K1_NO_PRODUCT the tensor-core
 // product, PBTE_K1_NO_LOADS the in warps' operand loads.
 
@@ -134,19 +134,8 @@ constexpr int kRhsFull = 1, kRhsEmpty = 3, kSolFull = 5, kSolEmpty = 7,
               kHaloFull = 9, kHaloEmpty = 11, kConsumers = 13, kHaloSync = 14,
               kOutSync = 15;
 constexpr size_t kSmemLimit = 232448;  // shared memory a CTA may use
-
-__device__ __forceinline__ int ld_acquire(const int* p) {
-  int v;
-  asm volatile("ld.acquire.gpu.global.s32 %0, [%1];\n"
-               : "=r"(v)
-               : "l"(p)
-               : "memory");
-  return v;
-}
-__device__ __forceinline__ void st_release(int* p, int v) {
-  asm volatile("st.release.gpu.global.s32 [%0], %1;\n" ::"l"(p), "r"(v)
-               : "memory");
-}
+// ms rows an out thread loads before it adds and stores them
+constexpr int kMsRows = 4;
 
 // state types: 0 f32 (3xTF32), 1 bf16, 2 f64
 template <int MODE>
@@ -493,6 +482,10 @@ lattice_ring_tiled_kernel(
   const int Wl = min(Wt, W - c0);  // its columns (>= 1: C = ceil(W / Wt))
   const size_t DW = static_cast<size_t>(D) * W;
   int* flags = scratch + 1 + static_cast<size_t>(gkb) * C;
+  // the band chain's level flags of this tile's (g, k), one a band, after
+  // the ys flags of every (g, k, b, tile)
+  int* ms_flags = scratch + 1 + static_cast<size_t>(Gb) * Km * BS * C +
+                  static_cast<size_t>(gk) * BS * C + t;
   const bool has_halo = t > 0 && lay.nh > 0;
   // halo offset of each face (-1: none), and the lowest tile it reads
   int hoff[kMaxFaces];
@@ -591,6 +584,60 @@ lattice_ring_tiled_kernel(
         }
       });
     };
+    // band 0's ms terms of the tile's columns in groups of V (zeros outside
+    // the window: every slot of ms is written)
+    auto store_ms = [&](auto width, const Op* sol, Op* ms_l, int a, int e) {
+      constexpr int V = decltype(width)::value;
+      for_columns(p, kNOut, 0, Wl / V, [&](int cg, int j0, int R) {
+        const int c = cg * V;
+        bool inw[V];
+#pragma unroll
+        for (int q = 0; q < V; ++q) inw[q] = c + q >= a && c + q < e;
+#pragma unroll 4
+        for (int j = j0; j < D; j += R) {
+          Op x[V];
+          lds_v(sol + j * WP + c, x);
+#pragma unroll
+          for (int q = 0; q < V; ++q) x[q] = inw[q] ? rmul(mw, x[q]) : Op(0);
+          stg_v(ms_l + static_cast<size_t>(j) * W + c, x);
+        }
+      });
+    };
+    // band b > 0's ms terms added to the window's groups of V columns
+    // (a group's columns outside the window keep band 0's zeros), through
+    // L2, kMsRows rows' loads in flight before their adds
+    auto add_ms = [&](auto width, const Op* sol, Op* ms_l, int a, int e) {
+      constexpr int V = decltype(width)::value;
+      for_columns(p, kNOut, a / V, (e + V - 1) / V, [&](int cg, int j0,
+                                                        int R) {
+        const int c = cg * V;
+        bool inw[V];
+#pragma unroll
+        for (int q = 0; q < V; ++q) inw[q] = c + q >= a && c + q < e;
+        for (int j = j0; j < D; j += kMsRows * R) {
+          Op old[kMsRows][V];
+#pragma unroll
+          for (int u = 0; u < kMsRows; ++u) {
+            if (j + u * R < D) {
+              ldcg_v(ms_l + static_cast<size_t>(j + u * R) * W + c, old[u]);
+            }
+          }
+#pragma unroll
+          for (int u = 0; u < kMsRows; ++u) {
+            const int jj = j + u * R;
+            if (jj < D) {
+              Op x[V];
+              lds_v(sol + jj * WP + c, x);
+#pragma unroll
+              for (int q = 0; q < V; ++q) {
+                x[q] = inw[q] ? radd(old[u][q], rmul(mw, x[q])) : old[u][q];
+              }
+              stg_v(ms_l + static_cast<size_t>(jj) * W + c, x);
+            }
+          }
+        }
+      });
+    };
     for (int l = 0; l < L; ++l) {
       const int s = l & 1;
       const Op* sol = S + sol_o + s * tile_n;
@@ -609,45 +656,27 @@ lattice_ring_tiled_kernel(
       // every out thread's ys of level l is stored: release it to the
       // tiles above
       bar_sync(kOutSync, kNOut);
-      if (p == 0) {
-        __threadfence();
-        st_release(flags + t, l + 1);
-      }
+      if (p == 0) flag_release(flags + t, l + 1);
 #ifndef PBTE_K1_NO_MS
       Op* ms_l = ms + (static_cast<size_t>(gk) * L + l) * DW + c0;
-#if PBTE_K1_F4_ATOMICS
-      if (MODE != 2 && vec && e > a) {
-        // 16-byte atomics over the window's groups of 4 columns, zeros
-        // added for the group's columns outside it
-        for_columns(p, kNOut, a / 4, (e + 3) / 4, [&](int cg, int j0,
-                                                      int R) {
-          const int c = cg * 4;
-          bool inw[4];
-#pragma unroll
-          for (int q = 0; q < 4; ++q) inw[q] = c + q >= a && c + q < e;
-#pragma unroll 4
-          for (int j = j0; j < D; j += R) {
-            float x[4];
-            lds_v(reinterpret_cast<const float*>(sol) + j * WP + c, x);
-            atomicAdd(reinterpret_cast<float4*>(ms_l + static_cast<size_t>(j) * W +
-                                                c),
-                      make_float4(inw[0] ? mw * x[0] : 0.f,
-                                  inw[1] ? mw * x[1] : 0.f,
-                                  inw[2] ? mw * x[2] : 0.f,
-                                  inw[3] ? mw * x[3] : 0.f));
-          }
-        });
-      } else
-#endif
-      {
-        for_columns(p, kNOut, a, e, [&](int c, int j0, int R) {
-#pragma unroll 4
-          for (int j = j0; j < D; j += R) {
-            atomicAdd(ms_l + static_cast<size_t>(j) * W + c,
-                      mw * sol[j * WP + c]);
-          }
-        });
+      if (b == 0) {
+        if (vec) {
+          store_ms(Width<VW>{}, sol, ms_l, a, e);
+        } else {
+          store_ms(Width<1>{}, sol, ms_l, a, e);
+        }
+      } else if (e > a) {
+        flag_wait(ms_flags + static_cast<size_t>(b - 1) * C, l + 1);
+        if (vec) {
+          add_ms(Width<VW>{}, sol, ms_l, a, e);
+        } else {
+          add_ms(Width<1>{}, sol, ms_l, a, e);
+        }
       }
+      // every out thread's ms of level l is stored: release it to the band
+      // above
+      bar_sync(kOutSync, kNOut);
+      if (p == 0) flag_release(ms_flags + static_cast<size_t>(b) * C, l + 1);
 #endif
       if (l + 2 < L) bar_arrive(kSolEmpty + s, kOutPair);
     }
@@ -806,12 +835,7 @@ lattice_ring_tiled_kernel(
     auto wait_flags = [&](int target) {
       if (p < 32) {
         for (int tt = t_lo + p; tt < t; tt += 32) {
-          const long long t0 = clock64();
-          while (ld_acquire(flags + tt) < target) {
-            __nanosleep(32);
-            // no launch waits this long (~17 s): a fault, not a hang
-            if (clock64() - t0 > (1ll << 35)) __trap();
-          }
+          flag_wait(flags + tt, target);
         }
         __threadfence();
       }
@@ -1092,14 +1116,22 @@ cudaError_t dispatch_tiled(int D, const void* v, const void* ttc,
 
 extern "C" {
 
+// int32 entries of a launch's scratch: the ticket counter, one ys level
+// flag per (g, k, b, tile), then the band chain's ms level flag per (g, k,
+// b, tile). (Its presence marks the entry points that write every slot of
+// ms.)
+long long pbte_lattice_ring_scratch_numel(int Gb, int Km, int BS, int C) {
+  return 1 + 2 * static_cast<long long>(Gb) * Km * BS * C;
+}
+
 // One sweep in C tiles of Wt slab columns, one CTA a tile. mode 0: f32
 // state and operands (3xTF32 products); 1: bf16 state, f32 operands, bf16
 // product operands and ring; 2: f64 state and operands (ms in float64).
-// Pointers and the rest of the contract as pbte_lattice_ring_sweep (ms
-// zeroed by the caller, ys written in full); scratch: n_scratch >= 1 + Gb
-// Km BS C int32, zeroed by the caller before every launch (the ticket
-// counter, then one level flag a tile). Wt must be a multiple of 16, at
-// most pbte_lattice_ring_tiled_wt_max, and C = ceil(W / Wt). Returns a
+// Pointers and the rest of the contract as pbte_lattice_ring_sweep (ys and
+// ms written in full, ms summed in band order); scratch: n_scratch >=
+// pbte_lattice_ring_scratch_numel int32, zeroed by the caller before every
+// launch. Wt must be a multiple of 16, at most
+// pbte_lattice_ring_tiled_wt_max, and C = ceil(W / Wt). Returns a
 // cudaError_t.
 int pbte_lattice_ring_sweep_tiled(int mode, int D, const void* v,
                                   const void* ttc, const void* bsrc,
@@ -1115,7 +1147,7 @@ int pbte_lattice_ring_sweep_tiled(int mode, int D, const void* v,
   bool ok = nf >= 1 && nf <= kMaxFaces && W >= 1 && L >= 1 && Wt >= 16 &&
             Wt % 16 == 0 && C >= 1 && (C - 1) * Wt < W && C * Wt >= W &&
             scratch != nullptr &&
-            n_scratch >= 1 + static_cast<long long>(Gb) * Km * BS * C;
+            n_scratch >= pbte_lattice_ring_scratch_numel(Gb, Km, BS, C);
   for (int f = 0; f < nf && f < kMaxFaces; ++f) {
     ok = ok && sh.s[f] >= 0 && sh.s[f] < W;
   }

@@ -30,6 +30,15 @@ at run time). Padded slots are exact-zero fixed points of the recurrence,
 so under the contract the windowed results equal the full-slab results bit
 for bit: ``ys`` and ``ms`` are exact zeros outside the windows, and a ring
 read that lands outside the previous level's window reads zero.
+
+Reproducibility. The kernels sum the bands of ``ms`` in band order (a chain
+of level flags between the bands' CTAs, ``csrc/lattice_ring_common.cuh``),
+never by float atomics: one input gives one ``ys`` and one ``ms`` bit for
+bit, from launch to launch. The one-CTA kernel chains ``CHAIN_BANDS``
+bands at a time, each chain into a partial of its own, and the wrapper
+adds the ``ms_parts`` partials in order; the tiled kernel chains every
+band. Each launch takes a zeroed int32 scratch (``scratch_numel``: its
+CTAs' tickets and the chains' flags).
 """
 
 from __future__ import annotations
@@ -52,6 +61,12 @@ TILED_D = (4, 8, 9, 16, 27, 64)
 KERNEL_MAX_W = 256
 KERNEL_MAX_FACES = 3
 _SMEM_LIMIT = 232448  # bytes of shared memory one CTA may use on Hopper
+# static shared memory of the one-CTA kernels (the CTA's ticket), beside
+# the dynamic carve-up of kernel_smem_bytes
+_ONE_CTA_STATIC_SMEM = 16
+# bands a chain of the one-CTA kernels' band sum (kChainBands of
+# csrc/lattice_ring.cu)
+CHAIN_BANDS = 8
 # the widest tile of the tiled kernel (TGeo::WT_MAX of
 # csrc/lattice_ring_tiled.cu): its 8 consumer warps own 16-row m-tiles (2 a
 # warp; 1 at D = 64 and at D = 27 in float64, where the factor or the
@@ -196,7 +211,7 @@ def launch_plan(D, W, nf, state, L, shifts):
     for."""
     if D in KERNEL_D and W <= KERNEL_MAX_W:
         smem = kernel_smem_bytes(D, W, nf, state, L)
-        if smem <= _SMEM_LIMIT:
+        if smem + _ONE_CTA_STATIC_SMEM <= _SMEM_LIMIT:
             return LaunchPlan("persistent", W, 1, smem)
     if D not in TILED_D:
         raise ValueError(
@@ -214,9 +229,28 @@ def launch_plan(D, W, nf, state, L, shifts):
 
 
 def tiled_scratch_numel(Gb, Km, BS, C):
-    """int32 entries of the tiled kernel's scratch: the ticket counter, then
-    one level flag per (group, slot, band, tile)."""
-    return 1 + Gb * Km * BS * C
+    """int32 entries of the tiled kernel's scratch: the ticket counter, one
+    ys level flag per (group, slot, band, tile), then the band chain's ms
+    level flag per (group, slot, band, tile) (``pbte_lattice_ring_scratch_
+    numel`` of csrc/lattice_ring_tiled.cu)."""
+    return 1 + 2 * Gb * Km * BS * C
+
+
+def scratch_numel(plan, Gb, Km, BS):
+    """int32 entries of a launch's scratch under ``plan``: the one-CTA
+    kernel's ticket counter and the band chain's level flag per (group,
+    slot, band) (``pbte_lattice_ring_scratch_numel`` of
+    csrc/lattice_ring.cu), or ``tiled_scratch_numel``."""
+    if plan.variant == "tiled":
+        return tiled_scratch_numel(Gb, Km, BS, plan.C)
+    return 1 + Gb * Km * BS
+
+
+def ms_parts(plan, BS):
+    """Partials of ms a launch under ``plan`` writes: one a chain of
+    CHAIN_BANDS bands in the one-CTA kernel (``pbte_lattice_ring_ms_parts``
+    of csrc/lattice_ring.cu), one in the tiled kernel."""
+    return 1 if plan.variant == "tiled" else -(-BS // CHAIN_BANDS)
 
 
 class ClosureSource(NamedTuple):
@@ -503,18 +537,22 @@ def _launch(v, ttc, bsrc, cin, bcat, macro_w, wvec, shifts, dsrc, xsrc,
         tensors["win"] = win
     plan = _kernel_args_ok(v, tensors, cast_bf16, shifts)
     f64 = v.dtype == torch.float64
-    # the kernel writes every slot of ys (zeros outside the windows)
-    ys = torch.empty_like(v)
-    ms = torch.zeros((Gb, Km, L, D, W),
-                     dtype=torch.float64 if f64 else torch.float32,
-                     device=v.device)
     lib = lib or _lib("lattice_ring_tiled" if plan.variant == "tiled"
                       else "lattice_ring")
+    # the kernel writes every slot of ys and of its ms partials (zeros
+    # outside the windows; a design from before the band chain adds ms into
+    # zeros)
+    ys = torch.empty_like(v)
+    # (the library's count: a design may chain every band)
+    parts = (lib.pbte_lattice_ring_ms_parts(BS)
+             if hasattr(lib, "pbte_lattice_ring_ms_parts") else 1)
+    ms = (torch.empty if lib.band_chain else torch.zeros)(
+        (parts, Gb, Km, L, D, W),
+        dtype=torch.float64 if f64 else torch.float32, device=v.device)
     s = [int(x) for x in shifts] + [0] * (KERNEL_MAX_FACES - len(shifts))
-    if plan.variant == "tiled":
-        # the ticket counter and the tiles' level flags, zero at the launch
-        scratch = torch.zeros(tiled_scratch_numel(Gb, Km, BS, plan.C),
-                              dtype=torch.int32, device=v.device)
+    # the CTAs' ticket counter and the level flags, zero at the launch
+    scratch = torch.zeros(scratch_numel(plan, Gb, Km, BS), dtype=torch.int32,
+                          device=v.device)
     with torch.cuda.device(v.device):
         stream = torch.cuda.current_stream(v.device).cuda_stream
         ptrs = [win.data_ptr() if win is not None else None, ys.data_ptr(),
@@ -533,11 +571,14 @@ def _launch(v, ttc, bsrc, cin, bcat, macro_w, wvec, shifts, dsrc, xsrc,
             xsrc.xval.shape[1] if xsrc is not None else 0,
             *ptrs, L, Gb, Km, BS, W, len(shifts), *s,
         )
+        if plan.variant == "tiled" or lib.band_chain:
+            # the scratch after ys and ms
+            n = len(ptrs) + 12
+            args = (*args[:n], scratch.data_ptr(), scratch.numel(), *args[n:])
         if plan.variant == "tiled":
             mode = 2 if f64 else int(cast_bf16)
-            err = lib.pbte_lattice_ring_sweep_tiled(
-                mode, *args[:15], scratch.data_ptr(), scratch.numel(),
-                *args[15:], plan.Wt, plan.C, stream)
+            err = lib.pbte_lattice_ring_sweep_tiled(mode, *args, plan.Wt,
+                                                    plan.C, stream)
         elif f64:
             err = lib.pbte_lattice_ring_sweep_f64(*args, stream)
         else:
@@ -549,7 +590,8 @@ def _launch(v, ttc, bsrc, cin, bcat, macro_w, wvec, shifts, dsrc, xsrc,
     lattice_ring_sweep.launches += 1
     lattice_ring_sweep.launches_by_state[_STATE_NAMES[v.dtype]] += 1
     lattice_ring_sweep.launches_by_variant[plan.variant] += 1
-    return ys, ms
+    # the chains' partials in order (a reduction of fixed order)
+    return ys, ms[0] if parts == 1 else ms.sum(dim=0)
 
 
 def _lib(name="lattice_ring", takes_win=True):
@@ -558,10 +600,16 @@ def _lib(name="lattice_ring", takes_win=True):
     earlier design of it) or the tiled kernels (``lattice_ring_tiled``).
     ``takes_win=False`` types the entry points of a source from before the
     window argument (bench_k1 times such a design against the full slab):
-    no ``win`` pointer, and no L in the shared-memory size."""
+    no ``win`` pointer, and no L in the shared-memory size. ``band_chain``
+    says whether the source sums ms in band order and writes every slot
+    (it exports ``pbte_lattice_ring_scratch_numel``; the one-CTA entry
+    points then take the scratch) or adds ms by atomics into zeros (a
+    design from before it)."""
     lib = _build.load(name).lib
     lib.takes_win = takes_win
+    lib.band_chain = hasattr(lib, "pbte_lattice_ring_scratch_numel")
     p, i = ctypes.c_void_p, ctypes.c_int
+    ll = ctypes.c_longlong
     lib.pbte_cuda_error_string.argtypes = [i]
     lib.pbte_cuda_error_string.restype = ctypes.c_char_p
     if hasattr(lib, "pbte_lattice_ring_sweep_tiled"):
@@ -577,20 +625,32 @@ def _lib(name="lattice_ring", takes_win=True):
         lib.pbte_lattice_ring_tiled_smem_bytes.restype = ctypes.c_longlong
         lib.pbte_lattice_ring_tiled_wt_max.argtypes = [i, i]
         lib.pbte_lattice_ring_tiled_wt_max.restype = i
+        if lib.band_chain:  # Gb, Km, BS, C
+            lib.pbte_lattice_ring_scratch_numel.argtypes = [i] * 4
+            lib.pbte_lattice_ring_scratch_numel.restype = ll
         return lib
     # 10 input pointers (through xmap, xval), U, the win, ys and ms
-    # pointers, then L, Gb, Km, BS, W, nf and three shifts, then the stream
+    # pointers (the band chain's: then the scratch pointer and its length),
+    # then L, Gb, Km, BS, W, nf and three shifts, then the stream
+    scratch = [p, ll] if lib.band_chain else []
     lib.pbte_lattice_ring_sweep.argtypes = (
-        [i, i] + [p] * 10 + [i] + [p] * (2 + takes_win) + [i] * 9 + [p])
+        [i, i] + [p] * 10 + [i] + [p] * (2 + takes_win) + scratch + [i] * 9
+        + [p])
     lib.pbte_lattice_ring_sweep.restype = i
     lib.pbte_lattice_ring_smem_bytes.argtypes = [i] * (4 + takes_win)
-    lib.pbte_lattice_ring_smem_bytes.restype = ctypes.c_longlong
+    lib.pbte_lattice_ring_smem_bytes.restype = ll
+    if lib.band_chain:  # Gb, Km, BS
+        lib.pbte_lattice_ring_scratch_numel.argtypes = [i] * 3
+        lib.pbte_lattice_ring_scratch_numel.restype = ll
+    if hasattr(lib, "pbte_lattice_ring_ms_parts"):  # BS
+        lib.pbte_lattice_ring_ms_parts.argtypes = [i]
+        lib.pbte_lattice_ring_ms_parts.restype = i
     if hasattr(lib, "pbte_lattice_ring_sweep_f64"):  # not in older designs
         lib.pbte_lattice_ring_sweep_f64.argtypes = (
-            [i] + [p] * 10 + [i] + [p] * 3 + [i] * 9 + [p])
+            [i] + [p] * 10 + [i] + [p] * 3 + scratch + [i] * 9 + [p])
         lib.pbte_lattice_ring_sweep_f64.restype = i
         lib.pbte_lattice_ring_smem_bytes_f64.argtypes = [i] * 4
-        lib.pbte_lattice_ring_smem_bytes_f64.restype = ctypes.c_longlong
+        lib.pbte_lattice_ring_smem_bytes_f64.restype = ll
     return lib
 
 

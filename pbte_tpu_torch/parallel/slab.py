@@ -61,6 +61,7 @@ from pbte_tpu_torch.ops.lattice_ring import (
     lattice_ring_sweep,
     windows_on_device,
 )
+from pbte_tpu_torch.ops.scatter import LayerMemo, index_add_layered_
 from pbte_tpu_torch.parallel.comm import Grid
 from pbte_tpu_torch.solver.lattice_tables import (
     lattice_ring_tables,
@@ -100,6 +101,7 @@ class SlabLatticeSolver:
         self.device = device = checked_device(device)
         self.dtype = dtype
         self.grid = grid
+        self._closure_layers = LayerMemo()  # the closure maps' layers
         n_dir = grid.n("dir")
         P = grid.n("space")
         self.P = P
@@ -567,10 +569,12 @@ class SlabLatticeSolver:
                            device=self.device)
 
         def add(uid, con):
-            """sums[g, uid[g, q]] += con[g, q]."""
+            """sums[g, uid[g, q]] += con[g, q], one collision-free layer
+            of (g, q) pairs at a time."""
             rows = (self._gi * self._U + uid).reshape(-1)
-            sums.view((-1, Kl, BS, D)).index_add_(
-                0, rows, con.reshape((-1, Kl, BS, D)))
+            index_add_layered_(sums.view((-1, Kl, BS, D)), 0, rows,
+                               con.reshape((-1, Kl, BS, D)),
+                               self._closure_layers.layers(uid, rows))
 
         # halo: the exit layer goes downstream over space (one permute per
         # sweep sign of a0); ranks at the entry end receive zeros, which

@@ -43,6 +43,7 @@ import torch
 
 from pbte_tpu_torch.fem import assembly as _assembly
 from pbte_tpu_torch.models import macroscopic
+from pbte_tpu_torch.ops.scatter import LayerMemo, index_add_layered_
 from pbte_tpu_torch.parallel import partition as part_mod
 from pbte_tpu_torch.parallel.comm import Grid
 from pbte_tpu_torch.parallel.slab import sharded_solve, write_gathered
@@ -83,6 +84,7 @@ class SpatialShardedSolver:
         if halo_mode not in ("ppermute", "psum"):
             raise ValueError(f"unknown halo_mode: {halo_mode}")
         self.device = device = checked_device(device)
+        self._wall_layers = LayerMemo()  # the wall maps' layers
         self.dtype = dtype
         np_dtype = np.float32 if dtype == torch.float32 else np.float64
         self.grid = grid
@@ -431,8 +433,9 @@ class SpatialShardedSolver:
             outf = grid.psum(torch.einsum("gkp,pi,gpkbi->bp", t["wplus"],
                                           t["fint"], u_d), "dir")
             u_in = outf * t["norm"][None, :]
-            out.index_add_(1, t["pos"], -torch.einsum(
-                "gkp,b,bp,pi->gpkbi", t["cin"], vg, u_in, t["fint"]))
+            index_add_layered_(out, 1, t["pos"], -torch.einsum(
+                "gkp,b,bp,pi->gpkbi", t["cin"], vg, u_in, t["fint"]),
+                self._wall_layers.layers(t["pos"]))
         if self._spc_on:
             t = c["spc"]
             u_s = u[:, t["pos"]]  # (G, Ps, Kl, BS, D)
@@ -442,8 +445,9 @@ class SpatialShardedSolver:
                     u_s.shape[3:]))  # (G Km, Ps, BS, D)
             p_idx = torch.arange(u_s.shape[1], device=u.device)
             u_m = u_flat[t["gk"], p_idx]  # (G, Kl, Ps, BS, D)
-            out.index_add_(1, t["pos"], -torch.einsum(
-                "gkp,b,pij,gkpbj->gpkbi", t["cin"], vg, t["fm"], u_m))
+            index_add_layered_(out, 1, t["pos"], -torch.einsum(
+                "gkp,b,pij,gkpbj->gpkbi", t["cin"], vg, t["fm"], u_m),
+                self._wall_layers.layers(t["pos"]))
         return out
 
     @exact_f32_products()

@@ -61,6 +61,7 @@ import torch
 
 from pbte_tpu_torch.fem import assembly
 from pbte_tpu_torch.models import macroscopic
+from pbte_tpu_torch.ops.scatter import LayerMemo, scatter_add_layered_
 from pbte_tpu_torch.solver.lattice_tables import mirror_direction_map
 from pbte_tpu_torch.sweep import planner
 
@@ -137,6 +138,7 @@ class ScanSweep:
         np_dtype = np.float32 if dtype == torch.float32 else np.float64
         itemsize = np.dtype(np_dtype).itemsize
         self.dtype, self.device = dtype, device
+        self._closure_layers = LayerMemo()  # the closure maps' layers
         self.ne = ne = ops.num_elements
         self.D = D = ops.ndof
         self.nf = nf = ops.faces_per_elem
@@ -536,21 +538,23 @@ class ScanSweep:
             return a.gather(-1, pos[:, None, None, None, :].expand(
                 a.shape[:-1] + pos.shape[1:]))
 
-        def scatter_add(pos, val):
-            rhs_base.scatter_add_(-1, pos[:, None, None, None, :].expand(
-                rhs_base.shape[:-1] + pos.shape[1:]), val)
+        def add_at(pos, val):
+            """rhs_base[g, ..., pos[g, p]] += val[g, ..., p], one
+            collision-free layer of columns p at a time."""
+            scatter_add_layered_(rhs_base, pos, val,
+                                 self._closure_layers.layers(pos))
 
         if self.has_periodic:
             contrib = torch.einsum("gpij,gkp,gkbjp->gkbip", c["per_cpl"],
                                    c["per_cin"], gather(u, c["per_src"]))
-            scatter_add(c["per_pos"], -c["vg"][b] * contrib)
+            add_at(c["per_pos"], -c["vg"][b] * contrib)
         if self._dif_on:
             # every slot's and band's outgoing flux (G, Km, BS, D, P)
             u_b = sh.gather(gather(u, c["dif_pos"]), 1, 2)
             out_flux = torch.einsum("gkp,pi,gkbip->bp", c["dif_wplus"],
                                     c["dif_fint"], u_b)
             u_in = out_flux[sh.bsl] * c["dif_norm"][None, :]  # (BS, P)
-            scatter_add(c["dif_pos"], -torch.einsum(
+            add_at(c["dif_pos"], -torch.einsum(
                 "gkp,b,bp,pi->gkbip", c["dif_cin"], c["vg"], u_in,
                 c["dif_fint"]))
         if self._spc_on:
@@ -560,7 +564,7 @@ class ScanSweep:
             u_b = u_b[:, :, sh.bsl].permute(0, 1, 4, 2, 3).flatten(0, 1)
             p_idx = torch.arange(u_b.shape[1], device=u.device)
             u_m = u_b[c["spc_gk"], p_idx]  # (G, Km, P, BS, D)
-            scatter_add(c["spc_pos"], -torch.einsum(
+            add_at(c["spc_pos"], -torch.einsum(
                 "gkp,b,pij,gkpbj->gkbip", c["spc_cin"], c["vg"],
                 c["spc_fm"], u_m))
 

@@ -139,6 +139,7 @@ from pbte_tpu_torch.ops.lattice_ring import (
     lattice_ring_sweep,
     windows_on_device,
 )
+from pbte_tpu_torch.ops.scatter import LayerMemo, index_add_layered_
 from pbte_tpu_torch.parallel.comm import DirShard
 from pbte_tpu_torch.solver import lattice_multi, one_hot_ring, scan, super_ring
 from pbte_tpu_torch.solver.accel import tree_dot as accel_tree_dot
@@ -398,6 +399,7 @@ class SourceIterationSolver:
         # one_hot_ring.GENERAL_BUDGET; everything else is the scan.
         self.sweep_mode = "scan"
         self._sweep = self._scan = None
+        self._closure_layers = LayerMemo()  # the closure maps' layers
         lt = None
         if self._super is not None:
             lat = planner.detect_lattice(sweep_nbr, ops.normals)
@@ -807,11 +809,14 @@ class SourceIterationSolver:
         ]
 
         def add(bi, uid, con):
-            """sums[bi][g, uid[g, p]] += con[g, p]."""
+            """sums[bi][g, uid[g, p]] += con[g, p], one collision-free
+            layer of (g, p) pairs at a time."""
             n_u = sums[bi].shape[1]
             rows = (self._bucket_gi[bi] * n_u + uid).reshape(-1)
-            sums[bi].view((-1,) + sums[bi].shape[2:]).index_add_(
-                0, rows, con.reshape((-1,) + con.shape[2:]))
+            index_add_layered_(
+                sums[bi].view((-1,) + sums[bi].shape[2:]), 0, rows,
+                con.reshape((-1,) + con.shape[2:]),
+                self._closure_layers.layers(uid, rows))
 
         # periodic: the wrap partner lies in the same group (and bucket)
         if self.has_periodic:

@@ -778,8 +778,8 @@ def test_no_jax_import():
     spatial solvers (parallel/) and the dir-sharded supercell ring, and
     runs the partition validation, in a
     process where importing JAX, or anything of pbte_tpu, fails; every
-    module of the port, chip_smoke.py, bench_torch.py and
-    probe_setup_torch.py import there too."""
+    module of the port, chip_smoke.py, bench_torch.py,
+    probe_setup_torch.py and probe_repro_torch.py import there too."""
     code = textwrap.dedent("""
         import importlib
         import pkgutil
@@ -798,7 +798,7 @@ def test_no_jax_import():
         mods = [m.name for m in pkgutil.walk_packages(
             pbte_tpu_torch.__path__, "pbte_tpu_torch.")]
         for name in mods + ["chip_smoke", "bench_torch",
-                            "probe_setup_torch"]:
+                            "probe_setup_torch", "probe_repro_torch"]:
             importlib.import_module(name)
         assert len(mods) > 15, mods
         from pbte_tpu_torch.problem import WALL_BCS, unit_cube
