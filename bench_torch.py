@@ -129,7 +129,7 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-from pbte_tpu_torch import problem  # noqa: E402
+from pbte_tpu_torch import problem, tracing  # noqa: E402
 from pbte_tpu_torch.ops import lattice_ring as lr  # noqa: E402
 from pbte_tpu_torch.solver.source_iteration import (  # noqa: E402
     SourceIterationSolver,
@@ -388,14 +388,17 @@ def run_row(name, device, steps, size, env=None, solver_kw=None, shares=False,
             stage("first step")
     sync(device)
     stage("warm-up")
-    lr.reset_launches()
+    tracing.reset()
     t0 = time.perf_counter()
     for _ in range(steps):
         u, Tc, Tv, r = solver.step(u, Tc, Tv)
     sync(device)
     dt = time.perf_counter() - t0
     stage("timed")
-    launches = dict(lr.lattice_ring_sweep.launches_by_variant)
+    counts = tracing.report()["counts"]
+    launches = {v: sum(c for k, c in counts.items()
+                       if k.startswith(f"k1.launches.{v}."))
+                for v in ("persistent", "tiled")}
     res = float(r)
     if not (torch.isfinite(Tc).all() and res == res):
         raise RuntimeError(f"row {name}: Tc or the residual is not finite")

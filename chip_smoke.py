@@ -254,6 +254,8 @@ import time
 import numpy as np
 import torch
 
+from pbte_tpu_torch import tracing
+
 WARMUP_STEPS = 2
 TIMED_STEPS = 30
 TIMED_LAUNCHES = 10
@@ -434,6 +436,33 @@ def rel_err(got, ref):
           else torch.float32)
     d = (got.to(dt) - ref.to(dt)).abs().max().item()
     return d / max(ref.to(dt).abs().max().item(), 1e-300), d
+
+
+def k1_launches(state=None, variant=None):
+    """K1 launches since the registry's last reset (the counters
+    ``k1.launches.<variant>.<state>`` of ``tracing``), of one state type
+    and one variant where given."""
+    n = 0
+    for key, c in tracing.report()["counts"].items():
+        part = key.split(".")
+        if (part[:2] == ["k1", "launches"] and variant in (None, part[2])
+                and state in (None, part[3])):
+            n += c
+    return n
+
+
+def k1_by_variant():
+    return {v: k1_launches(variant=v) for v in ("persistent", "tiled")}
+
+
+def k1_by_state():
+    return {st: k1_launches(state=st) for st in ("f32", "bf16", "f64")}
+
+
+def stage_s(name):
+    """Host seconds of the set-up stage ``name`` since the registry's last
+    reset (0 where it did not run)."""
+    return tracing.report()["stages"].get(name, {}).get("host_s", 0.0)
 
 
 def bf16_ulp_of_max(ref):
@@ -1015,10 +1044,11 @@ def phase_dma(dma, bench_dma):
     del x, ref
     torch.cuda.empty_cache()
 
-    dma.auto_copy.launches = dma.manual_copy.launches = 0
+    tracing.reset()
     res = bench_dma.run(DMA_TOTAL_MB, DMA_REPS)
-    launches = {"auto": dma.auto_copy.launches,
-                "manual": dma.manual_copy.launches}
+    counts = tracing.report()["counts"]
+    launches = {k: counts.get(f"dma_copy.launches.{k}", 0)
+                for k in ("auto", "manual")}
     log("[smoke] dma probe " + json.dumps(res))
     for name, gbs in res["gbs"].items():
         line = (f"[smoke] dma {name:15s} {res['ms'][name]:8.4f} ms "
@@ -1045,7 +1075,7 @@ def phase_flagship(solver, lr, setup_s, name):
     key = STATE_KEYS[solver.state_dtype]
     torch.cuda.reset_peak_memory_stats()
     u, Tc, Tv = solver.initial_state()
-    lr.reset_launches()
+    tracing.reset()
     res = []
     for _ in range(WARMUP_STEPS):
         u, Tc, Tv, r = solver.step(u, Tc, Tv)
@@ -1057,7 +1087,7 @@ def phase_flagship(solver, lr, setup_s, name):
         res.append(r)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = lr.lattice_ring_sweep.launches_by_state[key]
+    launches = k1_launches(state=key)
     res = [float(x) for x in res]
     want = len(solver.consts["buckets"]) * (WARMUP_STEPS + TIMED_STEPS)
     ne, D, K, BS = solver.ne, solver.D, solver.K, solver.BS
@@ -1070,8 +1100,8 @@ def phase_flagship(solver, lr, setup_s, name):
         launches=launches, residuals=res,
     )
     log(f"[smoke] {name} " + json.dumps(row))
-    if launches != want or lr.lattice_ring_sweep.launches != want:
-        raise RuntimeError(f"{name}: {lr.lattice_ring_sweep.launches_by_state}"
+    if launches != want or k1_launches() != want:
+        raise RuntimeError(f"{name}: {k1_by_state()}"
                            f" kernel launches, want {want} {key}")
     if Tc.shape != (ne, D) or not torch.isfinite(Tc).all():
         raise RuntimeError(f"{name}: Tc is not finite of shape (ne, D)")
@@ -1125,11 +1155,11 @@ def phase_golden(SourceIterationSolver, unit_cube, file, keys=PARAM_KEYS,
         params["periodic"] = periodic
     s = SourceIterationSolver(*unit_cube(**params), bcs, device="cuda", **kw)
     if lr is not None:
-        lr.reset_launches()
+        tracing.reset()
     r = s.solve(tol=0, max_iter=steps, verbose=False)
     rel, ab = rel_err(r.Tc, ref)
     ring = ("multi-class ring" if getattr(s, "_multi", None) is not None
-            else f"K1 {lr.lattice_ring_sweep.launches_by_variant}"
+            else f"K1 {k1_by_variant()}"
             if lr is not None else s.sweep_mode)
     log(f"[smoke] golden {file} {params} {kw} {steps} steps ({ring}): Tc "
         f"rel {rel:.3e} (abs {ab:.3e}), tolerance {GOLDEN_RTOL}")
@@ -1139,7 +1169,7 @@ def phase_golden(SourceIterationSolver, unit_cube, file, keys=PARAM_KEYS,
         repro_check(s, repro)
     if lr is None:
         return rel
-    return rel, dict(lr.lattice_ring_sweep.launches_by_variant), s
+    return rel, k1_by_variant(), s
 
 
 def phase_accel_golden(SourceIterationSolver, unit_cube, lr):
@@ -1155,10 +1185,10 @@ def phase_accel_golden(SourceIterationSolver, unit_cube, lr):
         ref_res = float(d["residual"])
     s = SourceIterationSolver(*unit_cube(**params), bcs, device="cuda",
                               dtype=torch.float64)
-    lr.reset_launches()
+    tracing.reset()
     r = s.solve(tol=0, max_iter=max_iter, verbose=False,
                 accelerate="bicgstab")
-    n_f64 = lr.lattice_ring_sweep.launches_by_state["f64"]
+    n_f64 = k1_launches(state="f64")
     tc_rel, tc_abs = rel_err(r.Tc, ref["Tc"])
     tv_rel, _ = rel_err(r.Tv, ref["Tv"])
     res_rel = abs(r.residual - ref_res) / ref_res
@@ -1243,8 +1273,11 @@ def profile_steps(solver, state, n):
             s = solver.step(*s)[:3]
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    # the program's spans (``tracing``) may show on the device's timeline
+    # too: not kernels
     dev = [e for e in prof.events()
-           if e.device_type == torch.autograd.DeviceType.CUDA]
+           if e.device_type == torch.autograd.DeviceType.CUDA
+           and not e.name.startswith("pbte.")]
     if not dev:
         return dict(launches_per_step=None, copies_per_step=None,
                     device_ms_per_step=None, profiled_ms_per_step=None,
@@ -1295,7 +1328,7 @@ def phase_tet_scan(SourceIterationSolver, problem, prob, lr, card):
         raise RuntimeError("the legacy tet shape did not take the scan path "
                            "with the class factor cache")
     torch.cuda.reset_peak_memory_stats()
-    lr.reset_launches()
+    tracing.reset()
     u, Tc, Tv = s.initial_state()
     res = []
     for _ in range(WARMUP_STEPS):
@@ -1315,7 +1348,7 @@ def phase_tet_scan(SourceIterationSolver, problem, prob, lr, card):
         segments=len(sv.segments), setup_s=setup_s, ms_per_step=ms,
         dof_per_s=TET_TIMED_STEPS * K * BS * ne * D / wall,
         max_memory_allocated=torch.cuda.max_memory_allocated(),
-        k1_launches=lr.lattice_ring_sweep.launches, residuals=res)
+        k1_launches=k1_launches(), residuals=res)
     if Tc.shape != (ne, D) or not torch.isfinite(Tc).all():
         raise RuntimeError("legacy tet: Tc is not finite of shape (ne, D)")
     if not (np.all(np.isfinite(res)) and res[-1] < res[0]):
@@ -1423,19 +1456,19 @@ def phase_tet_super(SourceIterationSolver, problem, prob, lr, card, tc_scan,
     (held: K1's count stays 0). The bf16-state ring runs between
     (``phase_tet_super_bf16``). Puts the problem and the f32 ring's 3-step
     Tc into ``refs["tet"]`` for phase 14 (f). Returns its row."""
-    lr.reset_launches()
+    tracing.reset()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     s = SourceIterationSolver(*prob, problem.WALL_BCS, device="cuda")
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
-    sw = s._sweep
     ne, D, K, BS = s.ne, s.D, s.K, s.BS
     log(f"[smoke] legacy tet supercell {problem.LEGACY_TET} setup "
         f"{setup_s:.1f} s: sweep_mode={s.sweep_mode} supercell="
         f"{s._super is not None} G={s.G} Km={s.Km} L={s.L} W={s.W} D'={D} "
         f"buckets={[(len(g), k) for g, k in s._ring_buckets]}")
-    log(f"[smoke] legacy tet supercell factor build {sw.factor_s:.2f} s "
+    factor_build_s = stage_s("pbte.setup.supercell_factor")
+    log(f"[smoke] legacy tet supercell factor build {factor_build_s:.2f} s "
         f"(float64 block forward substitution on the card)")
     if not (s._super is not None and s.sweep_mode == "ring"
             and (s.G, D, s.L, s.W) == (8, 120, 13, 25)):
@@ -1459,8 +1492,8 @@ def phase_tet_super(SourceIterationSolver, problem, prob, lr, card, tc_scan,
     ms = wall / TET_TIMED_STEPS * 1e3
     row = dict(
         ne=ne, D=D, K=K, BS=BS, G=s.G, Km=s.Km, L=s.L, W=s.W,
-        setup_s=setup_s, factor_s=sw.factor_s, setup_max_memory_allocated=
-        setup_peak, ms_per_step=ms,
+        setup_s=setup_s, factor_build_s=factor_build_s,
+        setup_max_memory_allocated=setup_peak, ms_per_step=ms,
         dof_per_s=TET_TIMED_STEPS * K * BS * ne * D / wall,
         max_memory_allocated=torch.cuda.max_memory_allocated(),
         residuals=res)
@@ -1495,7 +1528,8 @@ def phase_tet_super(SourceIterationSolver, problem, prob, lr, card, tc_scan,
                               dtype=torch.float64)
     torch.cuda.synchronize()
     row["f64_setup_s"] = time.perf_counter() - t0
-    row["f64_factor_s"] = s._sweep.factor_s
+    row["f64_factor_build_s"] = (stage_s("pbte.setup.supercell_factor")
+                                 - factor_build_s)
     st = s.initial_state()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1506,7 +1540,7 @@ def phase_tet_super(SourceIterationSolver, problem, prob, lr, card, tc_scan,
     row["f64_max_memory_allocated"] = torch.cuda.max_memory_allocated()
     rel64, _ = rel_err(s.Tc_fine(st[1]), tc_scan["f64"].cuda())
     row["f64_vs_scan_rel"] = rel64
-    row["k1_launches"] = lr.lattice_ring_sweep.launches
+    row["k1_launches"] = k1_launches()
     del s, st
     torch.cuda.empty_cache()
     log(f"[smoke] legacy tet supercell " + json.dumps(row))
@@ -1648,7 +1682,7 @@ def time_lattice(s, name, card, steps):
     plain_calls, restore = count_plain_sweeps(lr)
     try:
         torch.cuda.reset_peak_memory_stats()
-        lr.reset_launches()
+        tracing.reset()
         u, Tc, Tv = s.initial_state()
         res = []
         for _ in range(WARMUP_STEPS):
@@ -1672,14 +1706,14 @@ def time_lattice(s, name, card, steps):
         ms_per_step=wall / steps * 1e3,
         dof_per_s=steps * K * BS * ne * D / wall,
         max_memory_allocated=torch.cuda.max_memory_allocated(),
-        k1_launches_by_variant=dict(lr.lattice_ring_sweep.launches_by_variant),
-        k1_launches_by_state=dict(lr.lattice_ring_sweep.launches_by_state),
+        k1_by_variant=k1_by_variant(),
+        k1_by_state=k1_by_state(),
         plain_calls=len(plain_calls), residuals=res)
     log(f"[smoke] {name} " + json.dumps(row))
     log(f"[smoke] {name}: {row['ms_per_step']:.3f} ms/step, "
         f"{row['dof_per_s']:.4g} DOF/s, peak "
         f"{row['max_memory_allocated'] / 1e9:.2f} GB, K1 launches "
-        f"{row['k1_launches_by_variant']}, plain sweeps {len(plain_calls)}; "
+        f"{row['k1_by_variant']}, plain sweeps {len(plain_calls)}; "
         f"on {card}")
     if plain_calls:
         raise RuntimeError(f"{name}: K1's plain version ran on the card")
@@ -1725,7 +1759,7 @@ def phase_new_lattices(SourceIterationSolver, problem, lr, card, wide_prob,
         row["setup_s"] = setup_s
         repro_check(s, f"{name} (K1 {variant})")
         want = {variant: len(s._ring_buckets) * n_steps}
-        got = {k: v for k, v in row["k1_launches_by_variant"].items() if v}
+        got = {k: v for k, v in row["k1_by_variant"].items() if v}
         if got != want:
             raise RuntimeError(f"{name}: K1 launches {got}, want {want}")
         rows[name] = row
@@ -1756,7 +1790,7 @@ def phase_new_lattices(SourceIterationSolver, problem, lr, card, wide_prob,
                            coupling_classes=[
                                int(mb.cstack.shape[0]) // s.D
                                for mb in s._multi])
-                if any(row["k1_launches_by_variant"].values()):
+                if any(row["k1_by_variant"].values()):
                     raise RuntimeError("graded_f32: K1 launched on the "
                                        "multi-class ring")
                 rows["graded_f32"] = row
@@ -1844,13 +1878,13 @@ def phase_cli_flagship(lr, card, tmp, state, flag_dof):
     calls, restore = count_plain_sweeps(lr)
     buf = io.StringIO()
     try:
-        lr.reset_launches()
+        tracing.reset()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(buf):
             rc = cli.main(argv)
         wall = time.perf_counter() - t0
-        by_variant = dict(lr.lattice_ring_sweep.launches_by_variant)
-        by_state = dict(lr.lattice_ring_sweep.launches_by_state)
+        by_variant = k1_by_variant()
+        by_state = k1_by_state()
     finally:
         restore()
     gc.collect()
@@ -1892,7 +1926,7 @@ def phase_cli_flagship(lr, card, tmp, state, flag_dof):
     tol = CLI_F32_RTOL if state == "f32" else CLI_F64_RTOL
     row = dict(
         rc=rc, sweep_mode=mode, G=G, L=L, W=W,
-        k1_launches_by_variant=by_variant, k1_launches_by_state=by_state,
+        k1_by_variant=by_variant, k1_by_state=by_state,
         plain_calls=len(calls), iterations=int(done.group(1)),
         residual=float(done.group(2)), solve_s=float(done.group(3)),
         dof_per_s=float(done.group(4)), phase5_dof_per_s=flag_dof,
@@ -2159,7 +2193,7 @@ def phase_general(SourceIterationSolver, problem, lr, card, refs):
 
     t_phase = time.perf_counter()
     rows = {}
-    lr.reset_launches()
+    tracing.reset()
     calls, restore = count_plain_sweeps(lr)
     try:
         with tempfile.TemporaryDirectory() as d:
@@ -2253,7 +2287,7 @@ def phase_general(SourceIterationSolver, problem, lr, card, refs):
                                        f"against scan {rel:.3e}")
     finally:
         restore()
-    k1 = sum(lr.lattice_ring_sweep.launches_by_variant.values())
+    k1 = sum(k1_by_variant().values())
     if k1 or calls:
         raise RuntimeError(f"the general ring ran K1 ({k1} launches, "
                            f"{len(calls)} plain sweeps)")
@@ -2296,10 +2330,10 @@ def phase_f64_flagship(SourceIterationSolver, problem, lr, walls):
 
     # the accelerated solve
     torch.cuda.reset_peak_memory_stats()
-    lr.reset_launches()
+    tracing.reset()
     acc, relres, acc_s = solve_bicgstab(s64)
     acc_peak = torch.cuda.max_memory_allocated()
-    acc_launches = lr.lattice_ring_sweep.launches_by_state["f64"]
+    acc_launches = k1_launches(state="f64")
     launches += acc_launches
     nb = len(s64.consts["buckets"])
     row.update(bicgstab=dict(
@@ -2313,7 +2347,7 @@ def phase_f64_flagship(SourceIterationSolver, problem, lr, walls):
         f"peak {acc_peak / 1e9:.2f} GB, K1 f64 launches {acc_launches} "
         f"(want {nb} x {acc.iterations}); relres every read: "
         f"{[float(f'{x:.3e}') for x in relres]}")
-    if acc_launches != nb * acc.iterations or lr.lattice_ring_sweep.launches \
+    if acc_launches != nb * acc.iterations or k1_launches() \
             != acc_launches:
         raise RuntimeError("the accelerated solve did not run every step "
                            "through the f64 kernel")
@@ -2327,9 +2361,9 @@ def phase_f64_flagship(SourceIterationSolver, problem, lr, walls):
 
     # phase 16 (b): the same solve again from the zero state repeats its
     # step applications, its relres at every read and its Tc bit for bit
-    lr.reset_launches()
+    tracing.reset()
     again, relres2, again_s = solve_bicgstab(s64)
-    launches += lr.lattice_ring_sweep.launches_by_state["f64"]
+    launches += k1_launches(state="f64")
     repro_held(dict(
         path="f64 flagship bicgstab", solves=2,
         step_applications=[n_acc, again.iterations],
@@ -2341,7 +2375,7 @@ def phase_f64_flagship(SourceIterationSolver, problem, lr, walls):
     repro_check(s64, "f64 flagship (K1 one-CTA f64)")
 
     # the plain solve to the same Tv residual
-    lr.reset_launches()
+    tracing.reset()
     torch.cuda.reset_peak_memory_stats()
     tv_res = []
     torch.cuda.synchronize()
@@ -2351,7 +2385,7 @@ def phase_f64_flagship(SourceIterationSolver, problem, lr, walls):
                       callback=lambda it, res: tv_res.append(res))
     torch.cuda.synchronize()
     plain_s = time.perf_counter() - t0
-    launches += lr.lattice_ring_sweep.launches_by_state["f64"]
+    launches += k1_launches(state="f64")
     tc_rel, _ = rel_err(Tc_acc, plain.Tc)
     # the plain iteration's rate over its last 100 steps (the slowest mode)
     n = min(100, len(tv_res) - 1)
@@ -2376,7 +2410,7 @@ def phase_f64_flagship(SourceIterationSolver, problem, lr, walls):
     # iterative refinement of an f32 solve with the f64 defect step
     s32, _ = build_flagship(SourceIterationSolver, problem, "f32 base",
                             **walls)
-    lr.reset_launches()
+    tracing.reset()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     out = accel.refined_solve(s32, s64.step, tol=1e-7, max_iter=3000,
@@ -2384,7 +2418,7 @@ def phase_f64_flagship(SourceIterationSolver, problem, lr, walls):
                               verbose=False, check_every=10)
     torch.cuda.synchronize()
     ref_s = time.perf_counter() - t0
-    launches += lr.lattice_ring_sweep.launches_by_state["f64"]
+    launches += k1_launches(state="f64")
     x_ref = (out["u_refined"], out["Tc_refined"])
     Tv0 = torch.zeros((s64.ne,), dtype=torch.float64, device=s64.device)
     u_p, Tc_p, _, _ = s64.step(*x_ref, Tv0)
@@ -2468,7 +2502,7 @@ def _shard_rank(rank, world, cfg):
         u, Tc, Tv, r = s.step(u, Tc, Tv)
     if dev == "cuda":
         torch.cuda.reset_peak_memory_stats()
-    lr.reset_launches()
+    tracing.reset()
     res = []
     _sync(dev)
     grid.barrier()
@@ -2479,7 +2513,7 @@ def _shard_rank(rank, world, cfg):
     _sync(dev)
     grid.barrier()
     wall = time.perf_counter() - t0
-    out["a_launches"] = lr.lattice_ring_sweep.launches
+    out["a_launches"] = k1_launches()
     out["a_ms_per_step"] = wall / cfg["timed_steps"] * 1e3
     out["a_residuals"] = [float(x) for x in res]
     # the lagged closure source alone: the exit layer's ppermute (through
@@ -2558,13 +2592,13 @@ def _shard_rank(rank, world, cfg):
     # (e) dir sharding of the single-device solver: 2 dir ranks (each
     # space rank a replica)
     prob = problem.unit_cube(**cfg["flagship"])
-    lr.reset_launches()
+    tracing.reset()
     sd = SourceIterationSolver(*prob, walls, device=dev, dir_sharding=grid)
     st = sd.initial_state()
     for _ in range(3):
         st = sd.step(*st)[:3]
     out["e_tc"] = st[1].cpu().numpy()
-    out["e_launches"] = lr.lattice_ring_sweep.launches
+    out["e_launches"] = k1_launches()
     del sd, st
     if rank != 0:  # the fields once
         for k in [k for k, v in out.items() if isinstance(v, np.ndarray)]:
@@ -2608,7 +2642,7 @@ def _shard_path_rank(rank, world, cfg):
         if dev == "cuda":
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
-        lr.reset_launches()
+        tracing.reset()
         t0 = time.perf_counter()
         s = SourceIterationSolver(*prob, device=dev, dir_sharding=grids[gk],
                                   **kw)
@@ -2633,7 +2667,7 @@ def _shard_path_rank(rank, world, cfg):
             ms_per_step=wall / SHARD_PATH_STEPS * 1e3,
             peak_bytes=(torch.cuda.max_memory_allocated() if dev == "cuda"
                         else 0),
-            k1_launches=lr.lattice_ring_sweep.launches,
+            k1_launches=k1_launches(),
             residuals=[float(x) for x in res],
             Tc=st[1].cpu().numpy() if rank == 0 else None)
         del s, st, u0, prob
@@ -2811,7 +2845,7 @@ def phase_compensated(solver, lr, card):
     iteration's after as many steps. Returns the row."""
     calls, restore = count_plain_sweeps(lr)
     try:
-        lr.reset_launches()
+        tracing.reset()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         r = solver.solve(tol=0, max_iter=COMPENSATED_ITERS,
@@ -2819,8 +2853,8 @@ def phase_compensated(solver, lr, card):
                          accelerate="compensated")
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        by_variant = dict(lr.lattice_ring_sweep.launches_by_variant)
-        launches = lr.lattice_ring_sweep.launches
+        by_variant = k1_by_variant()
+        launches = k1_launches()
     finally:
         restore()
     # an iteration steps the value part once
@@ -2832,7 +2866,7 @@ def phase_compensated(solver, lr, card):
     steps = (r.iterations + COMPENSATED_ITERS // COMPENSATED_CHECK_EVERY + 1)
     want = steps * len(solver._ring_buckets)
     row = dict(iterations=r.iterations, residual=r.residual, wall_s=wall,
-               k1_launches=launches, k1_launches_by_variant=by_variant,
+               k1_launches=launches, k1_by_variant=by_variant,
                plain_calls=len(calls), vs_plain_rel=rel)
     log(f"[smoke] compensated flagship: {COMPENSATED_ITERS} iterations, "
         f"{r.iterations} step applications in {wall:.3f} s, residual "
@@ -2998,7 +3032,7 @@ def phase_p3_wide(proc, conn, stopped, card):
     proc.join(60)
     peak = max(st["maxrss_gb"] for st in row["stages"])
     want = {"tiled": row["buckets_n"] * (WARMUP_STEPS + P3_WIDE_STEPS)}
-    got = {k: v for k, v in row["k1_launches_by_variant"].items() if v}
+    got = {k: v for k, v in row["k1_by_variant"].items() if v}
     worst = max(max(e.values()) for e in row["vs_plain"])
     log(f"[smoke] p3_wide hex {row['nx']}^3 p={row['order']} f64 (ne "
         f"{row['ne']}, D {row['D']}, W {row['W']}, L {row['L']}): set-up "
@@ -3008,7 +3042,7 @@ def phase_p3_wide(proc, conn, stopped, card):
         f"{row['max_memory_allocated'] / 1e9:.2f} GB, K1 {got}; one step's "
         f"sweep against the plain version {json.dumps(row['vs_plain'])} "
         f"(tolerance {F64_RTOL}); on {card}")
-    if got != want or row["k1_launches_by_state"].get("f64") != want["tiled"]:
+    if got != want or row["k1_by_state"].get("f64") != want["tiled"]:
         raise RuntimeError(f"p3_wide: K1 launches {got}, want {want} f64")
     if len(row["vs_plain"]) != row["buckets_n"] or not worst <= F64_RTOL:
         raise RuntimeError("p3_wide: a sweep disagrees with the plain "
@@ -3088,9 +3122,10 @@ def main() -> int:
     t0 = time.perf_counter()
     built = _build.load_all(["lattice_ring", "lattice_ring_tiled",
                              "dma_copy"])
+    builds = tracing.report()["stages"].get("pbte.setup.kernel_build", {})
     log(f"[smoke] built {[b.path.name for b in built.values()]} in "
-        f"{time.perf_counter() - t0:.1f} s (nvcc "
-        f"{ {k: round(b.seconds, 1) for k, b in built.items()} } s)")
+        f"{time.perf_counter() - t0:.1f} s ({builds.get('calls', 0)} builds "
+        f"and loads, {builds.get('host_s', 0.0):.1f} s summed)")
     for b in built.values():
         log(b.log.strip())
     f64_regs = f64_ptxas(built["lattice_ring"].log)
@@ -3347,7 +3382,7 @@ def main() -> int:
 
     def tiled_entry(name, state, row, extra=0):
         return k1_entry(name, state,
-                        new[row]["k1_launches_by_variant"]["tiled"] + extra,
+                        new[row]["k1_by_variant"]["tiled"] + extra,
                         shape="wide 24^3 p=2",
                         source="pbte_tpu_torch/csrc/lattice_ring_tiled.cu")
 
@@ -3367,18 +3402,18 @@ def main() -> int:
     log(json.dumps({"kernels": [
         k1_entry("lattice_ring_sweep", "f32", launches + film_launches
                  + comp["k1_launches"]
-                 + cli_rows["f32"]["k1_launches_by_state"]["f32"]
+                 + cli_rows["f32"]["k1_by_state"]["f32"]
                  + sum(sharded["a"]["launches"])),
         k1_entry("lattice_ring_sweep_bf16", "bf16", bf16_launches),
         k1_entry("lattice_ring_sweep_f64", "f64", f64_launches
-                 + cli_rows["f64"]["k1_launches_by_state"]["f64"]),
+                 + cli_rows["f64"]["k1_by_state"]["f64"]),
         k1_entry("lattice_ring_sweep_d9", "f32",
-                 new["quad_f32"]["k1_launches_by_variant"]["persistent"],
+                 new["quad_f32"]["k1_by_variant"]["persistent"],
                  shape="quad 64^2 p=2"),
         tiled_entry("lattice_ring_sweep_tiled", "f32", "wide_f32"),
         tiled_entry("lattice_ring_sweep_tiled_bf16", "bf16", "wide_bf16"),
         tiled_entry("lattice_ring_sweep_tiled_f64", "f64", "wide_f64",
-                    p3_wide["k1_launches_by_variant"]["tiled"]),
+                    p3_wide["k1_by_variant"]["tiled"]),
         {
             "name": "dma_auto_copy",
             "route": "cuda",

@@ -15,6 +15,8 @@ from typing import Literal
 
 import numpy as np
 
+from pbte_tpu_torch import tracing
+
 Scheme = Literal["gauss", "uniform"]
 
 
@@ -82,6 +84,7 @@ def parse_scheme(name: str) -> Scheme:
     raise ValueError(f"unknown discretization scheme: {name}")
 
 
+@tracing.stage("pbte.setup.angles")
 def build(opts: AngularOptions) -> AngularQuad:
     """Build the product quadrature."""
     if opts.dimension not in (2, 3):

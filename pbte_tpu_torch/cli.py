@@ -21,7 +21,9 @@ Where it differs from pbte_tpu's CLI:
 - ``--platform default`` solves on the GPU and exits non-zero without one
   (it never falls back to the CPU); ``--platform cpu`` solves on the CPU.
 - ``--profile DIR`` runs the solve under ``torch.profiler`` (CPU and, on
-  the GPU, CUDA activity) and writes a Chrome trace into DIR.
+  the GPU, CUDA activity) and writes a Chrome trace into DIR, and beside
+  it ``pbte_tpu_torch_spans.json``, the program's spans, set-up stages and
+  counters (``tracing.report()``).
 - ``-p DIRxSPACE`` runs the domain-decomposed solvers over
   ``torch.distributed``: start the ranks with ``torchrun --nproc-per-node
   N`` (N = DIR * SPACE; the environment rendezvous), each rank on its own
@@ -38,6 +40,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import os
 import sys
 import time
@@ -134,7 +137,8 @@ def _parser() -> argparse.ArgumentParser:
                     help="resume the solve from --checkpoint if it exists")
     ap.add_argument("--profile", default="",
                     help="write a torch.profiler Chrome trace of the solve "
-                         "into this directory")
+                         "and the program's spans and counters into this "
+                         "directory")
     ap.add_argument("-p", "--parallel", default="",
                     help="the domain-decomposed solver over a DIRxSPACE "
                          "grid of ranks (start them with torchrun "
@@ -169,6 +173,7 @@ def main(argv=None) -> int:
     import torch
 
     from pbte_tpu_torch import mesh as pmesh
+    from pbte_tpu_torch import tracing
     from pbte_tpu_torch.angular import quadrature as ang
     from pbte_tpu_torch.config import RunConfig, load_run_config
     from pbte_tpu_torch.fem import assembly
@@ -181,6 +186,12 @@ def main(argv=None) -> int:
         checked_device,
     )
     from pbte_tpu_torch.sweep import planner
+
+    def _stage_s(stage):
+        """Host seconds of the set-up stage ``pbte.setup.<stage>`` so far
+        (``tracing``)."""
+        return tracing.report()["stages"].get(f"pbte.setup.{stage}",
+                                              {}).get("host_s", 0.0)
 
     # the card unless the CPU is asked for; without a GPU stop here, before
     # any file is written
@@ -263,7 +274,6 @@ def main(argv=None) -> int:
     if lead:
         os.makedirs(log_dir, exist_ok=True)
 
-    t0 = time.time()
     m = pmesh.load_mesh(rc.mesh_spec)
     m = m.scaled(rc.material.ref_len)
     m = pmesh.uniform_refine(m, rc.refine)
@@ -281,18 +291,21 @@ def main(argv=None) -> int:
     print(f"[pbte_tpu_torch] mesh: {m.geom} dim={m.dim} ne={m.num_elements} "
           f"nv={m.num_vertices}"
           + (f" periodic_faces={n_per}" if n_per else "")
-          + f" ({time.time()-t0:.1f}s)")
+          + f" (connect {_stage_s('connect'):.1f}s)")
 
     ops = assembly.assemble(topo, order=rc.order, face_mode=args.face_mode)
     print(f"[pbte_tpu_torch] assembled p={rc.order} D={ops.ndof} "
-          f"faces/elem={ops.faces_per_elem} ({time.time()-t0:.1f}s)")
+          f"faces/elem={ops.faces_per_elem} (assemble "
+          f"{_stage_s('assemble'):.1f}s, face traces "
+          f"{_stage_s('face_trace'):.1f}s)")
 
     quad = ang.build(rc.angles)
     tables = nongray_smrt.build_tables(rc.material, num_spectral=rc.n_spectral)
     print(f"[pbte_tpu_torch] angles: K={quad.num_directions} total_weight="
           f"{quad.total_weight:.6g}; bands: {tables.num_branches}x"
           f"{tables.num_spectral}; HeatCapV={tables.heat_cap_v:.6g} "
-          f"({time.time()-t0:.1f}s)")
+          f"(angles {_stage_s('angles'):.1f}s, tables "
+          f"{_stage_s('tables'):.1f}s)")
 
     if not args.no_dumps and lead:
         mesh_name = os.path.splitext(os.path.basename(str(rc.mesh_spec)))[0]
@@ -330,7 +343,7 @@ def main(argv=None) -> int:
             print(f"[pbte_tpu_torch] slab-lattice solver: grid (dir={n_dir}, "
                   f"space={n_space}), slabs={solver.P} along axis "
                   f"{solver.a0}, W={solver.W} L={solver.L} on {device} "
-                  f"({time.time()-t0:.1f}s)")
+                  f"(solver {_stage_s('solver'):.1f}s)")
         except NotImplementedError as e:
             solver = SpatialShardedSolver(ops, quad, tables, rc.bc_temps,
                                           grid, dtype=dtype, topo=topo,
@@ -341,7 +354,7 @@ def main(argv=None) -> int:
                   f"interface={solver.pplan.num_interface} "
                   f"edge_cut={solver.pplan.edge_cut()} "
                   f"load_balance={solver.pplan.load_balance():.2f} "
-                  f"on {device} ({time.time()-t0:.1f}s)")
+                  f"on {device} (solver {_stage_s('solver'):.1f}s)")
     else:
         solver = SourceIterationSolver(
             ops, quad, tables, rc.bc_temps, dtype=dtype, device=device,
@@ -357,7 +370,7 @@ def main(argv=None) -> int:
               f"width<={solver.plan.max_width} "
               f"padding={solver.plan.padding_ratio():.1%} "
               f"slab={solver.L}x{solver.W} on {device} "
-              f"({time.time()-t0:.1f}s)")
+              f"(solver {_stage_s('solver'):.1f}s)")
 
     state = None
     if args.resume and args.checkpoint and os.path.exists(args.checkpoint):
@@ -414,6 +427,10 @@ def main(argv=None) -> int:
         trace = os.path.join(args.profile, "pbte_tpu_torch_trace.json")
         prof.export_chrome_trace(trace)
         print(f"[pbte_tpu_torch] profiler trace written to {trace}")
+        spans = os.path.join(args.profile, "pbte_tpu_torch_spans.json")
+        with open(spans, "w") as f:
+            json.dump(tracing.report(), f, indent=1, sort_keys=True)
+        print(f"[pbte_tpu_torch] spans and counters written to {spans}")
     else:
         res = solver.solve(**solve_kw)
     if device.type == "cuda":

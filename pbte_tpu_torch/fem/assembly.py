@@ -40,6 +40,7 @@ import dataclasses
 
 import numpy as np
 
+from pbte_tpu_torch import tracing
 from pbte_tpu_torch.fem import quadrature as quad
 from pbte_tpu_torch.fem import reference as ref
 from pbte_tpu_torch.mesh import core as mesh_core
@@ -107,6 +108,7 @@ def _map_jacobian(geom: str, Xv: np.ndarray, pts: np.ndarray) -> np.ndarray:
     return np.einsum("evd,qvk->eqdk", Xv, vg)
 
 
+@tracing.stage("pbte.setup.face_trace")
 def inverse_map(geom: str, Xv: np.ndarray, X: np.ndarray, iters: int = 8) -> np.ndarray:
     """Invert the (multi)linear geometry map.
 
@@ -183,6 +185,7 @@ def _face_measure(Xf: np.ndarray, face_nv: int, fpts: np.ndarray) -> np.ndarray:
     return np.linalg.norm(np.cross(dXds, dXdt), axis=-1)
 
 
+@tracing.stage("pbte.setup.assemble")
 def assemble(
     topo: mesh_core.MeshTopology,
     order: int,

@@ -22,6 +22,8 @@ import dataclasses
 
 import numpy as np
 
+from pbte_tpu_torch import tracing
+
 HBAR = 1.054571800e-34  # reduced Planck [J*s]
 KB = 1.38064852e-23  # Boltzmann [J/K]
 
@@ -95,6 +97,7 @@ def load_material(path: str) -> PhononMaterial:
     )
 
 
+@tracing.stage("pbte.setup.tables")
 def build_tables(mat: PhononMaterial,
                  num_spectral: int | None = None) -> PhononTables:
     """Build the spectral tables; ``num_spectral`` overrides the

@@ -25,6 +25,8 @@ import dataclasses
 
 import numpy as np
 
+from pbte_tpu_torch import tracing
+
 # ---------------------------------------------------------------------------
 # Reference geometry tables (local vertex numbering follows MFEM's
 # mfem::Geometry constants so mesh files are interpreted identically).
@@ -314,6 +316,7 @@ def _face_keys(verts: np.ndarray) -> np.ndarray:
     return keys.view([("", np.int64)] * keys.shape[1]).ravel()
 
 
+@tracing.stage("pbte.setup.connect")
 def connect(mesh: MeshData) -> MeshTopology:
     """Build global/per-element face tables and outward normals.
 

@@ -17,9 +17,10 @@ import os
 import shutil
 import subprocess
 import threading
-import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+
+from pbte_tpu_torch import tracing
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG / "csrc"
@@ -38,7 +39,6 @@ NVCC_FLAGS = (
 class Built:
     lib: ctypes.CDLL
     path: Path
-    seconds: float  # time spent in nvcc by this process (0 if cached)
     log: str  # nvcc's output, including the ptxas resource report
 
 
@@ -64,42 +64,41 @@ def nvcc_path() -> str:
 def load(name: str, src: Path | None = None, defines=()) -> Built:
     """Compile ``csrc/<name>.cu`` (or the source ``src``, built and cached
     under ``name``, with ``-D`` for each of ``defines``) if no build for
-    its hash exists, then load it. Raises RuntimeError with nvcc's stderr
-    when the build fails."""
+    its hash exists, then load it, once a process (the stage
+    ``pbte.setup.kernel_build``, ``tracing``). Raises RuntimeError with
+    nvcc's stderr when the build fails."""
     with _locks_lock:
         lock = _locks.setdefault(name, threading.Lock())
     with lock:
         if name in _loaded:
             return _loaded[name]
-        src = CSRC_DIR / f"{name}.cu" if src is None else Path(src)
-        flags = NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
-        # the shared headers of csrc/ are part of every build's key
-        headers = b"".join(h.read_bytes()
-                           for h in sorted(CSRC_DIR.glob("*.cuh")))
-        key = hashlib.sha256(
-            src.read_bytes() + headers + " ".join(flags).encode()
-        ).hexdigest()[:16]
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        so = BUILD_DIR / f"{name}_{key}.so"
-        log_path = BUILD_DIR / f"{name}_{key}.log"
-        seconds = 0.0
-        if not so.is_file():
-            tmp = BUILD_DIR / f"{so.name}.{os.getpid()}.tmp"
-            cmd = [nvcc_path(), *flags, "-I", str(CSRC_DIR), "-o", str(tmp),
-                   str(src)]
-            t0 = time.perf_counter()
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            seconds = time.perf_counter() - t0
-            if proc.returncode != 0:
-                tmp.unlink(missing_ok=True)
-                raise RuntimeError(
-                    f"nvcc failed (exit {proc.returncode}) building {src}:\n"
-                    f"{' '.join(cmd)}\n{proc.stderr}"
-                )
-            log_path.write_text(proc.stdout + proc.stderr)
-            os.replace(tmp, so)
-        log = log_path.read_text() if log_path.is_file() else ""
-        built = Built(ctypes.CDLL(str(so)), so, seconds, log)
+        with tracing.stage("pbte.setup.kernel_build"):
+            src = CSRC_DIR / f"{name}.cu" if src is None else Path(src)
+            flags = NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
+            # the shared headers of csrc/ are part of every build's key
+            headers = b"".join(h.read_bytes()
+                               for h in sorted(CSRC_DIR.glob("*.cuh")))
+            key = hashlib.sha256(
+                src.read_bytes() + headers + " ".join(flags).encode()
+            ).hexdigest()[:16]
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            so = BUILD_DIR / f"{name}_{key}.so"
+            log_path = BUILD_DIR / f"{name}_{key}.log"
+            if not so.is_file():
+                tmp = BUILD_DIR / f"{so.name}.{os.getpid()}.tmp"
+                cmd = [nvcc_path(), *flags, "-I", str(CSRC_DIR), "-o",
+                       str(tmp), str(src)]
+                proc = subprocess.run(cmd, capture_output=True, text=True)
+                if proc.returncode != 0:
+                    tmp.unlink(missing_ok=True)
+                    raise RuntimeError(
+                        f"nvcc failed (exit {proc.returncode}) building "
+                        f"{src}:\n{' '.join(cmd)}\n{proc.stderr}"
+                    )
+                log_path.write_text(proc.stdout + proc.stderr)
+                os.replace(tmp, so)
+            log = log_path.read_text() if log_path.is_file() else ""
+            built = Built(ctypes.CDLL(str(so)), so, log)
         _loaded[name] = built
         return built
 

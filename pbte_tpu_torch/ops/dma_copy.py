@@ -17,7 +17,8 @@ producer, worker and store roles).
 
 ``auto_copy`` and ``manual_copy`` take the plain version for CPU tensors
 and launch their kernel for CUDA tensors; they never fall back from one to
-the other. Each launch adds one to the wrapper's ``launches``.
+the other. Each launch adds one to the counter
+``dma_copy.launches.auto`` or ``.manual`` (``tracing``).
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ import functools
 
 import torch
 
+from pbte_tpu_torch import tracing
 from pbte_tpu_torch.ops import _build
 
 LANE = 128  # float32 values per row, the script's lane width
@@ -143,7 +145,7 @@ def auto_copy(x: torch.Tensor, rows_per_block: int = 32,
             rows_per_block * ROW_BYTES, threads, stream,
         )
     _raise_on(lib, err, "auto_copy")
-    auto_copy.launches += 1
+    tracing.count("dma_copy.launches.auto")
     return y
 
 
@@ -174,11 +176,9 @@ def manual_copy(x: torch.Tensor, rows_per_block: int = 16,
             rows_per_block * ROW_BYTES, n_bufs, ctypes.byref(grid), stream,
         )
     _raise_on(lib, err, "manual_copy")
-    manual_copy.launches += 1
+    tracing.count("dma_copy.launches.manual")
     manual_copy.last_grid = grid.value
     return y
 
 
-auto_copy.launches = 0
-manual_copy.launches = 0
 manual_copy.last_grid = 0

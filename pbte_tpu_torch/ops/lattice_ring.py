@@ -49,6 +49,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from pbte_tpu_torch import tracing
 from pbte_tpu_torch.ops import _build
 
 # element DOF counts of the one-CTA kernels (csrc/lattice_ring.cu: quad
@@ -587,9 +588,7 @@ def _launch(v, ttc, bsrc, cin, bcat, macro_w, wvec, shifts, dsrc, xsrc,
         msg = lib.pbte_cuda_error_string(err).decode()
         raise RuntimeError(f"lattice_ring kernel launch failed "
                            f"({plan.variant}): {msg} ({err})")
-    lattice_ring_sweep.launches += 1
-    lattice_ring_sweep.launches_by_state[_STATE_NAMES[v.dtype]] += 1
-    lattice_ring_sweep.launches_by_variant[plan.variant] += 1
+    tracing.count(f"k1.launches.{plan.variant}.{_STATE_NAMES[v.dtype]}")
     # the chains' partials in order (a reduction of fixed order)
     return ys, ms[0] if parts == 1 else ms.sum(dim=0)
 
@@ -663,11 +662,9 @@ def lattice_ring_sweep(v, ttc, bsrc, cin, bcat, macro_w, wvec, *, shifts,
     kernel on the current stream, or raise if none takes them: the one-CTA
     kernel where the level fits one CTA, else the tiled kernel
     (``launch_plan`` decides from the shape alone; float64 state: the
-    float64 instantiations). Each launch adds one to
-    ``lattice_ring_sweep.launches``, to its state type's count in
-    ``lattice_ring_sweep.launches_by_state`` ("f32", "bf16", "f64") and to
-    its variant's in ``lattice_ring_sweep.launches_by_variant``
-    ("persistent", "tiled")."""
+    float64 instantiations). Each launch adds one to the counter
+    ``k1.launches.<variant>.<state>`` (``tracing``; variant "persistent" or
+    "tiled", state "f32", "bf16" or "f64")."""
     _check_shapes(v, ttc, bsrc, cin, bcat, macro_w, wvec, shifts, dsrc, xsrc)
     if v.device.type == "cpu":
         return lattice_ring_sweep_ref(
@@ -683,16 +680,3 @@ def lattice_ring_sweep(v, ttc, bsrc, cin, bcat, macro_w, wvec, *, shifts,
 _STATE_NAMES = {torch.float32: "f32", torch.bfloat16: "bf16",
                 torch.float64: "f64"}
 
-
-VARIANTS = ("persistent", "tiled")
-
-
-def reset_launches():
-    """Set every launch count of the sweep kernels to 0."""
-    lattice_ring_sweep.launches = 0
-    lattice_ring_sweep.launches_by_state = dict.fromkeys(
-        _STATE_NAMES.values(), 0)
-    lattice_ring_sweep.launches_by_variant = dict.fromkeys(VARIANTS, 0)
-
-
-reset_launches()

@@ -54,6 +54,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from pbte_tpu_torch import tracing
 from pbte_tpu_torch.fem import assembly as _assembly
 from pbte_tpu_torch.models import macroscopic
 from pbte_tpu_torch.ops.lattice_ring import (
@@ -82,6 +83,7 @@ class SlabLatticeSolver:
     """Domain-decomposed lattice ring solver over a ``dir`` x ``space``
     grid; this rank's shard on ``device``."""
 
+    @tracing.stage("pbte.setup.solver")
     def __init__(
         self,
         ops,  # fem.assembly.ElementOps (this package's or pbte_tpu's)

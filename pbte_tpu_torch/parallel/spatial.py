@@ -41,6 +41,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from pbte_tpu_torch import tracing
 from pbte_tpu_torch.fem import assembly as _assembly
 from pbte_tpu_torch.models import macroscopic
 from pbte_tpu_torch.ops.scatter import LayerMemo, index_add_layered_
@@ -59,6 +60,7 @@ class SpatialShardedSolver:
     """Domain-decomposed, ordinate-sharded solver over a ``dir`` x
     ``space`` grid; this rank's shard on ``device``."""
 
+    @tracing.stage("pbte.setup.solver")
     def __init__(
         self,
         ops,

@@ -48,6 +48,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from pbte_tpu_torch import tracing
+
 
 def _leaves(tree):
     if isinstance(tree, (tuple, list)):
@@ -155,23 +157,25 @@ def plain_outer(step_fn, state, tol, max_iter, verbose=True, callback=None,
     u, Tc, prev_Tv = state
     res = float("inf")
     it = 0
-    for it in range(1, max_iter + 1):
-        u, Tc_new, Tv_new, res_dev = step_fn(u, Tc, prev_Tv)
-        if it % check_every == 0 or it == max_iter:
-            res = float(res_dev)
-            if verbose:
-                print(f"[{label}] iter {it}, residual = {res:.6e}")
-            if callback is not None:
-                callback(it, res)
-            if res < tol:
-                Tc, prev_Tv = Tc_new, Tv_new
-                break
-        prev_Tv = Tv_new
-        Tc = Tc_new
-        if cycle_hook and cycle_every > 0 and it % cycle_every == 0:
-            cycle_hook(it, u, Tc, prev_Tv)
-        if save_ckpt is not None and it % ckpt_every == 0:
-            save_ckpt(u, Tc, prev_Tv, it, res, res_dev)
+    with tracing.span("pbte.solve"):
+        for it in range(1, max_iter + 1):
+            u, Tc_new, Tv_new, res_dev = step_fn(u, Tc, prev_Tv)
+            if it % check_every == 0 or it == max_iter:
+                with tracing.span("pbte.solve.residual_read"):
+                    res = float(res_dev)
+                if verbose:
+                    print(f"[{label}] iter {it}, residual = {res:.6e}")
+                if callback is not None:
+                    callback(it, res)
+                if res < tol:
+                    Tc, prev_Tv = Tc_new, Tv_new
+                    break
+            prev_Tv = Tv_new
+            Tc = Tc_new
+            if cycle_hook and cycle_every > 0 and it % cycle_every == 0:
+                cycle_hook(it, u, Tc, prev_Tv)
+            if save_ckpt is not None and it % ckpt_every == 0:
+                save_ckpt(u, Tc, prev_Tv, it, res, res_dev)
     return u, Tc, prev_Tv, res, it
 
 
@@ -203,8 +207,22 @@ def bicgstab_outer(step_fn, zero_state, state, tol, max_iter, verbose=True,
     BiCGStab iterations with the iterate x (``io.checkpoint``). ``dot`` is
     the inner product of two (u, Tc) trees: ``tree_dot`` on one device, the
     grid's reduction of the sharded solvers (each global value once)."""
+    with tracing.span("pbte.solve"):
+        out = _bicgstab(step_fn, zero_state, state, tol, max_iter, verbose,
+                        callback, check_every, save_ckpt, ckpt_every, label,
+                        dot)
+    tracing.count("bicgstab.step_applications", out[-1])
+    return out
+
+
+def _bicgstab(step_fn, zero_state, state, tol, max_iter, verbose, callback,
+              check_every, save_ckpt, ckpt_every, label, dot):
+    """bicgstab_outer's solve, its spans ``pbte.bicgstab.update`` round the
+    vector updates, ``.dot`` round the inner products and
+    ``.residual_read`` round the host's reads (``tracing``)."""
     u0, Tc0, Tv0 = zero_state
     F = _affine(step_fn, Tv0)
+    update = "pbte.bicgstab.update"
     b_aff = F((u0, Tc0))  # b = F(0)
     nmv = 1
 
@@ -213,25 +231,35 @@ def bicgstab_outer(step_fn, zero_state, state, tol, max_iter, verbose=True,
         nonlocal nmv
         nmv += 1
         out = F(v)
-        _tmap(lambda o, bb: o.sub_(bb), out, b_aff)
-        return _minus_into(v, out)
+        with tracing.span(update):
+            _tmap(lambda o, bb: o.sub_(bb), out, b_aff)
+            return _minus_into(v, out)
 
-    stage_p, stage_s, stage_x = make_bicgstab_kernels(dot)
+    def traced_dot(a, b):
+        with tracing.span("pbte.bicgstab.dot"):
+            return dot(a, b)
+
+    stage_p, stage_s, stage_x = make_bicgstab_kernels(traced_dot)
     x = (u0, Tc0)
     if state is not None:
-        _tmap(lambda z, s: z.copy_(s), x, (state[0], state[1]))
+        with tracing.span(update):
+            _tmap(lambda z, s: z.copy_(s), x, (state[0], state[1]))
         r = F(x)
-        _tmap(lambda rr, xx: rr.sub_(xx), r, x)  # r = F(x) - x
         nmv += 1
-    else:
-        r = _copy(b_aff)
-    rhat = _copy(r)
-    one = torch.ones((), dtype=_leaves(Tc0)[0].dtype,
-                     device=_leaves(Tc0)[0].device)
-    rho_prev = alpha = omega = one
-    v = _zeros_like(r)
-    p = _zeros_like(r)
-    bnorm = float(torch.sqrt(dot(b_aff, b_aff)))
+        with tracing.span(update):
+            _tmap(lambda rr, xx: rr.sub_(xx), r, x)  # r = F(x) - x
+    with tracing.span(update):
+        if state is None:
+            r = _copy(b_aff)
+        rhat = _copy(r)
+        one = torch.ones((), dtype=_leaves(Tc0)[0].dtype,
+                         device=_leaves(Tc0)[0].device)
+        rho_prev = alpha = omega = one
+        v = _zeros_like(r)
+        p = _zeros_like(r)
+        bnorm2 = traced_dot(b_aff, b_aff)
+    with tracing.span("pbte.bicgstab.residual_read"):
+        bnorm = float(torch.sqrt(bnorm2))
     res = float("inf")
     k = 0  # BiCGStab iterations (2 matvecs each)
     fetch_every = max(1, check_every // 2)
@@ -241,17 +269,21 @@ def bicgstab_outer(step_fn, zero_state, state, tol, max_iter, verbose=True,
     # +4 reserves this iteration's two matvecs and the two trailing plain
     # steps, so the returned count stays within max_iter
     while nmv + 4 <= max_iter:
-        rho, p = stage_p(r, rhat, p, v, rho_prev, alpha, omega)
+        with tracing.span(update):
+            rho, p = stage_p(r, rhat, p, v, rho_prev, alpha, omega)
         del v  # one tree fewer while the step runs
         v = Mop(p)
-        alpha, s = stage_s(r, rhat, v, rho)
+        with tracing.span(update):
+            alpha, s = stage_s(r, rhat, v, rho)
         t = Mop(s)
-        omega, x, r, rnorm2 = stage_x(x, p, s, t, alpha)
+        with tracing.span(update):
+            omega, x, r, rnorm2 = stage_x(x, p, s, t, alpha)
         del s, t
         rho_prev = rho
         k += 1
         if k % fetch_every == 0 or nmv + 4 > max_iter:
-            rn = float(rnorm2) ** 0.5
+            with tracing.span("pbte.bicgstab.residual_read"):
+                rn = float(rnorm2) ** 0.5
             res = rn / bnorm if bnorm > 0 else rn
             if verbose:
                 print(f"[{label}] matvec {nmv}, linear relres = {res:.6e}")
@@ -278,14 +310,16 @@ def bicgstab_outer(step_fn, zero_state, state, tol, max_iter, verbose=True,
                     # steps: exit with the current x
                     break
                 # restart the recurrence at x
+                tracing.count(f"bicgstab.restarts.{stall}")
                 del r, rhat, v, p
                 r = F(x)
-                _tmap(lambda rr, xx: rr.sub_(xx), r, x)
                 nmv += 1
-                rhat = _copy(r)
-                rho_prev = alpha = omega = one
-                v = _zeros_like(r)
-                p = _zeros_like(r)
+                with tracing.span(update):
+                    _tmap(lambda rr, xx: rr.sub_(xx), r, x)
+                    rhat = _copy(r)
+                    rho_prev = alpha = omega = one
+                    v = _zeros_like(r)
+                    p = _zeros_like(r)
                 if stall == "plateau":
                     stale, since = 0, nmv
                 if verbose:
@@ -301,7 +335,8 @@ def bicgstab_outer(step_fn, zero_state, state, tol, max_iter, verbose=True,
     u1, Tc1, Tv1, _ = step_fn(x[0], x[1], Tv0)
     u_f, Tc_f, Tv_f, res_dev = step_fn(u1, Tc1, Tv1)
     nmv += 2
-    tv_res = float(res_dev)
+    with tracing.span("pbte.bicgstab.residual_read"):
+        tv_res = float(res_dev)
     if verbose:
         print(f"[{label}] bicgstab done: {nmv} step applications, "
               f"linear relres {res:.3e}, Tv residual {tv_res:.6e}")

@@ -59,6 +59,7 @@ import warnings
 import numpy as np
 import torch
 
+from pbte_tpu_torch import tracing
 from pbte_tpu_torch.fem import assembly
 from pbte_tpu_torch.models import macroscopic
 from pbte_tpu_torch.ops.scatter import LayerMemo, scatter_add_layered_
@@ -482,35 +483,41 @@ class ScanSweep:
 
     def step(self, u, Tc, Tv_prev):
         """One outer iteration on the scan state (the caller's u is not
-        changed): (u, Tc, Tv, residual)."""
+        changed): (u, Tc, Tv, residual). Spans as ``SourceIterationSolver.
+        step``'s (``tracing``)."""
         c = self.consts
         G = self.G
-        TcT_g = Tc.T[:, c["perm"]].transpose(0, 1)  # (G, D, ne)
-        if self._scan_cls_ops:
-            mt = c["cls_massT"][c["cls_pos"]]  # (G, ne, D, D)
-            t_tc = torch.einsum("geij,gje->gie", mt, TcT_g)
-        else:
-            t_tc = torch.einsum("gije,gje->gie", c["mass_t"], TcT_g)
-        rhs_base = None
-        if self._hoist_rhs:
-            t_old = torch.einsum("gije,gkbje->gkbie", c["mass_t"], u)
-            rhs_base = self._rhs(t_tc[:, None, None], t_old, c["bsrc"],
-                                 c.get("dsrc"))
-            self._add_closures(u, rhs_base)
-        u_new = u.clone()
-        if self._seq_groups:
-            for g in range(G):
-                sl = slice(g, g + 1)
-                self._sweep(u_new[sl], t_tc[sl], None if rhs_base is None
-                            else rhs_base[sl], sl)
-        else:
-            self._sweep(u_new, t_tc, rhs_base, slice(None))
-        partial = torch.einsum("gkb,gkbie->gie", c["macro_w"], u_new)
-        pos = c["pos_of_elem"][:, None, :].expand(G, self.D, self.ne)
-        Tc_new = torch.gather(partial, 2, pos).sum(dim=0).T  # (ne, D)
-        Tc_new = self.shard.psum(Tc_new)  # every rank's slots and bands
-        Tv_new = macroscopic.compute_tv(Tc_new, c["basis_int_glob"])
-        res = macroscopic.residual(Tv_new, Tv_prev)
+        with tracing.span("pbte.step"):
+            with tracing.span("pbte.step.sources"):
+                TcT_g = Tc.T[:, c["perm"]].transpose(0, 1)  # (G, D, ne)
+                if self._scan_cls_ops:
+                    mt = c["cls_massT"][c["cls_pos"]]  # (G, ne, D, D)
+                    t_tc = torch.einsum("geij,gje->gie", mt, TcT_g)
+                else:
+                    t_tc = torch.einsum("gije,gje->gie", c["mass_t"], TcT_g)
+                rhs_base = None
+                if self._hoist_rhs:
+                    t_old = torch.einsum("gije,gkbje->gkbie", c["mass_t"], u)
+                    rhs_base = self._rhs(t_tc[:, None, None], t_old,
+                                         c["bsrc"], c.get("dsrc"))
+                    self._add_closures(u, rhs_base)
+                u_new = u.clone()
+            if self._seq_groups:
+                for g in range(G):
+                    sl = slice(g, g + 1)
+                    with tracing.span("pbte.step.sweep"):
+                        self._sweep(u_new[sl], t_tc[sl], None if rhs_base
+                                    is None else rhs_base[sl], sl)
+            else:
+                with tracing.span("pbte.step.sweep"):
+                    self._sweep(u_new, t_tc, rhs_base, slice(None))
+            with tracing.span("pbte.step.macroscopic"):
+                partial = torch.einsum("gkb,gkbie->gie", c["macro_w"], u_new)
+                pos = c["pos_of_elem"][:, None, :].expand(G, self.D, self.ne)
+                Tc_new = torch.gather(partial, 2, pos).sum(dim=0).T  # (ne, D)
+                Tc_new = self.shard.psum(Tc_new)  # every rank's slots, bands
+                Tv_new = macroscopic.compute_tv(Tc_new, c["basis_int_glob"])
+                res = macroscopic.residual(Tv_new, Tv_prev)
         return u_new, Tc_new, Tv_new, res
 
     def _rhs(self, t_tc, t_old, bsrc, dsrc):

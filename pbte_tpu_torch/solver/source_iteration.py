@@ -131,6 +131,7 @@ import os
 import numpy as np
 import torch
 
+from pbte_tpu_torch import tracing
 from pbte_tpu_torch.fem import assembly
 from pbte_tpu_torch.fem import supercell as supercell_mod
 from pbte_tpu_torch.models import macroscopic
@@ -201,6 +202,7 @@ class SourceIterationSolver:
     """Build once per (mesh, angles, material, bcs) problem; step on
     ``device``."""
 
+    @tracing.stage("pbte.setup.solver")
     def __init__(
         self,
         ops,  # fem.assembly.ElementOps (this package's or pbte_tpu's)
@@ -733,56 +735,77 @@ class SourceIterationSolver:
         mode: bfloat16 slabs run with bfloat16 product operands, float32 or
         float64 slabs exactly (so a solver built for bfloat16 state also
         steps a float32 copy of it exactly: the polish of ``solve``). The
-        scan path leaves its input state as it was."""
+        scan path leaves its input state as it was. Spans: ``pbte.step``
+        round the step, ``.sources``, ``.sweep`` (each bucket's) and
+        ``.macroscopic`` round its parts (``tracing``)."""
         if self._sweep is not None:
             return self._sweep.step(u, Tc, Tv_prev)
         c = self.consts
         G, W, L, D = self.G, self.W, self.L, self.D
-        tc_slab = (
-            Tc.T[:, c["perm"]].reshape(D, G, L, W).permute(2, 1, 0, 3)
-            * c["valid_slab"][:, :, None, :]
-        )  # (L, G, D, W), padded slots zeroed (exact-zero fixed points)
-        if c["massT"].dim() == 2:  # K1's single geometry class
-            ttc_all = torch.einsum("ij,lgjw->lgiw", c["massT"], tc_slab)
-        xsrc = self._closure_sources(u)
-
-        m_parts = []
-        v_new = []
-        for bi, cb in enumerate(c["buckets"]):
-            groups = self._bucket_groups[bi]
-            if self._general:
-                ys, ms = one_hot_ring.one_hot_sweep(
-                    u[bi], lattice_multi.class_ttc(c["massT"], cb["cls_oh"],
-                                                   tc_slab[:, groups]),
-                    cb["bsrc0"], cb, cb["macro_w"], c["wvec"],
-                    dsrc=cb.get("dsrc0"), xsrc=xsrc[bi])
-            elif self._multi is not None:
-                mb = self._multi[bi]
-                ys, ms = lattice_multi.multi_class_sweep(
-                    u[bi], lattice_multi.class_ttc(c["massT"], mb.cls_oh,
-                                                   tc_slab[:, groups]),
-                    cb["bsrc0"], mb, cb["macro_w"], c["wvec"],
-                    shifts=self.shifts, dsrc=cb.get("dsrc0"), xsrc=xsrc[bi])
-            else:
-                ys, ms = self.ring_sweep(
-                    u[bi], ttc_all[:, groups].contiguous(), cb["bsrc0"],
-                    cb["cin"], cb["bcat"], cb["macro_w"], c["wvec"],
-                    shifts=self.shifts, dsrc=cb.get("dsrc0"), xsrc=xsrc[bi],
-                    cast_bf16=u[bi].dtype == torch.bfloat16,
-                    win=self.win if self.win_dev is None else self.win_dev,
+        with tracing.span("pbte.step"):
+            with tracing.span("pbte.step.sources"):
+                # (L, G, D, W), padded slots zeroed (exact-zero fixed points)
+                tc_slab = (
+                    Tc.T[:, c["perm"]].reshape(D, G, L, W).permute(2, 1, 0, 3)
+                    * c["valid_slab"][:, :, None, :]
                 )
-            v_new.append(ys)
-            m_parts.append(ms.sum(dim=1))  # (Gb, L, D, W)
+                if self._general:
+                    ttc = [lattice_multi.class_ttc(c["massT"], cb["cls_oh"],
+                                                   tc_slab[:, groups])
+                           for cb, groups in zip(c["buckets"],
+                                                 self._bucket_groups)]
+                elif self._multi is not None:
+                    ttc = [lattice_multi.class_ttc(c["massT"], mb.cls_oh,
+                                                   tc_slab[:, groups])
+                           for mb, groups in zip(self._multi,
+                                                 self._bucket_groups)]
+                else:  # K1's single geometry class
+                    ttc_all = torch.einsum("ij,lgjw->lgiw", c["massT"],
+                                           tc_slab)
+                    ttc = [ttc_all[:, groups].contiguous()
+                           for groups in self._bucket_groups]
+                    del ttc_all
+                xsrc = self._closure_sources(u)
 
-        # macroscopic closure: per-slot partials -> element Tc
-        m_cat = torch.cat(m_parts, dim=0)[self._inv_order]  # (G, L, D, W)
-        partial = m_cat.permute(0, 2, 1, 3).reshape(G, D, self.ne_pad)
-        pos = c["pos_of_elem"][:, None, :].expand(G, D, self.ne)
-        Tc_v = torch.gather(partial, 2, pos).sum(dim=0).T  # (ne, D)
-        Tc_v = self._shard.psum(Tc_v)  # every rank's slots and bands
-        Tc_new = torch.einsum("eij,ej->ei", c["ring_invMT"], Tc_v)
-        Tv_new = macroscopic.compute_tv(Tc_new, c["basis_int_glob"])
-        res = macroscopic.residual(Tv_new, Tv_prev)
+            ms_parts = []
+            v_new = []
+            for bi, cb in enumerate(c["buckets"]):
+                with tracing.span("pbte.step.sweep"):
+                    if self._general:
+                        ys, ms = one_hot_ring.one_hot_sweep(
+                            u[bi], ttc[bi], cb["bsrc0"], cb, cb["macro_w"],
+                            c["wvec"], dsrc=cb.get("dsrc0"), xsrc=xsrc[bi])
+                    elif self._multi is not None:
+                        ys, ms = lattice_multi.multi_class_sweep(
+                            u[bi], ttc[bi], cb["bsrc0"], self._multi[bi],
+                            cb["macro_w"], c["wvec"], shifts=self.shifts,
+                            dsrc=cb.get("dsrc0"), xsrc=xsrc[bi])
+                    else:
+                        ys, ms = self.ring_sweep(
+                            u[bi], ttc[bi], cb["bsrc0"], cb["cin"],
+                            cb["bcat"], cb["macro_w"], c["wvec"],
+                            shifts=self.shifts, dsrc=cb.get("dsrc0"),
+                            xsrc=xsrc[bi],
+                            cast_bf16=u[bi].dtype == torch.bfloat16,
+                            win=self.win if self.win_dev is None
+                            else self.win_dev,
+                        )
+                ttc[bi] = None
+                v_new.append(ys)
+                ms_parts.append(ms)
+
+            # macroscopic closure: per-slot partials -> element Tc
+            with tracing.span("pbte.step.macroscopic"):
+                m_parts = [ms.sum(dim=1) for ms in ms_parts]  # (Gb, L, D, W)
+                del ms_parts
+                m_cat = torch.cat(m_parts, dim=0)[self._inv_order]
+                partial = m_cat.permute(0, 2, 1, 3).reshape(G, D, self.ne_pad)
+                pos = c["pos_of_elem"][:, None, :].expand(G, D, self.ne)
+                Tc_v = torch.gather(partial, 2, pos).sum(dim=0).T  # (ne, D)
+                Tc_v = self._shard.psum(Tc_v)  # every rank's slots and bands
+                Tc_new = torch.einsum("eij,ej->ei", c["ring_invMT"], Tc_v)
+                Tv_new = macroscopic.compute_tv(Tc_new, c["basis_int_glob"])
+                res = macroscopic.residual(Tv_new, Tv_prev)
         return tuple(v_new), Tc_new, Tv_new, res
 
     @exact_f32_products()

@@ -61,11 +61,10 @@ every rank. The factor is built in float64 on the solver's device by
 
 from __future__ import annotations
 
-import time
-
 import numpy as np
 import torch
 
+from pbte_tpu_torch import tracing
 from pbte_tpu_torch.fem import assembly
 from pbte_tpu_torch.fem import supercell as _supercell
 from pbte_tpu_torch.models import macroscopic
@@ -206,28 +205,27 @@ class SuperRingSweep:
         mass_dev = torch.as_tensor(np.array(mass_r), device=device)
         vg_dev = torch.as_tensor(vg_s[bsl], device=device)
         facs = []
-        t0 = time.perf_counter()
-        for gs, km_b in self.buckets:
-            ks = shard.kss(km_b)
-            fac_T = torch.empty((len(gs), km_b // shard.n_dir, shard.bl, Dp,
-                                 Dp), dtype=dtype, device=device)
-            for i, g in enumerate(gs):
-                dk = dirs_np[dirs_safe[g, ks]]  # (Km_b / n_dir, dim)
-                fd = np.einsum("fd,kd->kf", ops.normals[0], dk)
-                G_k = (-np.einsum("kd,dij->kij", dk, ops.stiff[0])
-                       + np.einsum("kf,fij->kij", np.maximum(fd, 0.0),
-                                   ops.face_mass[0])
-                       + sc.gmat_internal(dk))
-                A = (mass_dev + vg_dev[None, :, None, None]
-                     * torch.as_tensor(G_k, device=device)[:, None])
-                B = _supercell.block_triangular_factor(sc, A, dk,
-                                                       massT_blocks)
-                fac_T[i] = B.transpose(-1, -2).to(dtype)
-                del A, B
-            facs.append(fac_T)
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        self.factor_s = time.perf_counter() - t0  # the factor build's seconds
+        with tracing.stage("pbte.setup.supercell_factor"):
+            for gs, km_b in self.buckets:
+                ks = shard.kss(km_b)
+                fac_T = torch.empty((len(gs), km_b // shard.n_dir, shard.bl,
+                                     Dp, Dp), dtype=dtype, device=device)
+                for i, g in enumerate(gs):
+                    dk = dirs_np[dirs_safe[g, ks]]  # (Km_b / n_dir, dim)
+                    fd = np.einsum("fd,kd->kf", ops.normals[0], dk)
+                    G_k = (-np.einsum("kd,dij->kij", dk, ops.stiff[0])
+                           + np.einsum("kf,fij->kij", np.maximum(fd, 0.0),
+                                       ops.face_mass[0])
+                           + sc.gmat_internal(dk))
+                    A = (mass_dev + vg_dev[None, :, None, None]
+                         * torch.as_tensor(G_k, device=device)[:, None])
+                    B = _supercell.block_triangular_factor(sc, A, dk,
+                                                           massT_blocks)
+                    fac_T[i] = B.transpose(-1, -2).to(dtype)
+                    del A, B
+                facs.append(fac_T)
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
         ccpl = assembly.class_coupling(ops, np.zeros(ne, dtype=np.int64))
         cc = np.einsum("fij,jk->fik", ccpl[0], invMT_r)[act_f]  # (G,nf,D',D')
         # stacked for the coupling GEMM: row (f, j), column i = sigma
@@ -291,73 +289,94 @@ class SuperRingSweep:
     def step(self, u, Tc, Tv_prev):
         """One outer iteration (the caller's state is not changed): (u, Tc,
         Tv, residual), Tv and the residual over the fine elements. A
-        bfloat16 state runs the bf16 body (see the module docstring)."""
+        bfloat16 state runs the bf16 body (see the module docstring).
+        Spans: ``pbte.step`` round the step, ``.sources``, ``.sweep`` (each
+        bucket's) and ``.macroscopic`` round its parts (``tracing``)."""
         c = self.consts
         G, L, W, Dp = self.G, self.L, self.W, self.D
-        # lagged temperature M^T Tc on the slab, (L, G, W, D'), zero at
-        # padded slots (exact-zero fixed points of the iteration)
-        tc_slab = (Tc[c["perm"]].reshape(G, L, W, Dp).transpose(0, 1)
-                   * c["valid"][..., None])
-        ttc = torch.matmul(tc_slab, c["massT_T"])
-        band = (slice(None), None, None)  # the band axis of (BS, W, D')
-        m_parts, v_new = [], []
-        for bi, cb in enumerate(c["buckets"]):
-            v = u[bi]
-            bf16 = v.dtype == torch.bfloat16
-            Gb, Km_b, BS = v.shape[1:4]
-            rows = Gb * Km_b * BS
-            # rhs of every level but the neighbour term (in the solver's
-            # dtype: a bf16 state is read exactly)
-            rhs = torch.addcmul(
-                ttc[:, self._bucket_groups[bi], None, None]
-                * c["src_w"][band], v, c["relax_w"][band])
-            rhs.addcmul_(cb["bsrc0"][:, :, :, None], c["neg_vg_bc_w"][band])
-            out = torch.empty_like(v)
-            # the coupling operand: per face the previous level shifted by
-            # the axis offset, times -vg cin; shifted-out slots stay zero
-            xcat = torch.zeros((Gb, Km_b, BS, W, len(self.shifts) * Dp),
-                               dtype=v.dtype, device=v.device)
-            fac = cb["fac_T"].view(rows, Dp, Dp)
-            ccat = cb["ccat"].to(torch.bfloat16) if bf16 else cb["ccat"]
-            if bf16:  # the f32 solution of a level, and the partials
-                sol = torch.empty((rows, W, Dp), dtype=rhs.dtype,
-                                  device=v.device)
-                m = torch.empty((L, Gb, 1, W * Dp), dtype=rhs.dtype,
-                                device=v.device)
-                mw = cb["macro_w"].reshape(Gb, 1, Km_b * BS)
-            for lv in range(L):
-                if lv:
-                    ring = out[lv - 1]
-                    for f, s in enumerate(self.shifts):
-                        torch.mul(
-                            ring[:, :, :, :W - s],
-                            cb["cvg"][lv, :, :, f, :, s:, None],
-                            out=xcat[:, :, :, s:, f * Dp:(f + 1) * Dp])
-                    _couple(rhs[lv].view(Gb, -1, Dp),
-                            xcat.view(Gb, Km_b * BS * W, -1), ccat)
-                if not bf16:
-                    torch.bmm(rhs[lv].view(rows, W, Dp), fac,
-                              out=out[lv].view(rows, W, Dp))
-                    continue
-                torch.bmm(rhs[lv].view(rows, W, Dp), fac, out=sol)
-                torch.bmm(mw, sol.view(Gb, Km_b * BS, W * Dp), out=m[lv])
-                out[lv].view(rows, W, Dp).copy_(sol)
-            del rhs, xcat
-            if not bf16:
-                # macroscopic partials of every level: the band-weighted sum
-                m = torch.matmul(cb["macro_w"].reshape(Gb, 1, Km_b * BS),
-                                 out.view(L, Gb, Km_b * BS, W * Dp))
-            m_parts.append(m.view(L, Gb, W, Dp))
-            v_new.append(out)
-        m_cat = torch.cat(m_parts, dim=1)[:, self._inv_order]  # (L,G,W,D')
-        partial = m_cat.transpose(0, 1).reshape(G, self.ne_pad, Dp)
-        pos = c["pos_of_elem"][:, :, None].expand(G, self.ne, Dp)
-        Tc_v = torch.gather(partial, 1, pos).sum(dim=0)  # (ne, D')
-        Tc_v = self.shard.psum(Tc_v)  # every rank's slots and bands
-        Tc_new = torch.matmul(Tc_v, c["invMT_T"])  # v = M^T u => Tc = M^-T
-        Tv_new = self.tv_from_tc(Tc_new)
-        res = macroscopic.residual(Tv_new, Tv_prev)
+        with tracing.span("pbte.step"):
+            with tracing.span("pbte.step.sources"):
+                # lagged temperature M^T Tc on the slab, (L, G, W, D'), zero
+                # at padded slots (exact-zero fixed points of the iteration)
+                tc_slab = (Tc[c["perm"]].reshape(G, L, W, Dp).transpose(0, 1)
+                           * c["valid"][..., None])
+                ttc = torch.matmul(tc_slab, c["massT_T"])
+            m_parts, v_new = [], []
+            for bi, v in enumerate(u):
+                with tracing.span("pbte.step.sweep"):
+                    out, m = self._sweep_bucket(bi, v, ttc)
+                v_new.append(out)
+                m_parts.append(m)
+            with tracing.span("pbte.step.macroscopic"):
+                for bi, cb in enumerate(c["buckets"]):
+                    if m_parts[bi] is None:
+                        # macroscopic partials of every level: the
+                        # band-weighted sum
+                        Gb, Km_b, BS = v_new[bi].shape[1:4]
+                        m_parts[bi] = torch.matmul(
+                            cb["macro_w"].reshape(Gb, 1, Km_b * BS),
+                            v_new[bi].view(L, Gb, Km_b * BS, W * Dp))
+                m_cat = torch.cat([m.view(L, -1, W, Dp) for m in m_parts],
+                                  dim=1)[:, self._inv_order]  # (L, G, W, D')
+                partial = m_cat.transpose(0, 1).reshape(G, self.ne_pad, Dp)
+                pos = c["pos_of_elem"][:, :, None].expand(G, self.ne, Dp)
+                Tc_v = torch.gather(partial, 1, pos).sum(dim=0)  # (ne, D')
+                Tc_v = self.shard.psum(Tc_v)  # every rank's slots and bands
+                # v = M^T u => Tc = M^-T
+                Tc_new = torch.matmul(Tc_v, c["invMT_T"])
+                Tv_new = self.tv_from_tc(Tc_new)
+                res = macroscopic.residual(Tv_new, Tv_prev)
         return tuple(v_new), Tc_new, Tv_new, res
+
+    def _sweep_bucket(self, bi, v, ttc):
+        """The level recurrence of bucket ``bi`` from its state ``v`` and
+        the lagged temperature ``ttc``: (the new state, the macroscopic
+        partials of the bf16 body, None in the exact body)."""
+        c = self.consts
+        cb = c["buckets"][bi]
+        L, W, Dp = self.L, self.W, self.D
+        band = (slice(None), None, None)  # the band axis of (BS, W, D')
+        bf16 = v.dtype == torch.bfloat16
+        Gb, Km_b, BS = v.shape[1:4]
+        rows = Gb * Km_b * BS
+        # rhs of every level but the neighbour term (in the solver's
+        # dtype: a bf16 state is read exactly)
+        rhs = torch.addcmul(
+            ttc[:, self._bucket_groups[bi], None, None]
+            * c["src_w"][band], v, c["relax_w"][band])
+        rhs.addcmul_(cb["bsrc0"][:, :, :, None], c["neg_vg_bc_w"][band])
+        out = torch.empty_like(v)
+        # the coupling operand: per face the previous level shifted by
+        # the axis offset, times -vg cin; shifted-out slots stay zero
+        xcat = torch.zeros((Gb, Km_b, BS, W, len(self.shifts) * Dp),
+                           dtype=v.dtype, device=v.device)
+        fac = cb["fac_T"].view(rows, Dp, Dp)
+        ccat = cb["ccat"].to(torch.bfloat16) if bf16 else cb["ccat"]
+        m = None
+        if bf16:  # the f32 solution of a level, and the partials
+            sol = torch.empty((rows, W, Dp), dtype=rhs.dtype,
+                              device=v.device)
+            m = torch.empty((L, Gb, 1, W * Dp), dtype=rhs.dtype,
+                            device=v.device)
+            mw = cb["macro_w"].reshape(Gb, 1, Km_b * BS)
+        for lv in range(L):
+            if lv:
+                ring = out[lv - 1]
+                for f, s in enumerate(self.shifts):
+                    torch.mul(
+                        ring[:, :, :, :W - s],
+                        cb["cvg"][lv, :, :, f, :, s:, None],
+                        out=xcat[:, :, :, s:, f * Dp:(f + 1) * Dp])
+                _couple(rhs[lv].view(Gb, -1, Dp),
+                        xcat.view(Gb, Km_b * BS * W, -1), ccat)
+            if not bf16:
+                torch.bmm(rhs[lv].view(rows, W, Dp), fac,
+                          out=out[lv].view(rows, W, Dp))
+                continue
+            torch.bmm(rhs[lv].view(rows, W, Dp), fac, out=sol)
+            torch.bmm(mw, sol.view(Gb, Km_b * BS, W * Dp), out=m[lv])
+            out[lv].view(rows, W, Dp).copy_(sol)
+        return out, m
 
     # -- de-blocking and views -----------------------------------------------
 

@@ -90,7 +90,7 @@ def bicgstab_solves(s64, solves):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=None)
-    ap.add_argument("--launches", type=int, default=10)
+    ap.add_argument("--launches", type=int, default=10, dest="n_launches")
     ap.add_argument("--solves", type=int, default=3)
     ap.add_argument("--out", default=None)
     a = ap.parse_args(argv)
@@ -110,9 +110,9 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     prob = problem.unit_cube(**problem.FLAGSHIP)
     out = dict(package=str(pathlib.Path(pbte_tpu_torch.__file__).parent),
-               card=card_name_power(), launches=a.launches, solves=a.solves)
+               card=card_name_power(), launches=a.n_launches, solves=a.solves)
     s = SourceIterationSolver(*prob, problem.WALL_BCS, device="cuda")
-    out["k1"] = k1_cases(lr, k1_spec(s), a.launches)
+    out["k1"] = k1_cases(lr, k1_spec(s), a.n_launches)
     out["steps"] = [smoke.repro_record(s, "flagship f32")]
     del s
     film = SourceIterationSolver(*prob, device="cuda",

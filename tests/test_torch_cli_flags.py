@@ -101,7 +101,8 @@ def test_angle_overrides(tmp_path):
 
 def test_vtu_every_and_profile(tmp_path):
     """--vtu-every writes collection cycles during the solve plus a final
-    one; --profile writes a torch.profiler Chrome trace of the solve."""
+    one; --profile writes a torch.profiler Chrome trace of the solve and
+    the program's spans and counters."""
     proc = checked(run_cli(
         "pbte_tpu_torch",
         ["-c", "small.yaml", "-m", "unit-square-quad", "-o", "1",
@@ -114,10 +115,17 @@ def test_vtu_every_and_profile(tmp_path):
         assert (tmp_path / f"out/vis/pbte_fields/Cycle{cyc:06d}/"
                 "proc000000.vtu").exists()
     assert not (tmp_path / "out/log/Tc_all.txt").exists()  # --no-dumps
-    traces = list((tmp_path / "prof").glob("*.json"))
+    traces = list((tmp_path / "prof").glob("*_trace.json"))
     assert len(traces) == 1 and "profiler trace written" in proc.stdout
     events = json.loads(traces[0].read_text())["traceEvents"]
     assert any("aten::" in str(e.get("name", "")) for e in events)
+    # the program's spans and counters beside it (tracing.report())
+    spans = json.loads((tmp_path / "prof/pbte_tpu_torch_spans.json")
+                       .read_text())
+    assert spans["spans"]["pbte.solve"]["calls"] == 1
+    assert spans["spans"]["pbte.step"]["calls"] == 6
+    assert spans["spans"]["pbte.step"]["parents"] == ["pbte.solve"]
+    assert any(e.get("name") == "pbte.step" for e in events)
 
 
 @pytest.mark.skipif(torch.cuda.is_available(), reason="needs a machine "

@@ -14,6 +14,7 @@ import torch
 import jax.numpy as jnp
 
 from pbte_tpu.ops.lattice_ring import lattice_ring_sweep as jax_sweep
+from pbte_tpu_torch import tracing
 from pbte_tpu_torch.ops import lattice_ring as tlr
 
 SHIFTS = (0, 4, 1)
@@ -153,10 +154,10 @@ def test_wrapper_takes_plain_version_on_cpu():
     """CPU tensors go to the plain version and do not count as kernel
     launches."""
     d = _inputs(np.float32, seed=4)
-    before = tlr.lattice_ring_sweep.launches
+    before = tracing.report()["counts"]
     ys, ms = _run_torch(d, cast_bf16=False)
     ys_r, ms_r = _run_torch(d, cast_bf16=False, fn=tlr.lattice_ring_sweep_ref)
-    assert tlr.lattice_ring_sweep.launches == before
+    assert tracing.report()["counts"] == before
     assert torch.equal(ys, ys_r) and torch.equal(ms, ms_r)
 
 
